@@ -15,7 +15,7 @@ bf16 arrays (numpy's ``bfloat16`` extension dtype, as ``np.asarray`` of a
 JAX bf16 array gives) are recognised by dtype name and moved as their
 16-bit patterns, so this module needs neither JAX nor ml_dtypes.
 
-It also reads and writes the benchmark's draft-cache npz codec: leaves are
+It also reads the benchmark's draft-cache npz codec: leaves are
 flattened under "/"-joined keys, bf16 leaves are stored as uint16 under a
 ``__bf16`` suffix, ``__meta__`` holds JSON bytes and ``__traj__/<i>`` int32
 trajectories.
@@ -24,7 +24,6 @@ trajectories.
 from __future__ import annotations
 
 import json
-import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -116,19 +115,3 @@ def load_draft_npz(path: str, device="cuda"
                 flat[k] = torch.from_numpy(z[k].copy()).to(device)
     traj_list = [trajs[i] for i in sorted(trajs)] if trajs else None
     return unflatten(flat), meta, traj_list
-
-
-def save_draft_npz(path: str, params: Dict, meta: Dict,
-                   trajs: Optional[List] = None) -> None:
-    """Write params (tensors) in the draft-cache npz codec."""
-    payload = {}
-    for k, v in flatten(params).items():
-        suffix = _BF16_SUFFIX if v.dtype == torch.bfloat16 else ""
-        payload[k + suffix] = leaf_to_numpy(v)
-    for i, t in enumerate(trajs or ()):
-        payload[f"{_TRAJ}{i}"] = np.asarray(t, np.int32)
-    payload[_META] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp.npz"  # .npz suffix: np.savez appends it otherwise
-    np.savez(tmp, **payload)
-    os.replace(tmp, path)

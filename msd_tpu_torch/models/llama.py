@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from msd_tpu_torch.configs import LlamaConfig
 from msd_tpu_torch.ops.attention import masked_attention, windowed_attention
-from msd_tpu_torch.ops.decode_attention import (HEAD_DIM, KERNEL_MAX_GT,
+from msd_tpu_torch.ops.decode_attention import (KERNEL_MAX_GT,
                                                 decode_attention)
 from msd_tpu_torch.ops.norms import rms_norm
 from msd_tpu_torch.ops.rope import apply_rope, rope_table
@@ -135,16 +135,17 @@ def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
     - ``win`` given (tree verification): window-canonical attention, so the
       committed trajectory is draft-invariant.
     - ``kv_len`` given and at most KERNEL_MAX_GT grouped query rows
-      (G * T; the AR decode row) at head_dim 128: the decode-attention
-      kernel K1 (its plain twin for CPU tensors). This is the JAX "auto"
-      rule without its TPU cache-length threshold.
+      (G * T; the AR decode row): the decode-attention kernel K1 (its
+      plain twin for CPU tensors). On the card a call the kernel does not
+      take (head_dim other than 128, another dtype) raises there; nothing
+      falls back. This is the JAX "auto" rule without its TPU
+      cache-length threshold.
     - otherwise (prefill, draft): masked attention.
     """
     if win is not None:
         return windowed_attention(q, kv_k, kv_v, bias, *win, compact=True)
     gt = q.shape[0] * (cfg.num_attention_heads // cfg.num_key_value_heads)
-    if kv_len is not None and gt <= KERNEL_MAX_GT \
-            and cfg.head_dim == HEAD_DIM:
+    if kv_len is not None and gt <= KERNEL_MAX_GT:
         return decode_attention(q, kv_k, kv_v, bias, kv_len)
     return masked_attention(q, kv_k, kv_v, bias)
 

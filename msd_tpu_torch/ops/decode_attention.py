@@ -65,9 +65,11 @@ def _nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def build_library(ptxas_info: bool = False):
+def build_library():
     """Compile the kernel into ``_build/`` unless this source's library is
-    already there. Returns (library path, seconds spent, compiler output).
+    already there. Returns (library path, seconds spent, compiler output
+    with ptxas's register and spill report); seconds 0 and no output when
+    the library was already built.
 
     The library name carries a hash of the source, so an edited source
     builds anew; the build writes a temporary file and renames it, so two
@@ -75,12 +77,12 @@ def build_library(ptxas_info: bool = False):
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libdecode_attention_{tag}.so"
-    if lib.exists() and not ptxas_info:
+    if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
-           "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(SOURCE)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0

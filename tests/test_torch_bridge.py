@@ -8,6 +8,7 @@ by the test itself.
 """
 
 import ast
+import json
 import pathlib
 
 import ml_dtypes
@@ -74,6 +75,20 @@ def test_layouts_are_the_jax_layouts():
     assert tuple(tt["draft"]["medusa"]["mw"].shape) == (3, h, h)
 
 
+def _save_draft_npz(path, params, meta, trajs):
+    """The draft-cache codec written from the port's tensors, as a later
+    port distill would write it: bf16 leaves as uint16 bits under the
+    ``__bf16`` suffix, JSON meta bytes, int32 trajectories."""
+    payload = {}
+    for key, t in bridge.flatten(params).items():
+        suffix = "__bf16" if t.dtype == torch.bfloat16 else ""
+        payload[key + suffix] = bridge.leaf_to_numpy(t)
+    for i, traj in enumerate(trajs):
+        payload[f"__traj__/{i}"] = np.asarray(traj, np.int32)
+    payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(path, **payload)
+
+
 def test_draft_npz_codec_both_ways(tmp_path):
     _, tree = _tiny_bundle(jnp.bfloat16)
     draft = jax.tree.map(np.asarray, tree["draft"])
@@ -95,7 +110,7 @@ def test_draft_npz_codec_both_ways(tmp_path):
         np.testing.assert_array_equal(flat_t[key], _bits(a), err_msg=key)
 
     path2 = str(tmp_path / "torch_side.npz")
-    bridge.save_draft_npz(path2, params, meta, trajs)
+    _save_draft_npz(path2, params, meta, trajs)
     got = bench.load_draft_cache(path2)
     assert got is not None
     draft3, meta3, trajs3 = got

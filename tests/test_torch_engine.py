@@ -247,3 +247,24 @@ def test_evaluate_greedy_matches_jax():
         ref = JT.evaluate_greedy(jtr, jnp.asarray(logits))
         out = TT.evaluate_greedy(ttr, torch.from_numpy(logits))
         assert [int(x) for x in out] == [int(x) for x in ref], trial
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+def test_smoke_main_path_and_oracle_gate_at_tiny_size(heads):
+    """chip_smoke.run_main_path on the CPU at a tiny width (head_dim 128
+    and 64): the AR baseline, MSD, the null-draft equality gate, the
+    launch-count gate (no launch: CPU tensors take the plain twin) and the
+    oracle-draft gate, which must accept the reference chain to full
+    depth at every step."""
+    import chip_smoke
+
+    cfg = dataclasses.replace(
+        TC.LlamaConfig.tiny(vocab_size=512, hidden_size=256, layers=2,
+                            heads=heads, intermediate_size=512,
+                            max_pos=2048), residual_dtype="float32")
+    res = chip_smoke.run_main_path(cfg, (4, 3, 2, 2, 1), 384, 24, 16, 20,
+                                   device="cpu", dtype=torch.float32)
+    assert res["launches"] == 0
+    assert res["ar_decoded"] == 2 * 23
+    steps, hist = chip_smoke.oracle_schedule(5, 24)
+    assert steps == 4 and hist[6] == 4

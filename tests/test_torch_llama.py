@@ -122,3 +122,32 @@ def test_init_is_seeded_and_keeps_the_jax_layouts():
         assert tuple(x.shape) == tuple(flat_ref[key].shape), key
         assert x.dtype == torch.bfloat16
         assert torch.equal(x, flat_b[key]), key
+
+
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (2, 2)])
+def test_attend_sends_every_decode_row_to_the_kernel_wrapper(
+        monkeypatch, heads, kv_heads):
+    """G*T <= 4 with kv_len given goes to the decode-attention wrapper at
+    every head_dim (16 and 32 here; 128 at 7B), so on the card a shape the
+    kernel does not take raises there instead of running plain attention;
+    verify rows (win) and rows without kv_len never reach it."""
+    _, tcfg = _cfgs(hidden_size=64, heads=heads, kv_heads=kv_heads)
+    calls = []
+
+    def spy(q, k, v, bias, kv_len):
+        calls.append(tuple(q.shape))
+        return K1.decode_attention(q, k, v, bias, kv_len)
+
+    monkeypatch.setattr(TL, "decode_attention", spy)
+    g = torch.Generator().manual_seed(0)
+    d = tcfg.head_dim
+    k = torch.randn(16, kv_heads, d, generator=g)
+    bias = torch.zeros(1, 16)
+    n = torch.tensor(9, dtype=torch.int32)
+    q1 = torch.randn(1, heads, d, generator=g)
+    TL._attend(tcfg, q1, k, k, bias, n)
+    assert calls == [(1, heads, d)]
+    TL._attend(tcfg, q1, k, k, bias, None)
+    q5 = torch.randn(5, heads, d, generator=g)
+    TL._attend(tcfg, q5, k, k, torch.zeros(5, 16), n)
+    assert calls == [(1, heads, d)]
