@@ -8,13 +8,18 @@ prints no result):
 
 1. device: the card's name and power limit, torch and CUDA versions; fails
    without a CUDA device.
-2. build: compiles the port's CUDA kernel with nvcc and prints seconds and
-   ptxas usage.
+2. build: compiles the port's CUDA kernel with nvcc and prints seconds,
+   ptxas usage and shared memory per block.
 3. kernels: calls each kernel's wrapper on the card at the main path's
-   shapes, holds it against its plain PyTorch version (max abs error beside
-   the stated tolerance), and times kernel, plain version and one PyTorch
-   library call with CUDA graphs of launches over 32 layer-sized caches
-   (each launch finds its cache out of L2, as in a decode step).
+   shapes and at the edges of K1's split grid, with both of K1's split
+   merges, and holds it against its plain PyTorch version (max abs error
+   beside the stated tolerance); checks that K1 is bitwise deterministic
+   over eager calls and CUDA-graph replays; times kernel, plain version
+   and one PyTorch library call with CUDA graphs of launches over 32
+   layer-sized caches (each launch finds its cache out of L2, as in a
+   decode step) at four kv_len and at kv_len 0 (K1's fixed cost); and,
+   last, profiles 32 K1 calls, which must show one kernel launched 32
+   times.
 4. main path at LLaVA-1.5-7B width (random weights from seeded generators
    on the card): two bench-style image prompts, the shared prefill, the
    fast AR baseline (decode attention through the kernel), greedy medusa
@@ -45,9 +50,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 # K1 against its plain twin, elementwise |out - ref| <= atol + rtol |ref|.
-# bf16: both accumulate in fp32 and round the output once to bf16, so they
-# may differ by one bf16 ulp (at most 2^-7 of |ref|); atol 2^-10 covers the
-# summation-order and probability-rounding noise of outputs near zero
+# bf16: both keep scores, probabilities and sums in fp32 and round the
+# output once to bf16, so they may differ by one bf16 ulp (at most 2^-7 of
+# |ref|); atol 2^-10 covers the summation-order noise of outputs near zero
 # (typical |out| is 0.05 at kv_len 640). Earlier chip runs measured at most
 # 1.95e-3 = 2^-9, one ulp of an output in [0.25, 0.5).
 TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
@@ -88,17 +93,31 @@ def phase_device():
 
 
 def phase_build():
-    """Build the port's one kernel source with nvcc (a plain C library)."""
+    """Build the port's one kernel source with nvcc (a plain C library);
+    print each kernel instance's registers, spills and shared memory."""
+    import re
+
+    import torch
     from msd_tpu_torch.ops import decode_attention as K1
     path, secs, out = K1.build_library()
-    if secs == 0.0:
-        log(f"[build] decode_attention: already built -> {path.name}")
-        return
-    log(f"[build] decode_attention: {secs:.1f}s -> {path.name}")
+    log(f"[build] decode_attention: "
+        f"{'already built' if secs == 0.0 else f'{secs:.1f}s'} -> "
+        f"{path.name}")
+    name = None
     for ln in out.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"[build]   {ln.strip()}")
-
+        m = re.search(r"decode_kernelI(\w+?)Li(\d)ELi(\d)E", ln)
+        if "Compiling entry" in ln and m:
+            dtype = "bf16" if "bfloat16" in m.group(1) else "fp32"
+            merge = [k for k, v in K1.MERGES.items()
+                     if v == int(m.group(3))][0]
+            name = f"{dtype} rows={m.group(2)} merge={merge}"
+        elif name and ("registers" in ln or "spill" in ln):
+            log(f"[build]   {name}: {ln.split(':', 1)[-1].strip()}")
+    smem = ", ".join(f"{str(dt)[6:]} rows={r}: {K1.smem_bytes(dt, r)} B"
+                     for dt in (torch.bfloat16, torch.float32)
+                     for r in (1, 4))
+    log(f"[build]   dynamic shared memory per block (stage ring; above "
+        f"48 KB through cudaFuncSetAttribute): {smem}")
 
 def graph_ms(fn, n_calls: int, reps: int = 20) -> float:
     """Device ms per call: capture n_calls calls of fn(i) in a CUDA graph,
@@ -149,7 +168,8 @@ def device_profile(fn, label: str, top: int = 6) -> dict:
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, kernels "
         f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; "
         f"top: {tops}")
-    return {"wall_us": wall_us, "busy_us": busy_us}
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "kernels": [(name, n) for _, n, name in rows]}
 
 
 def _attn_inputs(t, hq, hkv, s, kv_len, dtype, seed):
@@ -170,14 +190,70 @@ def _attn_inputs(t, hq, hkv, s, kv_len, dtype, seed):
     return q, k, v, bias, n
 
 
+def check_k1(label, q, k, v, bias, n, kv_len, merge) -> float:
+    """One launch of K1 with the given merge against its plain version at
+    the stated tolerance; returns the max abs error."""
+    import torch
+    from msd_tpu_torch.ops import decode_attention as K1
+    out = K1.launch(q, k, v, bias, n, merge)
+    torch.cuda.synchronize()
+    ref = K1.decode_attention_reference(q, k, v, bias, kv_len)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"K1 ({merge}) output not finite at {label}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    atol, rtol = TOL[str(q.dtype)[6:]]
+    excess = (diff - rtol * ref.float().abs()).max().item()
+    log(f"[K1] {label} {merge}: max_abs_err {err:.3e}, max(|err| - "
+        f"{rtol:.1e}|ref|) {excess:.3e} (tol {atol:.1e}), ref rms "
+        f"{ref.float().pow(2).mean().sqrt().item():.3e}")
+    if not excess <= atol:
+        raise AssertionError(f"K1 ({merge}) disagrees with its plain version "
+                             f"at {label}: |err| - {rtol}|ref| = {excess} > "
+                             f"{atol}")
+    return err
+
+
+def check_determinism(merge):
+    """Two eager calls and two replays of a captured call give bitwise the
+    same output at the AR shape; the captured launch, replayed after
+    kv_len changes on the card, computes the new length."""
+    import torch
+    from msd_tpu_torch.ops import decode_attention as K1
+    q, k, v, bias, n = _attn_inputs(1, 32, 32, 1280, 672, torch.bfloat16, 7)
+    eager = [K1.launch(q, k, v, bias, n, merge) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K1.launch(q, k, v, bias, n, merge)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, eager[0]) for x in eager[1:] + replays)
+    log(f"[K1] determinism {merge}: 2 eager calls and 2 graph replays "
+        f"bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"K1 ({merge}) is not bitwise deterministic")
+    n.fill_(5)
+    graph.replay()
+    return check_k1("graph replayed at kv_len 5", q, k, v, bias, n, 5, merge)
+
+
 def phase_kernels(card: str) -> dict:
-    """K1 against its plain version at the main path's shapes, then timed
-    at the AR decode shape."""
+    """K1 against its plain version at the main path's shapes and at the
+    edges of its split grid, with both split merges; the determinism gate;
+    then K1, its other merge, the plain version and SDPA timed at the AR
+    shape at four kv_len, K1's fixed cost at kv_len 0, and K1 at kv_len
+    672 with the split counts either side of launch_shape's."""
     import torch
     import torch.nn.functional as F
     from msd_tpu_torch.ops import decode_attention as K1
 
     bf16 = torch.bfloat16
+    n_split = K1.launch_shape(1, 32, 32, K1.sm_count(0))[2]
+    log(f"[K1] grid at the AR shape: {n_split} splits x 32 kv heads on "
+        f"{K1.sm_count(0)} SMs; merge {K1.MERGE}")
     # (T, Hq, Hkv, S, kv_len, dtype): S = 1280 is the engine's target KV
     # allocation for max_seq_len 1152 (+ one 48-node tree, rounded up to
     # 128); kv_len 640..702 is what 64 AR tokens after the 639-row prompt
@@ -188,79 +264,129 @@ def phase_kernels(card: str) -> dict:
              (1, 32, 8, 1280, 700, bf16),     # GQA
              (1, 32, 32, 1280, 1, bf16),      # one live key
              (5, 32, 32, 1152, 1000, torch.float32)]
+    # the split grid's edges: one key per split and either side of it,
+    # the longest caches, and the GQA AR row (G*T = 4 in one block)
+    cases += [(1, 32, 32, 1280, n, bf16)
+              for n in (n_split - 1, n_split, n_split + 1, 1279, 1280)]
+    cases += [(1, 32, 8, 1280, K1.launch_shape(1, 32, 8, K1.sm_count(0))[2]
+               + 1, bf16)]
     max_err = 0.0
     for i, (t, hq, hkv, s, kv_len, dtype) in enumerate(cases):
         q, k, v, bias, n = _attn_inputs(t, hq, hkv, s, kv_len, dtype, i)
-        out = K1.decode_attention(q, k, v, bias, n)
-        torch.cuda.synchronize()
-        ref = K1.decode_attention_reference(q, k, v, bias, kv_len)
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"K1 output not finite at case {i}")
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        atol, rtol = TOL[str(dtype)[6:]]
-        excess = (diff - rtol * ref.float().abs()).max().item()
-        log(f"[K1] T={t} Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} "
-            f"{str(dtype)[6:]}: max_abs_err {err:.3e}, max(|err| - "
-            f"{rtol:.1e}|ref|) {excess:.3e} (tol {atol:.1e}), ref rms "
-            f"{ref.float().pow(2).mean().sqrt().item():.3e}")
-        if not excess <= atol:
-            raise AssertionError(f"K1 disagrees with its plain version: "
-                                 f"|err| - {rtol}|ref| = {excess} > {atol}")
-        max_err = max(max_err, err)
+        label = (f"T={t} Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} "
+                 f"{str(dtype)[6:]}")
+        for merge in K1.MERGES:
+            err = check_k1(label, q, k, v, bias, n, kv_len, merge)
+            if merge == K1.MERGE:
+                max_err = max(max_err, err)
+    for merge in K1.MERGES:
+        check_determinism(merge)
 
-    # timing at the AR shape, mid-run kv_len, over 32 layer caches
-    t, hq, hkv, s, kv_len, layers = 1, 32, 32, 1280, 672, 32
+    # timing at the AR shape over 32 layer caches, cold in L2
+    t, hq, hkv, s, layers = 1, 32, 32, 1280, 32
+    other = [m for m in K1.MERGES if m != K1.MERGE][0]
     g = torch.Generator(device="cuda").manual_seed(99)
     q = torch.randn(t, hq, 128, generator=g, device="cuda").to(bf16)
     ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
     vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
     bias = torch.zeros(t, s, device="cuda")
-    n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    mask = bias[:, :kv_len].to(bf16)[None, None]
+    by_len, merge_ms = {}, {}
+    # kv_len 0 reads no K/V: what is left is the kernel's fixed cost
+    for kv_len in (0, 640, 672, 895, 1279):
+        n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        mask = bias[:, :kv_len].to(bf16)[None, None]
 
-    def kernel(i):
-        K1.decode_attention(q, ks[i % layers], vs[i % layers], bias, n)
+        def kernel(i, merge=K1.MERGE, n=n, n_split=None):
+            K1.launch(q, ks[i % layers], vs[i % layers], bias, n, merge,
+                      n_split)
 
-    def plain(i):
-        K1.decode_attention_reference(q, ks[i % layers], vs[i % layers],
-                                      bias, kv_len)
+        def plain(i):
+            K1.decode_attention_reference(q, ks[i % layers],
+                                          vs[i % layers], bias, kv_len)
 
-    def library(i):
-        kk = ks[i % layers, :kv_len].permute(1, 0, 2)[None]
-        vv = vs[i % layers, :kv_len].permute(1, 0, 2)[None]
-        F.scaled_dot_product_attention(q.permute(1, 0, 2)[None], kk, vv,
-                                       attn_mask=mask)
+        def library(i):
+            kk = ks[i % layers, :kv_len].permute(1, 0, 2)[None]
+            vv = vs[i % layers, :kv_len].permute(1, 0, 2)[None]
+            F.scaled_dot_product_attention(q.permute(1, 0, 2)[None], kk, vv,
+                                           attn_mask=mask)
 
-    timed = {}
-    for name, fn in (("plain", plain), ("kernel", kernel),
-                     ("library", library), ("kernel2", kernel),
-                     ("plain2", plain)):
-        timed[name] = graph_ms(fn, layers)
-    ms = min(timed["kernel"], timed["kernel2"])
-    plain_ms = min(timed["plain"], timed["plain2"])
-    nbytes = 2 * t * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 \
-        + t * kv_len * 4
-    ops = 4 * t * hq * kv_len * 128
-    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
-        else "operations"
-    log(f"[K1] AR shape T=1 Hq=Hkv=32 S={s} kv_len={kv_len} bf16 on {card}: "
-        f"kernel {timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} us, "
-        f"plain {timed['plain'] * 1e3:.2f}/{timed['plain2'] * 1e3:.2f} us, "
-        f"sdpa {timed['library'] * 1e3:.2f} us, bound {bound_s * 1e6:.2f} us "
-        f"({nbytes / 1e6:.2f} MB by {bound_by})")
-    entry = {"name": "decode_attention", "route": "cuda",
-             "source": "msd_tpu_torch/csrc/decode_attention.cu",
-             "replaces": "msd_tpu/ops/pallas/decode_attention.py:138",
-             "launches": None, "max_abs_err": max_err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-             "bound_by": bound_by, "library_ms": timed["library"]}
+        def other_merge(i):
+            kernel(i, other)
+
+        runs = [("kernel", kernel), ("other", other_merge),
+                ("library", library), ("other2", other_merge),
+                ("kernel2", kernel)]
+        if kv_len == 0:
+            runs = [r for r in runs if r[0] != "library"]
+            timed = {name: graph_ms(fn, layers) for name, fn in runs}
+            log(f"[K1] AR shape kv_len=0 (no K/V read: fixed cost) on "
+                f"{card}: kernel ({K1.MERGE} merge) "
+                f"{timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
+                f"us, {other} merge {timed['other'] * 1e3:.2f}/"
+                f"{timed['other2'] * 1e3:.2f} us")
+            by_len["0"] = min(timed["kernel"], timed["kernel2"])
+            merge_ms["0"] = {K1.MERGE: by_len["0"],
+                             other: min(timed["other"], timed["other2"])}
+            continue
+        if kv_len == 672:
+            runs = [("plain", plain)] + runs + [("plain2", plain)]
+        timed = {name: graph_ms(fn, layers) for name, fn in runs}
+        ms = min(timed["kernel"], timed["kernel2"])
+        other_ms = min(timed["other"], timed["other2"])
+        nbytes = 2 * t * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 \
+            + t * kv_len * 4
+        ops = 4 * t * hq * kv_len * 128
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+            ops / BF16_OPS_PER_S else "operations"
+        log(f"[K1] AR shape T=1 Hq=Hkv=32 S={s} kv_len={kv_len} bf16 on "
+            f"{card}: kernel ({K1.MERGE} merge) {timed['kernel'] * 1e3:.2f}/"
+            f"{timed['kernel2'] * 1e3:.2f} us, {other} merge "
+            f"{timed['other'] * 1e3:.2f}/{timed['other2'] * 1e3:.2f} us, "
+            f"sdpa {timed['library'] * 1e3:.2f} us, bound "
+            f"{bound_s * 1e6:.2f} us ({nbytes / 1e6:.2f} MB by {bound_by}), "
+            f"share of bound {bound_s * 1e3 / ms:.3f}"
+            + (f", plain {timed['plain'] * 1e3:.2f}/"
+               f"{timed['plain2'] * 1e3:.2f} us" if "plain" in timed else ""))
+        by_len[str(kv_len)] = ms
+        merge_ms[str(kv_len)] = {K1.MERGE: ms, other: other_ms}
+        if kv_len == 672:
+            entry = {"name": "decode_attention", "route": "cuda",
+                     "source": "msd_tpu_torch/csrc/decode_attention.cu",
+                     "replaces": "msd_tpu/ops/pallas/decode_attention.py:138",
+                     "launches": None, "max_abs_err": max_err, "ms": ms,
+                     "plain_ms": min(timed["plain"], timed["plain2"]),
+                     "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                     "library_ms": timed["library"]}
+            profiled = kernel
+            # the split count: launch_shape's and either side of it
+            picked = K1.launch_shape(t, hq, hkv, K1.sm_count(0))[2]
+            counts = [c for c in (picked - 1, picked, picked + 1)
+                      if 1 <= c <= K1.MAX_SPLITS]
+            by_split = {c: [] for c in counts}
+            for c in counts + counts[::-1]:
+                by_split[c].append(graph_ms(
+                    lambda i, c=c: kernel(i, n_split=c), layers))
+            by_split = {str(c): min(x) for c, x in by_split.items()}
+            log(f"[K1] AR shape kv_len=672 by split count ({K1.MERGE} "
+                f"merge): " + ", ".join(f"{c} splits {x * 1e3:.2f} us"
+                                        for c, x in by_split.items())
+                + f"; launch_shape picks {picked}")
+    entry["ms_by_kv_len"] = by_len
+    entry["ms_by_merge"] = merge_ms
+    entry["ms_by_split_count"] = by_split
+
+    def profile():
+        # one kernel per call: 32 calls show one kernel name, 32 launches
+        prof = device_profile(lambda: [profiled(i) for i in range(layers)],
+                              f"K1 x{layers} at the AR shape, kv_len 672")
+        if [n for _, n in prof["kernels"]] != [layers]:
+            raise AssertionError(f"K1 x{layers} ran kernels "
+                                 f"{prof['kernels']}, want one kernel "
+                                 f"launched {layers} times")
+
     # profiled last: a profiler session can slow later host dispatch
-    return entry, lambda: device_profile(
-        lambda: [kernel(i) for i in range(layers)],
-        f"K1 x{layers} at the AR shape")
-
+    return entry, profile
 
 @contextlib.contextmanager
 def oracle_draft(ref_tokens, e0: int):

@@ -4,9 +4,11 @@ plain PyTorch twin and the wrapper that picks between them.
 The kernel (``csrc/decode_attention.cu``) replaces the JAX package's Pallas
 kernel ``msd_tpu/ops/pallas/decode_attention.py``: the same function
 (softmax attention of q [T, Hq, D] over keys [0, kv_len) of k, v [S, Hkv, D]
-with an additive bias [T, S]), reading only the live keys. It is built with
-``nvcc`` for sm_90a into a plain C shared library at first use and called
-through ``ctypes``.
+with an additive bias [T, S]), reading only the live keys, in one launch
+per call: a grid of key-range splits sized to the card, each streaming its
+keys through a cp.async pipeline, merged inside the launch. It is built
+with ``nvcc`` for sm_90a into a plain C shared library at first use and
+called through ``ctypes``.
 
 Dispatch: ``decode_attention`` launches the kernel for CUDA tensors and
 raises on anything the kernel does not take; it computes the plain version
@@ -27,8 +29,6 @@ from pathlib import Path
 
 import torch
 
-from msd_tpu_torch.ops.attention import masked_attention
-
 HEAD_DIM = 128
 # at or below this many grouped query rows (G * T) models/llama._attend
 # sends a call to the kernel (the JAX package's VPU_MAX_GT)
@@ -44,14 +44,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, bias: torch.Tensor,
                                kv_len) -> torch.Tensor:
-    """Plain version: masked attention over the first kv_len keys only, so
+    """Plain version: attention over the first kv_len keys only, so
     whatever lies past kv_len (stale rows, NaN) never reaches the output.
-    kv_len <= 0 gives zeros, as the kernel does."""
+    kv_len <= 0 gives zeros, as the kernel does. Scores, softmax and the
+    probabilities stay fp32 through the P.V product, as in the kernel and
+    the Pallas kernel's VPU regime (``masked_attention`` rounds the
+    probabilities to v's dtype first; at fp32 the two are the same ops)."""
     n = min(int(kv_len), k.shape[0])
     if n <= 0:
         return torch.zeros_like(q)
-    return masked_attention(q, k[:n], v[:n], bias[:, :n])
-
+    t, hq, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(t, hkv, hq // hkv, d)
+    scores = torch.einsum("thgd,shd->hgts", qg.float(), k[:n].float()) \
+        * (1.0 / (d ** 0.5)) + bias[:, :n].float()[None, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hgts,shd->thgd", probs, v[:n].float())
+    return out.reshape(t, hq, d).to(q.dtype)
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -97,20 +106,75 @@ def _library() -> ctypes.CDLL:
     path, _, _ = build_library()
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [vp] * 9 + [ci] * 5 + [
+    lib.decode_attention_launch.argtypes = [vp] * 8 + [ci] * 8 + [
         ctypes.c_float, vp]
     lib.decode_attention_launch.restype = ci
-    lib.decode_attention_partials.argtypes = [ci] * 4
-    lib.decode_attention_partials.restype = ctypes.c_longlong
-    lib.decode_attention_head_dim.argtypes = []
-    lib.decode_attention_head_dim.restype = ci
-    if lib.decode_attention_head_dim() != HEAD_DIM:
-        raise RuntimeError("decode-attention library head dim mismatch")
+    lib.decode_attention_smem_bytes.argtypes = [ci, ci]
+    lib.decode_attention_smem_bytes.restype = ci
+    for fn in (lib.decode_attention_head_dim,
+               lib.decode_attention_max_splits):
+        fn.argtypes = []
+        fn.restype = ci
+    if lib.decode_attention_head_dim() != HEAD_DIM \
+            or lib.decode_attention_max_splits() != MAX_SPLITS:
+        raise RuntimeError("decode-attention library head dim or split "
+                           "limit mismatch")
     return lib
 
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+def smem_bytes(dtype: torch.dtype, rows: int) -> int:
+    """Dynamic shared memory of one kernel block (its stage ring)."""
+    return _library().decode_attention_smem_bytes(_DTYPE_CODE[dtype], rows)
 
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+MERGES = {"cluster": 0, "counter": 1}
+# the merge decode_attention uses: the faster of the two on the H100
+# (chip_smoke.py times both; PERF.md)
+MERGE = "cluster"
+# at most this many splits per (kv head, row group): the portable
+# thread-block-cluster size
+MAX_SPLITS = 8
+# blocks per SM the split count aims at: 7 splits at the AR shape on 132
+# SMs, the fastest of 5-8 on the H100 (chip_smoke.py times 6, 7 and 8)
+BLOCKS_PER_SM = 1.7
+
+
+def launch_shape(t: int, hq: int, hkv: int, n_sm: int):
+    """(rows per block, row groups per kv head, splits) of the kernel's
+    grid (splits, Hkv * row groups): 1 row for the AR row, else groups of
+    4 grouped query rows; as many splits as put about BLOCKS_PER_SM blocks
+    on each of the card's n_sm SMs, at most MAX_SPLITS. Depends on neither
+    S nor kv_len."""
+    gt = (hq // hkv) * t
+    rows = 1 if gt == 1 else 4
+    n_rg = -(-gt // rows)
+    n_split = round(BLOCKS_PER_SM * n_sm / (hkv * n_rg))
+    return rows, n_rg, max(1, min(MAX_SPLITS, n_split))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The counter merge's arrival counters: one zeroed int32 per (kv head,
+    row group), allocated once per device (grown when a call needs more).
+    The merging block sets its counter back to 0, so the next call and the
+    next graph replay find it zeroed. Two counter-merge calls in flight at
+    once on two streams would share the counters: that is unsafe."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the counter merge allocates its counters "
+                               "outside graph capture: call it once first")
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 def _check(q, k, v, bias, kv_len):
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -151,32 +215,47 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [T, Hq, D]; k, v: [S, Hkv, D] seq-major cache; bias: [T, S] fp32;
     kv_len: int32 one-element tensor on q's device (any int on the CPU).
     Returns [T, Hq, D] in q.dtype. CUDA tensors go to the kernel (bf16 or
-    fp32, D = 128, any T, S and GQA group), CPU tensors to
+    fp32, D = 128, any T, S and GQA group; one launch), CPU tensors to
     ``decode_attention_reference``. Each kernel launch adds one to
     ``decode_attention.launches``.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, bias, kv_len)
+    return launch(q, k, v, bias, kv_len, MERGE)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: torch.Tensor, kv_len: torch.Tensor, merge: str,
+           n_split: int | None = None) -> torch.Tensor:
+    """One launch of the kernel with the given split merge ("cluster" or
+    "counter"; ``decode_attention`` takes MERGE) and split count (default
+    ``launch_shape``'s; chip_smoke.py times others). Raises if the kernel
+    does not take the inputs or the launch fails; counts the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not "
+        raise ValueError(f"the decode-attention kernel runs on cuda, not "
                          f"{q.device}")
     _check(q, k, v, bias, kv_len)
     lib = _library()
     t, hq, d = q.shape
     s, hkv, _ = k.shape
-    # per-split partial (m, l, acc) scratch for the combine pass
-    n_part = lib.decode_attention_partials(t, hq, hkv, s)
-    scratch = torch.empty(n_part * (2 + d), dtype=torch.float32,
-                          device=q.device)
+    rows, n_rg, picked = launch_shape(t, hq, hkv, sm_count(q.device.index))
+    n_split = n_split or picked
+    part = counter = None
+    if merge == "counter":
+        # per-split (acc[D], m, l) of every row, and the arrival counters
+        part = torch.empty(hkv * n_rg * n_split * rows * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        counter = _counters(q.device, hkv * n_rg)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            kv_len.data_ptr(), scratch.data_ptr(),
-            scratch[n_part:].data_ptr(), scratch[2 * n_part:].data_ptr(),
-            out.data_ptr(), t, hq, hkv, s, _DTYPE_CODE[q.dtype],
-            1.0 / (d ** 0.5), stream)
+            kv_len.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            t, hq, hkv, s, rows, n_split, _DTYPE_CODE[q.dtype],
+            MERGES[merge], 1.0 / (d ** 0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -7,10 +7,11 @@ CPU tolerance: both sides compute in fp32 with different summation orders
 (streaming softmax over 128-key blocks vs one softmax): 2e-5 absolute, as
 tests/test_pallas.py holds the Pallas kernel to masked_attention.
 Card tolerance, elementwise |out - ref| <= atol + rtol |ref|: bf16 inputs,
-fp32 accumulation on both sides and the output rounded once to bf16, so
-the two may differ by one bf16 ulp (at most 2^-7 of |ref|): rtol 2^-7, and
-atol 2^-10 for the summation-order and probability-rounding noise of
-outputs near zero; fp32 inputs: atol = rtol = 1e-5.
+fp32 scores, probabilities and accumulation on both sides and the output
+rounded once to bf16, so the two may differ by one bf16 ulp (at most 2^-7
+of |ref|): rtol 2^-7, and atol 2^-10 for the summation-order noise of
+outputs near zero; fp32 inputs: atol = rtol = 1e-5. The bf16 twin is held
+to the Pallas kernel on the CPU at the same tolerance.
 """
 
 import numpy as np
@@ -58,6 +59,13 @@ CASES = [
     (6, 8, 2, 384, 300),    # GQA, T > 4
     (1, 4, 4, 256, 37),     # AR decode shape
     (1, 8, 2, 256, 130),    # GQA AR (G*T = 4: the kernel route)
+    # the edges of the kernel's split grid (7 or 8 splits on an H100):
+    (1, 4, 4, 256, 1),      # one live key: every other split empty
+    (1, 4, 4, 256, 7),      # one key per split at the AR shape
+    (1, 4, 4, 256, 9),      # a split boundary past one key per split
+    (1, 4, 4, 256, 256),    # kv_len = S
+    (1, 8, 2, 256, 256),    # GQA AR, G*T = 4 in one block, kv_len = S
+    (2, 4, 2, 128, 1),      # G*T = 4 from T = 2, one live key
 ]
 
 
@@ -68,6 +76,35 @@ def test_reference_matches_pallas_interpret(t, hq, hkv, s, kv_len):
     out = K1.decode_attention_reference(*(torch.from_numpy(a)
                                           for a in (q, k, v, bias)), kv_len)
     np.testing.assert_allclose(out.numpy(), ref, **CPU_TOL)
+
+
+@pytest.mark.parametrize("t,hq,hkv,s,kv_len", [
+    (1, 4, 4, 256, 7),      # few keys: each probability is large
+    (1, 8, 2, 256, 9),      # GQA, G*T = 4
+    (2, 4, 2, 128, 5),      # G*T = 4 from T = 2
+    (1, 4, 4, 256, 200),
+])
+def test_bf16_reference_keeps_fp32_probabilities_like_pallas(t, hq, hkv, s,
+                                                             kv_len):
+    """At bf16 and G*T <= 4 the Pallas kernel (its VPU regime) keeps the
+    probabilities fp32 through P.V, and so do the CUDA kernel and its
+    twin. Rounding them to bf16 first, as masked_attention does, departs
+    from the Pallas kernel by more than the card tolerance at small
+    kv_len (max |err| - 2^-7 |ref| = 1.9e-3 at kv_len 7)."""
+    import jax.numpy as jnp
+
+    from msd_tpu.ops.pallas.decode_attention import decode_attention
+    q, k, v, bias = _inputs(t, hq, hkv, s, kv_len)
+    ref = decode_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(bias), jnp.int32(kv_len), block_s=128, interpret=True)
+    ref = torch.from_numpy(np.asarray(ref.astype(jnp.float32)))
+    out = K1.decode_attention_reference(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        torch.from_numpy(bias), kv_len)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref,
+                               **GPU_TOL[torch.bfloat16])
 
 
 def test_nan_keys_past_kv_len_stay_invisible():
@@ -99,6 +136,24 @@ def test_cpu_wrapper_uses_plain_twin_and_counts_no_launch():
     assert torch.equal(zero, torch.zeros_like(q))
 
 
+@pytest.mark.parametrize("t,hq,hkv,want", [
+    (1, 32, 32, (1, 1, 7)),    # AR row at 7B width: 224 blocks
+    (1, 32, 8, (4, 1, 8)),     # GQA AR: one block holds G*T = 4 rows
+    (48, 32, 32, (4, 12, 1)),  # verify-shaped: 384 row groups, no split
+    (5, 32, 32, (4, 2, 4)),
+])
+def test_launch_shape_fills_the_card_and_ignores_s(t, hq, hkv, want):
+    """The grid (splits, Hkv * row groups) puts about BLOCKS_PER_SM blocks
+    on each of an H100's 132 SMs, at most 8 splits (the portable cluster
+    size), and takes no S or kv_len: a call's grid is the same at every
+    length, so one captured launch serves every kv_len."""
+    rows, n_rg, n_split = K1.launch_shape(t, hq, hkv, 132)
+    assert (rows, n_rg, n_split) == want
+    groups = hkv * n_rg
+    assert n_split in (1, K1.MAX_SPLITS) \
+        or abs(n_split * groups - K1.BLOCKS_PER_SM * 132) <= groups / 2
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -116,22 +171,94 @@ GPU_CASES = [
 ]
 
 
+# the split grid's edges: ("split", o) is kv_len = the call's split count
+# + o (one key per split, and either side of it)
+EDGE_CASES = [(1, 32, 32, 1280, n, torch.bfloat16)
+              for n in (1, ("split", -1), ("split", 0), ("split", 1), 1279,
+                        1280)] + [
+    (1, 32, 8, 1280, ("split", 1), torch.bfloat16),  # GQA, G*T = 4
+    (1, 32, 8, 1280, 1280, torch.bfloat16),
+    (1, 8, 8, 1280, ("split", -1), torch.float32),
+    (1, 8, 8, 1280, 1280, torch.float32),
+    (4, 8, 8, 1280, 1, torch.float32),        # T = 4 rows in one block
+]
+
+
+def _card_inputs(device, t, hq, hkv, s, kv_len, dtype, seed=0):
+    q, k, v, bias = (torch.from_numpy(a).to(device)
+                     for a in _inputs(t, hq, hkv, s, kv_len, seed=seed,
+                                      nan_tail=True))
+    n = torch.tensor(kv_len, dtype=torch.int32, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias, n
+
+
+def _assert_matches_twin(out, q, k, v, bias, kv_len):
+    ref = K1.decode_attention_reference(q, k, v, bias, kv_len)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), **GPU_TOL[q.dtype])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,hq,hkv,s,kv_len,dtype", GPU_CASES)
+@pytest.mark.parametrize("merge", sorted(K1.MERGES))
+@pytest.mark.parametrize("t,hq,hkv,s,kv_len,dtype", GPU_CASES + EDGE_CASES)
 def test_kernel_matches_plain_twin_on_card(cuda_device, t, hq, hkv, s,
-                                           kv_len, dtype):
-    q, k, v, bias = (torch.from_numpy(a).to(cuda_device)
-                     for a in _inputs(t, hq, hkv, s, kv_len, nan_tail=True))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+                                           kv_len, dtype, merge):
+    if isinstance(kv_len, tuple):
+        kv_len = K1.launch_shape(t, hq, hkv,
+                                 K1.sm_count(cuda_device.index or 0))[2] \
+            + kv_len[1]
+    q, k, v, bias, n = _card_inputs(cuda_device, t, hq, hkv, s, kv_len,
+                                    dtype)
     before = K1.decode_attention.launches
-    out = K1.decode_attention(q, k, v, bias, n)
+    out = K1.launch(q, k, v, bias, n, merge)
     torch.cuda.synchronize()
     assert K1.decode_attention.launches == before + 1
-    ref = K1.decode_attention_reference(q, k, v, bias, kv_len)
-    tol = GPU_TOL[dtype]
-    assert torch.isfinite(out).all()
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    _assert_matches_twin(out, q, k, v, bias, kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", sorted(K1.MERGES))
+def test_kernel_is_bitwise_deterministic_eager_and_in_a_graph(cuda_device,
+                                                              merge):
+    """Two eager calls and two replays of a captured call give bitwise
+    the same output at the AR shape (the splits merge in split order; a
+    counter left stale by the last call would break the second call);
+    the captured launch, replayed after kv_len changes on the device,
+    computes the new length."""
+    q, k, v, bias, n = _card_inputs(cuda_device, 1, 32, 32, 1280, 672,
+                                    torch.bfloat16)
+    eager = [K1.launch(q, k, v, bias, n, merge) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K1.launch(q, k, v, bias, n, merge)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    for x in eager[1:] + replays:
+        assert torch.equal(x, eager[0])
+    _assert_matches_twin(eager[0], q, k, v, bias, 672)
+    n.fill_(5)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_matches_twin(captured, q, k, v, bias, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", sorted(K1.MERGES))
+def test_back_to_back_calls_at_two_lengths(cuda_device, merge):
+    """A long call, then a short one on the same caches: both match the
+    twin, so nothing of the first call's state reaches the second."""
+    q, k, v, bias, _ = _card_inputs(cuda_device, 1, 32, 32, 1280, 1280,
+                                    torch.bfloat16)
+    lens = (640, 5)
+    ns = [torch.tensor(x, dtype=torch.int32, device=cuda_device)
+          for x in lens]
+    outs = [K1.launch(q, k, v, bias, n, merge) for n in ns]
+    torch.cuda.synchronize()
+    for out, kv_len in zip(outs, lens):
+        _assert_matches_twin(out, q, k, v, bias, kv_len)
 
 
 @pytest.mark.cuda
