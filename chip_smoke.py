@@ -11,9 +11,9 @@ prints no result):
 2. build: compiles the port's CUDA kernel with nvcc and prints seconds,
    ptxas usage and shared memory per block.
 3. kernels: calls each kernel's wrapper on the card at the main path's
-   shapes and at the edges of K1's split grid, with both of K1's split
-   merges, and holds it against its plain PyTorch version (max abs error
-   beside the stated tolerance); checks that K1 is bitwise deterministic
+   shapes and at the edges of K1's split grid and holds it against its
+   plain PyTorch version (max abs error beside the stated tolerance);
+   checks that K1 is bitwise deterministic
    over eager calls and CUDA-graph replays; times kernel, plain version
    and one PyTorch library call with CUDA graphs of launches over 32
    layer-sized caches (each launch finds its cache out of L2, as in a
@@ -105,12 +105,10 @@ def phase_build():
         f"{path.name}")
     name = None
     for ln in out.splitlines():
-        m = re.search(r"decode_kernelI(\w+?)Li(\d)ELi(\d)E", ln)
+        m = re.search(r"decode_kernelI(\w+?)Li(\d)EE", ln)
         if "Compiling entry" in ln and m:
             dtype = "bf16" if "bfloat16" in m.group(1) else "fp32"
-            merge = [k for k, v in K1.MERGES.items()
-                     if v == int(m.group(3))][0]
-            name = f"{dtype} rows={m.group(2)} merge={merge}"
+            name = f"{dtype} rows={m.group(2)}"
         elif name and ("registers" in ln or "spill" in ln):
             log(f"[build]   {name}: {ln.split(':', 1)[-1].strip()}")
     smem = ", ".join(f"{str(dt)[6:]} rows={r}: {K1.smem_bytes(dt, r)} B"
@@ -190,62 +188,69 @@ def _attn_inputs(t, hq, hkv, s, kv_len, dtype, seed):
     return q, k, v, bias, n
 
 
-def check_k1(label, q, k, v, bias, n, kv_len, merge) -> float:
-    """One launch of K1 with the given merge against its plain version at
-    the stated tolerance; returns the max abs error."""
+def check_k1(label, q, k, v, bias, n, kv_len) -> float:
+    """One launch of K1 against its plain version at the stated
+    tolerance; returns the max abs error."""
     import torch
     from msd_tpu_torch.ops import decode_attention as K1
-    out = K1.launch(q, k, v, bias, n, merge)
+    out = K1.decode_attention(q, k, v, bias, n)
     torch.cuda.synchronize()
     ref = K1.decode_attention_reference(q, k, v, bias, kv_len)
     if not torch.isfinite(out).all():
-        raise AssertionError(f"K1 ({merge}) output not finite at {label}")
+        raise AssertionError(f"K1 output not finite at {label}")
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     atol, rtol = TOL[str(q.dtype)[6:]]
     excess = (diff - rtol * ref.float().abs()).max().item()
-    log(f"[K1] {label} {merge}: max_abs_err {err:.3e}, max(|err| - "
+    log(f"[K1] {label}: max_abs_err {err:.3e}, max(|err| - "
         f"{rtol:.1e}|ref|) {excess:.3e} (tol {atol:.1e}), ref rms "
         f"{ref.float().pow(2).mean().sqrt().item():.3e}")
     if not excess <= atol:
-        raise AssertionError(f"K1 ({merge}) disagrees with its plain version "
-                             f"at {label}: |err| - {rtol}|ref| = {excess} > "
+        raise AssertionError(f"K1 disagrees with its plain version at "
+                             f"{label}: |err| - {rtol}|ref| = {excess} > "
                              f"{atol}")
     return err
 
 
-def check_determinism(merge):
+def check_determinism():
     """Two eager calls and two replays of a captured call give bitwise the
     same output at the AR shape; the captured launch, replayed after
     kv_len changes on the card, computes the new length."""
     import torch
     from msd_tpu_torch.ops import decode_attention as K1
     q, k, v, bias, n = _attn_inputs(1, 32, 32, 1280, 672, torch.bfloat16, 7)
-    eager = [K1.launch(q, k, v, bias, n, merge) for _ in range(2)]
+    eager = [K1.decode_attention(q, k, v, bias, n) for _ in range(2)]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = K1.launch(q, k, v, bias, n, merge)
+        captured = K1.decode_attention(q, k, v, bias, n)
     replays = []
     for _ in range(2):
         graph.replay()
         replays.append(captured.clone())
     torch.cuda.synchronize()
     same = all(torch.equal(x, eager[0]) for x in eager[1:] + replays)
-    log(f"[K1] determinism {merge}: 2 eager calls and 2 graph replays "
-        f"bitwise equal: {same}")
+    log(f"[K1] determinism: 2 eager calls and 2 graph replays bitwise "
+        f"equal: {same}")
     if not same:
-        raise AssertionError(f"K1 ({merge}) is not bitwise deterministic")
+        raise AssertionError("K1 is not bitwise deterministic")
     n.fill_(5)
     graph.replay()
-    return check_k1("graph replayed at kv_len 5", q, k, v, bias, n, 5, merge)
+    torch.cuda.synchronize()
+    ref = K1.decode_attention_reference(q, k, v, bias, 5)
+    err = (captured.float() - ref.float()).abs()
+    atol, rtol = TOL["bfloat16"]
+    log(f"[K1] graph replayed at kv_len 5: max_abs_err "
+        f"{err.max().item():.3e}")
+    if not (err <= atol + rtol * ref.float().abs()).all():
+        raise AssertionError("K1's graph replayed at kv_len 5 disagrees "
+                             "with its plain version")
 
 
 def phase_kernels(card: str) -> dict:
     """K1 against its plain version at the main path's shapes and at the
-    edges of its split grid, with both split merges; the determinism gate;
-    then K1, its other merge, the plain version and SDPA timed at the AR
-    shape at four kv_len, K1's fixed cost at kv_len 0, and K1 at kv_len
-    672 with the split counts either side of launch_shape's."""
+    edges of its split grid; the determinism gate; then K1, the plain
+    version and SDPA timed at the AR shape at four kv_len, and K1's fixed
+    cost at kv_len 0."""
     import torch
     import torch.nn.functional as F
     from msd_tpu_torch.ops import decode_attention as K1
@@ -253,7 +258,7 @@ def phase_kernels(card: str) -> dict:
     bf16 = torch.bfloat16
     n_split = K1.launch_shape(1, 32, 32, K1.sm_count(0))[2]
     log(f"[K1] grid at the AR shape: {n_split} splits x 32 kv heads on "
-        f"{K1.sm_count(0)} SMs; merge {K1.MERGE}")
+        f"{K1.sm_count(0)} SMs")
     # (T, Hq, Hkv, S, kv_len, dtype): S = 1280 is the engine's target KV
     # allocation for max_seq_len 1152 (+ one 48-node tree, rounded up to
     # 128); kv_len 640..702 is what 64 AR tokens after the 639-row prompt
@@ -275,30 +280,29 @@ def phase_kernels(card: str) -> dict:
         q, k, v, bias, n = _attn_inputs(t, hq, hkv, s, kv_len, dtype, i)
         label = (f"T={t} Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} "
                  f"{str(dtype)[6:]}")
-        for merge in K1.MERGES:
-            err = check_k1(label, q, k, v, bias, n, kv_len, merge)
-            if merge == K1.MERGE:
-                max_err = max(max_err, err)
-    for merge in K1.MERGES:
-        check_determinism(merge)
+        max_err = max(max_err, check_k1(label, q, k, v, bias, n, kv_len))
+    check_determinism()
 
     # timing at the AR shape over 32 layer caches, cold in L2
     t, hq, hkv, s, layers = 1, 32, 32, 1280, 32
-    other = [m for m in K1.MERGES if m != K1.MERGE][0]
     g = torch.Generator(device="cuda").manual_seed(99)
     q = torch.randn(t, hq, 128, generator=g, device="cuda").to(bf16)
     ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
     vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
     bias = torch.zeros(t, s, device="cuda")
-    by_len, merge_ms = {}, {}
     # kv_len 0 reads no K/V: what is left is the kernel's fixed cost
-    for kv_len in (0, 640, 672, 895, 1279):
+    n = torch.tensor(0, dtype=torch.int32, device="cuda")
+    fixed = [graph_ms(lambda i: K1.decode_attention(
+        q, ks[i % layers], vs[i % layers], bias, n), layers) for _ in "ab"]
+    log(f"[K1] AR shape kv_len=0 (no K/V read: fixed cost) on {card}: "
+        f"kernel {fixed[0] * 1e3:.2f}/{fixed[1] * 1e3:.2f} us")
+    by_len = {"0": min(fixed)}
+    for kv_len in (640, 672, 895, 1279):
         n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         mask = bias[:, :kv_len].to(bf16)[None, None]
 
-        def kernel(i, merge=K1.MERGE, n=n, n_split=None):
-            K1.launch(q, ks[i % layers], vs[i % layers], bias, n, merge,
-                      n_split)
+        def kernel(i, n=n):
+            K1.decode_attention(q, ks[i % layers], vs[i % layers], bias, n)
 
         def plain(i):
             K1.decode_attention_reference(q, ks[i % layers],
@@ -310,29 +314,12 @@ def phase_kernels(card: str) -> dict:
             F.scaled_dot_product_attention(q.permute(1, 0, 2)[None], kk, vv,
                                            attn_mask=mask)
 
-        def other_merge(i):
-            kernel(i, other)
-
-        runs = [("kernel", kernel), ("other", other_merge),
-                ("library", library), ("other2", other_merge),
+        runs = [("kernel", kernel), ("library", library),
                 ("kernel2", kernel)]
-        if kv_len == 0:
-            runs = [r for r in runs if r[0] != "library"]
-            timed = {name: graph_ms(fn, layers) for name, fn in runs}
-            log(f"[K1] AR shape kv_len=0 (no K/V read: fixed cost) on "
-                f"{card}: kernel ({K1.MERGE} merge) "
-                f"{timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
-                f"us, {other} merge {timed['other'] * 1e3:.2f}/"
-                f"{timed['other2'] * 1e3:.2f} us")
-            by_len["0"] = min(timed["kernel"], timed["kernel2"])
-            merge_ms["0"] = {K1.MERGE: by_len["0"],
-                             other: min(timed["other"], timed["other2"])}
-            continue
         if kv_len == 672:
             runs = [("plain", plain)] + runs + [("plain2", plain)]
         timed = {name: graph_ms(fn, layers) for name, fn in runs}
         ms = min(timed["kernel"], timed["kernel2"])
-        other_ms = min(timed["other"], timed["other2"])
         nbytes = 2 * t * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 \
             + t * kv_len * 4
         ops = 4 * t * hq * kv_len * 128
@@ -340,16 +327,14 @@ def phase_kernels(card: str) -> dict:
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
             ops / BF16_OPS_PER_S else "operations"
         log(f"[K1] AR shape T=1 Hq=Hkv=32 S={s} kv_len={kv_len} bf16 on "
-            f"{card}: kernel ({K1.MERGE} merge) {timed['kernel'] * 1e3:.2f}/"
-            f"{timed['kernel2'] * 1e3:.2f} us, {other} merge "
-            f"{timed['other'] * 1e3:.2f}/{timed['other2'] * 1e3:.2f} us, "
-            f"sdpa {timed['library'] * 1e3:.2f} us, bound "
-            f"{bound_s * 1e6:.2f} us ({nbytes / 1e6:.2f} MB by {bound_by}), "
+            f"{card}: kernel {timed['kernel'] * 1e3:.2f}/"
+            f"{timed['kernel2'] * 1e3:.2f} us, sdpa "
+            f"{timed['library'] * 1e3:.2f} us, bound {bound_s * 1e6:.2f} us "
+            f"({nbytes / 1e6:.2f} MB by {bound_by}), "
             f"share of bound {bound_s * 1e3 / ms:.3f}"
             + (f", plain {timed['plain'] * 1e3:.2f}/"
                f"{timed['plain2'] * 1e3:.2f} us" if "plain" in timed else ""))
         by_len[str(kv_len)] = ms
-        merge_ms[str(kv_len)] = {K1.MERGE: ms, other: other_ms}
         if kv_len == 672:
             entry = {"name": "decode_attention", "route": "cuda",
                      "source": "msd_tpu_torch/csrc/decode_attention.cu",
@@ -359,22 +344,7 @@ def phase_kernels(card: str) -> dict:
                      "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                      "library_ms": timed["library"]}
             profiled = kernel
-            # the split count: launch_shape's and either side of it
-            picked = K1.launch_shape(t, hq, hkv, K1.sm_count(0))[2]
-            counts = [c for c in (picked - 1, picked, picked + 1)
-                      if 1 <= c <= K1.MAX_SPLITS]
-            by_split = {c: [] for c in counts}
-            for c in counts + counts[::-1]:
-                by_split[c].append(graph_ms(
-                    lambda i, c=c: kernel(i, n_split=c), layers))
-            by_split = {str(c): min(x) for c, x in by_split.items()}
-            log(f"[K1] AR shape kv_len=672 by split count ({K1.MERGE} "
-                f"merge): " + ", ".join(f"{c} splits {x * 1e3:.2f} us"
-                                        for c, x in by_split.items())
-                + f"; launch_shape picks {picked}")
     entry["ms_by_kv_len"] = by_len
-    entry["ms_by_merge"] = merge_ms
-    entry["ms_by_split_count"] = by_split
 
     def profile():
         # one kernel per call: 32 calls show one kernel name, 32 launches
@@ -387,6 +357,7 @@ def phase_kernels(card: str) -> dict:
 
     # profiled last: a profiler session can slow later host dispatch
     return entry, profile
+
 
 @contextlib.contextmanager
 def oracle_draft(ref_tokens, e0: int):

@@ -22,16 +22,13 @@
 // 1. Two launches and a serial combine on 32 of 132 SMs, each thread
 //    walking ~21 splits by dependent global loads. Here the splits of one
 //    (kv head, row group) merge inside the same launch, in one round
-//    trip: by default they form a thread-block cluster, every block
-//    stores its fp32 state (m, l, acc[D]) into rank 0's shared memory
-//    (distributed shared memory) and arrives at one cluster barrier, and
-//    rank 0 merges; no global scratch, no counters. The alternative merge
-//    (MERGE_COUNTER) writes each split's state to global scratch; the
-//    last block to arrive, found by an atomic arrival counter, loads them
-//    all at once, merges, and zeroes the counter for the next call or
-//    graph replay. Either way the splits merge in split order, so the
-//    same inputs give bitwise the same output whatever order the blocks
-//    finish in.
+//    trip: they form a thread-block cluster, every block stores its fp32
+//    state (m, l, acc[D]) into rank 0's shared memory (distributed shared
+//    memory) and arrives at one cluster barrier, and rank 0 merges in
+//    split order, so the same inputs give bitwise the same output
+//    whatever order the blocks finish in. No global scratch, no counters:
+//    a merge through global scratch and an arrival counter measured
+//    0.4-0.6 us slower on the H100.
 // 2. Blocks that made one memory round trip and exited. Here each block
 //    streams its key range through a ring of kStages shared-memory stages
 //    of kStageKeys keys (K rows, V rows and the bias of each row) filled
@@ -90,8 +87,6 @@ constexpr int kKeysPerWarp = kStageKeys / kWarps;
 constexpr int kStages = 3;      // ring depth: kStages - 1 stages in flight
 constexpr int kMaxSplits = 8;   // portable thread-block-cluster size
 constexpr float kNegInf = -1e30f;  // the engine's finite mask value
-
-enum { MERGE_CLUSTER = 0, MERGE_COUNTER = 1 };
 
 // One stage of the ring: K rows, V rows, then the bias of each row.
 template <typename T, int R>
@@ -184,16 +179,15 @@ __device__ __forceinline__ void issue_stage(char* slot, const T* k,
 }
 
 // One block: split `blockIdx.x` of the key range of kv head h, row group
-// rg (R rows). Streams its keys through the ring, merges its warps, then
-// merges the n_split blocks of (h, rg) as Merge says and writes
+// rg (R rows). Streams its keys through the ring and merges its warps;
+// rank 0 of the cluster of (h, rg) merges the n_split blocks and writes
 // out[t, h*G + g, :] in the output dtype.
-template <typename T, int R, int Merge>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ bias,
               const int* __restrict__ kv_len_ptr, T* __restrict__ out,
-              float* __restrict__ part, int* __restrict__ counter, int n_t,
-              int hq, int hkv, int s, int n_split, float scale) {
+              int n_t, int hq, int hkv, int s, int n_split, float scale) {
   using St = Stage<T, R>;
   extern __shared__ __align__(16) char ring[];
   __shared__ float w_m[kWarps][R], w_l[kWarps][R], w_acc[kWarps][R][kD];
@@ -209,8 +203,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  if constexpr (Merge == MERGE_CLUSTER)  // matched before the DSMEM stores
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // matched by the wait before the stores into rank 0's shared memory
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   // the q rows load alongside kv_len (independent addresses)
   float qr[R][4];
@@ -344,109 +338,57 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // merge the splits' states in split order, normalise, cast and store;
-  // sm, sl, sa(sp) give split sp's state of row r
-  auto merge_store = [&](int r, const float* sm, const float* sl,
-                         auto sa) {
+  // the cluster is the n_split blocks of (h, rg), rank == split: every
+  // block stores its state into slot `split` of rank 0's shared memory
+  // and arrives (release); only rank 0 waits (acquire), merges in split
+  // order and writes. No block reads another's shared memory, so the
+  // others exit.
+  __shared__ float c_m[R][kMaxSplits], c_l[R][kMaxSplits];
+  __shared__ float c_acc[R][kMaxSplits][kD];
+  cg::cluster_group cluster = cg::this_cluster();
+  // every block of the cluster has started (arrived at the top), so rank
+  // 0's shared memory exists
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n_rows) break;
+    *cluster.map_shared_rank(&c_acc[r][split][d], 0) = ba[r];
+    if (d == 0) {
+      *cluster.map_shared_rank(&c_m[r][split], 0) = bm[r];
+      *cluster.map_shared_rank(&c_l[r][split], 0) = bl[r];
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (split != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n_rows) break;
     float mm = kNegInf;
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp)
-      if (sp < n_split) mm = fmaxf(mm, sm[sp]);
+      if (sp < n_split) mm = fmaxf(mm, c_m[r][sp]);
     float ll = 0.f, aa = 0.f;
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp) {
       if (sp < n_split) {
-        const float f = expf(sm[sp] - mm);
-        ll += sl[sp] * f;
-        aa += sa(sp) * f;
+        const float f = expf(c_m[r][sp] - mm);
+        ll += c_l[r][sp] * f;
+        aa += c_acc[r][sp][d] * f;
       }
     }
     const int row = row0 + r;
     store1(out + ((size_t)(row % n_t) * hq + (size_t)h * g + row / n_t) * kD +
                d,
            aa / fmaxf(ll, 1e-20f));
-  };
-  if constexpr (Merge == MERGE_CLUSTER) {
-    // the cluster is the n_split blocks of (h, rg), rank == split: every
-    // block stores its state into slot `split` of rank 0's shared memory
-    // and arrives (release); only rank 0 waits (acquire), merges and
-    // writes. No block reads another's shared memory, so the others exit.
-    __shared__ float c_m[R][kMaxSplits], c_l[R][kMaxSplits];
-    __shared__ float c_acc[R][kMaxSplits][kD];
-    cg::cluster_group cluster = cg::this_cluster();
-    // every block of the cluster has started (arrived at the top), so
-    // rank 0's shared memory exists
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= n_rows) break;
-      *cluster.map_shared_rank(&c_acc[r][split][d], 0) = ba[r];
-      if (d == 0) {
-        *cluster.map_shared_rank(&c_m[r][split], 0) = bm[r];
-        *cluster.map_shared_rank(&c_l[r][split], 0) = bl[r];
-      }
-    }
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    if (split != 0) return;
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= n_rows) break;
-      merge_store(r, c_m[r], c_l[r], [&](int sp) { return c_acc[r][sp][d]; });
-    }
-  } else {
-    // each block writes its state to global scratch, then one thread
-    // counts its arrival (acq_rel, after the block barrier: the block's
-    // writes are released with it); the last block of (h, rg) to arrive
-    // loads every split's state in one round trip, merges, writes and
-    // zeroes the counter for the next call or graph replay
-    constexpr int kPart = kD + 2;  // accumulator, then m, l
-    __shared__ int is_last;
-    float* mine = part + ((size_t)hb * n_split + split) * R * kPart;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= n_rows) break;
-      mine[r * kPart + d] = ba[r];
-      if (d == 0) {
-        mine[r * kPart + kD] = bm[r];
-        mine[r * kPart + kD + 1] = bl[r];
-      }
-    }
-    __syncthreads();
-    if (d == 0) {
-      int prev;
-      asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
-                   : "=r"(prev)
-                   : "l"(counter + hb)
-                   : "memory");
-      is_last = prev == n_split - 1;
-    }
-    __syncthreads();
-    if (!is_last) return;
-    const float* all = part + (size_t)hb * n_split * R * kPart;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= n_rows) break;
-      float sm[kMaxSplits], sl[kMaxSplits], sa[kMaxSplits];
-#pragma unroll
-      for (int sp = 0; sp < kMaxSplits; ++sp) {
-        const float* p = all + ((size_t)sp * R + r) * kPart;
-        sm[sp] = sp < n_split ? __ldcg(p + kD) : kNegInf;
-        sl[sp] = sp < n_split ? __ldcg(p + kD + 1) : 0.f;
-        sa[sp] = sp < n_split ? __ldcg(p + d) : 0.f;
-      }
-      merge_store(r, sm, sl, [&](int sp) { return sa[sp]; });
-    }
-    if (d == 0) counter[hb] = 0;  // zeroed for the next call or replay
   }
 }
 
-template <typename T, int R, int Merge>
+template <typename T, int R>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* kv_len, void* out, void* part, void* counter, int n_t,
-           int hq, int hkv, int s, int n_split, float scale,
-           cudaStream_t stream) {
-  auto kern = decode_kernel<T, R, Merge>;
+           const void* kv_len, void* out, int n_t, int hq, int hkv, int s,
+           int n_split, float scale, cudaStream_t stream) {
+  auto kern = decode_kernel<T, R>;
   constexpr int smem = Stage<T, R>::kRingBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -458,19 +400,16 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  if (Merge == MERGE_CLUSTER) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n_split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const int*>(kv_len), static_cast<T*>(out),
-      static_cast<float*>(part), static_cast<int*>(counter), n_t, hq, hkv, s,
+      static_cast<const int*>(kv_len), static_cast<T*>(out), n_t, hq, hkv, s,
       n_split, scale);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it; the caller raises
@@ -479,32 +418,16 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R>
-int launch_merge(int merge, const void* q, const void* k, const void* v,
-                 const void* bias, const void* kv_len, void* out, void* part,
-                 void* counter, int n_t, int hq, int hkv, int s, int n_split,
-                 float scale, cudaStream_t stream) {
-  if (merge == MERGE_CLUSTER)
-    return launch<T, R, MERGE_CLUSTER>(q, k, v, bias, kv_len, out, part,
-                                       counter, n_t, hq, hkv, s, n_split,
-                                       scale, stream);
-  return launch<T, R, MERGE_COUNTER>(q, k, v, bias, kv_len, out, part,
-                                     counter, n_t, hq, hkv, s, n_split,
-                                     scale, stream);
-}
-
 template <typename T>
-int launch_rows(int rows, int merge, const void* q, const void* k,
-                const void* v, const void* bias, const void* kv_len,
-                void* out, void* part, void* counter, int n_t, int hq,
-                int hkv, int s, int n_split, float scale,
+int launch_rows(int rows, const void* q, const void* k, const void* v,
+                const void* bias, const void* kv_len, void* out, int n_t,
+                int hq, int hkv, int s, int n_split, float scale,
                 cudaStream_t stream) {
   if (rows == 1)
-    return launch_merge<T, 1>(merge, q, k, v, bias, kv_len, out, part,
-                              counter, n_t, hq, hkv, s, n_split, scale,
-                              stream);
-  return launch_merge<T, 4>(merge, q, k, v, bias, kv_len, out, part, counter,
-                            n_t, hq, hkv, s, n_split, scale, stream);
+    return launch<T, 1>(q, k, v, bias, kv_len, out, n_t, hq, hkv, s, n_split,
+                        scale, stream);
+  return launch<T, 4>(q, k, v, bias, kv_len, out, n_t, hq, hkv, s, n_split,
+                      scale, stream);
 }
 
 }  // namespace
@@ -512,8 +435,6 @@ int launch_rows(int rows, int merge, const void* q, const void* k,
 extern "C" {
 
 int decode_attention_head_dim() { return kD; }
-
-int decode_attention_max_splits() { return kMaxSplits; }
 
 // Dynamic shared memory of one block (the stage ring), in bytes.
 int decode_attention_smem_bytes(int dtype, int rows) {
@@ -524,29 +445,23 @@ int decode_attention_smem_bytes(int dtype, int rows) {
 }
 
 // dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it). rows: 1 (only
-// when G*T == 1) or 4. merge: 0 = cluster, 1 = counter; the counter merge
-// needs part (hkv * row groups * n_split * rows * (D + 2) floats) and
-// counter (hkv * row groups ints, zero). Returns the CUDA error code of
-// the launch (0 = launched).
+// when G*T == 1) or 4. n_split: 1..kMaxSplits, the cluster size. Returns
+// the CUDA error code of the launch (0 = launched).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* bias, const void* kv_len, void* out,
-                            void* part, void* counter, int n_t, int hq,
-                            int hkv, int s, int rows, int n_split,
-                            int dtype, int merge, float scale,
+                            int n_t, int hq, int hkv, int s, int rows,
+                            int n_split, int dtype, float scale,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((rows != 1 && rows != 4) || (rows == 1 && (hq / hkv) * n_t != 1) ||
-      n_split < 1 || n_split > kMaxSplits ||
-      (merge != MERGE_CLUSTER && merge != MERGE_COUNTER) ||
-      (merge == MERGE_COUNTER && (part == nullptr || counter == nullptr)))
+      n_split < 1 || n_split > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_rows<__nv_bfloat16>(rows, merge, q, k, v, bias, kv_len, out,
-                                      part, counter, n_t, hq, hkv, s, n_split,
-                                      scale, st);
+    return launch_rows<__nv_bfloat16>(rows, q, k, v, bias, kv_len, out, n_t,
+                                      hq, hkv, s, n_split, scale, st);
   if (dtype == 1)
-    return launch_rows<float>(rows, merge, q, k, v, bias, kv_len, out, part,
-                              counter, n_t, hq, hkv, s, n_split, scale, st);
+    return launch_rows<float>(rows, q, k, v, bias, kv_len, out, n_t, hq, hkv,
+                              s, n_split, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -106,19 +106,15 @@ def _library() -> ctypes.CDLL:
     path, _, _ = build_library()
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [vp] * 8 + [ci] * 8 + [
+    lib.decode_attention_launch.argtypes = [vp] * 6 + [ci] * 7 + [
         ctypes.c_float, vp]
     lib.decode_attention_launch.restype = ci
     lib.decode_attention_smem_bytes.argtypes = [ci, ci]
     lib.decode_attention_smem_bytes.restype = ci
-    for fn in (lib.decode_attention_head_dim,
-               lib.decode_attention_max_splits):
-        fn.argtypes = []
-        fn.restype = ci
-    if lib.decode_attention_head_dim() != HEAD_DIM \
-            or lib.decode_attention_max_splits() != MAX_SPLITS:
-        raise RuntimeError("decode-attention library head dim or split "
-                           "limit mismatch")
+    lib.decode_attention_head_dim.argtypes = []
+    lib.decode_attention_head_dim.restype = ci
+    if lib.decode_attention_head_dim() != HEAD_DIM:
+        raise RuntimeError("decode-attention library head dim mismatch")
     return lib
 
 
@@ -128,15 +124,11 @@ def smem_bytes(dtype: torch.dtype, rows: int) -> int:
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-MERGES = {"cluster": 0, "counter": 1}
-# the merge decode_attention uses: the faster of the two on the H100
-# (chip_smoke.py times both; PERF.md)
-MERGE = "cluster"
 # at most this many splits per (kv head, row group): the portable
-# thread-block-cluster size
+# thread-block-cluster size, which the kernel's merge uses
 MAX_SPLITS = 8
 # blocks per SM the split count aims at: 7 splits at the AR shape on 132
-# SMs, the fastest of 5-8 on the H100 (chip_smoke.py times 6, 7 and 8)
+# SMs, the fastest of 6, 7 and 8 on the H100 (PERF.md)
 BLOCKS_PER_SM = 1.7
 
 
@@ -157,24 +149,6 @@ def launch_shape(t: int, hq: int, hkv: int, n_sm: int):
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
-
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The counter merge's arrival counters: one zeroed int32 per (kv head,
-    row group), allocated once per device (grown when a call needs more).
-    The merging block sets its counter back to 0, so the next call and the
-    next graph replay find it zeroed. Two counter-merge calls in flight at
-    once on two streams would share the counters: that is unsafe."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the counter merge allocates its counters "
-                               "outside graph capture: call it once first")
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
 
 def _check(q, k, v, bias, kv_len):
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -221,41 +195,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, bias, kv_len)
-    return launch(q, k, v, bias, kv_len, MERGE)
-
-
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           bias: torch.Tensor, kv_len: torch.Tensor, merge: str,
-           n_split: int | None = None) -> torch.Tensor:
-    """One launch of the kernel with the given split merge ("cluster" or
-    "counter"; ``decode_attention`` takes MERGE) and split count (default
-    ``launch_shape``'s; chip_smoke.py times others). Raises if the kernel
-    does not take the inputs or the launch fails; counts the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"the decode-attention kernel runs on cuda, not "
+        raise ValueError(f"decode_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check(q, k, v, bias, kv_len)
     lib = _library()
     t, hq, d = q.shape
     s, hkv, _ = k.shape
-    rows, n_rg, picked = launch_shape(t, hq, hkv, sm_count(q.device.index))
-    n_split = n_split or picked
-    part = counter = None
-    if merge == "counter":
-        # per-split (acc[D], m, l) of every row, and the arrival counters
-        part = torch.empty(hkv * n_rg * n_split * rows * (d + 2),
-                           dtype=torch.float32, device=q.device)
-        counter = _counters(q.device, hkv * n_rg)
+    rows, _, n_split = launch_shape(t, hq, hkv, sm_count(q.device.index))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if counter is None else counter.data_ptr(),
-            t, hq, hkv, s, rows, n_split, _DTYPE_CODE[q.dtype],
-            MERGES[merge], 1.0 / (d ** 0.5), stream)
+            kv_len.data_ptr(), out.data_ptr(), t, hq, hkv, s, rows,
+            n_split, _DTYPE_CODE[q.dtype], 1.0 / (d ** 0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -199,10 +199,9 @@ def _assert_matches_twin(out, q, k, v, bias, kv_len):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("merge", sorted(K1.MERGES))
 @pytest.mark.parametrize("t,hq,hkv,s,kv_len,dtype", GPU_CASES + EDGE_CASES)
 def test_kernel_matches_plain_twin_on_card(cuda_device, t, hq, hkv, s,
-                                           kv_len, dtype, merge):
+                                           kv_len, dtype):
     if isinstance(kv_len, tuple):
         kv_len = K1.launch_shape(t, hq, hkv,
                                  K1.sm_count(cuda_device.index or 0))[2] \
@@ -210,27 +209,24 @@ def test_kernel_matches_plain_twin_on_card(cuda_device, t, hq, hkv, s,
     q, k, v, bias, n = _card_inputs(cuda_device, t, hq, hkv, s, kv_len,
                                     dtype)
     before = K1.decode_attention.launches
-    out = K1.launch(q, k, v, bias, n, merge)
+    out = K1.decode_attention(q, k, v, bias, n)
     torch.cuda.synchronize()
     assert K1.decode_attention.launches == before + 1
     _assert_matches_twin(out, q, k, v, bias, kv_len)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("merge", sorted(K1.MERGES))
-def test_kernel_is_bitwise_deterministic_eager_and_in_a_graph(cuda_device,
-                                                              merge):
+def test_kernel_is_bitwise_deterministic_eager_and_in_a_graph(cuda_device):
     """Two eager calls and two replays of a captured call give bitwise
-    the same output at the AR shape (the splits merge in split order; a
-    counter left stale by the last call would break the second call);
-    the captured launch, replayed after kv_len changes on the device,
-    computes the new length."""
+    the same output at the AR shape (the splits merge in split order,
+    whatever order the blocks finish in); the captured launch, replayed
+    after kv_len changes on the device, computes the new length."""
     q, k, v, bias, n = _card_inputs(cuda_device, 1, 32, 32, 1280, 672,
                                     torch.bfloat16)
-    eager = [K1.launch(q, k, v, bias, n, merge) for _ in range(2)]
+    eager = [K1.decode_attention(q, k, v, bias, n) for _ in range(2)]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = K1.launch(q, k, v, bias, n, merge)
+        captured = K1.decode_attention(q, k, v, bias, n)
     replays = []
     for _ in range(2):
         graph.replay()
@@ -246,8 +242,7 @@ def test_kernel_is_bitwise_deterministic_eager_and_in_a_graph(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("merge", sorted(K1.MERGES))
-def test_back_to_back_calls_at_two_lengths(cuda_device, merge):
+def test_back_to_back_calls_at_two_lengths(cuda_device):
     """A long call, then a short one on the same caches: both match the
     twin, so nothing of the first call's state reaches the second."""
     q, k, v, bias, _ = _card_inputs(cuda_device, 1, 32, 32, 1280, 1280,
@@ -255,7 +250,7 @@ def test_back_to_back_calls_at_two_lengths(cuda_device, merge):
     lens = (640, 5)
     ns = [torch.tensor(x, dtype=torch.int32, device=cuda_device)
           for x in lens]
-    outs = [K1.launch(q, k, v, bias, n, merge) for n in ns]
+    outs = [K1.decode_attention(q, k, v, bias, n) for n in ns]
     torch.cuda.synchronize()
     for out, kv_len in zip(outs, lens):
         _assert_matches_twin(out, q, k, v, bias, kv_len)
