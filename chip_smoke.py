@@ -23,13 +23,24 @@ prints no result):
 4. main path at LLaVA-1.5-7B width (random weights from seeded generators
    on the card): two bench-style image prompts, the shared prefill, the
    fast AR baseline (decode attention through the kernel), greedy medusa
-   MSD, and MSD with an independently seeded null draft. MSD tokens
-   must equal the null-draft (canonical greedy AR) tokens on both prompts,
-   and the kernel's launch count over the phase must equal 32 layers x AR
-   tokens decoded. Random drafts are almost never accepted, so MSD then
-   runs once more per prompt with an oracle tree holding the null-draft
-   tokens: it must be accepted to full depth (14) at every step and still
-   commit the null-draft tokens.
+   MSD, and MSD with an independently seeded null draft, first with the
+   verify step and the AR token replayed as CUDA graphs (the main path),
+   then eagerly (``cuda_graphs=False``). Every graph is captured in an
+   untimed warm-up; a capture inside a timed window fails the run. On both
+   prompts graph MSD, eager MSD and graph and eager null-draft MSD (the
+   canonical greedy AR) must give the same tokens, and graph AR the eager
+   AR's; each graph run must have replayed a graph captured for its own
+   weights; K1's launch count over each phase (under replay: the calls
+   each graph holds x its replays) must equal 32 layers x AR tokens
+   decoded. Random drafts are almost never accepted, so MSD then runs once
+   more per prompt, on a generator of its own that captures inside the
+   block, with an oracle tree holding the null-draft tokens: it must be
+   accepted to full depth (14) at every step and still commit the
+   null-draft tokens.
+5. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+   eager: wall, device time, idle share of the request and of its decode
+   range, top kernels; in the graph AR request the profiler must count as
+   many K1 launches as the wrapper's count, 32 per AR token decoded.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -144,30 +155,92 @@ def graph_ms(fn, n_calls: int, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * n_calls)
 
 
-def device_profile(fn, label: str, top: int = 6) -> dict:
-    """Run fn() once under torch.profiler (CUDA activity only) and print
-    wall time, summed kernel time, the idle share and the top kernels by
-    device time. Profiling adds host overhead, so wall here is not the
-    timed run's wall."""
+@contextlib.contextmanager
+def phase_walls():
+    """Within the block, the generator's ``prefill`` and ``decode`` ranges
+    synchronise the card on entry and exit and add their host wall
+    seconds to the dict yielded (a measurement aid: the extra syncs are
+    not on the timed path)."""
     import torch
+    from msd_tpu_torch.engine import generator as G
+    walls = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+
+    record_function = G.record_function
+    G.record_function = timed
+    try:
+        yield walls
+    finally:
+        G.record_function = record_function
+
+
+def device_profile(fn, label: str, top: int = 6) -> dict:
+    """Run fn() once under torch.profiler (CPU and CUDA activity) and print
+    its device time (kernels, copies, fills) and top kernels; where fn runs
+    a request, also the device time inside its ``decode`` range (the
+    generator's record_function). The profiler adds host cost per op and
+    CUPTI adds gaps between the kernels of a graph, so the idle shares are
+    taken against the wall of a second, unprofiled run of fn (request and
+    decode range), the profiled walls printed beside them."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from msd_tpu_torch.ops import decode_attention as K1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    k1_before = K1.decode_attention.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    k1_counted = K1.decode_attention.launches - k1_before
+    with phase_walls() as walls:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages() if e.device_time_total > 0),
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and e.name not in ("prefill", "decode")]
+    by_name = {}
+    for start, end, name in spans:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + end - start, n + 1)
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
     tops = "; ".join(f"{name[:48]} x{n}: {us / 1e3:.2f} ms"
                      for us, n, name in rows[:top])
-    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, kernels "
-        f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; "
-        f"top: {tops}")
-    return {"wall_us": wall_us, "busy_us": busy_us,
-            "kernels": [(name, n) for _, n, name in rows]}
+    out = {"wall_us": wall_us, "busy_us": busy_us, "k1_counted": k1_counted,
+           "kernels": [(name, n) for _, n, name in rows],
+           "kernel_us": {name: us for us, _, name in rows}}
+    decode = [e.time_range for e in events if e.name == "decode"
+              and e.device_type == DeviceType.CPU]
+    extra = ""
+    if decode and "decode" in walls:
+        d0, d1 = decode[0].start, decode[0].end
+        d_busy = sum(max(0.0, min(end, d1) - max(start, d0))
+                     for start, end, _ in spans)
+        d_wall = walls["decode"] * 1e6
+        out.update(decode_us=d_wall, decode_busy_us=d_busy)
+        extra = (f"; decode range: wall {d_wall / 1e3:.2f} ms (profiled "
+                 f"{(d1 - d0) / 1e3:.2f}), device {d_busy / 1e3:.2f} ms, "
+                 f"idle share {1 - d_busy / d_wall:.3f}")
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms (profiled "
+        f"{prof_wall_us / 1e3:.2f}), device {busy_us / 1e3:.2f} ms, idle "
+        f"share {1 - busy_us / wall_us:.3f}{extra}; top: {tops}")
+    return out
 
 
 def _attn_inputs(t, hq, hkv, s, kv_len, dtype, seed):
@@ -360,21 +433,24 @@ def phase_kernels(card: str) -> dict:
 
 
 @contextlib.contextmanager
-def oracle_draft(ref_tokens, e0: int):
+def oracle_draft(ref, e0: int):
     """Within the block, every verify step sees a tree whose rank-0 chain
     carries the reference continuation: the node at depth d of the tree
-    rooted at committed length E proposes ref_tokens[E - e0 + d] (where
-    that is known), the other nodes keep the draft's proposals. With the
-    canonical greedy tokens as reference, each step accepts the whole
-    known chain, so the commit's multi-row KV gather, the deep rows of the
-    verify window and the suffix staging all run at full depth."""
+    rooted at committed length E proposes ref[E - e0 + d] (where that is
+    known), the other nodes keep the draft's proposals. With the canonical
+    greedy tokens as reference, each step accepts the whole known chain,
+    so the commit's multi-row KV gather, the deep rows of the verify window
+    and the suffix staging all run at full depth.
+
+    ``ref`` is an int32 buffer on the device that the step reads, so a
+    graph captured in the block reads what it holds at each replay. A graph
+    captured outside the block ignores the block: run its requests on a
+    generator of their own, which captures inside it."""
     import torch
     from msd_tpu_torch.engine import spec_engine as SE
     verify = SE._verify
 
     def oracle_verify(st, params, target_kv, E, tr, cos_t, sin_t):
-        ref = torch.as_tensor(np.asarray(ref_tokens), dtype=torch.int32,
-                              device=tr.tokens.device)
         rank = SE._medusa_layout(st.tree, st.dcfg.medusa_heads,
                                  str(tr.tokens.device))[8]
         idx = (E - e0 + tr.positions).long()
@@ -406,9 +482,13 @@ def oracle_schedule(depth: int, max_new: int):
 
 def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
                   device="cuda", dtype=None, max_new_warm=4):
-    """The port's main path through its public entry points. Returns a
-    dict of tokens, stats and timings; raises if MSD departs from the
-    null-draft canonical AR or from the launch-count contract."""
+    """The port's main path through its public entry points, graph-replayed
+    (the main path) and eager (``cuda_graphs=False``, for comparison), on
+    one set of weights. Returns a dict of tokens, stats and timings; raises
+    if graph and eager tokens differ, if MSD departs from the null-draft
+    canonical AR, if a graph run replayed a graph captured for other
+    weights or captured one inside a timed window, or if the launch-count
+    contract fails."""
     import torch
     from msd_tpu_torch.configs import (IMAGE_TOKEN_INDEX, DraftConfig,
                                        EngineConfig, TreeConfig)
@@ -419,8 +499,8 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
     from msd_tpu_torch.ops.sampling import SamplingParams
 
     dtype = dtype or torch.bfloat16
-    sync = torch.cuda.synchronize if str(device).startswith("cuda") \
-        else (lambda: None)
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
     dcfg = DraftConfig(text=tcfg, medusa_heads=len(widths) - 1)
     gen_t = torch.Generator(device=device).manual_seed(0)
@@ -445,10 +525,22 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
                       num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
     eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
                        tree=tree)
-    gen = MSDGenerator(tp, drafts["msd"], tcfg, dcfg, eng, n_img=n_img,
-                       eos_id=-1, sp=SamplingParams(greedy_round_bits=
-                                                    ROUND_BITS),
-                       device=device)
+
+    def generator(cuda_graphs):
+        return MSDGenerator(tp, drafts["msd"], tcfg, dcfg, eng, n_img=n_img,
+                            eos_id=-1,
+                            sp=SamplingParams(greedy_round_bits=ROUND_BITS),
+                            device=device, cuda_graphs=cuda_graphs)
+
+    # "graph" is the main path; "eager" runs the same in-place steps
+    # without graphs; "oracle" captures its own graphs inside the oracle
+    # block
+    gens = {"graph": generator(True), "eager": generator(False),
+            "oracle": generator(True)}
+
+    def captures(gen):
+        return (0, 0.0) if gen.graphs is None else \
+            (len(gen.graphs.steps), gen.graphs.capture_seconds)
 
     # bench's prompt stream: prompt 0, its image rows, then prompt 1
     rng = np.random.default_rng(0)
@@ -460,112 +552,269 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
     ids1 = rng.integers(3, vocab_hi, size=prompt_tokens).astype(np.int32)
     ids1[1] = IMAGE_TOKEN_INDEX
     prompts = [ids0, ids1]
-
-    # warm-up (cuBLAS handles, allocator) outside the counted window
-    gen.naive_generate(ids0, feats, max_new_warm, share_prefill=True)
-    gen.generate(ids0, feats, max_new_warm)
-    sync()
-
-    res = {"ar": [], "msd": [], "null": [], "times": {}}
-    K1.decode_attention.launches = 0
-    t_main = time.perf_counter()
-    for pi, ids in enumerate(prompts):
-        t1 = time.perf_counter()
-        ar = gen.naive_generate(ids, feats, max_new, share_prefill=True)
-        sync()
-        res["times"].setdefault("ar", []).append(time.perf_counter() - t1)
-        res["ar"].append(ar)
-        for name in ("msd", "null"):
-            gen.params["draft"] = drafts[name]
-            t1 = time.perf_counter()
-            r = gen.generate(ids, feats, max_new)
-            sync()
-            res["times"].setdefault(name, []).append(
-                time.perf_counter() - t1)
-            res[name].append(r)
-        gen.params["draft"] = drafts["msd"]
-    launches = K1.decode_attention.launches
-    res["main_s"] = time.perf_counter() - t_main
-    # where the time goes, profiled after every timed run: one short AR
-    # and one short MSD request
-    res["profile"] = lambda: (
-        device_profile(lambda: gen.naive_generate(ids0, feats, 16,
-                                                  share_prefill=True),
-                       "AR, prefill + 16 tokens"),
-        device_profile(lambda: gen.generate(ids0, feats, 16),
-                       "MSD, prefill + 16 tokens"))
-
     n_layers = tcfg.num_hidden_layers
-    # the AR loop decodes all but the first token, which the shared
-    # prefill samples
-    ar_decoded = sum(len(r.tokens) - 1 for r in res["ar"])
-    # every AR row of every layer goes to the kernel on the card; CPU
-    # tensors take the plain twin, which counts no launch
-    expected = n_layers * ar_decoded if str(device).startswith("cuda") \
-        else 0
-    res["launches"], res["ar_decoded"] = launches, ar_decoded
-    log(f"[main] K1 launches {launches}, expected {expected} "
-        f"(= {n_layers} layers x {ar_decoded} AR tokens decoded)")
-    if launches != expected:
-        raise AssertionError(f"K1 launch count {launches} != {expected}")
+
+    res = {"times": {}, "peak": {}}
+    for mode in ("graph", "eager"):
+        gen = gens[mode]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        # warm-up outside the timed and counted window: cuBLAS handles,
+        # the allocator and, with graphs, one capture per step program
+        # and draft (max_new rides in the state, so the timed runs' limit
+        # needs no capture of its own)
+        gen.naive_generate(ids0, feats, max_new_warm, share_prefill=True)
+        for name in ("null", "msd"):
+            gen.params["draft"] = drafts[name]
+            gen.generate(ids0, feats, max_new_warm)
+        sync()
+        n_cap, cap_s = captures(gen)
+        if mode == "graph":
+            log(f"[graphs] {n_cap} captures in {cap_s:.2f}s (warm-up "
+                f"included; AR token, verify step with the random draft, "
+                f"verify step with the null draft), none in a timed "
+                f"window")
+        # the main path's counts: zeroed just before, read just after
+        K1.decode_attention.launches = 0
+        t_main = time.perf_counter()
+        for ids in prompts:
+            for name in ("ar", "msd", "null"):
+                gen.params["draft"] = drafts["msd" if name == "ar" else name]
+                t1 = time.perf_counter()
+                r = gen.naive_generate(ids, feats, max_new,
+                                       share_prefill=True) \
+                    if name == "ar" else gen.generate(ids, feats, max_new)
+                sync()
+                res["times"].setdefault((mode, name), []).append(
+                    time.perf_counter() - t1)
+                res.setdefault((mode, name), []).append(r)
+                if gen.graphs is not None and not gen.graphs.reads(
+                        r.graph, gen.params):
+                    raise AssertionError(f"{mode} {name}: replayed a graph "
+                                         f"captured for other weights")
+        gen.params["draft"] = drafts["msd"]
+        launches = K1.decode_attention.launches
+        res[mode + "_s"] = time.perf_counter() - t_main
+        if captures(gen)[0] != n_cap:
+            raise AssertionError(f"{mode}: {captures(gen)[0] - n_cap} "
+                                 f"captures inside the timed window")
+        if on_card:
+            res["peak"][mode] = (torch.cuda.max_memory_allocated(),
+                                 torch.cuda.max_memory_reserved(), base)
+        # the AR loop decodes all but the first token, which the shared
+        # prefill samples; every AR row of every layer goes to the kernel
+        # on the card (under replay: the calls each graph holds x its
+        # replays); CPU tensors take the plain twin, which counts none
+        ar_decoded = sum(len(r.tokens) - 1 for r in res[mode, "ar"])
+        expected = n_layers * ar_decoded if on_card else 0
+        log(f"[main] {mode}: K1 launches {launches}, expected {expected} "
+            f"(= {n_layers} layers x {ar_decoded} AR tokens decoded)")
+        if launches != expected:
+            raise AssertionError(f"{mode}: K1 launch count {launches} != "
+                                 f"{expected}")
+        if mode == "graph":
+            res["launches"], res["ar_decoded"] = launches, ar_decoded
+            graphs = {name: {r.graph for r in res[mode, name]}
+                      for name in ("ar", "msd", "null")}
+            log(f"[graphs] capture replayed per run: {graphs}")
+            if gen.graphs is not None and (
+                    any(len(g) != 1 for g in graphs.values())
+                    or len(set.union(*graphs.values())) != 3):
+                raise AssertionError(f"each of AR, MSD and null-draft MSD "
+                                     f"must replay one graph of its own: "
+                                     f"{graphs}")
 
     for pi in range(len(prompts)):
-        for name in ("ar", "msd", "null"):
-            tok = np.asarray(res[name][pi].tokens)
+        toks = {key: np.asarray(res[key][pi].tokens)
+                for key in res if isinstance(key, tuple)}
+        for key, tok in toks.items():
             if tok.shape != (max_new,) or tok.min() < 0 \
                     or tok.max() >= tcfg.vocab_size:
-                raise AssertionError(f"{name} prompt {pi}: bad tokens "
+                raise AssertionError(f"{key} prompt {pi}: bad tokens "
                                      f"{tok.shape} {tok[:8]}")
-        m, c = res["msd"][pi].tokens, res["null"][pi].tokens
-        a = res["ar"][pi].tokens
+        m, a = toks["graph", "msd"], toks["graph", "ar"]
         agree = int(np.argmax(a != m)) if (a != m).any() else len(a)
-        log(f"[main] prompt {pi}: MSD == null-draft canonical AR: "
-            f"{np.array_equal(m, c)}; fast-AR agrees with MSD for the "
-            f"first {agree}/{len(a)} tokens")
-        if not np.array_equal(m, c):
-            raise AssertionError(f"prompt {pi}: MSD tokens differ from the "
-                                 f"null-draft canonical AR tokens")
+        same = {f"{k1[0]} {k1[1]} == {k2[0]} {k2[1]}":
+                np.array_equal(toks[k1], toks[k2])
+                for k1, k2 in ((("graph", "msd"), ("eager", "msd")),
+                               (("graph", "msd"), ("graph", "null")),
+                               (("graph", "null"), ("eager", "null")),
+                               (("graph", "ar"), ("eager", "ar")))}
+        log(f"[main] prompt {pi}: " + "; ".join(
+            f"{k}: {v}" for k, v in same.items())
+            + f"; fast-AR agrees with MSD for the first {agree}/{len(a)} "
+            f"tokens")
+        if not all(same.values()):
+            raise AssertionError(f"prompt {pi}: tokens differ: {same}")
 
     # deep acceptance: random drafts are almost never accepted, so MSD ran
     # one token per step above; an oracle tree holding the null-draft
-    # tokens must be accepted to full depth and still commit those tokens
+    # tokens must be accepted to full depth and still commit those tokens.
+    # Its generator captures its verify step inside the block, in an
+    # untimed warm-up request; ref is a device buffer refilled per prompt
+    gen = gens["oracle"]
     e0 = prompt_tokens + n_img - 1
     steps_want, hist_want = oracle_schedule(len(widths), max_new)
-    for pi, ids in enumerate(prompts):
-        ref = res["null"][pi].tokens
-        t1 = time.perf_counter()
-        with oracle_draft(ref, e0):
+    ref = torch.zeros(max_new, dtype=torch.int32, device=device)
+    with oracle_draft(ref, e0):
+        ref.copy_(torch.from_numpy(res["graph", "null"][0].tokens))
+        gen.generate(ids0, feats, max_new_warm)
+        n_cap = captures(gen)[0]
+        for pi, ids in enumerate(prompts):
+            want = res["graph", "null"][pi].tokens
+            ref.copy_(torch.from_numpy(want))
+            t1 = time.perf_counter()
             r = gen.generate(ids, feats, max_new)
-        sync()
-        secs = time.perf_counter() - t1
-        hist = r.alpha_hist
-        log(f"[main] prompt {pi}: oracle draft == null-draft canonical AR: "
-            f"{np.array_equal(r.tokens, ref)}; alpha {r.avg_accept_len:.3f} "
-            f"over {r.accept_steps} steps (full acceptance: "
-            f"{max_new / steps_want:.3f} over {steps_want}), tokens per "
-            f"step {dict((i, int(n)) for i, n in enumerate(hist) if n)}, "
-            f"{secs * 1e3 / max(r.accept_steps, 1):.2f} ms/step incl. "
-            f"prefill")
-        if not np.array_equal(r.tokens, ref):
-            raise AssertionError(f"prompt {pi}: oracle-draft MSD tokens "
-                                 f"differ from the null-draft tokens")
-        full = min(len(widths) + 1, 15)
-        if r.accept_steps != steps_want or hist[full] != hist_want[full]:
-            raise AssertionError(
-                f"prompt {pi}: the oracle tree was not accepted to full "
-                f"depth: {r.accept_steps} steps, {int(hist[full])} of depth "
-                f"{len(widths)} (want {steps_want}, {int(hist_want[full])})")
-    for name in ("ar", "msd", "null"):
-        secs = sum(res["times"][name])
-        toks = sum(len(r.tokens) for r in res[name])
-        line = f"[main] {name}: {secs * 1e3 / toks:.2f} ms/token " \
-               f"({toks} tokens, {secs:.2f}s incl. prefill)"
-        if name != "ar":
-            steps = sum(r.accept_steps for r in res[name])
-            acc = sum(r.accept_len_sum for r in res[name])
-            line += f", alpha {acc / max(steps, 1):.3f}, " \
-                    f"{secs * 1e3 / max(steps, 1):.2f} ms/step"
-        log(line)
+            sync()
+            secs = time.perf_counter() - t1
+            hist = r.alpha_hist
+            log(f"[main] prompt {pi}: oracle draft (graph {r.graph}) == "
+                f"null-draft canonical AR: {np.array_equal(r.tokens, want)}"
+                f"; alpha {r.avg_accept_len:.3f} over {r.accept_steps} "
+                f"steps (full acceptance: {max_new / steps_want:.3f} over "
+                f"{steps_want}), tokens per step "
+                f"{dict((i, int(n)) for i, n in enumerate(hist) if n)}, "
+                f"{secs * 1e3 / max(r.accept_steps, 1):.2f} ms/step incl. "
+                f"prefill")
+            if not np.array_equal(r.tokens, want):
+                raise AssertionError(f"prompt {pi}: oracle-draft MSD tokens "
+                                     f"differ from the null-draft tokens")
+            full = min(len(widths) + 1, 15)
+            if r.accept_steps != steps_want or \
+                    hist[full] != hist_want[full]:
+                raise AssertionError(
+                    f"prompt {pi}: the oracle tree was not accepted to "
+                    f"full depth: {r.accept_steps} steps, "
+                    f"{int(hist[full])} of depth {len(widths)} (want "
+                    f"{steps_want}, {int(hist_want[full])})")
+        if captures(gen)[0] != n_cap:
+            raise AssertionError("oracle: a capture inside the timed runs")
+
+    for mode in ("graph", "eager"):
+        for name in ("ar", "msd", "null"):
+            secs = sum(res["times"][mode, name])
+            toks = sum(len(r.tokens) for r in res[mode, name])
+            line = f"[main] {mode} {name}: {secs * 1e3 / toks:.2f} " \
+                   f"ms/token ({toks} tokens, {secs:.2f}s incl. prefill)"
+            if name != "ar":
+                steps = sum(r.accept_steps for r in res[mode, name])
+                acc = sum(r.accept_len_sum for r in res[mode, name])
+                line += f", alpha {acc / max(steps, 1):.3f}, " \
+                        f"{secs * 1e3 / max(steps, 1):.2f} ms/step"
+            log(line)
+        if mode in res["peak"]:
+            peak, reserved, base = res["peak"][mode]
+            log(f"[main] {mode}: peak device memory {peak / 2**30:.2f} GiB "
+                f"allocated ({base / 2**30:.2f} GiB before the warm-up: "
+                f"weights and every generator's buffers), "
+                f"{reserved / 2**30:.2f} GiB reserved")
+
+    def profile():
+        """Where the time goes, profiled after every timed run: one short
+        AR and one short MSD request, graph-replayed and eager. In the
+        graph AR request the profiler must count the K1 launches that the
+        wrapper's count claims: 32 per AR token decoded."""
+        out = {}
+        for mode in ("graph", "eager"):
+            gen = gens[mode]
+            prof = device_profile(
+                lambda: out.setdefault((mode, "ar"), gen.naive_generate(
+                    ids0, feats, 16, share_prefill=True)),
+                f"{mode} AR, prefill + 16 tokens", top=10)
+            claimed = prof["k1_counted"]
+            seen = sum(n for name, n in prof["kernels"]
+                       if "decode_kernel" in name)
+            k1_us = sum(us for name, us in prof["kernel_us"].items()
+                        if "decode_kernel" in name)
+            decoded = len(out[mode, "ar"].tokens) - 1
+            log(f"[profile] {mode} AR: K1 device launches {seen}, counted "
+                f"{claimed}, want {n_layers} x {decoded}; K1 "
+                f"{k1_us / 1e3:.3f} ms = "
+                f"{k1_us / prof.get('decode_busy_us', float('nan')):.3f} "
+                f"of the decode's device time")
+            if not seen == claimed == n_layers * decoded:
+                raise AssertionError(f"{mode} AR profile: K1 device "
+                                     f"launches {seen}, counted {claimed}, "
+                                     f"want {n_layers * decoded}")
+            prof = device_profile(
+                lambda: out.setdefault((mode, "msd"), gen.generate(
+                    ids0, feats, 16)),
+                f"{mode} MSD, prefill + 16 tokens", top=10)
+            out[mode, "step_us"] = prof.get("decode_busy_us", float(
+                "nan")) / out[mode, "msd"].accept_steps
+        time_verify_attention(out["graph", "step_us"])
+        time_replays()
+
+    def time_verify_attention(step_us):
+        """Device time of the verify step's attention: the 32
+        ``windowed_attention`` calls of one eager step, recorded with their
+        inputs and replayed in a CUDA graph, and of them the fp32 widening
+        of each layer's whole K and V cache; beside the replayed step's
+        device time from the profile."""
+        from msd_tpu_torch.models import llama as Lm
+        real, calls = Lm.windowed_attention, []
+
+        def record(*args, **kwargs):
+            calls.append((args, kwargs))
+            return real(*args, **kwargs)
+
+        Lm.windowed_attention = record
+        try:
+            gens["eager"].generate(ids0, feats, 2)
+        finally:
+            Lm.windowed_attention = real
+        calls = calls[:n_layers]
+        attn = graph_ms(lambda i: real(*calls[i][0], **calls[i][1]),
+                        n_layers) * n_layers
+        widen = graph_ms(lambda i: (calls[i][0][1].float(),
+                                    calls[i][0][2].float()),
+                         n_layers) * n_layers
+        q, k = calls[0][0][0], calls[0][0][1]
+        log(f"[verify attention] windowed_attention at the verify shape "
+            f"(q {tuple(q.shape)}, K/V {tuple(k.shape)} {k.dtype}), "
+            f"{n_layers} layers of one step: {attn:.3f} ms (graph replay), "
+            f"of which the fp32 widening of K and V {widen:.3f} ms; "
+            f"replayed step's device time {step_us / 1e3:.3f} ms: "
+            f"attention {attn * 1e3 / step_us:.3f}, widening "
+            f"{widen * 1e3 / step_us:.3f} of it")
+
+    def time_replays(n=16):
+        """Where the replayed decode's idle time lies: n replays of the AR
+        token and of the verify step, from a live request's state, each
+        followed by the loop's host read of ``done``, then back to back
+        with one synchronise at the end; host wall and the time between
+        CUDA events around the n replays, per replay. Back to back, the
+        event time less the step's kernel time (profile) is the gaps
+        between the graph's kernels; the per-replay read adds the host
+        round trip."""
+        gen = gens["graph"]
+        for name, request in (
+                ("AR token", lambda: gen.naive_generate(
+                    ids0, feats, 2, share_prefill=True)),
+                ("verify step", lambda: gen.generate(ids0, feats, 2))):
+            parts = []
+            for read in (True, False):
+                step = gen.graphs.steps[request().graph]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                start.record()
+                for _ in range(n):
+                    step()
+                    if read:
+                        bool(gen.state.done)
+                end.record()
+                end.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3 / n
+                how = "with a read of done" if read else "back to back"
+                parts.append(f"{how} {wall:.3f} ms wall, "
+                             f"{start.elapsed_time(end) / n:.3f} ms events")
+            log(f"[graphs] {n} replays of the {name}, per replay: "
+                + "; ".join(parts))
+
+    res["profile"] = profile
     return res
 
 
@@ -580,8 +829,8 @@ def main():
                                residual_dtype="float32")
     res = run_main_path(tcfg, WIDTHS, MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS)
     k1["launches"] = res["launches"]
-    log(f"[main] main path phase {res['main_s']:.1f}s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"[main] timed runs: graph-replayed {res['graph_s']:.1f}s, eager "
+        f"{res['eager_s']:.1f}s")
     profile_k1()
     res["profile"]()
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")

@@ -4,7 +4,8 @@ and per-request stats.
 The port of the part of the JAX package's ``engine/generator.py`` that the
 benchmark drives: ``generate`` (greedy medusa MSD), ``naive_generate``
 (the AR baseline, optionally from the MSD prefill) and ``first_token``, for
-expand-mode prompts with at most one image.
+expand-mode prompts with at most one image. ``prefill`` and ``decode``
+ranges mark each request's two phases for ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from msd_tpu_torch.configs import (DraftConfig, EngineConfig,
                                    IMAGE_TOKEN_INDEX, LlamaConfig)
 from msd_tpu_torch.engine import spec_engine as SE
+from msd_tpu_torch.engine.graphs import StepGraphs
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.ops.sampling import SamplingParams
 
@@ -28,6 +31,7 @@ class GenResult:
     accept_steps: int = 0
     accept_len_sum: int = 0     # sum of tokens-per-step over verify steps
     alpha_hist: Optional[np.ndarray] = None
+    graph: Optional[int] = None  # capture index of the graph replayed
 
     @property
     def avg_accept_len(self) -> float:
@@ -35,13 +39,22 @@ class GenResult:
 
 
 class MSDGenerator:
-    """Speculative + AR generation over one model bundle on one device."""
+    """Speculative + AR generation over one model bundle on one device.
+
+    The generator owns the engine's static buffers (one ``EngineState`` of
+    the engine's capacity, reused by every request) and, on a CUDA device
+    with ``cuda_graphs=True``, the CUDA graphs of the verify step and the
+    AR token, captured at first use and replayed for every later request
+    (``engine/graphs.py``). A capture or replay that fails raises; nothing
+    falls back to eager. ``cuda_graphs=False`` runs the same in-place steps
+    eagerly on the card; tensors on the CPU always run eagerly.
+    """
 
     def __init__(self, target_params: Dict, draft_params: Dict,
                  tcfg: LlamaConfig, dcfg: DraftConfig,
                  eng: EngineConfig = EngineConfig(), *, n_img: int = 0,
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         self.tcfg, self.dcfg, self.eng = tcfg, dcfg, eng
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
         self.device = torch.device(device)
@@ -49,11 +62,24 @@ class MSDGenerator:
         cos_t, sin_t = L.make_rope(tcfg, max_pos, self.device)
         self.params = {"target": target_params, "draft": draft_params,
                        "cos_t": cos_t, "sin_t": sin_t}
+        self.state = SE.alloc_state(self._statics(0),
+                                    target_params["embed_tokens"].dtype,
+                                    self.device)
+        self.graphs = StepGraphs(self.device) \
+            if cuda_graphs and self.device.type == "cuda" else None
 
     def _statics(self, max_new: int) -> SE.Statics:
         return SE.Statics(tcfg=self.tcfg, dcfg=self.dcfg, tree=self.eng.tree,
                           eng=self.eng, sp=self.sp, n_img=self.n_img,
                           eos_id=self.eos_id, max_new=max_new)
+
+    def _step(self, fn, st: SE.Statics):
+        """The graph replaying ``fn`` over the static state (captured now if
+        this step, configuration and weights have none yet), or None for
+        the eager step."""
+        if self.graphs is None:
+            return None
+        return self.graphs.get(fn, st, self.params, self.state)
 
     def _pad(self, ids: np.ndarray) -> np.ndarray:
         """Pad to the next multiple of prompt_pad_multiple (128-token
@@ -86,18 +112,18 @@ class MSDGenerator:
         return len(ids) + (max(self.n_img - 1, 0)
                            if img_feats is not None else 0)
 
-    def _tokens(self, ids_buf: torch.Tensor, e0: int, cur: int,
-                max_new: int) -> np.ndarray:
-        return _trim(ids_buf[e0:cur + 1].cpu().numpy(), self.eos_id, max_new)
+    def _tokens(self, e0: int, max_new: int) -> np.ndarray:
+        cur = int(self.state.cur_len)
+        return _trim(_host(self.state.ids[e0:cur + 1]), self.eos_id, max_new)
 
     def first_token(self, ids, img_feats: Optional[torch.Tensor] = None,
                     max_new_tokens: Optional[int] = None) -> int:
         """First new token from the target-only AR prefill."""
         ids, padded, img_pos = self._prompt(ids)
         st = self._statics(max_new_tokens or self.eng.max_new_tokens)
-        carry = SE.ar_prefill(st, self.params, padded, len(ids), img_feats,
-                              img_pos)
-        return int(carry[3])
+        SE.ar_prefill(st, self.params, self.state, padded, len(ids),
+                      img_feats, img_pos)
+        return int(self.state.bonus)
 
     def generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                  max_new_tokens: Optional[int] = None,
@@ -108,15 +134,18 @@ class MSDGenerator:
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new)
-        state = SE.prefill(st, self.params, padded, len(ids), img_feats,
-                           img_pos, first_token)
-        state = SE.decode(st, self.params, state)
+        with record_function("prefill"):
+            SE.prefill(st, self.params, self.state, padded, len(ids),
+                       img_feats, img_pos, first_token)
+        step = self._step(SE.decode_step, st)
+        with record_function("decode"):
+            SE.decode(st, self.params, self.state, step)
+        s = self.state
         return GenResult(
-            tokens=self._tokens(state.ids, self._e0(ids, img_feats),
-                                int(state.cur_len), max_new),
-            accept_steps=int(state.steps),
-            accept_len_sum=int(state.acc_sum),
-            alpha_hist=state.alpha_hist.cpu().numpy())
+            tokens=self._tokens(self._e0(ids, img_feats), max_new),
+            accept_steps=int(s.steps), accept_len_sum=int(s.acc_sum),
+            alpha_hist=_host(s.alpha_hist),
+            graph=None if step is None else step.index)
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None,
@@ -129,16 +158,22 @@ class MSDGenerator:
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new)
-        if share_prefill:
-            state = SE.prefill(st, self.params, padded, len(ids), img_feats,
-                               img_pos)
-            ids_buf, cur, _ = SE.ar_decode_from_state(st, self.params, state)
-        else:
-            carry = SE.ar_prefill(st, self.params, padded, len(ids),
-                                  img_feats, img_pos)
-            ids_buf, cur, _ = SE.ar_decode(st, self.params, carry)
-        return GenResult(tokens=self._tokens(ids_buf, self._e0(ids, img_feats),
-                                             int(cur), max_new))
+        prefill = SE.prefill if share_prefill else SE.ar_prefill
+        with record_function("prefill"):
+            prefill(st, self.params, self.state, padded, len(ids), img_feats,
+                    img_pos)
+        step = self._step(SE.ar_step, st)
+        with record_function("decode"):
+            SE.ar_decode(st, self.params, self.state, step)
+        return GenResult(tokens=self._tokens(self._e0(ids, img_feats),
+                                             max_new),
+                         graph=None if step is None else step.index)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A host copy that owns its memory (a CPU tensor's ``numpy()`` would
+    alias the static buffer, which the next request overwrites)."""
+    return x.cpu().numpy().copy()
 
 
 def _trim(out: np.ndarray, eos_id: int, max_new: int) -> np.ndarray:

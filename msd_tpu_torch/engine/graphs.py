@@ -1,0 +1,120 @@
+"""CUDA graphs of the engine's step programs: the port's counterpart of
+``jax.jit`` over the JAX package's one-program ``lax.while_loop``s.
+
+A step (``spec_engine.decode_step``, ``spec_engine.ar_step``) reads and
+writes only a generator's static ``EngineState`` and the weights, issues no
+host sync and uploads nothing, so it is captured once and replayed for
+every later step of every request: one replay in place of the thousands of
+kernel launches of an eager step. The host loop around it still reads
+``done`` once per replay.
+
+Graphs are cached the way ``jax.jit`` caches executables by their static
+arguments: by the step function, the static configuration (the request's
+token limit excepted: it rides in the state) and the address, shape and
+dtype of every weight tensor, so a generator whose draft is swapped
+captures a graph of its own for the new weights and never replays one that
+reads the old ones. An entry keeps its weight tensors alive, so their
+addresses cannot be reused by other tensors while it is cached.
+
+Each capture first warms the step up on the capture stream (first-use
+uploads, the kernel build, cuBLAS workspaces), then captures it into one
+memory pool that all of the generator's graphs share (they are replayed
+one at a time, on one stream, and leave nothing alive in it), then puts
+back the state the warm-up steps advanced. Nothing here catches an error:
+a capture or replay that fails raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List
+
+import torch
+
+from msd_tpu_torch.engine import spec_engine as SE
+from msd_tpu_torch.ops.decode_attention import decode_attention
+
+# eager steps on the capture stream before each capture
+WARMUP_STEPS = 2
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def weights_key(params: Dict) -> tuple:
+    """(address, shape, dtype) of every tensor in ``params``."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 for t in _leaves(params))
+
+
+class CapturedStep:
+    """One captured step; calling it replays the graph."""
+
+    def __init__(self, index: int, graph: torch.cuda.CUDAGraph, key: tuple,
+                 weights: List[torch.Tensor], k1_calls: int):
+        self.index = index
+        self.graph = graph
+        self.key = key
+        self.weights = weights
+        # decode-attention (K1) launches the graph holds
+        self.k1_calls = k1_calls
+
+    def __call__(self):
+        self.graph.replay()
+        decode_attention.launches += self.k1_calls
+
+
+class StepGraphs:
+    """The captured steps of one generator, over its one static state."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+        self.steps: List[CapturedStep] = []
+        self._cache: Dict[tuple, CapturedStep] = {}
+        self.capture_seconds = 0.0
+
+    def get(self, fn: Callable, st: SE.Statics, params: Dict,
+            state: SE.EngineState) -> CapturedStep:
+        """The captured ``fn(st, params, state)``, captured now if this
+        step, configuration and set of weights have none yet."""
+        key = (fn, dataclasses.replace(st, max_new=0), weights_key(params))
+        step = self._cache.get(key)
+        if step is None:
+            step = self._capture(fn, st, params, state, key)
+            self._cache[key] = step
+        return step
+
+    def reads(self, index: int, params: Dict) -> bool:
+        """Whether the graph of capture ``index`` reads exactly the weight
+        tensors of ``params``."""
+        return self.steps[index].key[2] == weights_key(params)
+
+    def _capture(self, fn, st, params, state, key) -> CapturedStep:
+        t0 = time.perf_counter()
+        buffers = SE.state_tensors(state)
+        saved = [x.clone() for x in buffers]
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            for _ in range(WARMUP_STEPS):
+                fn(st, params, state)
+        current.wait_stream(self.stream)
+        graph = torch.cuda.CUDAGraph()
+        k1_before = decode_attention.captured
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            fn(st, params, state)
+        k1_calls = decode_attention.captured - k1_before
+        for x, y in zip(buffers, saved):
+            x.copy_(y)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds += time.perf_counter() - t0
+        step = CapturedStep(len(self.steps), graph, key, _leaves(params),
+                            k1_calls)
+        self.steps.append(step)
+        return step

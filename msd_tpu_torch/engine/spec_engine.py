@@ -10,15 +10,19 @@ The port of the JAX package's ``engine/spec_engine.py`` for the main path:
             accepted rows, expand the static medusa tree, verify all nodes
             in one target forward with window-canonical attention, accept
             greedily, gather the accepted path's KV into place. The JAX
-            ``lax.while_loop`` becomes a Python loop with one host sync per
-            step, on ``done``.
-  ar      : the AR baseline, one token per target forward, whose single
-            query row goes to the CUDA decode-attention kernel.
+            ``lax.while_loop`` becomes a loop with one host read per step,
+            of ``done``; on the card each step is one CUDA-graph replay
+            (``engine/graphs.py``).
+  ar      : the AR baseline, one token per target forward (``ar_step``),
+            whose single query row goes to the CUDA decode-attention kernel.
 
-Engine scalars (committed length E, lengths, counters) stay 0-dim device
-tensors, as the traced scalars of the JAX programs, so the step issues no
-host sync besides the ``done`` read. KV caches and the id buffer are updated
-in place.
+All engine state lives in one ``EngineState`` of static buffers, allocated
+once per generator (``alloc_state``) and updated IN PLACE: the prefills
+zero and refill it, ``decode_step`` and ``ar_step`` read and write only its
+tensors and the weights. Engine scalars (committed length E, lengths,
+counters, the request's token limit) are 0-dim device tensors, as the
+traced scalars of the JAX programs, so a step issues no host sync and no
+host-to-device copy, and one captured step serves every request.
 
 Conventions (post image expansion everywhere): E is the committed expanded
 length (= target KV length); ``bonus`` is the sampled-but-uncommitted next
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,6 +63,9 @@ class Statics:
     sp: SamplingParams
     n_img: int          # 0 (text-only) or the image row count (576)
     eos_id: int
+    # the request's token limit: the prefills write it into the state's
+    # ``max_new`` scalar, which the steps read (as the JAX ``decode_until``
+    # takes ``stop_at`` traced), so a step does not depend on it
     max_new: int
 
     @property
@@ -75,6 +82,8 @@ class Statics:
 
 
 class EngineState(NamedTuple):
+    """The engine's static buffers; every field is updated in place."""
+
     ids: torch.Tensor            # [S_t] int32 expanded committed ids
     cur_len: torch.Tensor        # E
     bonus: torch.Tensor          # pending token at position E
@@ -82,18 +91,56 @@ class EngineState(NamedTuple):
     suffix_hidden: torch.Tensor  # [MAX_PATH, H] target hidden of those rows
     suffix_len: torch.Tensor
     last_draft_hidden: torch.Tensor  # [H]
-    target_kv: Dict
-    draft_kv: Dict
+    target_kv: Dict              # {"k", "v"} [L, S_t, Hkv, D]
+    draft_kv: Dict               # {"k", "v"} [L_d, S_d, Hkv, D]
     draft_len: torch.Tensor      # draft stable KV length
+    max_new: torch.Tensor        # the request's token limit
     new_tokens: torch.Tensor
     steps: torch.Tensor
     acc_sum: torch.Tensor        # sum of (accept_len + 1) over verify steps
     alpha_hist: torch.Tensor     # [16] histogram of tokens per step
-    done: torch.Tensor
+    done: torch.Tensor           # MSD: stop; AR: the last token stopped
 
 
-def _i32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.int32, device=device)
+def alloc_state(st: Statics, dtype: torch.dtype, device) -> EngineState:
+    """Zeroed static buffers for engines of ``st``'s capacity; hiddens and
+    KV caches in ``dtype`` (the weights' dtype)."""
+    P = st.tree.max_path_len
+
+    def scalar(dt=torch.int32):
+        return torch.zeros((), dtype=dt, device=device)
+
+    return EngineState(
+        ids=torch.zeros(st.s_target, dtype=torch.int32, device=device),
+        cur_len=scalar(), bonus=scalar(),
+        suffix_tokens=torch.zeros(P, dtype=torch.int32, device=device),
+        suffix_hidden=torch.zeros(P, st.tcfg.hidden_size, dtype=dtype,
+                                  device=device),
+        suffix_len=scalar(),
+        last_draft_hidden=torch.zeros(st.dcfg.text.hidden_size, dtype=dtype,
+                                      device=device),
+        target_kv=L.init_kv_cache(st.tcfg, st.s_target, dtype, device),
+        draft_kv=draft_mod.init_draft_kv(st.dcfg, st.s_draft, dtype, device),
+        draft_len=scalar(), max_new=scalar(), new_tokens=scalar(),
+        steps=scalar(), acc_sum=scalar(),
+        alpha_hist=torch.zeros(16, dtype=torch.int32, device=device),
+        done=scalar(torch.bool))
+
+
+def state_tensors(state: EngineState) -> List[torch.Tensor]:
+    """Every buffer of the state, the KV caches' k and v included."""
+    out = []
+    for x in state:
+        out.extend(x.values() if isinstance(x, dict) else [x])
+    return out
+
+
+def _reset(st: Statics, state: EngineState):
+    """Zero every buffer, as a fresh allocation is zeroed, so no request
+    sees rows an earlier one left behind; set the request's token limit."""
+    for x in state_tensors(state):
+        x.zero_()
+    state.max_new.fill_(st.max_new)
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, start, dim: int = 0):
@@ -200,30 +247,26 @@ def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
     return _draft_expand_medusa(st, params, last_hidden, root_token)
 
 
-def _draft_suffix_forward(st: Statics, params: Dict, dkv: Dict,
-                          draft_len: torch.Tensor,
-                          suffix_tokens: torch.Tensor,
-                          suffix_hidden: torch.Tensor,
-                          suffix_len: torch.Tensor,
-                          last_hidden_prev: torch.Tensor, cos_t, sin_t):
-    """Extend the draft stable KV with the accepted rows. Always runs
-    MAX_PATH rows (suffix_len of them valid). Returns (last_hidden, dkv,
-    new_draft_len)."""
+def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
+                          cos_t, sin_t) -> torch.Tensor:
+    """Extend the draft stable KV (in place, at ``draft_len``) with the
+    accepted rows. Always runs MAX_PATH rows (suffix_len of them valid).
+    Returns the draft hidden of the last valid row (the previous one when
+    no row is valid)."""
     dp = params["draft"]
     P = st.tree.max_path_len
-    dev = suffix_tokens.device
-    emb = dp["embed_tokens"][torch.clamp(suffix_tokens, min=0).long()]
-    hin = draft_mod.draft_fuse(dp, emb, suffix_hidden)
-    pos = draft_len + torch.arange(P, device=dev, dtype=torch.int32)
+    dev = s.suffix_tokens.device
+    emb = dp["embed_tokens"][torch.clamp(s.suffix_tokens, min=0).long()]
+    hin = draft_mod.draft_fuse(dp, emb, s.suffix_hidden)
+    pos = s.draft_len + torch.arange(P, device=dev, dtype=torch.int32)
     # causal over the growing prefix: row i sees cache slots [0, draft_len+i]
     kpos = torch.arange(st.s_draft, device=dev)[None, :]
     bias = torch.where(kpos <= pos[:, None], 0.0, NEG_INF).to(torch.float32)
-    out, dkv = draft_mod.draft_forward(dp, st.dcfg, hin, pos, dkv, draft_len,
-                                       bias, cos_t, sin_t)
-    idx = torch.clamp(suffix_len - 1, min=0).reshape(1)
-    last_hidden = torch.where(suffix_len > 0, out.index_select(0, idx)[0],
-                              last_hidden_prev)
-    return last_hidden, dkv, draft_len + suffix_len
+    out, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, s.draft_kv,
+                                     s.draft_len, bias, cos_t, sin_t)
+    idx = torch.clamp(s.suffix_len - 1, min=0).reshape(1)
+    return torch.where(s.suffix_len > 0, out.index_select(0, idx)[0],
+                       s.last_draft_hidden)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +275,9 @@ def _draft_suffix_forward(st: Statics, params: Dict, dkv: Dict,
 
 def _verify(st: Statics, params: Dict, target_kv: Dict, E: torch.Tensor,
             tr: Tree, cos_t, sin_t):
-    """One target forward over every tree node + greedy acceptance."""
+    """One target forward over every tree node (writing their KV rows at
+    E in place) + greedy acceptance. Returns (hidden, best, accept_len,
+    next_token)."""
     tp = params["target"]
     dev = tr.tokens.device
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
@@ -254,56 +299,57 @@ def _verify(st: Statics, params: Dict, target_kv: Dict, E: torch.Tensor,
     bias = torch.where(cols < win_start[:, None], 0.0,
                        NEG_INF).to(torch.float32)
     win = (win_idx, win_bias, win_start)
-    hidden, target_kv = L.llama_forward(tp, st.tcfg, emb, pos, target_kv, E,
-                                        bias, cos_t, sin_t,
-                                        kv_len=E + st.tree.num_nodes, win=win)
+    hidden, _ = L.llama_forward(tp, st.tcfg, emb, pos, target_kv, E, bias,
+                                cos_t, sin_t, kv_len=E + st.tree.num_nodes,
+                                win=win)
     logits = L.lm_head(tp, hidden)                                   # [N, V]
     best, acc_len, next_tok = tree_mod.evaluate_greedy(
         tr, canon_logits(logits, st.sp.greedy_round_bits))
-    return hidden, target_kv, best, acc_len, next_tok
+    return hidden, best, acc_len, next_tok
 
 
-def _commit(st: Statics, state: EngineState, tr: Tree, hidden: torch.Tensor,
-            target_kv: Dict, best, acc_len, next_tok) -> EngineState:
-    """Commit the accepted path: write its tokens into ids, gather its KV
-    rows into the prefix rows [E, E+P), stage the next draft suffix."""
+def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
+            best, acc_len, next_tok):
+    """Commit the accepted path in place: write its tokens into ids, gather
+    its KV rows into the prefix rows [E, E+P), stage the next draft suffix,
+    advance the length and counters and set ``done``."""
     P = st.tree.max_path_len
-    E = state.cur_len
+    E = s.cur_len
     dev = hidden.device
     path = tree_mod.accepted_path(tr, best).long()        # [P], -1 padded
     pc = torch.clamp(path, min=0)
     slot = torch.arange(P, device=dev)
     ct = torch.where(slot <= acc_len, tr.tokens[pc],
                      torch.zeros_like(tr.tokens[pc]))
-    _write(state.ids, ct, E)
+    _write(s.ids, ct, E)
 
     # the source rows E + pc and the destination rows [E, E+P) overlap:
     # gather into a temporary first, then write
     src = E + pc
-    for name in ("k", "v"):
-        gathered = target_kv[name][:, src]               # [L, P, Hkv, D]
-        _write(target_kv[name], gathered, E, dim=1)
+    for kv in s.target_kv.values():
+        _write(kv, kv[:, src], E, dim=1)                  # [L, P, Hkv, D]
 
     zero = torch.zeros_like(ct)
     ct_shift = torch.cat([ct[1:], zero[:1]])
-    suffix_tokens = torch.where(slot < acc_len, ct_shift,
-                                torch.where(slot == acc_len,
-                                            next_tok.to(ct.dtype), zero))
-    suffix_hidden = hidden[pc]
+    s.suffix_tokens.copy_(torch.where(
+        slot < acc_len, ct_shift,
+        torch.where(slot == acc_len, next_tok.to(ct.dtype), zero)))
+    s.suffix_hidden.copy_(hidden[pc])
     n_new = (acc_len + 1).to(torch.int32)
-    new_len = E + n_new
     eos_hit = torch.any((ct == st.eos_id) & (slot <= acc_len)) \
         | (next_tok == st.eos_id)
-    new_tokens = state.new_tokens + n_new
     limit = st.eng.max_seq_len - st.tree.num_nodes - P - 2
-    done = eos_hit | (new_tokens >= st.max_new) | (new_len >= limit)
-    state.alpha_hist.index_add_(0, torch.clamp(n_new, max=15).reshape(1),
-                                torch.ones_like(n_new).reshape(1))
-    return state._replace(
-        cur_len=new_len, bonus=next_tok.to(torch.int32),
-        suffix_tokens=suffix_tokens, suffix_hidden=suffix_hidden,
-        suffix_len=n_new, target_kv=target_kv, new_tokens=new_tokens,
-        steps=state.steps + 1, acc_sum=state.acc_sum + n_new, done=done)
+    # E is s.cur_len: every read of E comes before it advances
+    s.cur_len.add_(n_new)
+    s.new_tokens.add_(n_new)
+    s.done.copy_(eos_hit | (s.new_tokens >= s.max_new)
+                 | (s.cur_len >= limit))
+    s.alpha_hist.index_add_(0, torch.clamp(n_new, max=15).reshape(1),
+                            torch.ones_like(n_new).reshape(1))
+    s.bonus.copy_(next_tok)
+    s.suffix_len.copy_(n_new)
+    s.steps.add_(1)
+    s.acc_sum.add_(n_new)
 
 
 # ---------------------------------------------------------------------------
@@ -329,10 +375,31 @@ def _fuse_prompt(st: Statics, params: Dict, ids: torch.Tensor,
     return fused, exp_ids, img_rows
 
 
-def prefill(st: Statics, params: Dict, ids: torch.Tensor, prompt_len: int,
-            img_feats: Optional[torch.Tensor], img_pos: int,
-            bonus_override: Optional[int] = None) -> EngineState:
-    """Target + draft prefill over a padded prompt.
+def _target_prefill(st: Statics, params: Dict, state: EngineState,
+                    fused: torch.Tensor, exp_ids: torch.Tensor, E0: int):
+    """Reset the state, run the target over the prompt (its KV rows into
+    ``target_kv``), commit the prompt ids and E0, and sample the first new
+    token into ``bonus``. Returns the target hidden [P_exp, H]."""
+    _reset(st, state)
+    tp = params["target"]
+    dev = fused.device
+    P_exp = fused.shape[0]
+    positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
+    bias = causal_prefill_bias(P_exp, st.s_target, device=dev)
+    hidden, _ = L.llama_forward(tp, st.tcfg, fused, positions,
+                                state.target_kv, 0, bias, params["cos_t"],
+                                params["sin_t"])
+    state.bonus.copy_(sample_token(L.lm_head(tp, hidden[E0 - 1][None])[0],
+                                   st.sp))
+    state.ids[:P_exp].copy_(exp_ids)
+    state.cur_len.fill_(E0)
+    return hidden
+
+
+def prefill(st: Statics, params: Dict, state: EngineState, ids: torch.Tensor,
+            prompt_len: int, img_feats: Optional[torch.Tensor], img_pos: int,
+            bonus_override: Optional[int] = None):
+    """Target + draft prefill over a padded prompt, into ``state``.
 
     ids: [P_pad] int32 on the device (IMAGE_TOKEN_INDEX at img_pos when an
     image is given); img_feats: [n_img, H] projected image rows.
@@ -342,28 +409,20 @@ def prefill(st: Statics, params: Dict, ids: torch.Tensor, prompt_len: int,
                                             img_pos)
     n_img = st.n_img if img_feats is not None else 0
     e0 = prompt_len + max(n_img - 1, 0)
-    return _prefill_core(st, params, fused, exp_ids, e0, img_rows,
-                         bonus_override)
+    _prefill_core(st, params, state, fused, exp_ids, e0, img_rows,
+                  bonus_override)
 
 
-def _prefill_core(st: Statics, params: Dict, fused: torch.Tensor,
-                  exp_ids: torch.Tensor, E0: int, img_rows: torch.Tensor,
-                  bonus_override: Optional[int] = None) -> EngineState:
-    tcfg, dcfg = st.tcfg, st.dcfg
+def _prefill_core(st: Statics, params: Dict, state: EngineState,
+                  fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
+                  img_rows: torch.Tensor,
+                  bonus_override: Optional[int] = None):
     dev = fused.device
     P_exp = fused.shape[0]
-    cos_t, sin_t = params["cos_t"], params["sin_t"]
-    tp, dp = params["target"], params["draft"]
-
-    positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
-    bias = causal_prefill_bias(P_exp, st.s_target, device=dev)
-    target_kv = L.init_kv_cache(tcfg, st.s_target, fused.dtype, dev)
-    hidden, target_kv = L.llama_forward(tp, tcfg, fused, positions, target_kv,
-                                        0, bias, cos_t, sin_t)
-    last_logits = L.lm_head(tp, hidden[E0 - 1][None])[0]
-    bonus = sample_token(last_logits, st.sp)
+    dp = params["draft"]
+    hidden = _target_prefill(st, params, state, fused, exp_ids, E0)
     if bonus_override is not None and bonus_override >= 0:
-        bonus = _i32(bonus_override, dev)
+        state.bonus.fill_(bonus_override)
 
     # draft prefill: row j pairs emb(token j+1) with the target hidden at j;
     # rows whose NEXT position is an image row take the fused image
@@ -377,111 +436,95 @@ def _prefill_core(st: Statics, params: Dict, fused: torch.Tensor,
     fused_shift = torch.cat([fused[1:], torch.zeros_like(fused[:1])])
     se = torch.where(img_next[:, None], fused_shift, se)
     se = torch.where((j == E0 - 1)[:, None],
-                     dp["embed_tokens"][bonus.long().reshape(1)], se)
+                     dp["embed_tokens"][state.bonus.long().reshape(1)], se)
     dh_in = draft_mod.draft_fuse(dp, se, hidden, image_row_mask=img_next)
+    positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
     d_bias = causal_prefill_bias(P_exp, st.s_draft, device=dev)
-    draft_kv = draft_mod.init_draft_kv(dcfg, st.s_draft, fused.dtype, dev)
-    d_out, draft_kv = draft_mod.draft_forward(dp, dcfg, dh_in, positions,
-                                              draft_kv, 0, d_bias, cos_t,
-                                              sin_t)
-
-    P = st.tree.max_path_len
-    ids_buf = torch.zeros(st.s_target, dtype=torch.int32, device=dev)
-    ids_buf[:P_exp] = exp_ids
-    e0 = _i32(E0, dev)
-    return EngineState(
-        ids=ids_buf, cur_len=e0, bonus=bonus,
-        suffix_tokens=torch.zeros(P, dtype=torch.int32, device=dev),
-        suffix_hidden=torch.zeros(P, hidden.shape[1], dtype=hidden.dtype,
-                                  device=dev),
-        suffix_len=_i32(0, dev), last_draft_hidden=d_out[E0 - 1],
-        target_kv=target_kv, draft_kv=draft_kv, draft_len=e0.clone(),
-        new_tokens=_i32(0, dev), steps=_i32(0, dev), acc_sum=_i32(0, dev),
-        alpha_hist=torch.zeros(16, dtype=torch.int32, device=dev),
-        done=torch.zeros((), dtype=torch.bool, device=dev))
+    d_out, _ = draft_mod.draft_forward(dp, st.dcfg, dh_in, positions,
+                                       state.draft_kv, 0, d_bias,
+                                       params["cos_t"], params["sin_t"])
+    state.last_draft_hidden.copy_(d_out[E0 - 1])
+    state.draft_len.fill_(E0)
 
 
-def decode_step(st: Statics, params: Dict, s: EngineState) -> EngineState:
-    """One verify step: draft suffix -> medusa tree -> verify -> commit."""
+def decode_step(st: Statics, params: Dict, s: EngineState):
+    """One verify step, in place: draft suffix -> medusa tree -> verify ->
+    commit. Reads and writes only ``s`` and the weights, with no host sync
+    and no host-to-device copy (what a CUDA-graph capture needs)."""
     cos_t, sin_t = params["cos_t"], params["sin_t"]
-    last_hidden, dkv, dlen = _draft_suffix_forward(
-        st, params, s.draft_kv, s.draft_len, s.suffix_tokens,
-        s.suffix_hidden, s.suffix_len, s.last_draft_hidden, cos_t, sin_t)
-    tr = _draft_expand(st, params, last_hidden, s.bonus)
-    hidden, tkv, best, acc_len, next_tok = _verify(
-        st, params, s.target_kv, s.cur_len, tr, cos_t, sin_t)
-    s = s._replace(draft_kv=dkv, draft_len=dlen, target_kv=tkv,
-                   last_draft_hidden=last_hidden)
-    return _commit(st, s, tr, hidden, tkv, best, acc_len, next_tok)
+    last_hidden = _draft_suffix_forward(st, params, s, cos_t, sin_t)
+    s.draft_len.add_(s.suffix_len)
+    s.last_draft_hidden.copy_(last_hidden)
+    tr = _draft_expand(st, params, s.last_draft_hidden, s.bonus)
+    hidden, best, acc_len, next_tok = _verify(st, params, s.target_kv,
+                                              s.cur_len, tr, cos_t, sin_t)
+    _commit(st, s, tr, hidden, best, acc_len, next_tok)
 
 
-def decode(st: Statics, params: Dict, state: EngineState) -> EngineState:
+def decode(st: Statics, params: Dict, state: EngineState,
+           step: Optional[Callable[[], None]] = None):
     """The speculative decode loop: steps until ``done`` (EOS, max_new or
-    the cache limit), reading ``done`` on the host once per step."""
+    the cache limit), reading ``done`` on the host once per step. ``step``
+    runs one step over ``state`` (a graph replay); by default the eager
+    ``decode_step``."""
+    step = step or functools.partial(decode_step, st, params, state)
     while not bool(state.done):
-        state = decode_step(st, params, state)
+        step()
     # surface the final pending token so hosts can read ids[:cur_len + 1]
     _write(state.ids, state.bonus[None], state.cur_len)
-    return state
 
 
 # ---------------------------------------------------------------------------
 # Autoregressive baseline
 # ---------------------------------------------------------------------------
 
-def ar_prefill(st: Statics, params: Dict, ids: torch.Tensor, prompt_len: int,
+def ar_prefill(st: Statics, params: Dict, state: EngineState,
+               ids: torch.Tensor, prompt_len: int,
                img_feats: Optional[torch.Tensor], img_pos: int):
-    """Target-only prefill + first token. Returns the AR carry
-    (ids_buf, target_kv, E0, first_token)."""
+    """Target-only prefill + first token, into ``state`` (its ids, target
+    KV, cur_len and bonus)."""
     fused, exp_ids, _ = _fuse_prompt(st, params, ids, img_feats, img_pos)
     n_img = st.n_img if img_feats is not None else 0
     E0 = prompt_len + max(n_img - 1, 0)
-    dev = fused.device
-    P_exp = fused.shape[0]
-    positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
-    bias = causal_prefill_bias(P_exp, st.s_target, device=dev)
-    target_kv = L.init_kv_cache(st.tcfg, st.s_target, fused.dtype, dev)
-    hidden, target_kv = L.llama_forward(params["target"], st.tcfg, fused,
-                                        positions, target_kv, 0, bias,
-                                        params["cos_t"], params["sin_t"])
-    logits = L.lm_head(params["target"], hidden[E0 - 1][None])[0]
-    tok = sample_token(logits, st.sp)
-    ids_buf = torch.zeros(st.s_target, dtype=torch.int32, device=dev)
-    ids_buf[:P_exp] = exp_ids
-    _write(ids_buf, tok[None], E0)
-    return ids_buf, target_kv, _i32(E0, dev), tok
+    _target_prefill(st, params, state, fused, exp_ids, E0)
 
 
-def ar_decode_from_state(st: Statics, params: Dict, state: EngineState):
-    """AR decode from the MSD ``prefill``'s state: the AR baseline and MSD
-    then start from the same KV cache and first token."""
-    _write(state.ids, state.bonus[None], state.cur_len)
-    return ar_decode(st, params, (state.ids, state.target_kv, state.cur_len,
-                                  state.bonus))
-
-
-def ar_decode(st: Statics, params: Dict, carry):
-    """Plain AR decode: one target forward per token until EOS, max_new
-    (the carried first token counts as one; at least one step runs, as in
-    the JAX while_loop) or the cache limit. The one
-    query row attends through the decode-attention kernel (kv_len = cur+1,
-    a device tensor). Returns (ids_buf, cur, n_new); ids and KV are
-    updated in place."""
-    ids_buf, kv, cur, tok = carry
-    cos_t, sin_t = params["cos_t"], params["sin_t"]
+def ar_step(st: Statics, params: Dict, s: EngineState):
+    """One AR token, in place: the target forward of ``bonus`` at E (its
+    one query row through the decode-attention kernel, kv_len = E + 1 on
+    the device), the greedy next token into ``bonus`` and ids[E + 1], E
+    advanced, ``done`` set on EOS or the cache limit. No host sync."""
     tp = params["target"]
-    kpos = torch.arange(st.s_target, device=ids_buf.device)
-    cur = cur.clone()
-    n_new, done = 1, False
-    while not done:
-        emb = tp["embed_tokens"][tok.long().reshape(1)]
-        bias = torch.where(kpos <= cur, 0.0, NEG_INF).to(torch.float32)[None]
-        hidden, kv = L.llama_forward(tp, st.tcfg, emb, cur[None], kv, cur,
-                                     bias, cos_t, sin_t, kv_len=cur + 1)
-        tok = sample_token(L.lm_head(tp, hidden)[0], st.sp)
-        cur = cur + 1
-        _write(ids_buf, tok[None], cur)
+    cur = s.cur_len
+    kpos = torch.arange(st.s_target, device=cur.device)
+    emb = tp["embed_tokens"][s.bonus.long().reshape(1)]
+    bias = torch.where(kpos <= cur, 0.0, NEG_INF).to(torch.float32)[None]
+    hidden, _ = L.llama_forward(tp, st.tcfg, emb, cur[None], s.target_kv,
+                                cur, bias, params["cos_t"], params["sin_t"],
+                                kv_len=cur + 1)
+    tok = sample_token(L.lm_head(tp, hidden)[0], st.sp)
+    s.cur_len.add_(1)
+    _write(s.ids, tok[None], s.cur_len)
+    s.bonus.copy_(tok)
+    s.done.copy_((tok == st.eos_id) | (s.cur_len >= st.eng.max_seq_len - 2))
+
+
+def ar_decode(st: Statics, params: Dict, state: EngineState,
+              step: Optional[Callable[[], None]] = None) -> int:
+    """Plain AR decode from either prefill's state (after the MSD
+    ``prefill`` the AR baseline and MSD start from the same KV cache and
+    first token): write the pending first token at E, then one token per
+    step until EOS, max_new (the first token counts as one; at least one
+    step runs, as in the JAX while_loop) or the cache limit, reading
+    ``done`` on the host once per step (not at all once max_new is
+    reached). ``step`` runs one ``ar_step`` over ``state`` (a graph
+    replay); by default eagerly. Returns the token count; the tokens are
+    ids[E0 : cur_len + 1]."""
+    _write(state.ids, state.bonus[None], state.cur_len)
+    step = step or functools.partial(ar_step, st, params, state)
+    n_new = 1
+    while True:
+        step()
         n_new += 1
-        stop = (tok == st.eos_id) | (cur >= st.eng.max_seq_len - 2)
-        done = n_new >= st.max_new or bool(stop)
-    return ids_buf, cur, n_new
+        if n_new >= st.max_new or bool(state.done):
+            return n_new

@@ -191,7 +191,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns [T, Hq, D] in q.dtype. CUDA tensors go to the kernel (bf16 or
     fp32, D = 128, any T, S and GQA group; one launch), CPU tensors to
     ``decode_attention_reference``. Each kernel launch adds one to
-    ``decode_attention.launches``.
+    ``decode_attention.launches``. A call made while the current stream is
+    capturing a CUDA graph launches nothing: it adds one to
+    ``decode_attention.captured``, and whoever replays the graph adds the
+    calls it holds to ``launches`` at every replay (``engine/graphs.py``),
+    so ``launches`` counts the kernels the device runs.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, bias, kv_len)
@@ -213,8 +217,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    decode_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        decode_attention.captured += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.captured = 0
