@@ -37,10 +37,25 @@ prints no result):
    block, with an oracle tree holding the null-draft tokens: it must be
    accepted to full depth (14) at every step and still commit the
    null-draft tokens.
-5. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+5. calib (``run_calib``), on the main path's weights and prompts: a
+   collecting run per prompt (features sane: one row per step, every
+   non-root node valid, confidences in [0, 1], accepted nodes valid); a fit
+   with bench.py's settings; calibrated MSD with the fitted tables, graph
+   and eager (equal tokens, steps and accepted tokens); a "demote"
+   calibrator that must change the trees; the fitted tables again, which
+   must replay their first graph; the calibrated oracle draft, accepted to
+   full depth. Every run must commit the null-draft tokens and replay a
+   graph that reads its own tables. ms/step and peak memory.
+6. sampling (``run_sampling``): T=1 MSD and AR on prompt 0, graph and
+   eager: the same seed gives the same tokens under replay and eagerly,
+   another seed others; K1 launches = 32 per sampled AR token decoded; the
+   speculative-sampling walk keeps the target distribution on the card
+   (total variation < 0.05 over 4000 walks).
+7. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
-   many K1 launches as the wrapper's count, 32 per AR token decoded.
+   many K1 launches as the wrapper's count, 32 per AR token decoded; a
+   sampled MSD request and the acceptance walk's share of its step.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -450,15 +465,15 @@ def oracle_draft(ref, e0: int):
     from msd_tpu_torch.engine import spec_engine as SE
     verify = SE._verify
 
-    def oracle_verify(st, params, target_kv, E, tr, cos_t, sin_t):
+    def oracle_verify(st, params, s, tr, cos_t, sin_t):
         rank = SE._medusa_layout(st.tree, st.dcfg.medusa_heads,
                                  str(tr.tokens.device))[8]
-        idx = (E - e0 + tr.positions).long()
+        idx = (s.cur_len - e0 + tr.positions).long()
         chain = tr.valid & (rank == 0) & (tr.positions > 0) \
             & (idx < len(ref))
         tr.tokens.copy_(torch.where(
             chain, ref[idx.clamp(0, len(ref) - 1)], tr.tokens))
-        return verify(st, params, target_kv, E, tr, cos_t, sin_t)
+        return verify(st, params, s, tr, cos_t, sin_t)
 
     SE._verify = oracle_verify
     try:
@@ -815,7 +830,418 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
                 + "; ".join(parts))
 
     res["profile"] = profile
+    # what the later phases drive: the same weights, generators and prompts
+    res["ctx"] = {"gens": gens, "drafts": drafts, "prompts": prompts,
+                  "feats": feats, "tcfg": tcfg, "widths": widths,
+                  "max_new": max_new, "max_new_warm": max_new_warm,
+                  "device": device, "sync": sync, "on_card": on_card,
+                  "e0": e0, "captures": captures,
+                  "null": [r.tokens for r in res["graph", "null"]]}
     return res
+
+
+def _calib_sanity(cd: dict, steps: int, nodes: int, label: str):
+    """A collecting run's features: one row per verify step, every
+    non-root node of the tree valid, confidences in [0, 1], finite
+    features, accepted nodes among the valid ones (the root aside)."""
+    valid = cd["valid"].astype(bool)
+    bad = []
+    if any(v.shape != (steps, nodes) for v in cd.values()):
+        bad.append(f"shapes {[v.shape for v in cd.values()]}")
+    if valid.sum() != steps * (nodes - 1):
+        bad.append(f"{valid.sum()} valid samples, want {steps * (nodes - 1)}")
+    conf = cd["draft_conf"][valid]
+    if not ((conf >= 0) & (conf <= 1)).all():
+        bad.append("draft_conf outside [0, 1]")
+    if not all(np.isfinite(cd[k]).all() for k in
+               ("attn", "margin", "base_conf", "base_margin")):
+        bad.append("a feature is not finite")
+    if (cd["accept"][:, 1:].astype(bool) & ~valid[:, 1:]).any():
+        bad.append("an accepted node is not valid")
+    if not (cd["depth"][valid] >= 1).all():
+        bad.append("a valid node at depth 0")
+    log(f"[calib] {label}: {steps} steps, {int(valid.sum())} samples, "
+        f"draft_conf {conf.min():.3e}..{conf.max():.3e}, attn "
+        f"{cd['attn'][valid].min():.3e}..{cd['attn'][valid].max():.3e}, "
+        f"accepted nodes {int(cd['accept'][:, 1:].sum())}: "
+        f"{'ok' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"{label}: calibration features: {bad}")
+
+
+def run_calib(res) -> dict:
+    """The calibrated tree rerank on the main path's weights and prompts
+    (graph-replayed unless stated): a collecting run per prompt and its
+    features; a fit with bench.py's settings; calibrated MSD with the
+    fitted tables, graph and eager; a "demote" calibrator that must change
+    the trees; the swap back to the fitted tables replaying their graph;
+    the calibrated oracle draft, accepted to full depth; ms/step and peak
+    memory. Every run must commit the null-draft tokens and replay a graph
+    that reads its own tables."""
+    import torch
+    from msd_tpu_torch.calib.device import CalibTables
+    from msd_tpu_torch.calib.grouped import (GroupedIsotonicCalibrator,
+                                             soft_labels_from)
+    from msd_tpu_torch.calib.token_class import synthetic_vocab_table
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    c = res["ctx"]
+    gens, prompts, feats, null = c["gens"], c["prompts"], c["feats"], \
+        c["null"]
+    max_new, warm, sync = c["max_new"], c["max_new_warm"], c["sync"]
+    nodes = 1 + sum(c["widths"])
+    out = {"times": {}}
+    for gen in gens.values():
+        gen.params["draft"] = c["drafts"]["msd"]
+
+    def timed(key, fn):
+        sync()
+        t1 = time.perf_counter()
+        r = fn()
+        sync()
+        out["times"].setdefault(key, []).append(
+            (time.perf_counter() - t1, r.accept_steps))
+        return r
+
+    def check(label, r, pi, gen):
+        if not np.array_equal(r.tokens, null[pi]):
+            raise AssertionError(f"{label} prompt {pi}: tokens differ from "
+                                 f"the null-draft tokens")
+        if gen.graphs is not None and not gen.graphs.reads(r.graph,
+                                                           gen.params):
+            raise AssertionError(f"{label} prompt {pi}: replayed a graph "
+                                 f"that reads other weights or tables")
+
+    t0 = time.perf_counter()
+    graph, eager = gens["graph"], gens["eager"]
+    graph.generate(prompts[0], feats, warm, collect_calibration=True)
+    K1.decode_attention.launches = 0
+    n_cap = c["captures"](graph)[0]
+    rows, plain = [], []
+    for pi, ids in enumerate(prompts):
+        r = timed("collecting", lambda: graph.generate(
+            ids, feats, max_new, collect_calibration=True))
+        check("collecting", r, pi, graph)
+        _calib_sanity(r.calib_data, r.accept_steps, nodes,
+                      f"collecting prompt {pi} (graph {r.graph})")
+        valid = r.calib_data["valid"].astype(bool)
+        rows.append({k: v[valid] for k, v in r.calib_data.items()})
+        plain.append(r.calib_data)
+
+    # bench.py's fit (bench.py:1237-1248)
+    t1 = time.perf_counter()
+    data = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    soft = soft_labels_from(data["base_conf"].astype(np.float64),
+                            np.maximum(data["draft_conf"].astype(
+                                np.float64), 1e-6))
+    fit_feats = {"token_category": np.asarray(["content"] * len(soft)),
+                 "avg_visual_attention_intensity": data["attn"],
+                 "tree_depth": data["depth"].astype(float),
+                 "draft_margin": data["margin"],
+                 "draft_confidence": data["draft_conf"]}
+    cal = GroupedIsotonicCalibrator(min_samples_per_group=200,
+                                    max_grouping_level=2, target="soft")
+    cal.fit(fit_feats, soft, data["base_top1"].astype(float))
+    vocab = c["tcfg"].vocab_size
+    fitted = CalibTables.from_host(cal.export_tables(),
+                                   np.zeros(vocab, np.int8),
+                                   device=c["device"])
+    fit_s = time.perf_counter() - t1
+    log(f"[calib] fit on {len(soft)} samples (min_samples_per_group 200, "
+        f"max_grouping_level 2, soft target): {fit_s:.2f}s; groups fitted "
+        f"at level 1/2: "
+        f"{sum(v is not None for v in cal.levels[1].values())}/"
+        f"{sum(v is not None for v in cal.levels[2].values())}")
+
+    # the fitted tables, graph and eager
+    got = {}
+    for mode, gen in (("graph", graph), ("eager", eager)):
+        gen.set_calibrator(fitted)
+        if mode == "graph":
+            gen.generate(prompts[0], feats, warm, use_calibration=True)
+        for pi, ids in enumerate(prompts):
+            r = timed(f"{mode} calibrated", lambda: gen.generate(
+                ids, feats, max_new, use_calibration=True))
+            check(f"{mode} calibrated", r, pi, gen)
+            got[mode, pi] = r
+    for pi in range(len(prompts)):
+        a, b = got["graph", pi], got["eager", pi]
+        same = np.array_equal(a.tokens, b.tokens) and \
+            (a.accept_steps, a.accept_len_sum) == \
+            (b.accept_steps, b.accept_len_sum)
+        log(f"[calib] prompt {pi}: calibrated graph {a.graph} == eager "
+            f"(tokens, steps, acc_sum): {same}; == null-draft tokens: True; "
+            f"alpha {a.avg_accept_len:.3f}")
+        if not same:
+            raise AssertionError(f"calibrated prompt {pi}: graph and eager "
+                                 f"differ")
+
+    # a calibrator that demotes one token class: the trees must change
+    table = np.full((3, 5, 2, 3, 8), 0.5, np.float32)
+    table[2] = 1e-3
+    demote = CalibTables.from_host(
+        {"table": table, "attn_quantiles": [.2, .4, .6, .8],
+         "margin_quantiles": [.33, .67], "global_mean": 0.5},
+        synthetic_vocab_table(vocab, 0), base_alpha=10.0,
+        device=c["device"])
+    graph.set_calibrator(demote)
+    graph.generate(prompts[0], feats, warm, use_calibration=True,
+                   collect_calibration=True)
+    for pi, ids in enumerate(prompts):
+        r = timed("demote", lambda: graph.generate(
+            ids, feats, max_new, use_calibration=True,
+            collect_calibration=True))
+        check("demote", r, pi, graph)
+        n = min(r.accept_steps, plain[pi]["token"].shape[0])
+        changed = int((r.calib_data["token"][:n]
+                       != plain[pi]["token"][:n]).any(axis=1).sum())
+        log(f"[calib] prompt {pi}: demote calibrator (graph {r.graph}): "
+            f"trees differ from the uncalibrated ones in {changed} of {n} "
+            f"steps; == null-draft tokens: True")
+        if changed == 0:
+            raise AssertionError(f"prompt {pi}: the demote calibrator left "
+                                 f"every tree unchanged")
+    graph.set_calibrator(fitted)
+    back = graph.generate(prompts[0], feats, max_new, use_calibration=True)
+    check("fitted again", back, 0, graph)
+    log(f"[calib] fitted tables again: replays graph {back.graph} (first "
+        f"fitted run: {got['graph', 0].graph})")
+    if back.graph != got["graph", 0].graph:
+        raise AssertionError("the fitted tables did not replay their graph")
+    # two captures, each in an untimed warm-up: fitted, demote
+    if graph.graphs is not None and c["captures"](graph)[0] != n_cap + 2:
+        raise AssertionError("calib: a capture inside a timed window")
+    launches = K1.decode_attention.launches
+    log(f"[calib] K1 launches in the calibrated MSD runs: {launches} "
+        f"(verify attention does not use K1)")
+
+    # the calibrated oracle draft: the rerank, then the deep commit
+    oracle = gens["oracle"]
+    oracle.set_calibrator(fitted)
+    steps_want, hist_want = oracle_schedule(len(c["widths"]), max_new)
+    full = min(len(c["widths"]) + 1, 15)
+    ref = torch.zeros(max_new, dtype=torch.int32, device=c["device"])
+    with oracle_draft(ref, c["e0"]):
+        ref.copy_(torch.from_numpy(null[0]))
+        oracle.generate(prompts[0], feats, warm, use_calibration=True)
+        for pi, ids in enumerate(prompts):
+            ref.copy_(torch.from_numpy(null[pi]))
+            r = oracle.generate(ids, feats, max_new, use_calibration=True)
+            check("calibrated oracle", r, pi, oracle)
+            log(f"[calib] prompt {pi}: calibrated oracle draft (graph "
+                f"{r.graph}): alpha {r.avg_accept_len:.3f} over "
+                f"{r.accept_steps} steps (full acceptance: "
+                f"{max_new / steps_want:.3f} over {steps_want})")
+            if r.accept_steps != steps_want or \
+                    r.alpha_hist[full] != hist_want[full]:
+                raise AssertionError(f"prompt {pi}: the calibrated oracle "
+                                     f"tree was not accepted to full depth")
+
+    # ms/step, and peak memory of one uncalibrated and one calibrated
+    # request on the graph generator
+    for key, runs in out["times"].items():
+        secs = sum(t for t, _ in runs)
+        steps = sum(n for _, n in runs)
+        log(f"[calib] {key}: {secs * 1e3 / max(steps, 1):.2f} ms/step over "
+            f"{steps} steps ({secs:.2f}s incl. prefill)")
+        out[key] = secs * 1e3 / max(steps, 1)
+    if c["on_card"]:
+        peaks = {}
+        n_cap = c["captures"](graph)[0]
+        for name, kw in (("uncalibrated", {}),
+                         ("calibrated", {"use_calibration": True})):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            graph.generate(prompts[0], feats, max_new, **kw)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if c["captures"](graph)[0] != n_cap:
+            raise AssertionError("calib: installed tables made a step that "
+                                 "does not rerank capture again")
+        log(f"[calib] peak device memory above the resident weights and "
+            f"buffers, one request: uncalibrated {peaks['uncalibrated']:.1f}"
+            f" MiB, calibrated {peaks['calibrated']:.1f} MiB")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[calib] phase took {out['seconds']:.1f}s")
+    return out
+
+
+def sampling_tv(device, n: int = 4000) -> float:
+    """The distribution test of the speculative-sampling walk: a root with
+    three drafted children and one grandchild, a target distribution over
+    16 tokens; the first token each walk emits after the root, over n walks
+    with draws from a seeded generator on ``device``, against the target's
+    conditional at the root. Returns the total variation."""
+    import torch
+    from msd_tpu_torch.engine import tree as T
+    from msd_tpu_torch.ops.sampling import gumbel_noise
+
+    V, N = 16, 5
+    dev = torch.device(device)
+    tree = T.Tree(
+        tokens=torch.tensor([2, 3, 7, 12, 5], dtype=torch.int32, device=dev),
+        parents=torch.tensor([0, 0, 0, 0, 1], dtype=torch.int32, device=dev),
+        mask=torch.tensor([[1, 0, 0, 0, 0], [1, 1, 0, 0, 0],
+                           [1, 0, 1, 0, 0], [1, 0, 0, 1, 0],
+                           [1, 1, 0, 0, 1]], dtype=torch.bool, device=dev),
+        positions=torch.tensor([0, 1, 1, 1, 2], dtype=torch.int32,
+                               device=dev),
+        retrieve=torch.tensor([[0, -1, -1], [0, 1, -1], [0, 2, -1],
+                               [0, 3, -1], [0, 1, 4]], dtype=torch.int32,
+                              device=dev),
+        valid=torch.ones(N, dtype=torch.bool, device=dev))
+    logits = np.random.default_rng(0).normal(size=(N, V)) * 1.5
+    probs = torch.from_numpy((np.exp(logits) / np.exp(logits).sum(
+        -1, keepdims=True)).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(42)
+    K = T.sampling_width(N, 10)
+    us = torch.rand(n, 2, K, generator=g, device=dev)
+    noise = gumbel_noise(torch.rand(n, V, generator=g, device=dev))
+    firsts = torch.zeros(n, dtype=torch.long, device=dev)
+    for i in range(n):
+        best, acc, nxt = T.evaluate_sampling(tree, probs, us[i], noise[i])
+        first = tree.tokens[tree.retrieve[best.reshape(1), 1]][0]
+        firsts[i] = torch.where(acc >= 1, first, nxt)
+    emp = torch.bincount(firsts, minlength=V).double().cpu().numpy() / n
+    return 0.5 * float(np.abs(emp - probs[0].double().cpu().numpy()).sum())
+
+
+def run_sampling(res, seed: int = 17, tv_draws: int = 4000) -> dict:
+    """Sampling mode at T=1 (bench.py's --temperature default) on prompt
+    0: MSD and the shared-prefill AR baseline, graph-replayed and eager.
+    The same seed must give the same tokens under replay and the eager
+    tokens of that seed, another seed other tokens; K1's launches must be
+    32 per AR token decoded; the walk must keep the target distribution on
+    the card (total variation < 0.05 over ``tv_draws`` walks). Returns
+    timings; ``profile`` (called last) profiles a sampled verify step and
+    times the acceptance walk alone."""
+    import torch
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.ops.sampling import SamplingParams
+
+    c = res["ctx"]
+    gens, feats, sync = c["gens"], c["feats"], c["sync"]
+    ids, max_new = c["prompts"][0], c["max_new"]
+    sp = SamplingParams(temperature=1.0, greedy_round_bits=ROUND_BITS)
+    n_layers = c["tcfg"].num_hidden_layers
+    t0 = time.perf_counter()
+    out = {}
+
+    def msd(gen, s, n=max_new):
+        return gen.generate(ids, feats, n, seed=s, sp=sp)
+
+    def ar(gen, s, n=max_new):
+        return gen.naive_generate(ids, feats, n, seed=s, sp=sp,
+                                  share_prefill=True)
+
+    for gen in gens.values():
+        gen.params["draft"] = c["drafts"]["msd"]
+    graph, eager = gens["graph"], gens["eager"]
+    for run in (msd, ar):
+        run(graph, 0, c["max_new_warm"])
+    n_cap = c["captures"](graph)[0]
+    runs = {}
+    K1.decode_attention.launches = 0
+    for name, run in (("msd", msd), ("ar", ar)):
+        for mode, gen, s in (("graph", graph, seed), ("graph", graph, seed),
+                             ("eager", eager, seed),
+                             ("graph", graph, seed + 1)):
+            sync()
+            t1 = time.perf_counter()
+            r = run(gen, s)
+            sync()
+            runs.setdefault((name, mode, s), []).append(
+                (r, time.perf_counter() - t1))
+    launches = K1.decode_attention.launches
+    if c["captures"](graph)[0] != n_cap:
+        raise AssertionError("sampling: a capture inside a timed window")
+    ar_decoded = sum(len(r.tokens) - 1 for key, rs in runs.items()
+                     if key[0] == "ar" for r, _ in rs)
+    expected = n_layers * ar_decoded if c["on_card"] else 0
+    log(f"[sampling] K1 launches {launches}, expected {expected} (= "
+        f"{n_layers} layers x {ar_decoded} sampled AR tokens decoded, "
+        f"graph and eager)")
+    if launches != expected:
+        raise AssertionError(f"sampling: K1 launch count {launches} != "
+                             f"{expected}")
+    for name in ("msd", "ar"):
+        (a, ta), (b, tb) = runs[name, "graph", seed]
+        e, te = runs[name, "eager", seed][0]
+        o, to = runs[name, "graph", seed + 1][0]
+        for r in (a, b, e, o):
+            tok = np.asarray(r.tokens)
+            if tok.shape != (max_new,) or tok.min() < 0 \
+                    or tok.max() >= c["tcfg"].vocab_size:
+                raise AssertionError(f"sampled {name}: bad tokens "
+                                     f"{tok.shape} {tok[:8]}")
+        same = {"replay == replay": np.array_equal(a.tokens, b.tokens)
+                and a.accept_len_sum == b.accept_len_sum,
+                "graph == eager": np.array_equal(a.tokens, e.tokens)
+                and a.accept_len_sum == e.accept_len_sum,
+                f"seed {seed + 1} differs": not np.array_equal(a.tokens,
+                                                                o.tokens)}
+        line = (f"[sampling] T=1 {name}, seed {seed}: "
+                + "; ".join(f"{k}: {v}" for k, v in same.items())
+                + f"; graph {ta * 1e3 / len(a.tokens):.2f}/"
+                f"{tb * 1e3 / len(b.tokens):.2f} ms/token, eager "
+                f"{te * 1e3 / len(e.tokens):.2f} ms/token")
+        if name == "msd":
+            steps = a.accept_steps + b.accept_steps
+            line += (f", alpha {a.avg_accept_len:.3f}, graph "
+                     f"{(ta + tb) * 1e3 / steps:.2f} ms/step, eager "
+                     f"{te * 1e3 / e.accept_steps:.2f} ms/step")
+            out["msd_ms_per_step"] = (ta + tb) * 1e3 / steps
+            out["alpha"] = a.avg_accept_len
+        else:
+            out["ar_ms_per_token"] = (ta + tb) * 1e3 / (2 * max_new)
+        log(line)
+        if not all(same.values()):
+            raise AssertionError(f"sampled {name}: {same}")
+    t1 = time.perf_counter()
+    tv = sampling_tv(c["device"], tv_draws)
+    log(f"[sampling] speculative-sampling walk on {c['device']}: total "
+        f"variation {tv:.4f} over {tv_draws} walks (limit 0.05), "
+        f"{time.perf_counter() - t1:.1f}s")
+    if not tv < 0.05:
+        raise AssertionError(f"sampling walk: total variation {tv} >= 0.05")
+    out["tv"] = tv
+
+    def profile():
+        """A profiled sampled request (graph, prefill + 16 tokens) for the
+        replayed verify step's device time, and the acceptance walk of one
+        of its steps alone: recorded with its inputs from an eager step and
+        replayed in a CUDA graph."""
+        prof = device_profile(lambda: out.setdefault("prof_run", msd(
+            graph, seed, 16)), "graph sampled MSD, prefill + 16 tokens",
+            top=8)
+        step_us = prof.get("decode_busy_us", float("nan")) / \
+            out["prof_run"].accept_steps
+        real, calls = SE.tree_mod.evaluate_sampling, []
+
+        def record(*args, **kwargs):
+            calls.append((args, kwargs))
+            return real(*args, **kwargs)
+
+        SE.tree_mod.evaluate_sampling = record
+        try:
+            msd(eager, seed, 2)
+        finally:
+            SE.tree_mod.evaluate_sampling = real
+        args, kwargs = calls[0]
+        walk_ms = graph_ms(lambda i: real(*args, **kwargs), 1)
+        log(f"[sampling] acceptance walk ({args[2].shape[0]} depths x "
+            f"{args[2].shape[1]} children over a [{args[1].shape[1]}] "
+            f"residual) alone: {walk_ms:.3f} ms (graph replay); replayed "
+            f"sampled verify step's device time {step_us / 1e3:.3f} ms: "
+            f"walk {walk_ms * 1e3 / step_us:.3f} of it")
+        out["walk_ms"], out["step_ms"] = walk_ms, step_us / 1e3
+
+    out["profile"] = profile
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[sampling] phase took {out['seconds']:.1f}s")
+    return out
 
 
 def main():
@@ -827,12 +1253,17 @@ def main():
     k1, profile_k1 = phase_kernels(card)
     tcfg = dataclasses.replace(LlamaConfig.llava_7b(),
                                residual_dtype="float32")
+    t_main = time.perf_counter()
     res = run_main_path(tcfg, WIDTHS, MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS)
     k1["launches"] = res["launches"]
     log(f"[main] timed runs: graph-replayed {res['graph_s']:.1f}s, eager "
-        f"{res['eager_s']:.1f}s")
+        f"{res['eager_s']:.1f}s; phase took "
+        f"{time.perf_counter() - t_main:.1f}s")
+    run_calib(res)
+    sampling = run_sampling(res)
     profile_k1()
     res["profile"]()
+    sampling["profile"]()
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

@@ -2,10 +2,13 @@
 and per-request stats.
 
 The port of the part of the JAX package's ``engine/generator.py`` that the
-benchmark drives: ``generate`` (greedy medusa MSD), ``naive_generate``
-(the AR baseline, optionally from the MSD prefill) and ``first_token``, for
-expand-mode prompts with at most one image. ``prefill`` and ``decode``
-ranges mark each request's two phases for ``torch.profiler``.
+benchmark drives: ``generate`` (medusa MSD, greedy or sampled, with the
+calibrated rerank after ``set_calibrator`` and the collection of its
+features), ``naive_generate`` (the AR baseline, optionally from the MSD
+prefill) and ``first_token``, for expand-mode prompts with at most one
+image. ``prefill`` and ``decode`` ranges mark each request's two phases
+for ``torch.profiler``. Sampling draws from one ``torch.Generator`` on the
+generator's device, seeded per request from ``seed``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from msd_tpu_torch.configs import (DraftConfig, EngineConfig,
                                    IMAGE_TOKEN_INDEX, LlamaConfig)
 from msd_tpu_torch.engine import spec_engine as SE
 from msd_tpu_torch.engine.graphs import StepGraphs
+from msd_tpu_torch.calib.device import CalibTables
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.ops.sampling import SamplingParams
 
@@ -32,6 +36,9 @@ class GenResult:
     accept_len_sum: int = 0     # sum of tokens-per-step over verify steps
     alpha_hist: Optional[np.ndarray] = None
     graph: Optional[int] = None  # capture index of the graph replayed
+    # per-node features when collecting: {field: [steps, N]} (see
+    # spec_engine.CALIB_FIELDS)
+    calib_data: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def avg_accept_len(self) -> float:
@@ -54,10 +61,13 @@ class MSDGenerator:
                  tcfg: LlamaConfig, dcfg: DraftConfig,
                  eng: EngineConfig = EngineConfig(), *, n_img: int = 0,
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
-                 device="cuda", cuda_graphs: bool = True):
+                 attn_feature_mode: str = "reference", device="cuda",
+                 cuda_graphs: bool = True):
         self.tcfg, self.dcfg, self.eng = tcfg, dcfg, eng
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
+        self.attn_feature_mode = attn_feature_mode
         self.device = torch.device(device)
+        self.rng = torch.Generator(device=self.device)
         max_pos = eng.max_seq_len + eng.tree.num_nodes + 64
         cos_t, sin_t = L.make_rope(tcfg, max_pos, self.device)
         self.params = {"target": target_params, "draft": draft_params,
@@ -68,10 +78,21 @@ class MSDGenerator:
         self.graphs = StepGraphs(self.device) \
             if cuda_graphs and self.device.type == "cuda" else None
 
-    def _statics(self, max_new: int) -> SE.Statics:
+    def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
+                 use_calibration: bool = False,
+                 collect_calibration: bool = False) -> SE.Statics:
         return SE.Statics(tcfg=self.tcfg, dcfg=self.dcfg, tree=self.eng.tree,
-                          eng=self.eng, sp=self.sp, n_img=self.n_img,
-                          eos_id=self.eos_id, max_new=max_new)
+                          eng=self.eng, sp=sp or self.sp, n_img=self.n_img,
+                          eos_id=self.eos_id, max_new=max_new,
+                          attn_feature_mode=self.attn_feature_mode,
+                          use_calibration=use_calibration,
+                          collect_calibration=collect_calibration)
+
+    def set_calibrator(self, tables: CalibTables) -> None:
+        """Install device calibration tables (``CalibTables.from_host``) for
+        ``generate(use_calibration=True)``. A reranking step's graph keys on
+        the tables' tensors: new tables capture graphs of their own."""
+        self.params["calib"] = tables
 
     def _step(self, fn, st: SE.Statics):
         """The graph replaying ``fn`` over the static state (captured now if
@@ -88,8 +109,7 @@ class MSDGenerator:
         m = self.eng.prompt_pad_multiple
         p = ((len(ids) + m - 1) // m) * m
         n_exp = len(ids) + max(self.n_img - 1, 0)
-        limit = self.eng.max_seq_len - self.eng.tree.num_nodes \
-            - self.eng.tree.max_path_len - 2
+        limit = self._statics(0).step_limit
         if n_exp >= limit:
             raise ValueError(
                 f"prompt too long: {n_exp} expanded tokens, engine budget "
@@ -117,54 +137,74 @@ class MSDGenerator:
         return _trim(_host(self.state.ids[e0:cur + 1]), self.eos_id, max_new)
 
     def first_token(self, ids, img_feats: Optional[torch.Tensor] = None,
-                    max_new_tokens: Optional[int] = None) -> int:
+                    max_new_tokens: Optional[int] = None,
+                    seed: int = 0) -> int:
         """First new token from the target-only AR prefill."""
         ids, padded, img_pos = self._prompt(ids)
         st = self._statics(max_new_tokens or self.eng.max_new_tokens)
         SE.ar_prefill(st, self.params, self.state, padded, len(ids),
-                      img_feats, img_pos)
+                      img_feats, img_pos, self.rng.manual_seed(seed))
         return int(self.state.bonus)
 
     def generate(self, ids, img_feats: Optional[torch.Tensor] = None,
-                 max_new_tokens: Optional[int] = None,
+                 max_new_tokens: Optional[int] = None, seed: int = 0,
+                 sp: Optional[SamplingParams] = None,
+                 use_calibration: bool = False,
+                 collect_calibration: bool = False,
                  first_token: Optional[int] = None) -> GenResult:
-        """Greedy speculative (MSD) generation; lossless wrt the target.
+        """Speculative (MSD) generation; lossless wrt the target model.
 
+        seed: seeds the request's random draws (sampling); sp: sampling
+        parameters for this request (default: the generator's).
+        use_calibration: calibrated tree rerank (set_calibrator first).
+        collect_calibration: return per-node calibration features/labels.
         first_token: pin the first new token (see first_token())."""
+        if use_calibration and "calib" not in self.params:
+            raise ValueError("set_calibrator() before use_calibration=True")
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
-        st = self._statics(max_new)
+        st = self._statics(max_new, sp, use_calibration, collect_calibration)
+        rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
             SE.prefill(st, self.params, self.state, padded, len(ids),
-                       img_feats, img_pos, first_token)
+                       img_feats, img_pos, first_token, rng)
         step = self._step(SE.decode_step, st)
         with record_function("decode"):
-            SE.decode(st, self.params, self.state, step)
+            SE.decode(st, self.params, self.state, step, rng)
         s = self.state
+        steps = int(s.steps)
+        calib_data = {k: _host(v[:steps]) for k, v in s.calib_log.items()} \
+            if collect_calibration else None
         return GenResult(
             tokens=self._tokens(self._e0(ids, img_feats), max_new),
-            accept_steps=int(s.steps), accept_len_sum=int(s.acc_sum),
+            accept_steps=steps, accept_len_sum=int(s.acc_sum),
             alpha_hist=_host(s.alpha_hist),
-            graph=None if step is None else step.index)
+            graph=None if step is None else step.index,
+            calib_data=calib_data)
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
-                       max_new_tokens: Optional[int] = None,
+                       max_new_tokens: Optional[int] = None, seed: int = 0,
+                       sp: Optional[SamplingParams] = None,
                        share_prefill: bool = False) -> GenResult:
-        """Plain greedy AR baseline over the same weights and KV layout.
+        """Plain AR baseline over the same weights and KV layout.
 
         share_prefill: start from the MSD ``prefill`` (target and draft),
         so the AR loop decodes over exactly the KV cache and first token
         every MSD run starts from; otherwise a target-only prefill."""
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
-        st = self._statics(max_new)
-        prefill = SE.prefill if share_prefill else SE.ar_prefill
+        st = self._statics(max_new, sp)
+        rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
-            prefill(st, self.params, self.state, padded, len(ids), img_feats,
-                    img_pos)
+            if share_prefill:
+                SE.prefill(st, self.params, self.state, padded, len(ids),
+                           img_feats, img_pos, rng=rng)
+            else:
+                SE.ar_prefill(st, self.params, self.state, padded, len(ids),
+                              img_feats, img_pos, rng)
         step = self._step(SE.ar_step, st)
         with record_function("decode"):
-            SE.ar_decode(st, self.params, self.state, step)
+            SE.ar_decode(st, self.params, self.state, step, rng)
         return GenResult(tokens=self._tokens(self._e0(ids, img_feats),
                                              max_new),
                          graph=None if step is None else step.index)

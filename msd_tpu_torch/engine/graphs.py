@@ -6,15 +6,18 @@ writes only a generator's static ``EngineState`` and the weights, issues no
 host sync and uploads nothing, so it is captured once and replayed for
 every later step of every request: one replay in place of the thousands of
 kernel launches of an eager step. The host loop around it still reads
-``done`` once per replay.
+``done`` once per replay and, when sampling, writes the step's random
+draws into the state before it (``spec_engine.draw``).
 
 Graphs are cached the way ``jax.jit`` caches executables by their static
 arguments: by the step function, the static configuration (the request's
 token limit excepted: it rides in the state) and the address, shape and
-dtype of every weight tensor, so a generator whose draft is swapped
-captures a graph of its own for the new weights and never replays one that
-reads the old ones. An entry keeps its weight tensors alive, so their
-addresses cannot be reused by other tensors while it is cached.
+dtype of every weight tensor the step reads, so a generator whose draft
+or calibration tables are swapped captures a graph of its own for the new
+tensors and never replays one that reads the old ones, while steps that
+do not rerank keep their graphs when tables are installed. An entry keeps
+its weight tensors alive, so their addresses cannot be reused by other
+tensors while it is cached.
 
 Each capture first warms the step up on the capture stream (first-use
 uploads, the kernel build, cuBLAS workspaces), then captures it into one
@@ -42,11 +45,14 @@ WARMUP_STEPS = 2
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [x for item in tree for x in _leaves(item)]
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 def weights_key(params: Dict) -> tuple:
-    """(address, shape, dtype) of every tensor in ``params``."""
+    """(address, shape, dtype) of every tensor in ``params``, those of
+    tuples such as the calibration tables (``params["calib"]``) included."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                  for t in _leaves(params))
 
@@ -82,7 +88,10 @@ class StepGraphs:
     def get(self, fn: Callable, st: SE.Statics, params: Dict,
             state: SE.EngineState) -> CapturedStep:
         """The captured ``fn(st, params, state)``, captured now if this
-        step, configuration and set of weights have none yet."""
+        step, configuration and set of weights have none yet. The step is
+        keyed on, and captured over, the tensors of ``params`` it reads
+        (``spec_engine.step_params``)."""
+        params = SE.step_params(st, params)
         key = (fn, dataclasses.replace(st, max_new=0), weights_key(params))
         step = self._cache.get(key)
         if step is None:
@@ -92,8 +101,9 @@ class StepGraphs:
 
     def reads(self, index: int, params: Dict) -> bool:
         """Whether the graph of capture ``index`` reads exactly the weight
-        tensors of ``params``."""
-        return self.steps[index].key[2] == weights_key(params)
+        tensors of ``params`` that its step reads."""
+        key = self.steps[index].key
+        return key[2] == weights_key(SE.step_params(key[1], params))
 
     def _capture(self, fn, st, params, state, key) -> CapturedStep:
         t0 = time.perf_counter()

@@ -1,7 +1,8 @@
-"""The MSD decode engine: greedy medusa speculative decoding and the AR
-baseline.
+"""The MSD decode engine: medusa speculative decoding (greedy or sampled,
+optionally with the calibrated tree rerank) and the AR baseline.
 
-The port of the JAX package's ``engine/spec_engine.py`` for the main path:
+The port of the JAX package's ``engine/spec_engine.py`` for the medusa
+path:
 
   prefill : fused multimodal embedding -> target prefill -> first token ->
             draft prefill (EAGLE shift-by-one pairing, image rows bypassing
@@ -9,7 +10,11 @@ The port of the JAX package's ``engine/spec_engine.py`` for the main path:
   decode  : a host loop over one verify step: extend the draft KV with the
             accepted rows, expand the static medusa tree, verify all nodes
             in one target forward with window-canonical attention, accept
-            greedily, gather the accepted path's KV into place. The JAX
+            (greedily, or by speculative sampling), gather the accepted
+            path's KV into place. With calibration the medusa candidates
+            are reranked by the calibrated acceptance probability
+            (``_rerank``); with collection every step records per-node
+            features and labels (``_collect_step``). The JAX
             ``lax.while_loop`` becomes a loop with one host read per step,
             of ``done``; on the card each step is one CUDA-graph replay
             (``engine/graphs.py``).
@@ -22,7 +27,10 @@ zero and refill it, ``decode_step`` and ``ar_step`` read and write only its
 tensors and the weights. Engine scalars (committed length E, lengths,
 counters, the request's token limit) are 0-dim device tensors, as the
 traced scalars of the JAX programs, so a step issues no host sync and no
-host-to-device copy, and one captured step serves every request.
+host-to-device copy, and one captured step serves every request. A
+sampling step reads its random draws from the state's ``rand`` buffer,
+which ``draw`` fills from the request's ``torch.Generator`` before each
+step, outside any captured graph.
 
 Conventions (post image expansion everywhere): E is the committed expanded
 length (= target KV length); ``bonus`` is the sampled-but-uncommitted next
@@ -39,6 +47,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from msd_tpu_torch.calib.device import calibration_bias
 from msd_tpu_torch.configs import (DraftConfig, EngineConfig, LlamaConfig,
                                    TreeConfig)
 from msd_tpu_torch.engine import tree as tree_mod
@@ -47,8 +56,10 @@ from msd_tpu_torch.models import draft as draft_mod
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
 from msd_tpu_torch.ops.attention import NEG_INF, causal_prefill_bias
-from msd_tpu_torch.ops.sampling import (SamplingParams, canon_logits,
-                                        sample_token)
+from msd_tpu_torch.ops.sampling import (SamplingParams,
+                                        apply_repetition_penalty,
+                                        canon_logits, gumbel_noise,
+                                        process_logits, sample_token)
 
 
 @dataclass(frozen=True)
@@ -67,6 +78,16 @@ class Statics:
     # ``max_new`` scalar, which the steps read (as the JAX ``decode_until``
     # takes ``stop_at`` traced), so a step does not depend on it
     max_new: int
+    # visual-attention calibration feature:
+    #   "reference": row[child_idx] of the latest draft prefix forward, 0
+    #                beyond the valid rows (faithful to cnets.py:516-575);
+    #   "last_row":  the current position's attention over the image span
+    #                (row valid_rows - 1), broadcast to all candidates
+    attn_feature_mode: str = "reference"
+    # calibrated tree construction (params must carry a "calib" CalibTables)
+    use_calibration: bool = False
+    # record per-node calibration features/labels each step
+    collect_calibration: bool = False
 
     @property
     def s_target(self) -> int:
@@ -79,6 +100,17 @@ class Statics:
         """Draft KV capacity: stable prefix + suffix pad + frontier scratch."""
         t = self.tree
         return self.eng.max_seq_len + t.max_path_len + t.max_depth * t.top_k + 8
+
+    @property
+    def step_limit(self) -> int:
+        """Committed length at which MSD stops: room for one more tree and
+        path below max_seq_len."""
+        return self.eng.max_seq_len - self.tree.num_nodes \
+            - self.tree.max_path_len - 2
+
+    @property
+    def need_attn(self) -> bool:
+        return self.use_calibration or self.collect_calibration
 
 
 class EngineState(NamedTuple):
@@ -100,12 +132,38 @@ class EngineState(NamedTuple):
     acc_sum: torch.Tensor        # sum of (accept_len + 1) over verify steps
     alpha_hist: torch.Tensor     # [16] histogram of tokens per step
     done: torch.Tensor           # MSD: stop; AR: the last token stopped
+    img_pos: torch.Tensor        # placeholder index (= image span start)
+    attn_feat: torch.Tensor      # [TOP_K] visual-attention intensity per
+    #                              child slot from the latest draft forward
+    calib_log: Dict              # {field: [LOG_ROWS, N]} per-step features
+    #                              and labels (collect_calibration)
+    rand: torch.Tensor           # [D * K + V] uniform draws of one step:
+    #                              the acceptance walk's [D, K], then the
+    #                              final token's [V] (sampling)
+
+
+CALIB_FIELDS = {"token": torch.int32, "depth": torch.int32,
+                "draft_conf": torch.float32, "attn": torch.float32,
+                "margin": torch.float32, "base_conf": torch.float32,
+                "base_top1": torch.int32, "base_margin": torch.float32,
+                "accept": torch.int32, "valid": torch.int32}
+
+
+def _walk_draws(st: Statics) -> int:
+    """Uniform draws of one sampled verify step's acceptance walk."""
+    t = st.tree
+    return t.max_depth * tree_mod.sampling_width(t.num_nodes, t.top_k)
 
 
 def alloc_state(st: Statics, dtype: torch.dtype, device) -> EngineState:
     """Zeroed static buffers for engines of ``st``'s capacity; hiddens and
-    KV caches in ``dtype`` (the weights' dtype)."""
-    P = st.tree.max_path_len
+    KV caches in ``dtype`` (the weights' dtype).
+
+    The calibration log has ``st.step_limit`` rows: a verify step runs only
+    while the committed length is below that limit and commits at least
+    one token past a prompt of at least one, so no request takes more
+    steps and its row ``steps`` is always in the log."""
+    P, N = st.tree.max_path_len, st.tree.num_nodes
 
     def scalar(dt=torch.int32):
         return torch.zeros((), dtype=dt, device=device)
@@ -124,7 +182,37 @@ def alloc_state(st: Statics, dtype: torch.dtype, device) -> EngineState:
         draft_len=scalar(), max_new=scalar(), new_tokens=scalar(),
         steps=scalar(), acc_sum=scalar(),
         alpha_hist=torch.zeros(16, dtype=torch.int32, device=device),
-        done=scalar(torch.bool))
+        done=scalar(torch.bool), img_pos=scalar(),
+        attn_feat=torch.zeros(st.tree.top_k, dtype=torch.float32,
+                              device=device),
+        calib_log={k: torch.zeros(st.step_limit, N, dtype=dt, device=device)
+                   for k, dt in CALIB_FIELDS.items()},
+        rand=torch.zeros(_walk_draws(st) + st.tcfg.vocab_size,
+                         dtype=torch.float32, device=device))
+
+
+def draw(state: EngineState, rng: torch.Generator):
+    """Fill the state's ``rand`` with the next step's uniform draws from
+    ``rng`` (one launch, outside any captured graph, so every replay of a
+    sampling step consumes fresh draws and reseeding ``rng`` changes
+    them)."""
+    state.rand.uniform_(0.0, 1.0, generator=rng)
+
+
+def _step_draws(st: Statics, s: EngineState):
+    """(acceptance-walk uniforms [D, K], Gumbel noise [V]) from ``rand``."""
+    n = _walk_draws(st)
+    return (s.rand[:n].view(st.tree.max_depth, -1),
+            gumbel_noise(s.rand[n:]))
+
+
+def step_params(st: Statics, params: Dict) -> Dict:
+    """The part of ``params`` that a step of ``st`` reads: the calibration
+    tables only when it reranks, so installing tables leaves the other
+    steps' graphs (keyed on what they read) valid."""
+    if st.use_calibration or "calib" not in params:
+        return params
+    return {k: v for k, v in params.items() if k != "calib"}
 
 
 def state_tensors(state: EngineState) -> List[torch.Tensor]:
@@ -215,12 +303,93 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _attn_rows(st: Statics, t_rows: int, valid_rows) -> torch.Tensor:
+    """The rows of a draft forward's [Hq, T, S] attention probabilities
+    that ``_attn_feature_vec`` reads: row min(k, T - 1) for each child slot
+    k ("reference"), or the last valid row ("last_row"). valid_rows: 0-dim
+    int tensor on the device."""
+    if st.attn_feature_mode == "last_row":
+        return torch.clamp(valid_rows.long() - 1, 0, t_rows - 1).reshape(1)
+    return torch.clamp(torch.arange(st.tree.top_k, device=valid_rows.device),
+                       max=t_rows - 1)
+
+
+def _attn_feature_vec(st: Statics, attn_probs: torch.Tensor,
+                      img_pos: torch.Tensor, valid_rows: torch.Tensor,
+                      t_rows: int) -> torch.Tensor:
+    """[TOP_K] mean attention of row child_idx over the image span.
+
+    attn_probs: [Hq, R, S], the rows ``_attn_rows(st, t_rows, valid_rows)``
+    of a T = t_rows draft prefix/suffix forward. Faithful to
+    cnets.py:516-575: candidate_idx indexes ROWS of the latest prefix
+    forward (rows beyond the valid length give 0.0), span = [img_pos-1,
+    img_pos-1+n_img), its start clamped into the cache as
+    ``lax.dynamic_slice`` clamps it.
+    """
+    K = st.tree.top_k
+    n_img = max(st.n_img, 1)
+    mean_h = attn_probs.mean(dim=0)                               # [R, S]
+    start = torch.clamp(img_pos - 1, min=0)
+    span = mean_h.index_select(1, L.update_rows(mean_h.shape[1], start,
+                                                n_img, mean_h.device))
+    row_mean = span.mean(dim=1)                                   # [R]
+    if st.attn_feature_mode == "last_row":
+        ok = (valid_rows > 0) & (st.n_img > 0)
+        return torch.where(ok, row_mean.expand(K), 0.0)
+    k_idx = torch.arange(K, device=row_mean.device)
+    ok = (k_idx < valid_rows) & (k_idx < t_rows) & (st.n_img > 0)
+    return torch.where(ok, row_mean, 0.0)
+
+
+def _rerank(st: Statics, params: Dict, logits: torch.Tensor,
+            cand_ids: torch.Tensor, cand_probs: torch.Tensor,
+            attn_feat: torch.Tensor, depth: torch.Tensor):
+    """Calibrated rerank of per-row candidate sets, each row reordered
+    within its own candidates.
+
+    logits/cand_ids/cand_probs: [R, V] / [R, K] / [R, K]; depth: [R]
+    per-row depths. Implements cnets.py:1286-1339: calibrated logit bias
+    scatter-added at the candidate ids, re-softmax, reselect K within each
+    row's candidate set (lowest column first on ties, as ``lax.top_k``).
+    Returns (new_ids, new_probs, margin_row).
+    """
+    R, K = cand_ids.shape
+    # K is 1 for width-1 medusa plans: the top1-top2 margin degrades to the
+    # top1 prob (no runner-up), cnets.py's single-candidate fallback
+    margin_row = cand_probs[:, 0] - cand_probs[:, 1] if K > 1 \
+        else cand_probs[:, 0]                                     # [R]
+    if attn_feat.shape[0] < K:  # medusa width can exceed the top_k slots
+        attn_feat = torch.cat([attn_feat, attn_feat.new_zeros(
+            K - attn_feat.shape[0])])
+
+    def per_candidate(row_values):
+        return row_values[:, None].expand(R, K).reshape(-1)
+
+    bias = calibration_bias(
+        params["calib"], cand_ids.reshape(-1), cand_probs.reshape(-1),
+        attn_feat[:K].repeat(R), per_candidate(depth),
+        per_candidate(margin_row)).reshape(R, K)
+    ids = cand_ids.long()
+    logits_c = logits.scatter_add(1, ids, bias.to(logits.dtype))
+    probs_c = torch.softmax(logits_c.float(), dim=-1)
+    scores = torch.gather(probs_c, 1, ids)                        # [R, K]
+    new_scores, order = _top_k(scores, K)
+    return torch.gather(cand_ids, 1, order), new_scores, margin_row
+
+
 def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
-                         root_token: torch.Tensor) -> Tree:
+                         root_token: torch.Tensor,
+                         attn_feat: Optional[torch.Tensor] = None,
+                         features: Optional[Dict] = None) -> Tree:
     """Medusa expansion: depth-1 candidates from head(last_hidden), depth
     d >= 2 from resblock head d-2 over the same last_hidden, all through one
     stacked lm_head product. The tree layout is static (_medusa_layout);
-    only the tokens are data."""
+    only the tokens are data.
+
+    With ``st.use_calibration`` each depth's candidate row is reranked
+    (``_rerank``, over ``attn_feat``). ``features``, a dict, receives the
+    per-node collection features ``local_conf``, ``attn`` and ``margin``
+    ([N] fp32; the root and unused slots 0)."""
     d_use, w, par, mask, depth, ret, valid, slot_depth, slot_rank = \
         _medusa_layout(st.tree, st.dcfg.medusa_heads, str(last_hidden.device))
     dp = params["draft"]
@@ -229,30 +398,48 @@ def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
     xs = torch.cat([last_hidden[None], mh[:d_use - 1]], dim=0)
     logits = (xs @ head).float()                                 # [d_use, V]
     probs = torch.softmax(logits, dim=-1)
-    _, idx = _top_k(probs, w)                                    # [d_use, W]
+    wts, idx = _top_k(probs, w)                                  # [d_use, W]
+    # pre-rerank top1-top2 margin of each depth's candidate row
+    margin = wts[:, 0] - wts[:, 1] if w > 1 else wts.new_zeros(d_use)
+    if st.use_calibration:
+        # row r holds depth r + 1
+        idx, wts, _ = _rerank(st, params, logits, idx, wts, attn_feat,
+                              torch.arange(1, d_use + 1, device=idx.device))
     cand = idx[slot_depth, slot_rank].to(torch.int32)            # [N]
     tokens = torch.where(valid, cand, torch.full_like(cand, -1))
     tokens[0] = root_token
+    if features is not None:
+        node = valid & (depth > 0)
+        af = attn_feat[torch.clamp(slot_rank, max=attn_feat.shape[0] - 1)]
+        features.update(
+            local_conf=torch.where(node, wts[slot_depth, slot_rank], 0.0),
+            attn=torch.where(node, af, 0.0),
+            margin=torch.where(node, margin[slot_depth], 0.0))
     return Tree(tokens=tokens, parents=par, mask=mask, positions=depth,
                 retrieve=ret, valid=valid)
 
 
 def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
-                  root_token: torch.Tensor) -> Tree:
+                  root_token: torch.Tensor,
+                  attn_feat: Optional[torch.Tensor] = None,
+                  features: Optional[Dict] = None) -> Tree:
     if st.dcfg.medusa_heads <= 0:
         raise NotImplementedError(
             "the port drafts with medusa heads only (DraftConfig."
             "medusa_heads > 0); EAGLE recursion and static trees are not "
             "ported yet")
-    return _draft_expand_medusa(st, params, last_hidden, root_token)
+    return _draft_expand_medusa(st, params, last_hidden, root_token,
+                                attn_feat, features)
 
 
 def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
                           cos_t, sin_t) -> torch.Tensor:
     """Extend the draft stable KV (in place, at ``draft_len``) with the
     accepted rows. Always runs MAX_PATH rows (suffix_len of them valid).
-    Returns the draft hidden of the last valid row (the previous one when
-    no row is valid)."""
+    With calibration or collection, also refreshes ``s.attn_feat`` from
+    the rows' layer-0 attention when any row is valid. Returns the draft
+    hidden of the last valid row (the previous one when no row is
+    valid)."""
     dp = params["draft"]
     P = st.tree.max_path_len
     dev = s.suffix_tokens.device
@@ -262,8 +449,17 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
     # causal over the growing prefix: row i sees cache slots [0, draft_len+i]
     kpos = torch.arange(st.s_draft, device=dev)[None, :]
     bias = torch.where(kpos <= pos[:, None], 0.0, NEG_INF).to(torch.float32)
-    out, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, s.draft_kv,
-                                     s.draft_len, bias, cos_t, sin_t)
+    if st.need_attn:
+        out, _, attn_p = draft_mod.draft_forward(
+            dp, st.dcfg, hin, pos, s.draft_kv, s.draft_len, bias, cos_t,
+            sin_t, return_attn=True,
+            attn_rows=_attn_rows(st, P, s.suffix_len))
+        attn_new = _attn_feature_vec(st, attn_p, s.img_pos, s.suffix_len, P)
+        s.attn_feat.copy_(torch.where(s.suffix_len > 0, attn_new,
+                                      s.attn_feat))
+    else:
+        out, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, s.draft_kv,
+                                         s.draft_len, bias, cos_t, sin_t)
     idx = torch.clamp(s.suffix_len - 1, min=0).reshape(1)
     return torch.where(s.suffix_len > 0, out.index_select(0, idx)[0],
                        s.last_draft_hidden)
@@ -273,12 +469,15 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
 # Target verification and commit
 # ---------------------------------------------------------------------------
 
-def _verify(st: Statics, params: Dict, target_kv: Dict, E: torch.Tensor,
-            tr: Tree, cos_t, sin_t):
+def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
+            sin_t):
     """One target forward over every tree node (writing their KV rows at
-    E in place) + greedy acceptance. Returns (hidden, best, accept_len,
-    next_token)."""
+    E = ``s.cur_len`` into ``s.target_kv`` in place) + lossless acceptance:
+    greedy, or speculative sampling over the step's draws in ``s.rand``
+    with the repetition penalty over the committed ids. Returns (hidden,
+    logits, best, accept_len, next_token)."""
     tp = params["target"]
+    E = s.cur_len
     dev = tr.tokens.device
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
     pos = E + tr.positions
@@ -299,13 +498,69 @@ def _verify(st: Statics, params: Dict, target_kv: Dict, E: torch.Tensor,
     bias = torch.where(cols < win_start[:, None], 0.0,
                        NEG_INF).to(torch.float32)
     win = (win_idx, win_bias, win_start)
-    hidden, _ = L.llama_forward(tp, st.tcfg, emb, pos, target_kv, E, bias,
-                                cos_t, sin_t, kv_len=E + st.tree.num_nodes,
-                                win=win)
+    hidden, _ = L.llama_forward(tp, st.tcfg, emb, pos, s.target_kv, E,
+                                bias, cos_t, sin_t,
+                                kv_len=E + st.tree.num_nodes, win=win)
     logits = L.lm_head(tp, hidden)                                   # [N, V]
-    best, acc_len, next_tok = tree_mod.evaluate_greedy(
-        tr, canon_logits(logits, st.sp.greedy_round_bits))
-    return hidden, best, acc_len, next_tok
+    if st.sp.greedy:
+        best, acc_len, next_tok = tree_mod.evaluate_greedy(
+            tr, canon_logits(logits, st.sp.greedy_round_bits))
+        return hidden, logits, best, acc_len, next_tok
+    plogits = logits
+    if st.sp.repetition_penalty != 1.0:
+        plogits = apply_repetition_penalty(plogits, s.ids, E,
+                                           st.sp.repetition_penalty)
+    probs = torch.softmax(process_logits(plogits, st.sp), dim=-1)
+    uniforms, gumbel = _step_draws(st, s)
+    best, acc_len, next_tok = tree_mod.evaluate_sampling(
+        tr, probs, uniforms, gumbel, top_k=st.tree.top_k)
+    return hidden, logits, best, acc_len, next_tok
+
+
+def _collect_step(st: Statics, s: EngineState, tr: Tree,
+                  logits: torch.Tensor, best, acc_len, features: Dict):
+    """Record per-node calibration features + labels for this verify step
+    in row ``s.steps`` of ``s.calib_log``.
+
+    The verify pass already computed the target's conditional distribution
+    at every tree node, so base_confidence / base_top1 / base_margin come
+    from ``logits[parent]`` (the JAX package's replacement for the
+    reference's per-parent-path re-forwards, cnets.py:577-716)."""
+    N, P = st.tree.num_nodes, st.tree.max_path_len
+    dev = logits.device
+    p_node = torch.softmax(logits, dim=-1)                        # [N, V]
+    # values only: their tie order does not matter
+    top2 = torch.topk(p_node, 2, dim=-1).values                   # [N, 2]
+    argmax_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    par = tr.parents.long()
+    tok = torch.clamp(tr.tokens, min=0).long()
+    base_conf = p_node[par, tok]
+    base_top1 = (argmax_tok[par] == tr.tokens).to(torch.int32)
+    base_margin = top2[par, 0] - top2[par, 1]
+
+    # accept[n]: node n on the accepted path. The JAX package scatters
+    # (slot <= accept_len) & (path >= 0) at max(path, 0); the padding slots
+    # of a shallow path land on the root too, and the last write wins, as
+    # XLA applies a scatter's updates in order
+    path = tree_mod.accepted_path(tr, best).long()                # [P]
+    slot = torch.arange(P, device=dev)
+    on = (slot <= acc_len) & (path >= 0)
+    hits = torch.clamp(path, min=0)[None, :] == \
+        torch.arange(N, device=dev)[:, None]                      # [N, P]
+    last = (P - 1) - torch.argmax(hits.flip(1).to(torch.int32), dim=1)
+    accept = (hits.any(dim=1) & on[last]).to(torch.int32)
+
+    node = torch.arange(N, device=dev)
+    row = {"token": tr.tokens, "depth": tr.positions.to(torch.int32),
+           "draft_conf": features["local_conf"], "attn": features["attn"],
+           "margin": features["margin"], "base_conf": base_conf,
+           "base_top1": base_top1, "base_margin": base_margin,
+           "accept": accept,
+           "valid": (tr.valid & (node > 0)).to(torch.int32)}
+    i = s.steps.long().reshape(1)
+    for key, val in row.items():
+        s.calib_log[key].index_copy_(0, i, val[None].to(
+            s.calib_log[key].dtype))
 
 
 def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
@@ -338,12 +593,11 @@ def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
     n_new = (acc_len + 1).to(torch.int32)
     eos_hit = torch.any((ct == st.eos_id) & (slot <= acc_len)) \
         | (next_tok == st.eos_id)
-    limit = st.eng.max_seq_len - st.tree.num_nodes - P - 2
     # E is s.cur_len: every read of E comes before it advances
     s.cur_len.add_(n_new)
     s.new_tokens.add_(n_new)
     s.done.copy_(eos_hit | (s.new_tokens >= s.max_new)
-                 | (s.cur_len >= limit))
+                 | (s.cur_len >= st.step_limit))
     s.alpha_hist.index_add_(0, torch.clamp(n_new, max=15).reshape(1),
                             torch.ones_like(n_new).reshape(1))
     s.bonus.copy_(next_tok)
@@ -376,10 +630,12 @@ def _fuse_prompt(st: Statics, params: Dict, ids: torch.Tensor,
 
 
 def _target_prefill(st: Statics, params: Dict, state: EngineState,
-                    fused: torch.Tensor, exp_ids: torch.Tensor, E0: int):
+                    fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
+                    rng: Optional[torch.Generator]):
     """Reset the state, run the target over the prompt (its KV rows into
     ``target_kv``), commit the prompt ids and E0, and sample the first new
-    token into ``bonus``. Returns the target hidden [P_exp, H]."""
+    token into ``bonus`` (with Gumbel noise drawn from ``rng`` when
+    sampling). Returns the target hidden [P_exp, H]."""
     _reset(st, state)
     tp = params["target"]
     dev = fused.device
@@ -389,8 +645,10 @@ def _target_prefill(st: Statics, params: Dict, state: EngineState,
     hidden, _ = L.llama_forward(tp, st.tcfg, fused, positions,
                                 state.target_kv, 0, bias, params["cos_t"],
                                 params["sin_t"])
+    gumbel = None if st.sp.greedy else gumbel_noise(torch.rand(
+        st.tcfg.vocab_size, generator=rng, device=dev))
     state.bonus.copy_(sample_token(L.lm_head(tp, hidden[E0 - 1][None])[0],
-                                   st.sp))
+                                   st.sp, gumbel))
     state.ids[:P_exp].copy_(exp_ids)
     state.cur_len.fill_(E0)
     return hidden
@@ -398,31 +656,35 @@ def _target_prefill(st: Statics, params: Dict, state: EngineState,
 
 def prefill(st: Statics, params: Dict, state: EngineState, ids: torch.Tensor,
             prompt_len: int, img_feats: Optional[torch.Tensor], img_pos: int,
-            bonus_override: Optional[int] = None):
+            bonus_override: Optional[int] = None,
+            rng: Optional[torch.Generator] = None):
     """Target + draft prefill over a padded prompt, into ``state``.
 
     ids: [P_pad] int32 on the device (IMAGE_TOKEN_INDEX at img_pos when an
     image is given); img_feats: [n_img, H] projected image rows.
     bonus_override: pin the first new token (e.g. to the AR prefill's).
+    rng: the request's generator (sampling).
     """
     fused, exp_ids, img_rows = _fuse_prompt(st, params, ids, img_feats,
                                             img_pos)
     n_img = st.n_img if img_feats is not None else 0
     e0 = prompt_len + max(n_img - 1, 0)
-    _prefill_core(st, params, state, fused, exp_ids, e0, img_rows,
-                  bonus_override)
+    _prefill_core(st, params, state, fused, exp_ids, e0, img_rows, img_pos,
+                  bonus_override, rng)
 
 
 def _prefill_core(st: Statics, params: Dict, state: EngineState,
                   fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
-                  img_rows: torch.Tensor,
-                  bonus_override: Optional[int] = None):
+                  img_rows: torch.Tensor, img_pos: int,
+                  bonus_override: Optional[int] = None,
+                  rng: Optional[torch.Generator] = None):
     dev = fused.device
     P_exp = fused.shape[0]
     dp = params["draft"]
-    hidden = _target_prefill(st, params, state, fused, exp_ids, E0)
+    hidden = _target_prefill(st, params, state, fused, exp_ids, E0, rng)
     if bonus_override is not None and bonus_override >= 0:
         state.bonus.fill_(bonus_override)
+    state.img_pos.fill_(img_pos)
 
     # draft prefill: row j pairs emb(token j+1) with the target hidden at j;
     # rows whose NEXT position is an image row take the fused image
@@ -440,35 +702,58 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
     dh_in = draft_mod.draft_fuse(dp, se, hidden, image_row_mask=img_next)
     positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
     d_bias = causal_prefill_bias(P_exp, st.s_draft, device=dev)
-    d_out, _ = draft_mod.draft_forward(dp, st.dcfg, dh_in, positions,
-                                       state.draft_kv, 0, d_bias,
-                                       params["cos_t"], params["sin_t"])
+    if st.need_attn:
+        # the feature reads at most TOP_K rows of the prompt's attention
+        # probabilities: only those are computed (at 7B width all P_exp
+        # rows would be ~108 MB of fp32)
+        valid_rows = torch.full((), P_exp, dtype=torch.int32, device=dev)
+        d_out, _, attn_p = draft_mod.draft_forward(
+            dp, st.dcfg, dh_in, positions, state.draft_kv, 0, d_bias,
+            params["cos_t"], params["sin_t"], return_attn=True,
+            attn_rows=_attn_rows(st, P_exp, valid_rows))
+        state.attn_feat.copy_(_attn_feature_vec(st, attn_p, state.img_pos,
+                                                valid_rows, P_exp))
+    else:
+        d_out, _ = draft_mod.draft_forward(dp, st.dcfg, dh_in, positions,
+                                           state.draft_kv, 0, d_bias,
+                                           params["cos_t"], params["sin_t"])
     state.last_draft_hidden.copy_(d_out[E0 - 1])
     state.draft_len.fill_(E0)
 
 
 def decode_step(st: Statics, params: Dict, s: EngineState):
-    """One verify step, in place: draft suffix -> medusa tree -> verify ->
-    commit. Reads and writes only ``s`` and the weights, with no host sync
-    and no host-to-device copy (what a CUDA-graph capture needs)."""
+    """One verify step, in place: draft suffix -> medusa tree (calibrated
+    with ``st.use_calibration``) -> verify -> (``st.collect_calibration``:
+    record the step's features) -> commit. Reads and writes only ``s`` and
+    the weights, with no host sync and no host-to-device copy (what a
+    CUDA-graph capture needs); a sampling step takes its draws from
+    ``s.rand``."""
     cos_t, sin_t = params["cos_t"], params["sin_t"]
     last_hidden = _draft_suffix_forward(st, params, s, cos_t, sin_t)
     s.draft_len.add_(s.suffix_len)
     s.last_draft_hidden.copy_(last_hidden)
-    tr = _draft_expand(st, params, s.last_draft_hidden, s.bonus)
-    hidden, best, acc_len, next_tok = _verify(st, params, s.target_kv,
-                                              s.cur_len, tr, cos_t, sin_t)
+    features = {} if st.collect_calibration else None
+    tr = _draft_expand(st, params, s.last_draft_hidden, s.bonus, s.attn_feat,
+                       features)
+    hidden, logits, best, acc_len, next_tok = _verify(st, params, s, tr,
+                                                      cos_t, sin_t)
+    if st.collect_calibration:
+        _collect_step(st, s, tr, logits, best, acc_len, features)
     _commit(st, s, tr, hidden, best, acc_len, next_tok)
 
 
 def decode(st: Statics, params: Dict, state: EngineState,
-           step: Optional[Callable[[], None]] = None):
+           step: Optional[Callable[[], None]] = None,
+           rng: Optional[torch.Generator] = None):
     """The speculative decode loop: steps until ``done`` (EOS, max_new or
     the cache limit), reading ``done`` on the host once per step. ``step``
     runs one step over ``state`` (a graph replay); by default the eager
-    ``decode_step``."""
+    ``decode_step``. When sampling, each step's draws come from ``rng``
+    first (``draw``)."""
     step = step or functools.partial(decode_step, st, params, state)
     while not bool(state.done):
+        if not st.sp.greedy:
+            draw(state, rng)
         step()
     # surface the final pending token so hosts can read ids[:cur_len + 1]
     _write(state.ids, state.bonus[None], state.cur_len)
@@ -480,20 +765,23 @@ def decode(st: Statics, params: Dict, state: EngineState,
 
 def ar_prefill(st: Statics, params: Dict, state: EngineState,
                ids: torch.Tensor, prompt_len: int,
-               img_feats: Optional[torch.Tensor], img_pos: int):
+               img_feats: Optional[torch.Tensor], img_pos: int,
+               rng: Optional[torch.Generator] = None):
     """Target-only prefill + first token, into ``state`` (its ids, target
     KV, cur_len and bonus)."""
     fused, exp_ids, _ = _fuse_prompt(st, params, ids, img_feats, img_pos)
     n_img = st.n_img if img_feats is not None else 0
     E0 = prompt_len + max(n_img - 1, 0)
-    _target_prefill(st, params, state, fused, exp_ids, E0)
+    _target_prefill(st, params, state, fused, exp_ids, E0, rng)
 
 
 def ar_step(st: Statics, params: Dict, s: EngineState):
     """One AR token, in place: the target forward of ``bonus`` at E (its
     one query row through the decode-attention kernel, kv_len = E + 1 on
-    the device), the greedy next token into ``bonus`` and ids[E + 1], E
-    advanced, ``done`` set on EOS or the cache limit. No host sync."""
+    the device), the next token (greedy, or sampled with the repetition
+    penalty over ids[:E + 1] and the Gumbel noise of ``s.rand``) into
+    ``bonus`` and ids[E + 1], E advanced, ``done`` set on EOS or the cache
+    limit. No host sync."""
     tp = params["target"]
     cur = s.cur_len
     kpos = torch.arange(st.s_target, device=cur.device)
@@ -502,7 +790,14 @@ def ar_step(st: Statics, params: Dict, s: EngineState):
     hidden, _ = L.llama_forward(tp, st.tcfg, emb, cur[None], s.target_kv,
                                 cur, bias, params["cos_t"], params["sin_t"],
                                 kv_len=cur + 1)
-    tok = sample_token(L.lm_head(tp, hidden)[0], st.sp)
+    logits = L.lm_head(tp, hidden)[0]
+    gumbel = None
+    if not st.sp.greedy:
+        if st.sp.repetition_penalty != 1.0:
+            logits = apply_repetition_penalty(logits, s.ids, cur + 1,
+                                              st.sp.repetition_penalty)
+        gumbel = _step_draws(st, s)[1]
+    tok = sample_token(logits, st.sp, gumbel)
     s.cur_len.add_(1)
     _write(s.ids, tok[None], s.cur_len)
     s.bonus.copy_(tok)
@@ -510,7 +805,8 @@ def ar_step(st: Statics, params: Dict, s: EngineState):
 
 
 def ar_decode(st: Statics, params: Dict, state: EngineState,
-              step: Optional[Callable[[], None]] = None) -> int:
+              step: Optional[Callable[[], None]] = None,
+              rng: Optional[torch.Generator] = None) -> int:
     """Plain AR decode from either prefill's state (after the MSD
     ``prefill`` the AR baseline and MSD start from the same KV cache and
     first token): write the pending first token at E, then one token per
@@ -518,12 +814,15 @@ def ar_decode(st: Statics, params: Dict, state: EngineState,
     step runs, as in the JAX while_loop) or the cache limit, reading
     ``done`` on the host once per step (not at all once max_new is
     reached). ``step`` runs one ``ar_step`` over ``state`` (a graph
-    replay); by default eagerly. Returns the token count; the tokens are
+    replay); by default eagerly; when sampling, each step's draws come
+    from ``rng`` first. Returns the token count; the tokens are
     ids[E0 : cur_len + 1]."""
     _write(state.ids, state.bonus[None], state.cur_len)
     step = step or functools.partial(ar_step, st, params, state)
     n_new = 1
     while True:
+        if not st.sp.greedy:
+            draw(state, rng)
         step()
         n_new += 1
         if n_new >= st.max_new or bool(state.done):

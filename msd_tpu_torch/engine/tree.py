@@ -1,9 +1,10 @@
-"""Draft-tree container and greedy verification.
+"""Draft-tree container, greedy verification and speculative-sampling
+acceptance.
 
-The port of the JAX package's ``engine/tree.py`` for the greedy medusa
-path: the ``Tree`` record and the cumprod-of-matches greedy acceptance.
-OPT-Tree finalisation and speculative-sampling acceptance come with the
-drafting modes and sampling mode that use them.
+The port of the JAX package's ``engine/tree.py`` for the medusa path: the
+``Tree`` record, the cumprod-of-matches greedy acceptance and the lossless
+speculative-sampling walk. OPT-Tree finalisation comes with the drafting
+modes that use it.
 """
 
 from __future__ import annotations
@@ -51,3 +52,72 @@ def evaluate_greedy(tree: Tree, tree_logits: torch.Tensor
 def accepted_path(tree: Tree, best_node: torch.Tensor) -> torch.Tensor:
     """Retrieve row for a node index: [MAX_PATH] tree indices, -1 padded."""
     return tree.retrieve.index_select(0, best_node.reshape(1))[0]
+
+
+def sampling_width(num_nodes: int, top_k: int) -> int:
+    """Children tried per depth by ``evaluate_sampling``: the first
+    min(N - 1, max(16, top_k)) children of the accepted node."""
+    return min(num_nodes - 1, max(16, top_k))
+
+
+def evaluate_sampling(tree: Tree, tree_probs: torch.Tensor,
+                      uniforms: torch.Tensor, gumbel: torch.Tensor,
+                      top_k: int = 10
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative-sampling acceptance (temperature > 0); lossless.
+
+    tree_probs: [N, V] processed target distributions per tree node;
+    uniforms: [D, K] draws in [0, 1), one per child tried (D = MAX_PATH - 1
+    depths, K = ``sampling_width(N, top_k)``); gumbel: [V] Gumbel noise for
+    the final token. Walks depths from the root; at the current accepted
+    node, tries its first K children in ascending node order, accepting
+    child token x iff uniforms[d, i] <= residual[x], and zeroes and
+    renormalises the residual on rejection (utils.py:411-450 with q(x) = 1
+    for deterministic top-k drafts). The walk is the JAX function's, step
+    for step: D x K dependent steps over the [V] residual.
+
+    Returns 0-dim tensors (best_node, accept_len, next_token sampled from
+    the final residual as argmax(log(residual) + gumbel)).
+    """
+    N = tree_probs.shape[0]
+    D = tree.retrieve.shape[1] - 1
+    K = sampling_width(N, top_k)
+    if tuple(uniforms.shape) != (D, K):
+        raise ValueError(f"uniforms must be [{D}, {K}], got "
+                         f"{tuple(uniforms.shape)}")
+    dev = tree_probs.device
+    node_idx = torch.arange(N, device=dev)
+    live = tree.valid & (tree.tokens >= 0) & (node_idx > 0)
+    # 1-element tensors throughout: a 0-dim tensor index may sync
+    cur = torch.zeros(1, dtype=torch.long, device=dev)
+    acc = torch.zeros(1, dtype=torch.int32, device=dev)
+    alive = torch.ones(1, dtype=torch.bool, device=dev)
+    residual = tree_probs[0]
+    for d in range(D):
+        is_child = (tree.parents.long() == cur) & live
+        # indices of the first K children in ascending node order, N = none
+        child_ids = torch.sort(torch.where(is_child, node_idx, N)).values[:K]
+        child_tok = torch.clamp(
+            tree.tokens[torch.clamp(child_ids, max=N - 1)], min=0).long()
+        advanced = torch.zeros(1, dtype=torch.bool, device=dev)
+        for i in range(K):
+            j, tok = child_ids[i:i + 1], child_tok[i:i + 1]
+            valid_child = (j < N) & alive & ~advanced
+            r = uniforms[d, i:i + 1]
+            p_tok = residual.index_select(0, tok)
+            accept = valid_child & (r <= p_tok)
+            reject = valid_child & (r > p_tok)
+            # on rejection: zero the token's mass and renormalize
+            res_zero = residual.index_fill(0, tok, 0.0)
+            res_zero = res_zero / torch.clamp(res_zero.sum(), min=1e-20)
+            residual = torch.where(reject, res_zero, residual)
+            cur = torch.where(accept, j, cur)
+            acc = acc + accept.to(torch.int32)
+            advanced = advanced | accept
+        # if we advanced, the residual for the NEXT depth is the new node's
+        residual = torch.where(advanced, tree_probs.index_select(0, cur)[0],
+                               residual)
+        alive = alive & advanced
+    next_token = torch.argmax(gumbel + torch.log(
+        torch.clamp(residual, min=1e-20))).to(torch.int32)
+    return cur[0].to(torch.int32), acc[0], next_token

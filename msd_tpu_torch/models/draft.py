@@ -11,13 +11,15 @@ fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H],
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from msd_tpu_torch.configs import DraftConfig
 from msd_tpu_torch.models import llama as L
+from msd_tpu_torch.ops.attention import attention_probs
+from msd_tpu_torch.ops.rope import apply_rope
 
 Params = Dict
 
@@ -78,18 +80,54 @@ def draft_fuse(params: Params, emb_next: torch.Tensor,
 def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
                   positions: torch.Tensor, kv: Params, write_pos,
                   bias: torch.Tensor, cos_t: torch.Tensor,
-                  sin_t: torch.Tensor):
+                  sin_t: torch.Tensor, return_attn: bool = False,
+                  attn_rows: Optional[torch.Tensor] = None):
     """Run the draft decoder layer(s) over pre-fused hidden states.
 
     kv: {'k','v'} [num_layers, S, Hkv, D], written at write_pos IN PLACE.
-    Layer 0 skips input_layernorm (EAGLE convention). Returns (hidden, kv).
+    Layer 0 skips input_layernorm (EAGLE convention). Returns (hidden, kv)
+    or, with ``return_attn``, (hidden, kv, attn_probs): layer 0's attention
+    probabilities [Hq, T, S], used for visual-attention calibration
+    features; ``attn_rows`` ([R] row indices) limits them to those query
+    rows, [Hq, R, S], with the same values.
     """
     x = hidden_in
+    attn_p = None
     for i in range(cfg.num_layers):
-        x = L._layer_forward(L._layer(params["layers"], i), cfg.text, x,
-                             positions, kv["k"][i], kv["v"][i], write_pos,
-                             bias, cos_t, sin_t, skip_input_norm=(i == 0))
+        lp = L._layer(params["layers"], i)
+        x_in = x
+        x = L._layer_forward(lp, cfg.text, x, positions, kv["k"][i],
+                             kv["v"][i], write_pos, bias, cos_t, sin_t,
+                             skip_input_norm=(i == 0))
+        if return_attn and i == 0:
+            attn_p = _layer_attn_probs(lp, cfg.text, x_in, positions,
+                                       kv["k"][0], write_pos, bias, cos_t,
+                                       sin_t, attn_rows)
+    if return_attn:
+        return x, kv, attn_p
     return x, kv
+
+
+def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
+                      positions: torch.Tensor, kv_k: torch.Tensor, write_pos,
+                      bias: torch.Tensor, cos_t, sin_t,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer-0 attention probabilities, recomputed as the JAX package's
+    ``_layer_attn_probs`` computes them: queries and keys from x through
+    ``q_proj`` and ``k_proj`` as stored, ``x @ W`` (the layer itself applies
+    ``x @ W.T``), the keys written over a copy of the cache ``kv_k``
+    [S, Hkv, D] at write_pos. The calibration feature is defined by these
+    values, so the port keeps them. ``rows`` limits the query rows."""
+    t = x.shape[0]
+    hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    q = (x @ lp["q_proj"]).reshape(t, hq, d)
+    k = (x @ lp["k_proj"]).reshape(t, hkv, d)
+    q, k = apply_rope(q, k, cos_t, sin_t, positions)
+    keys = kv_k.index_copy(0, L.update_rows(kv_k.shape[0], write_pos, t,
+                                            x.device), k)
+    if rows is not None:
+        q, bias = q[rows], bias[rows]
+    return attention_probs(q, keys, bias)
 
 
 def init_draft_kv(cfg: DraftConfig, max_len: int, dtype=torch.float32,

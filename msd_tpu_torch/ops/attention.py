@@ -97,6 +97,22 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(t, hq, d).to(q.dtype)
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Softmax attention probabilities (no value product): [Hq, T, S] fp32,
+    scores accumulated in fp32 whatever the operand dtype.
+
+    Used by the calibration feature path (visual-attention intensity over
+    the image span; reference cnets.py:516-575 reads draft-layer
+    attentions).
+    """
+    t, hq, d = q.shape
+    s, hkv, _ = k.shape
+    qg = q.reshape(t, hkv, hq // hkv, d)
+    scores = _scores(qg, k, 1.0 / (d ** 0.5)) + bias.float()[None, None]
+    return torch.softmax(scores, dim=-1).reshape(hq, t, s)
+
+
 def length_mask_bias(positions_k: torch.Tensor, valid_len,
                      num_q: int) -> torch.Tensor:
     """Bias [num_q, S] admitting keys with index < valid_len."""

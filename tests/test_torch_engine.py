@@ -33,6 +33,7 @@ from msd_tpu_torch.engine import spec_engine as TSE
 from msd_tpu_torch.engine import tree as TT
 from msd_tpu_torch.engine.generator import MSDGenerator as TGen
 from msd_tpu_torch.ops.sampling import SamplingParams as TSP
+from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 
 WIDTHS = (4, 3, 2, 2, 1, 1)
 N_IMG = 8

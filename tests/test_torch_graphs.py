@@ -1,14 +1,17 @@
 """The port's static engine state and its CUDA-graph steps
 (msd_tpu_torch.engine.{spec_engine,graphs,generator}).
 
-On the CPU: the verify step and the AR token issue no host sync and no
-host-to-device copy (what a CUDA-graph capture needs; a breach fails here
-before it fails a capture on the card), every buffer of the static state
-keeps its address across steps and requests, and a request on a used
-generator equals the same request on a fresh one. On the card (marked
-``cuda``, skipped here): graph-replayed tokens equal eager tokens and the
-null-draft tokens, K1's launch count holds under replay, a draft swap
-captures a graph of its own, and a step that syncs fails its capture.
+On the CPU: the verify step (greedy, calibrated, collecting, sampled) and
+the AR token (greedy, sampled) issue no host sync and no host-to-device
+copy (what a CUDA-graph capture needs; a breach fails here before it fails
+a capture on the card), every buffer of the static state keeps its address
+across steps and requests, a request on a used generator equals the same
+request on a fresh one, and new calibration tables change the graph key.
+On the card (marked ``cuda``, skipped here): graph-replayed tokens equal
+eager tokens and the null-draft tokens, K1's launch count holds under
+replay, a draft or calibrator swap captures a graph of its own, sampled
+requests replay to the eager tokens of their seed, and a step that syncs
+fails its capture.
 
 Imports no JAX, so the card's machine runs it with ``--noconftest``.
 """
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from msd_tpu_torch import configs as TC
+from msd_tpu_torch.calib.device import CalibTables
 from msd_tpu_torch.engine import graphs as graphs_mod
 from msd_tpu_torch.engine import spec_engine as SE
 from msd_tpu_torch.engine.generator import MSDGenerator
@@ -32,6 +36,19 @@ from msd_tpu_torch.ops.sampling import SamplingParams
 WIDTHS = (4, 3, 2, 2, 1, 1)
 N_IMG = 8
 MAX_NEW = 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One CPU thread for torch in a module's tests (the port's test
+    modules import this fixture): the suite runs in several worker
+    processes on shared cores, and a full torch thread pool in each
+    oversubscribes them, so the small ops of these tests spin instead of
+    running."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class HostSync(RuntimeError):
@@ -197,6 +214,111 @@ def test_request_after_request_equals_fresh_generator(first, second):
         fresh.first_token(*prompts[second])
 
 
+SAMPLED = SamplingParams(temperature=1.0, top_p=0.9, top_k=20,
+                         greedy_round_bits=6)
+# (step, statics options) of every step program the engine captures
+STEP_KINDS = {"decode_step": dict(), "ar_step": dict(),
+              "calibrated": dict(use_calibration=True),
+              "collecting": dict(collect_calibration=True),
+              "calibrated_collecting": dict(use_calibration=True,
+                                            collect_calibration=True),
+              "sampled": dict(sp=SAMPLED), "sampled_ar_step": dict(sp=SAMPLED)}
+
+
+def _tables(vocab, device="cpu", base_alpha=4.0, seed=0):
+    """Calibration tables with a random monotone table and a random
+    token-class table."""
+    rng = np.random.default_rng(seed)
+    table = np.sort(rng.uniform(1e-3, 1 - 1e-3, (3, 5, 2, 3, 16)), axis=-1)
+    export = {"table": table, "attn_quantiles": [0.002, 0.004, 0.006, 0.01],
+              "margin_quantiles": [0.001, 0.01], "global_mean": 0.5}
+    return CalibTables.from_host(export, rng.integers(0, 3, vocab),
+                                 base_alpha, device)
+
+
+@pytest.mark.parametrize("kind", list(STEP_KINDS)[2:])
+def test_calibrated_collecting_and_sampled_steps_issue_no_host_sync(kind):
+    """The calibrated, collecting and sampled verify steps and the sampled
+    AR token under the guard, three steps each, with the step's draws
+    drawn outside it as the decode loop draws them."""
+    generator, _, cfg = _bundle()
+    gen = generator()
+    gen.set_calibrator(_tables(cfg.vocab_size))
+    ids, feats = _prompts(cfg)["image"]
+    opts = dict(STEP_KINDS[kind])
+    ar = kind.endswith("ar_step")
+    sp = opts.pop("sp", None)
+    if ar:
+        gen.naive_generate(ids, feats, MAX_NEW, sp=sp, share_prefill=True)
+    else:
+        gen.generate(ids, feats, MAX_NEW, sp=sp, **opts)
+    st = gen._statics(MAX_NEW, sp, **opts)
+    _, padded, img_pos = gen._prompt(ids)
+    s = gen.state
+    SE.prefill(st, gen.params, s, padded, len(ids), feats, img_pos,
+               rng=gen.rng)
+    e0 = int(s.cur_len)
+    for _ in range(3):
+        if sp is not None:
+            SE.draw(s, gen.rng)
+        with no_host_sync():
+            (SE.ar_step if ar else SE.decode_step)(st, gen.params, s)
+    if ar:
+        assert int(s.cur_len) == e0 + 3
+        return
+    assert int(s.steps) == 3 and int(s.cur_len) == e0 + int(s.acc_sum)
+    if st.collect_calibration:
+        log = {k: v[:3].numpy() for k, v in s.calib_log.items()}
+        assert (log["valid"].sum(axis=1) == sum(WIDTHS)).all()
+        assert (log["depth"][:, 1:] > 0).all() and (log["attn"] > 0).any()
+        assert not s.calib_log["valid"][3:].any()
+
+
+def test_state_keeps_its_addresses_over_calibrated_and_sampled_requests():
+    """calib_log, attn_feat, the draws buffer and every other buffer keep
+    their data_ptr over collecting, calibrated and sampled requests, MSD
+    and AR."""
+    generator, _, cfg = _bundle()
+    gen = generator()
+    gen.set_calibrator(_tables(cfg.vocab_size))
+    state = gen.state
+    ptrs = [x.data_ptr() for x in SE.state_tensors(state)]
+    prompts = _prompts(cfg)
+    ids, feats = prompts["image"]
+    r = gen.generate(ids, feats, MAX_NEW, use_calibration=True,
+                     collect_calibration=True)
+    assert r.calib_data["token"].shape == (r.accept_steps, 1 + sum(WIDTHS))
+    gen.generate(*prompts["short_text"], MAX_NEW, sp=SAMPLED, seed=3)
+    gen.naive_generate(ids, feats, MAX_NEW, sp=SAMPLED, seed=4)
+    gen.generate(ids, feats, MAX_NEW, sp=SAMPLED, use_calibration=True)
+    assert gen.state is state
+    assert [x.data_ptr() for x in SE.state_tensors(state)] == ptrs
+    assert r.calib_data["token"].shape == (r.accept_steps, 1 + sum(WIDTHS))
+
+
+def test_new_calibration_tables_change_the_graph_key():
+    """A graph captured over one calibrator's tables is never replayed
+    over another's: the key of a reranking step covers the tables'
+    tensors; the steps that do not rerank keep their key."""
+    generator, _, cfg = _bundle()
+    gen = generator()
+    cal, plain = gen._statics(MAX_NEW, use_calibration=True), \
+        gen._statics(MAX_NEW, collect_calibration=True)
+
+    def key(st):
+        return graphs_mod.weights_key(SE.step_params(st, gen.params))
+
+    keys, plain_keys = [key(cal)], [key(plain)]
+    for seed in (0, 1):
+        gen.set_calibrator(_tables(cfg.vocab_size, seed=seed))
+        keys.append(key(cal))
+        plain_keys.append(key(plain))
+    assert len(set(keys)) == 3 and len(set(plain_keys)) == 1
+    calib = gen.params["calib"]
+    assert len(keys[2]) == len(keys[0]) + len(calib)
+    assert {t.data_ptr() for t in calib} <= {k[0] for k in keys[2]}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -259,3 +381,49 @@ def test_capture_of_a_syncing_step_raises(cuda_device):
 
     with pytest.raises(RuntimeError):
         gen.graphs.get(syncing_step, st, gen.params, gen.state)
+
+
+@pytest.mark.cuda
+def test_sampled_and_calibrated_graphs_on_card(cuda_device):
+    """Tiny bf16 model: sampled MSD and sampled AR replayed as graphs give
+    the eager tokens of the same seed, the same seed twice under replay
+    gives the same tokens and another seed others; calibrated MSD under
+    replay equals eager and the null-draft tokens, a second calibrator
+    captures a graph of its own that reads its tables, and a step that
+    does not rerank replays its graph from before the tables."""
+    generator, drafts, cfg = _bundle(cuda_device, torch.bfloat16,
+                                     hidden=256, heads=2)
+    graph, eager = generator(), generator(False)
+    ids, feats = _prompts(cfg, cuda_device, torch.bfloat16)["image"]
+    for name, run in (
+            ("msd", lambda g, seed: g.generate(ids, feats, MAX_NEW,
+                                               seed=seed, sp=SAMPLED)),
+            ("ar", lambda g, seed: g.naive_generate(
+                ids, feats, MAX_NEW, seed=seed, sp=SAMPLED,
+                share_prefill=True))):
+        a, b, c = run(graph, 7), run(graph, 7), run(graph, 8)
+        assert a.graph is not None and a.graph == b.graph
+        _same(a, b)
+        _same(a, run(eager, 7))
+        assert not np.array_equal(a.tokens, c.tokens), name
+    graph.params["draft"] = eager.params["draft"] = drafts["null"]
+    null = graph.generate(ids, feats, MAX_NEW)
+    graph.params["draft"] = eager.params["draft"] = drafts["msd"]
+    plain = graph.generate(ids, feats, MAX_NEW)
+    seen = set()
+    for seed in (0, 1):
+        tables = _tables(cfg.vocab_size, cuda_device, seed=seed)
+        graph.set_calibrator(tables)
+        eager.set_calibrator(tables)
+        cal = graph.generate(ids, feats, MAX_NEW, use_calibration=True)
+        assert graph.graphs.reads(cal.graph, graph.params)
+        _same(cal, eager.generate(ids, feats, MAX_NEW, use_calibration=True))
+        np.testing.assert_array_equal(cal.tokens, null.tokens)
+        seen.add(cal.graph)
+    assert len(seen) == 2
+    # a step that does not rerank keeps its graph over installed tables
+    n_steps = len(graph.graphs.steps)
+    again = graph.generate(ids, feats, MAX_NEW)
+    assert again.graph == plain.graph
+    assert len(graph.graphs.steps) == n_steps
+    _same(again, plain)
