@@ -51,11 +51,27 @@ prints no result):
    another seed others; K1 launches = 32 per sampled AR token decoded; the
    speculative-sampling walk keeps the target distribution on the card
    (total variation < 0.05 over 4000 walks).
-7. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+7. distill (``run_distill``): bench.py's distillation of the draft cut to
+   the two prompts and two record -> train rounds, on a generator of its
+   own over the main path's target: engine-collected records
+   (``generate(collect_hiddens=True)``, whose tokens must equal the
+   non-collecting run's), the trainer with bench's settings (lr 1e-3 then
+   divided by 3, warmup 20, p_w 0.1, noise_rel 0.01, v_norm, medusa_w 1,
+   batch 2 over 768-row records, halving step budgets), and the bf16 cast
+   of the trained draft served through ``set_draft``. The trained draft's
+   graph-replayed MSD must commit the null-draft tokens, the last round's
+   mean loss must be below the first's, and alpha must rise above the
+   random draft's. Seconds per step, collection seconds, alpha before and
+   after, ms/token of MSD and of the AR baseline on the same generator,
+   and peak memory.
+8. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
    many K1 launches as the wrapper's count, 32 per AR token decoded; a
-   sampled MSD request and the acceptance walk's share of its step.
+   sampled MSD request and the acceptance walk's share of its step; one
+   train step of the distillation: device time, the GEMMs' share, and its
+   fp32 operations (counted from the shapes) against the card's fp32
+   peak.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -75,6 +91,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FP32_OPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 # K1 against its plain twin, elementwise |out - ref| <= atol + rtol |ref|.
 # bf16: both keep scores, probabilities and sums in fp32 and round the
 # output once to bf16, so they may differ by one bf16 ulp (at most 2^-7 of
@@ -88,6 +105,10 @@ TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
 MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 64, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
+# bench.py's distill (1700 steps over 5 record -> train rounds) cut to two
+# rounds and a step budget that keeps the phase under two minutes on the
+# card (~0.5 s a step at 7B width)
+DISTILL_STEPS, DISTILL_ROUNDS = 160, 2
 
 
 def log(*a):
@@ -1244,6 +1265,246 @@ def run_sampling(res, seed: int = 17, tv_draws: int = 4000) -> dict:
     return out
 
 
+def distill_schedule(steps: int, rounds: int) -> list:
+    """Steps per record -> train round, bench.py's decaying schedule
+    (bench.py:923-929): budgets halve, at least 50 a round, the first takes
+    the rest."""
+    out = [max(50, steps >> (it + 1)) for it in range(rounds)]
+    if rounds > 1:
+        out[-1] = max(50, out[-2] // 2)
+    out[0] += max(0, steps - sum(out))
+    return out
+
+
+def train_step_ops(tcfg, n_med: int, rows: int, batch: int) -> int:
+    """Floating-point operations of one ``train_step`` (matmuls only, each
+    multiply-add two): per sequence the target's logits, the draft's fc,
+    projections, attention and MLP, its logits, the medusa resblocks and
+    their logits forward; backward the fc's weight gradient (its input is
+    data), twice the rest of the draft (input and weight gradients), the
+    input gradient of every logit product, and the recompute of each
+    checkpointed medusa head."""
+    T, H = rows, tcfg.hidden_size
+    kv = tcfg.num_key_value_heads * tcfg.head_dim
+    logits = 2 * T * H * tcfg.vocab_size
+    fc = 2 * T * 2 * H * H
+    body = (2 * 2 * T * H * H + 2 * 2 * T * H * kv
+            + 3 * 2 * T * H * tcfg.intermediate_size + 2 * 2 * T * T * H
+            + n_med * 2 * T * H * H)
+    forward = logits + fc + body + logits + n_med * logits
+    backward = fc + 2 * body + logits + 2 * n_med * logits
+    return batch * (forward + backward)
+
+
+def run_distill(res, steps: int = DISTILL_STEPS,
+                rounds: int = DISTILL_ROUNDS) -> dict:
+    """bench.py's draft distillation (bench.py:750-1000, records from the
+    engine) on the main path's target and prompts, on a generator of its
+    own, graph-replayed. Each round serves the current draft (timed MSD,
+    tokens == null-draft tokens), collects one record per prompt from the
+    engine's own hiddens (tokens == the non-collecting run's), trains a
+    fresh trainer over fp32 master weights with bench's settings and
+    serves the bf16 cast of the result through ``set_draft``. Raises if
+    any MSD run departs from the null-draft tokens, if the last round's
+    mean loss is not below the first's, or if alpha does not rise above
+    the random draft's."""
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.train.data_gen import record_from_traj
+    from msd_tpu_torch.train.draft_train import TrainConfig
+    from msd_tpu_torch.train.trainer import (DraftTrainer, TrainerConfig,
+                                             tree_map)
+
+    c = res["ctx"]
+    t0 = time.perf_counter()
+    base = c["gens"]["graph"]
+    tp = base.params["target"]
+    prompts, feats, null = c["prompts"], c["feats"], c["null"]
+    max_new, warm, sync = c["max_new"], c["max_new_warm"], c["sync"]
+    on_card, n_img = c["on_card"], base.n_img
+    gen = MSDGenerator(tp, c["drafts"]["msd"], base.tcfg, base.dcfg,
+                       base.eng, n_img=n_img, eos_id=base.eos_id,
+                       sp=base.sp, device=c["device"])
+    # bench's record length: prompt, image rows and the whole decode
+    pad_rec = ((len(prompts[0]) + n_img - 1 + max_new + 127) // 128) * 128
+    emb_host = tp["embed_tokens"].float().cpu().numpy()
+    feats_host = feats.float().cpu().numpy()
+    out = {"rounds": [], "alpha": []}
+
+    def serve(label):
+        """Timed graph-replayed MSD on every prompt, after an untimed
+        warm-up that captures; every run must commit the null-draft
+        tokens. Returns the runs."""
+        gen.generate(prompts[0], feats, warm)
+        runs, secs = [], 0.0
+        for pi, ids in enumerate(prompts):
+            sync()
+            t1 = time.perf_counter()
+            r = gen.generate(ids, feats, max_new)
+            sync()
+            secs += time.perf_counter() - t1
+            if not np.array_equal(r.tokens, null[pi]):
+                raise AssertionError(f"distill {label} prompt {pi}: MSD "
+                                     f"tokens differ from the null-draft "
+                                     f"tokens")
+            if gen.graphs is not None and not gen.graphs.reads(r.graph,
+                                                               gen.params):
+                raise AssertionError(f"distill {label}: replayed a graph "
+                                     f"of another draft")
+            runs.append(r)
+        steps = sum(r.accept_steps for r in runs)
+        alpha = sum(r.accept_len_sum for r in runs) / max(steps, 1)
+        toks = sum(len(r.tokens) for r in runs)
+        out["alpha"].append(alpha)
+        log(f"[distill] {label}: graph MSD alpha {alpha:.3f} over {steps} "
+            f"steps, {secs * 1e3 / toks:.2f} ms/token, "
+            f"{secs * 1e3 / max(steps, 1):.2f} ms/step ({toks} tokens, "
+            f"prefill included); == null-draft tokens: True")
+        return runs
+
+    def collect(label, runs):
+        """The collecting runs (after an untimed warm-up that captures),
+        whose tokens must equal the plain ``runs``'. Returns them and
+        their seconds."""
+        gen.generate(prompts[0], feats, warm, collect_hiddens=True)
+        sync()
+        t1 = time.perf_counter()
+        got = [gen.generate(ids, feats, max_new, collect_hiddens=True)
+               for ids in prompts]
+        sync()
+        secs = time.perf_counter() - t1
+        same = all(np.array_equal(a.tokens, b.tokens)
+                   for a, b in zip(got, runs))
+        log(f"[distill] {label}: collecting runs {secs:.2f}s for "
+            f"{len(got)} records of {[r.traj_hidden.shape for r in got]} "
+            f"hiddens; tokens == the non-collecting runs': {same}")
+        if not same:
+            raise AssertionError("distill: collecting changed the tokens")
+        return got, secs
+
+    steps_it = distill_schedule(steps, rounds)
+    for it in range(rounds):
+        label = "random draft" if it == 0 else f"draft after round {it}"
+        got, coll_s = collect(label, serve(label))
+        recs = [record_from_traj(r.traj_hidden, r.exp_ids, c["e0"], 1,
+                                 n_img, feats_host, emb_host, pad_rec)
+                for r in got]
+        lr = 1e-3 / 3.0 ** it
+        tc = TrainerConfig(
+            train=TrainConfig(lr=lr, warmup_steps=20,
+                              total_steps=max(steps_it[it], 21),
+                              noise_std=0.0, p_w=0.1, noise_rel=0.01,
+                              v_norm=True, medusa_w=1.0, rollout_steps=0),
+            batch_size=2, max_len=pad_rec, num_epochs=1, log_every=10 ** 9)
+        if on_card:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        trainer = DraftTrainer(gen.dcfg, gen.params["draft"],
+                               tp["lm_head"], tc)
+        hist = []
+        while trainer.step_count < steps_it[it]:
+            hist.append(trainer.run_epoch([], recs, log=lambda *a: None))
+        sync()
+        train_s = time.perf_counter() - t1
+        peak = (torch.cuda.max_memory_allocated(), mem0) if on_card \
+            else None
+        names = ("loss", "vloss", "ploss", "top1_agree", "medusa1_agree")
+        mean_loss = float(np.mean([m["loss"] for m in hist]))
+        rnd = {"steps": trainer.step_count, "lr": lr, "seconds": train_s,
+               "s_per_step": train_s / trainer.step_count,
+               "collect_s": coll_s, "mean_loss": mean_loss, "peak": peak,
+               "first": {k: hist[0][k] for k in names},
+               "last": {k: hist[-1][k] for k in names}}
+        out["rounds"].append(rnd)
+        log(f"[distill] round {it}: {rnd['steps']} steps at lr {lr:.3e} "
+            f"(batch 2 x {pad_rec} rows) in {train_s:.2f}s, "
+            f"{rnd['s_per_step']:.4f} s/step (trainer set-up included); "
+            f"mean loss {mean_loss:.4f}; first/last " + ", ".join(
+                f"{k} {rnd['first'][k]:.4f}/{rnd['last'][k]:.4f}"
+                for k in names))
+        if peak is not None:
+            log(f"[distill] round {it}: peak device memory while training "
+                f"{peak[0] / 2**30:.2f} GiB allocated ({peak[1] / 2**30:.2f}"
+                f" GiB before: the resident weights and every generator's "
+                f"buffers)")
+        # rebuild: the bf16 cast of the fp32 master weights, the
+        # embedding shared with the target (bench.py:750-775)
+        dtype = tp["embed_tokens"].dtype
+        trained = {k: tree_map(lambda t: t.detach().to(dtype), v)
+                   for k, v in trainer.params.items()
+                   if k != "embed_tokens"}
+        trained["embed_tokens"] = tp["embed_tokens"]
+        del trainer
+        gen.set_draft(trained)
+    out["last"] = (trained, recs, tc)
+
+    serve(f"draft after round {rounds}")
+    first, last = out["rounds"][0]["mean_loss"], out["rounds"][-1][
+        "mean_loss"]
+    # the AR baseline on the same generator and prompts, through K1
+    gen.naive_generate(prompts[0], feats, warm, share_prefill=True)
+    K1.decode_attention.launches = 0
+    secs = toks = decoded = 0
+    for ids in prompts:
+        sync()
+        t1 = time.perf_counter()
+        r = gen.naive_generate(ids, feats, max_new, share_prefill=True)
+        sync()
+        secs += time.perf_counter() - t1
+        toks += len(r.tokens)
+        decoded += len(r.tokens) - 1
+    launches = K1.decode_attention.launches
+    expected = base.tcfg.num_hidden_layers * decoded if on_card else 0
+    log(f"[distill] graph AR on the same generator: "
+        f"{secs * 1e3 / toks:.2f} ms/token ({toks} tokens, prefill "
+        f"included); K1 launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"distill: K1 launch count {launches} != "
+                             f"{expected}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[distill] alpha {out['alpha'][0]:.3f} (random draft) -> "
+        f"{out['alpha'][-1]:.3f} (trained); mean loss of round 0 "
+        f"{first:.4f}, of round {rounds - 1} {last:.4f}; collection "
+        f"{sum(r['collect_s'] for r in out['rounds']):.2f}s, training "
+        f"{sum(r['seconds'] for r in out['rounds']):.2f}s; phase took "
+        f"{out['seconds']:.1f}s")
+    if not last < first:
+        raise AssertionError(f"distill: the last round's mean loss {last} "
+                             f"is not below the first's {first}")
+    if not out["alpha"][-1] > out["alpha"][0]:
+        raise AssertionError(f"distill: alpha {out['alpha'][-1]} after "
+                             f"training is not above the random draft's "
+                             f"{out['alpha'][0]}")
+    del gen
+
+    def profile():
+        """One train step of the last round's configuration on the trained
+        draft, profiled after an untimed step."""
+        trained, recs, tc = out.pop("last")
+        trainer = DraftTrainer(base.dcfg, trained, tp["lm_head"], tc)
+        trainer.run_epoch([], recs, log=lambda *a: None)
+        prof = device_profile(lambda: trainer.run_epoch(
+            [], recs, log=lambda *a: None),
+            f"train step, batch 2 x {pad_rec} rows, fp32", top=8)
+        gemm_us = sum(us for name, us in prof["kernel_us"].items()
+                      if "gemm" in name.lower() or name.startswith("nvjet")
+                      or "splitk" in name.lower())
+        ops = train_step_ops(base.tcfg, base.dcfg.medusa_heads, pad_rec, 2)
+        bound_ms = ops / FP32_OPS_PER_S * 1e3
+        log(f"[distill] train step: {ops / 1e12:.2f} TFLOP of fp32 matmuls "
+            f"(counted from the shapes), bound {bound_ms:.1f} ms at the "
+            f"fp32 peak; device {prof['busy_us'] / 1e3:.1f} ms "
+            f"({ops / prof['busy_us'] / 1e6:.1f} TFLOP/s, roofline share "
+            f"{bound_ms * 1e3 / prof['busy_us']:.3f}), GEMMs "
+            f"{gemm_us / prof['busy_us']:.3f} of it")
+
+    out["profile"] = profile
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -1261,9 +1522,11 @@ def main():
         f"{time.perf_counter() - t_main:.1f}s")
     run_calib(res)
     sampling = run_sampling(res)
+    distill = run_distill(res)
     profile_k1()
     res["profile"]()
     sampling["profile"]()
+    distill["profile"]()
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

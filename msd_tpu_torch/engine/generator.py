@@ -3,16 +3,18 @@ and per-request stats.
 
 The port of the part of the JAX package's ``engine/generator.py`` that the
 benchmark drives: ``generate`` (medusa MSD, greedy or sampled, with the
-calibrated rerank after ``set_calibrator`` and the collection of its
-features), ``naive_generate`` (the AR baseline, optionally from the MSD
-prefill) and ``first_token``, for expand-mode prompts with at most one
-image. ``prefill`` and ``decode`` ranges mark each request's two phases
-for ``torch.profiler``. Sampling draws from one ``torch.Generator`` on the
+calibrated rerank after ``set_calibrator``, the collection of its features
+and of the trajectory's hidden states for distillation), ``naive_generate``
+(the AR baseline, optionally from the MSD prefill), ``first_token`` and
+``set_draft``, for expand-mode prompts with at most one image. ``prefill``
+and ``decode`` ranges mark each request's two phases for
+``torch.profiler``. Sampling draws from one ``torch.Generator`` on the
 generator's device, seeded per request from ``seed``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -23,7 +25,7 @@ from torch.profiler import record_function
 from msd_tpu_torch.configs import (DraftConfig, EngineConfig,
                                    IMAGE_TOKEN_INDEX, LlamaConfig)
 from msd_tpu_torch.engine import spec_engine as SE
-from msd_tpu_torch.engine.graphs import StepGraphs
+from msd_tpu_torch.engine.graphs import StepGraphs, leaves
 from msd_tpu_torch.calib.device import CalibTables
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.ops.sampling import SamplingParams
@@ -39,6 +41,11 @@ class GenResult:
     # per-node features when collecting: {field: [steps, N]} (see
     # spec_engine.CALIB_FIELDS)
     calib_data: Optional[Dict[str, np.ndarray]] = None
+    # with collect_hiddens: the target hidden of every committed position
+    # [cur_len, H] (float32, the engine's dtype cast exactly) and the
+    # expanded ids [cur_len]
+    traj_hidden: Optional[np.ndarray] = None
+    exp_ids: Optional[np.ndarray] = None
 
     @property
     def avg_accept_len(self) -> float:
@@ -80,19 +87,32 @@ class MSDGenerator:
 
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
-                 collect_calibration: bool = False) -> SE.Statics:
+                 collect_calibration: bool = False,
+                 collect_hiddens: bool = False) -> SE.Statics:
         return SE.Statics(tcfg=self.tcfg, dcfg=self.dcfg, tree=self.eng.tree,
                           eng=self.eng, sp=sp or self.sp, n_img=self.n_img,
                           eos_id=self.eos_id, max_new=max_new,
                           attn_feature_mode=self.attn_feature_mode,
                           use_calibration=use_calibration,
-                          collect_calibration=collect_calibration)
+                          collect_calibration=collect_calibration,
+                          collect_hiddens=collect_hiddens)
 
     def set_calibrator(self, tables: CalibTables) -> None:
         """Install device calibration tables (``CalibTables.from_host``) for
         ``generate(use_calibration=True)``. A reranking step's graph keys on
         the tables' tensors: new tables capture graphs of their own."""
         self.params["calib"] = tables
+
+    def set_draft(self, draft_params: Dict) -> None:
+        """Serve with another draft (e.g. one just distilled). The graphs
+        that hold a tensor of the old draft that the new bundle does not
+        hold are released first, so the old draft's memory can be freed
+        and no graph captured over it is replayed over whatever the
+        allocator puts at its addresses; the next request captures anew."""
+        old = self.params["draft"]
+        self.params["draft"] = draft_params
+        if self.graphs is not None:
+            self.graphs.drop(_ptrs(old) - _ptrs(self.params))
 
     def _step(self, fn, st: SE.Statics):
         """The graph replaying ``fn`` over the static state (captured now if
@@ -151,19 +171,28 @@ class MSDGenerator:
                  sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
                  collect_calibration: bool = False,
-                 first_token: Optional[int] = None) -> GenResult:
+                 first_token: Optional[int] = None,
+                 collect_hiddens: bool = False,
+                 fetch_hiddens: Optional[bool] = None) -> GenResult:
         """Speculative (MSD) generation; lossless wrt the target model.
 
         seed: seeds the request's random draws (sampling); sp: sampling
         parameters for this request (default: the generator's).
         use_calibration: calibrated tree rerank (set_calibrator first).
         collect_calibration: return per-node calibration features/labels.
-        first_token: pin the first new token (see first_token())."""
+        first_token: pin the first new token (see first_token()).
+        collect_hiddens: return the engine's own hidden state of every
+        committed position and the expanded ids (``traj_hidden``,
+        ``exp_ids``): on-policy distillation data with decode-time
+        numerics. fetch_hiddens: copy them to the host (default:
+        collect_hiddens); False runs the collecting step without the
+        copy."""
         if use_calibration and "calib" not in self.params:
             raise ValueError("set_calibrator() before use_calibration=True")
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
-        st = self._statics(max_new, sp, use_calibration, collect_calibration)
+        st = self._statics(max_new, sp, use_calibration, collect_calibration,
+                           collect_hiddens)
         rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
             SE.prefill(st, self.params, self.state, padded, len(ids),
@@ -175,29 +204,39 @@ class MSDGenerator:
         steps = int(s.steps)
         calib_data = {k: _host(v[:steps]) for k, v in s.calib_log.items()} \
             if collect_calibration else None
+        traj_hidden = exp_ids = None
+        fetch = collect_hiddens if fetch_hiddens is None else fetch_hiddens
+        if collect_hiddens and fetch:
+            cur = int(s.cur_len)
+            traj_hidden = _host(s.traj_hidden[:cur].float())
+            exp_ids = _host(s.ids[:cur])
         return GenResult(
             tokens=self._tokens(self._e0(ids, img_feats), max_new),
             accept_steps=steps, accept_len_sum=int(s.acc_sum),
             alpha_hist=_host(s.alpha_hist),
             graph=None if step is None else step.index,
-            calib_data=calib_data)
+            calib_data=calib_data, traj_hidden=traj_hidden, exp_ids=exp_ids)
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,
                        sp: Optional[SamplingParams] = None,
-                       share_prefill: bool = False) -> GenResult:
+                       share_prefill: bool = False,
+                       collect_hiddens: bool = False) -> GenResult:
         """Plain AR baseline over the same weights and KV layout.
 
         share_prefill: start from the MSD ``prefill`` (target and draft),
         so the AR loop decodes over exactly the KV cache and first token
-        every MSD run starts from; otherwise a target-only prefill."""
+        every MSD run starts from; otherwise a target-only prefill.
+        collect_hiddens: run that prefill as a collecting ``generate`` runs
+        it (the AR token itself reads and writes no hiddens)."""
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp)
         rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
             if share_prefill:
-                SE.prefill(st, self.params, self.state, padded, len(ids),
+                pst = dataclasses.replace(st, collect_hiddens=collect_hiddens)
+                SE.prefill(pst, self.params, self.state, padded, len(ids),
                            img_feats, img_pos, rng=rng)
             else:
                 SE.ar_prefill(st, self.params, self.state, padded, len(ids),
@@ -208,6 +247,10 @@ class MSDGenerator:
         return GenResult(tokens=self._tokens(self._e0(ids, img_feats),
                                              max_new),
                          graph=None if step is None else step.index)
+
+
+def _ptrs(params: Dict) -> set:
+    return {t.data_ptr() for t in leaves(params)}
 
 
 def _host(x: torch.Tensor) -> np.ndarray:

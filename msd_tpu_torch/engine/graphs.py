@@ -17,7 +17,10 @@ or calibration tables are swapped captures a graph of its own for the new
 tensors and never replays one that reads the old ones, while steps that
 do not rerank keep their graphs when tables are installed. An entry keeps
 its weight tensors alive, so their addresses cannot be reused by other
-tensors while it is cached.
+tensors while it is cached; ``StepGraphs.drop`` releases the entries that
+hold given tensors (a generator's ``set_draft``), after which the old
+tensors can be freed and their addresses reused, since no cached graph
+reads them any more.
 
 Each capture first warms the step up on the capture stream (first-use
 uploads, the kernel build, cuBLAS workspaces), then captures it into one
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -42,11 +45,11 @@ from msd_tpu_torch.ops.decode_attention import decode_attention
 WARMUP_STEPS = 2
 
 
-def _leaves(tree) -> List[torch.Tensor]:
+def leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
-        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+        return [x for key in sorted(tree) for x in leaves(tree[key])]
     if isinstance(tree, (tuple, list)):
-        return [x for item in tree for x in _leaves(item)]
+        return [x for item in tree for x in leaves(item)]
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
@@ -54,7 +57,7 @@ def weights_key(params: Dict) -> tuple:
     """(address, shape, dtype) of every tensor in ``params``, those of
     tuples such as the calibration tables (``params["calib"]``) included."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                 for t in _leaves(params))
+                 for t in leaves(params))
 
 
 class CapturedStep:
@@ -81,7 +84,8 @@ class StepGraphs:
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
-        self.steps: List[CapturedStep] = []
+        # by capture index; None once dropped
+        self.steps: List[Optional[CapturedStep]] = []
         self._cache: Dict[tuple, CapturedStep] = {}
         self.capture_seconds = 0.0
 
@@ -100,10 +104,21 @@ class StepGraphs:
         return step
 
     def reads(self, index: int, params: Dict) -> bool:
-        """Whether the graph of capture ``index`` reads exactly the weight
-        tensors of ``params`` that its step reads."""
-        key = self.steps[index].key
-        return key[2] == weights_key(SE.step_params(key[1], params))
+        """Whether the graph of capture ``index`` is still cached and reads
+        exactly the weight tensors of ``params`` that its step reads."""
+        step = self.steps[index]
+        return step is not None and \
+            step.key[2] == weights_key(SE.step_params(step.key[1], params))
+
+    def drop(self, ptrs: set) -> None:
+        """Release every cached graph that reads a tensor whose address is
+        in ``ptrs``, once the card has finished any replay of it."""
+        stale = [key for key, step in self._cache.items()
+                 if any(t.data_ptr() in ptrs for t in step.weights)]
+        if stale:
+            torch.cuda.synchronize(self.device)
+        for key in stale:
+            self.steps[self._cache.pop(key).index] = None
 
     def _capture(self, fn, st, params, state, key) -> CapturedStep:
         t0 = time.perf_counter()
@@ -124,7 +139,7 @@ class StepGraphs:
             x.copy_(y)
         torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
-        step = CapturedStep(len(self.steps), graph, key, _leaves(params),
+        step = CapturedStep(len(self.steps), graph, key, leaves(params),
                             k1_calls)
         self.steps.append(step)
         return step

@@ -21,6 +21,11 @@ path:
   ar      : the AR baseline, one token per target forward (``ar_step``),
             whose single query row goes to the CUDA decode-attention kernel.
 
+With ``collect_hiddens`` the prefill and every commit also write the target
+hidden of each committed position into ``traj_hidden``: the distillation
+records of ``train/data_gen.record_from_traj``, with the numerics the
+draft's suffix path reads back at serve time.
+
 All engine state lives in one ``EngineState`` of static buffers, allocated
 once per generator (``alloc_state``) and updated IN PLACE: the prefills
 zero and refill it, ``decode_step`` and ``ar_step`` read and write only its
@@ -88,6 +93,9 @@ class Statics:
     use_calibration: bool = False
     # record per-node calibration features/labels each step
     collect_calibration: bool = False
+    # write the target hidden of every committed position into
+    # ``traj_hidden`` (prefill rows, then the accepted rows of each step)
+    collect_hiddens: bool = False
 
     @property
     def s_target(self) -> int:
@@ -140,6 +148,8 @@ class EngineState(NamedTuple):
     rand: torch.Tensor           # [D * K + V] uniform draws of one step:
     #                              the acceptance walk's [D, K], then the
     #                              final token's [V] (sampling)
+    traj_hidden: torch.Tensor    # [S_t, H] target hidden per committed
+    #                              position (collect_hiddens)
 
 
 CALIB_FIELDS = {"token": torch.int32, "depth": torch.int32,
@@ -188,7 +198,9 @@ def alloc_state(st: Statics, dtype: torch.dtype, device) -> EngineState:
         calib_log={k: torch.zeros(st.step_limit, N, dtype=dt, device=device)
                    for k, dt in CALIB_FIELDS.items()},
         rand=torch.zeros(_walk_draws(st) + st.tcfg.vocab_size,
-                         dtype=torch.float32, device=device))
+                         dtype=torch.float32, device=device),
+        traj_hidden=torch.zeros(st.s_target, st.tcfg.hidden_size,
+                                dtype=dtype, device=device))
 
 
 def draw(state: EngineState, rng: torch.Generator):
@@ -566,8 +578,9 @@ def _collect_step(st: Statics, s: EngineState, tr: Tree,
 def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
             best, acc_len, next_tok):
     """Commit the accepted path in place: write its tokens into ids, gather
-    its KV rows into the prefix rows [E, E+P), stage the next draft suffix,
-    advance the length and counters and set ``done``."""
+    its KV rows into the prefix rows [E, E+P), stage the next draft suffix
+    (with ``st.collect_hiddens`` also its hiddens into ``traj_hidden`` at
+    E), advance the length and counters and set ``done``."""
     P = st.tree.max_path_len
     E = s.cur_len
     dev = hidden.device
@@ -590,6 +603,9 @@ def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
         slot < acc_len, ct_shift,
         torch.where(slot == acc_len, next_tok.to(ct.dtype), zero)))
     s.suffix_hidden.copy_(hidden[pc])
+    if st.collect_hiddens:
+        # rows past the accepted path are overwritten by the next commit
+        _write(s.traj_hidden, s.suffix_hidden, E)
     n_new = (acc_len + 1).to(torch.int32)
     eos_hit = torch.any((ct == st.eos_id) & (slot <= acc_len)) \
         | (next_tok == st.eos_id)
@@ -682,6 +698,8 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
     P_exp = fused.shape[0]
     dp = params["draft"]
     hidden = _target_prefill(st, params, state, fused, exp_ids, E0, rng)
+    if st.collect_hiddens:
+        _write(state.traj_hidden, hidden, 0)
     if bonus_override is not None and bonus_override >= 0:
         state.bonus.fill_(bonus_override)
     state.img_pos.fill_(img_pos)

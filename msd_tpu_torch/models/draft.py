@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from msd_tpu_torch.configs import DraftConfig
 from msd_tpu_torch.models import llama as L
-from msd_tpu_torch.ops.attention import attention_probs
+from msd_tpu_torch.ops.attention import attention_probs, masked_attention
 from msd_tpu_torch.ops.rope import apply_rope
 
 Params = Dict
@@ -128,6 +128,24 @@ def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
     if rows is not None:
         q, bias = q[rows], bias[rows]
     return attention_probs(q, keys, bias)
+
+
+def draft_forward_nocache(params: Params, cfg: DraftConfig,
+                          hidden_in: torch.Tensor, positions: torch.Tensor,
+                          bias: torch.Tensor, cos_t: torch.Tensor,
+                          sin_t: torch.Tensor) -> torch.Tensor:
+    """Training-mode forward: full-sequence causal attention, no KV cache.
+
+    hidden_in: [T, H] (already through draft_fuse); bias: [T, T] additive.
+    Built from the layer's functional parts, with no in-place write on
+    autograd's path (``_layer_forward`` writes K/V into a cache)."""
+    tc = cfg.text
+    x = hidden_in
+    for i in range(cfg.num_layers):
+        lp = L._layer(params["layers"], i)
+        q, k, v = L._layer_qkv(lp, tc, x, positions, cos_t, sin_t, i == 0)
+        x = L._layer_post_attn(lp, tc, x, masked_attention(q, k, v, bias))
+    return x
 
 
 def init_draft_kv(cfg: DraftConfig, max_len: int, dtype=torch.float32,

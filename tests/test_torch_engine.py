@@ -144,6 +144,44 @@ def test_msd_matches_jax_and_null_draft(mha, draft, prompt):
         assert tm.alpha_hist[3:].sum() > 0, tm.alpha_hist
 
 
+@pytest.mark.parametrize("draft", ["msd", "echo"])
+def test_collected_hiddens_match_jax(mha, draft):
+    """generate(collect_hiddens=True) on both sides: equal tokens and
+    expanded ids, the trajectory's hiddens (prefill rows, then each step's
+    accepted rows; the echo draft commits several rows a step) within
+    2e-5; collecting changes no token, fetch_hiddens=False returns none,
+    and the AR baseline from a collecting prefill gives its tokens."""
+    jgen, tgen, drafts, tdrafts, jcfg = mha
+    prompts, feats = _prompts(jcfg.vocab_size)
+    jgen.params = dict(jgen.params, draft=drafts[draft])
+    tgen.params["draft"] = tdrafts[draft]
+    jm = jgen.generate(prompts[1], img_feats=jnp.asarray(feats),
+                       max_new_tokens=MAX_NEW, split_programs=True,
+                       collect_hiddens=True)
+    tm = tgen.generate(prompts[1], img_feats=torch.from_numpy(feats),
+                       max_new_tokens=MAX_NEW, collect_hiddens=True)
+    _assert_same_run(jm, tm)
+    np.testing.assert_array_equal(tm.exp_ids, jm.exp_ids)
+    assert tm.traj_hidden.shape == jm.traj_hidden.shape == \
+        (len(prompts[1]) + N_IMG - 1 + tm.accept_len_sum, 64)
+    np.testing.assert_allclose(tm.traj_hidden, jm.traj_hidden, atol=2e-5,
+                               rtol=2e-5)
+    plain = tgen.generate(prompts[1], img_feats=torch.from_numpy(feats),
+                          max_new_tokens=MAX_NEW)
+    _assert_same_run(plain, tm)
+    quiet = tgen.generate(prompts[1], img_feats=torch.from_numpy(feats),
+                          max_new_tokens=MAX_NEW, collect_hiddens=True,
+                          fetch_hiddens=False)
+    _assert_same_run(quiet, tm)
+    assert quiet.traj_hidden is None and quiet.exp_ids is None
+    ar = [tgen.naive_generate(prompts[1], img_feats=torch.from_numpy(feats),
+                              max_new_tokens=MAX_NEW, share_prefill=True,
+                              collect_hiddens=collect) for collect in (0, 1)]
+    np.testing.assert_array_equal(ar[1].tokens, ar[0].tokens)
+    if draft == "echo":
+        assert tm.alpha_hist[3:].sum() > 0, tm.alpha_hist
+
+
 @pytest.mark.parametrize("share_prefill", [True, False])
 def test_ar_baseline_matches_jax_and_msd(mha, share_prefill):
     jgen, tgen, drafts, tdrafts, jcfg = mha

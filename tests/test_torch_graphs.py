@@ -319,6 +319,86 @@ def test_new_calibration_tables_change_the_graph_key():
     assert {t.data_ptr() for t in calib} <= {k[0] for k in keys[2]}
 
 
+class _EagerGraph:
+    """Stands in for a captured CUDA graph on the CPU: a replay runs the
+    step eagerly over what the capture was given."""
+
+    def __init__(self, fn, st, params, state):
+        self.replay = lambda: fn(st, params, state)
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """A factory of generators whose StepGraphs run on the CPU: the cache,
+    its keys and ``drop`` as on the card, each capture an eager stand-in."""
+
+    def capture(self, fn, st, params, state, key):
+        step = graphs_mod.CapturedStep(len(self.steps),
+                                       _EagerGraph(fn, st, params, state),
+                                       key, graphs_mod.leaves(params), 0)
+        self.steps.append(step)
+        return step
+
+    monkeypatch.setattr(graphs_mod.StepGraphs, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+
+    def make():
+        generator, drafts, cfg = _bundle()
+        gen = generator()
+        gen.graphs = graphs_mod.StepGraphs.__new__(graphs_mod.StepGraphs)
+        gen.graphs.device = torch.device("cpu")
+        gen.graphs.steps, gen.graphs._cache = [], {}
+        return gen, drafts, cfg
+
+    return make
+
+
+def test_collecting_step_keys_a_graph_of_its_own(cpu_graphs):
+    """A verify step that collects hiddens is keyed, captured and replayed
+    apart from the one that does not; each request replays its own graph
+    again without a capture, and the tokens agree."""
+    gen, _, cfg = cpu_graphs()
+    ids, feats = _prompts(cfg)["image"]
+    plain = gen.generate(ids, feats, MAX_NEW)
+    got = gen.generate(ids, feats, MAX_NEW, collect_hiddens=True)
+    assert {plain.graph, got.graph} == {0, 1}
+    again = (gen.generate(ids, feats, MAX_NEW),
+             gen.generate(ids, feats, MAX_NEW, collect_hiddens=True))
+    assert (again[0].graph, again[1].graph) == (plain.graph, got.graph)
+    assert len(gen.graphs.steps) == 2
+    _same(plain, got)
+    _same(again[0], plain)
+    assert got.traj_hidden.shape[0] == len(ids) + N_IMG - 1 + \
+        got.accept_len_sum
+
+
+def test_set_draft_releases_every_graph_of_the_old_draft(cpu_graphs):
+    """After set_draft no cached graph holds a tensor of the old draft
+    (the shared embedding aside), the old captures read nothing any more,
+    the next request captures over the new draft, and its tokens equal a
+    fresh generator's with that draft."""
+    gen, drafts, cfg = cpu_graphs()
+    ids, feats = _prompts(cfg)["image"]
+    old = gen.params["draft"]
+    first = [gen.generate(ids, feats, MAX_NEW),
+             gen.naive_generate(ids, feats, MAX_NEW, share_prefill=True)]
+    gen.set_draft(drafts["null"])
+    only_old = {t.data_ptr() for t in graphs_mod.leaves(old)} - \
+        {t.data_ptr() for t in graphs_mod.leaves(gen.params)}
+    assert only_old
+    assert not any(t.data_ptr() in only_old
+                   for step in gen.graphs._cache.values()
+                   for t in step.weights)
+    assert all(gen.graphs.steps[r.graph] is None for r in first)
+    assert not gen.graphs.reads(first[0].graph, gen.params)
+    r = gen.generate(ids, feats, MAX_NEW)
+    assert r.graph == 2 and gen.graphs.reads(r.graph, gen.params)
+    generator, _, _ = _bundle()
+    fresh = generator()
+    fresh.params["draft"] = drafts["null"]
+    _same(r, fresh.generate(ids, feats, MAX_NEW))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -427,3 +507,31 @@ def test_sampled_and_calibrated_graphs_on_card(cuda_device):
     assert again.graph == plain.graph
     assert len(graph.graphs.steps) == n_steps
     _same(again, plain)
+
+
+@pytest.mark.cuda
+def test_collecting_and_swapped_draft_graphs_on_card(cuda_device):
+    """Tiny bf16 model: a collecting request replays a graph of its own and
+    equals the eager collecting request (tokens, expanded ids, hiddens);
+    after set_draft the old draft's graphs are released and the new
+    draft's replayed tokens equal eager ones and the null-draft tokens."""
+    generator, drafts, cfg = _bundle(cuda_device, torch.bfloat16,
+                                     hidden=256, heads=2)
+    graph, eager = generator(), generator(False)
+    ids, feats = _prompts(cfg, cuda_device, torch.bfloat16)["image"]
+    plain = graph.generate(ids, feats, MAX_NEW)
+    got = graph.generate(ids, feats, MAX_NEW, collect_hiddens=True)
+    ref = eager.generate(ids, feats, MAX_NEW, collect_hiddens=True)
+    assert got.graph != plain.graph
+    _same(got, ref)
+    _same(got, plain)
+    np.testing.assert_array_equal(got.exp_ids, ref.exp_ids)
+    np.testing.assert_array_equal(got.traj_hidden, ref.traj_hidden)
+    before = [plain.graph, got.graph]
+    for gen in (graph, eager):
+        gen.set_draft(drafts["null"])
+    assert all(graph.graphs.steps[i] is None for i in before)
+    swapped = graph.generate(ids, feats, MAX_NEW)
+    assert graph.graphs.reads(swapped.graph, graph.params)
+    _same(swapped, eager.generate(ids, feats, MAX_NEW))
+    np.testing.assert_array_equal(swapped.tokens, plain.tokens)
