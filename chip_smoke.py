@@ -64,14 +64,31 @@ prints no result):
    random draft's. Seconds per step, collection seconds, alpha before and
    after, ms/token of MSD and of the AR baseline on the same generator,
    and peak memory.
-8. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+8. eagle (``run_eagle``): the JAX package's default drafting mode, EAGLE
+   recursion (a one-layer draft without medusa heads, the OPT-Tree
+   frontier with its early stop, bench.py's --draft-mode eagle tree: top-k
+   10, depth 8, 96 nodes, threshold 0.2), and the other modes, on the
+   main path's target and prompts, each verify step a replayed graph and
+   each run also eager; every run must commit the null-draft tokens of
+   its verify shape. A random draft (with the AR baseline: K1 launches =
+   32 per AR token decoded); the same without the stop, whose trees must
+   be 8 deep at every step; the draft after one record -> train round
+   with bench's settings on its own trajectories (the stop depth must take
+   3 or more values), then collected, fitted and calibrated; the
+   mc_sim_7b_63 static tree and a 48-node medusa_choices tree; the
+   autotuners (the verify forward timed per node budget, three medusa
+   width plans run end to end), each re-tuned generator's request equal
+   to a fresh generator's. The stop depth is read through a wrapper of
+   the verify step that writes each tree's deepest valid node into a
+   device buffer. Alpha, ms/step and the stop-depth histogram per run.
+9. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
    many K1 launches as the wrapper's count, 32 per AR token decoded; a
    sampled MSD request and the acceptance walk's share of its step; one
    train step of the distillation: device time, the GEMMs' share, and its
    fp32 operations (counted from the shapes) against the card's fp32
-   peak.
+   peak; the EAGLE expansion alone against the medusa expansion.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -109,6 +126,27 @@ ROUND_BITS, HEAD_SHARPEN = 6, 6.0
 # rounds and a step budget that keeps the phase under two minutes on the
 # card (~0.5 s a step at 7B width)
 DISTILL_STEPS, DISTILL_ROUNDS = 160, 2
+# bench.py's --draft-mode eagle tree (bench.py:396-408): OPT-Tree frontier
+# of 10 per depth, 8 depths, 96 nodes, early stop at 0.2 (95 draft nodes >
+# 8 x 10 explored: the dead-padded budget)
+EAGLE_TREE = dict(top_k=10, max_depth=8, num_nodes=96)
+# EAGLE's 63-path static tree (mc_sim_7b_63, depth 10) and its budget
+STATIC_TREE = dict(top_k=10, max_depth=10, num_nodes=64)
+# one record -> train round of the EAGLE draft, short enough that the
+# draft stays unsure at some positions (the stop then varies)
+EAGLE_TRAIN_STEPS = 100
+AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
+ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
+# a cross-product medusa_choices tree within the main draft's 13 heads:
+# the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
+# off ranks 1-3, 47 paths, so its verify has the main path's 48 rows
+MEDUSA_CHOICES = tuple(
+    (0,) * (d - 1) + (r,)
+    for d, w in enumerate((10, 6, 4, 3, 2) + (1,) * 9, 1)
+    for r in range(w)) + (
+    (1, 0), (2, 0), (3, 0), (1, 1), (1, 0, 0), (2, 0, 0), (0, 1, 0),
+    (0, 1, 1), (1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1, 0),
+    (0, 0, 1, 0, 0))
 
 
 def log(*a):
@@ -861,6 +899,36 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
     return res
 
 
+def bench_fit(rows, vocab: int, device, label: str):
+    """bench.py's fit (bench.py:1237-1248) on the valid nodes of collecting
+    runs (``rows``: one dict of per-node fields per run): the calibrated
+    tables on ``device``."""
+    from msd_tpu_torch.calib.device import CalibTables
+    from msd_tpu_torch.calib.grouped import (GroupedIsotonicCalibrator,
+                                             soft_labels_from)
+    t1 = time.perf_counter()
+    data = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    soft = soft_labels_from(data["base_conf"].astype(np.float64),
+                            np.maximum(data["draft_conf"].astype(
+                                np.float64), 1e-6))
+    fit_feats = {"token_category": np.asarray(["content"] * len(soft)),
+                 "avg_visual_attention_intensity": data["attn"],
+                 "tree_depth": data["depth"].astype(float),
+                 "draft_margin": data["margin"],
+                 "draft_confidence": data["draft_conf"]}
+    cal = GroupedIsotonicCalibrator(min_samples_per_group=200,
+                                    max_grouping_level=2, target="soft")
+    cal.fit(fit_feats, soft, data["base_top1"].astype(float))
+    fitted = CalibTables.from_host(cal.export_tables(),
+                                   np.zeros(vocab, np.int8), device=device)
+    log(f"{label} fit on {len(soft)} samples (min_samples_per_group 200, "
+        f"max_grouping_level 2, soft target): "
+        f"{time.perf_counter() - t1:.2f}s; groups fitted at level 1/2: "
+        f"{sum(v is not None for v in cal.levels[1].values())}/"
+        f"{sum(v is not None for v in cal.levels[2].values())}")
+    return fitted
+
+
 def _calib_sanity(cd: dict, steps: int, nodes: int, label: str):
     """A collecting run's features: one row per verify step, every
     non-root node of the tree valid, confidences in [0, 1], finite
@@ -901,8 +969,6 @@ def run_calib(res) -> dict:
     that reads its own tables."""
     import torch
     from msd_tpu_torch.calib.device import CalibTables
-    from msd_tpu_torch.calib.grouped import (GroupedIsotonicCalibrator,
-                                             soft_labels_from)
     from msd_tpu_torch.calib.token_class import synthetic_vocab_table
     from msd_tpu_torch.ops import decode_attention as K1
 
@@ -949,30 +1015,8 @@ def run_calib(res) -> dict:
         rows.append({k: v[valid] for k, v in r.calib_data.items()})
         plain.append(r.calib_data)
 
-    # bench.py's fit (bench.py:1237-1248)
-    t1 = time.perf_counter()
-    data = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
-    soft = soft_labels_from(data["base_conf"].astype(np.float64),
-                            np.maximum(data["draft_conf"].astype(
-                                np.float64), 1e-6))
-    fit_feats = {"token_category": np.asarray(["content"] * len(soft)),
-                 "avg_visual_attention_intensity": data["attn"],
-                 "tree_depth": data["depth"].astype(float),
-                 "draft_margin": data["margin"],
-                 "draft_confidence": data["draft_conf"]}
-    cal = GroupedIsotonicCalibrator(min_samples_per_group=200,
-                                    max_grouping_level=2, target="soft")
-    cal.fit(fit_feats, soft, data["base_top1"].astype(float))
     vocab = c["tcfg"].vocab_size
-    fitted = CalibTables.from_host(cal.export_tables(),
-                                   np.zeros(vocab, np.int8),
-                                   device=c["device"])
-    fit_s = time.perf_counter() - t1
-    log(f"[calib] fit on {len(soft)} samples (min_samples_per_group 200, "
-        f"max_grouping_level 2, soft target): {fit_s:.2f}s; groups fitted "
-        f"at level 1/2: "
-        f"{sum(v is not None for v in cal.levels[1].values())}/"
-        f"{sum(v is not None for v in cal.levels[2].values())}")
+    fitted = bench_fit(rows, vocab, c["device"], "[calib]")
 
     # the fitted tables, graph and eager
     got = {}
@@ -1276,6 +1320,18 @@ def distill_schedule(steps: int, rounds: int) -> list:
     return out
 
 
+def bench_trainer_config(steps: int, lr: float, pad_rec: int):
+    """bench.py's trainer settings for one record -> train round of
+    ``steps`` steps at ``lr`` over records of ``pad_rec`` rows."""
+    from msd_tpu_torch.train.draft_train import TrainConfig
+    from msd_tpu_torch.train.trainer import TrainerConfig
+    return TrainerConfig(
+        train=TrainConfig(lr=lr, warmup_steps=20, total_steps=max(steps, 21),
+                          noise_std=0.0, p_w=0.1, noise_rel=0.01, v_norm=True,
+                          medusa_w=1.0, rollout_steps=0),
+        batch_size=2, max_len=pad_rec, num_epochs=1, log_every=10 ** 9)
+
+
 def train_step_ops(tcfg, n_med: int, rows: int, batch: int) -> int:
     """Floating-point operations of one ``train_step`` (matmuls only, each
     multiply-add two): per sequence the target's logits, the draft's fc,
@@ -1312,9 +1368,7 @@ def run_distill(res, steps: int = DISTILL_STEPS,
     from msd_tpu_torch.engine.generator import MSDGenerator
     from msd_tpu_torch.ops import decode_attention as K1
     from msd_tpu_torch.train.data_gen import record_from_traj
-    from msd_tpu_torch.train.draft_train import TrainConfig
-    from msd_tpu_torch.train.trainer import (DraftTrainer, TrainerConfig,
-                                             tree_map)
+    from msd_tpu_torch.train.trainer import DraftTrainer, tree_map
 
     c = res["ctx"]
     t0 = time.perf_counter()
@@ -1391,12 +1445,7 @@ def run_distill(res, steps: int = DISTILL_STEPS,
                                  n_img, feats_host, emb_host, pad_rec)
                 for r in got]
         lr = 1e-3 / 3.0 ** it
-        tc = TrainerConfig(
-            train=TrainConfig(lr=lr, warmup_steps=20,
-                              total_steps=max(steps_it[it], 21),
-                              noise_std=0.0, p_w=0.1, noise_rel=0.01,
-                              v_norm=True, medusa_w=1.0, rollout_steps=0),
-            batch_size=2, max_len=pad_rec, num_epochs=1, log_every=10 ** 9)
+        tc = bench_trainer_config(steps_it[it], lr, pad_rec)
         if on_card:
             sync()
             torch.cuda.reset_peak_memory_stats()
@@ -1505,6 +1554,360 @@ def run_distill(res, steps: int = DISTILL_STEPS,
     return out
 
 
+@contextlib.contextmanager
+def stop_depths(buf):
+    """Within the block every verify step writes the deepest valid node of
+    its tree into ``buf[step]`` on the device: the step's stop depth when
+    the budget holds every explored node (num_nodes - 1 >= max_depth x
+    top_k). A graph captured in the block holds the write, as with
+    ``oracle_draft``; the engine has no counter of its own."""
+    import torch
+    from msd_tpu_torch.engine import spec_engine as SE
+    verify = SE._verify
+
+    def verify_depth(st, params, s, tr, cos_t, sin_t):
+        depth = torch.where(tr.valid, tr.positions, 0).max()
+        buf.index_copy_(0, s.steps.long().reshape(1),
+                        depth.reshape(1).to(buf.dtype))
+        return verify(st, params, s, tr, cos_t, sin_t)
+
+    SE._verify = verify_depth
+    try:
+        yield
+    finally:
+        SE._verify = verify
+
+
+def run_eagle(res, tree=EAGLE_TREE, static_tree=STATIC_TREE,
+              train_steps=EAGLE_TRAIN_STEPS, autotune=AUTOTUNE_NODES,
+              alpha_plans=ALPHA_PLANS) -> dict:
+    """The JAX package's default drafting mode and the others, on the main
+    path's target and prompts, graph-replayed and eager (the runs are
+    listed in the module docstring, item 8). Every MSD run must
+    commit the null-draft tokens of its verify shape: the null EAGLE
+    draft's on the EAGLE and static trees, the main path's on the
+    48-node medusa_choices tree. Raises on a departure, on a K1 launch
+    count other than 32 per AR token decoded, if the no-stop trees are not
+    max_depth deep at every step, or if the distilled draft's stop depth
+    takes fewer than 3 values."""
+    import collections
+
+    import torch
+    from msd_tpu_torch.configs import DraftConfig, EngineConfig, TreeConfig
+    from msd_tpu_torch.engine import autotune as AT
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.engine.static_tree import mc_sim_7b_63
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.train.data_gen import record_from_traj
+    from msd_tpu_torch.train.trainer import DraftTrainer, tree_map
+
+    c = res["ctx"]
+    t0 = time.perf_counter()
+    base = c["gens"]["graph"]
+    tp, tcfg = base.params["target"], base.tcfg
+    prompts, feats, dev, sync = c["prompts"], c["feats"], c["device"], \
+        c["sync"]
+    max_new, warm, captures = c["max_new"], c["max_new_warm"], \
+        c["captures"]
+    dtype, max_seq = tp["embed_tokens"].dtype, base.eng.max_seq_len
+    dcfg = DraftConfig(text=tcfg)       # medusa_heads=0: EAGLE recursion
+    out = {"alpha": {}, "ms_per_step": {}}
+
+    def eagle_draft(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        dp = D.init_draft_params(dcfg, g, dev, dtype)
+        dp["embed_tokens"] = tp["embed_tokens"]
+        return dp
+
+    def engine(tree_kw):
+        return EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
+                            tree=TreeConfig(**tree_kw))
+
+    def make(tree_kw, draft, graphs, d_cfg=dcfg):
+        return MSDGenerator(tp, draft, tcfg, d_cfg, engine(tree_kw),
+                            n_img=base.n_img, eos_id=base.eos_id,
+                            sp=base.sp, device=dev, cuda_graphs=graphs)
+
+    drafts = {"random": eagle_draft(21), "null": eagle_draft(22)}
+    depth_buf = torch.zeros(max_seq, dtype=torch.int32, device=dev)
+
+    def serve(gen, label, pis=(0, 1), **kw):
+        """An untimed warm-up request (it captures), then timed requests
+        on the prompts ``pis``, none of which may capture. Returns
+        [(result, seconds, stop depths)]."""
+        gen.generate(prompts[0], feats, warm, **kw)
+        n_cap = captures(gen)[0]
+        runs = []
+        for pi in pis:
+            sync()
+            t1 = time.perf_counter()
+            r = gen.generate(prompts[pi], feats, max_new, **kw)
+            sync()
+            secs = time.perf_counter() - t1
+            tok = np.asarray(r.tokens)
+            if tok.shape != (max_new,) or tok.min() < 0 \
+                    or tok.max() >= tcfg.vocab_size:
+                raise AssertionError(f"[eagle] {label}: bad tokens "
+                                     f"{tok.shape} {tok[:8]}")
+            if gen.graphs is not None and not gen.graphs.reads(r.graph,
+                                                               gen.params):
+                raise AssertionError(f"[eagle] {label}: replayed a graph "
+                                     f"captured for other weights")
+            runs.append((r, secs, depth_buf[:r.accept_steps].cpu().numpy()
+                         .copy()))
+        if captures(gen)[0] != n_cap:
+            raise AssertionError(f"[eagle] {label}: a capture inside the "
+                                 f"timed runs")
+        return runs
+
+    def report(label, runs, want, key=None):
+        """Tokens == ``want`` per prompt (raises otherwise); prints alpha,
+        ms/step and the stop-depth histogram; returns the depths seen."""
+        for pi, (r, _, _) in enumerate(runs):
+            if not np.array_equal(r.tokens, want[pi]):
+                raise AssertionError(f"[eagle] {label} prompt {pi}: tokens "
+                                     f"differ from the null-draft tokens")
+        steps = sum(r.accept_steps for r, _, _ in runs)
+        alpha = sum(r.accept_len_sum for r, _, _ in runs) / max(steps, 1)
+        secs = sum(t for _, t, _ in runs)
+        depths = np.concatenate([d for _, _, d in runs])
+        hist = dict(sorted(collections.Counter(depths.tolist()).items()))
+        log(f"[eagle] {label}: == null-draft tokens on {len(runs)} "
+            f"prompt(s): True; alpha {alpha:.3f} over {steps} steps, "
+            f"{secs * 1e3 / max(steps, 1):.2f} ms/step (prefill included); "
+            f"stop depth (deepest valid node) histogram {hist}")
+        if key is not None:
+            out["alpha"][key] = alpha
+            out["ms_per_step"][key] = secs * 1e3 / max(steps, 1)
+        return set(hist)
+
+    n_layers = tcfg.num_hidden_layers
+    with stop_depths(depth_buf):
+        # 1. random EAGLE draft, bench's eagle tree, graph and eager, the
+        # null EAGLE draft's tokens as the reference; the AR baseline
+        graph = make(tree, drafts["random"], True)
+        eager = make(tree, drafts["random"], False)
+        graph.naive_generate(prompts[0], feats, warm, share_prefill=True)
+        graph.params["draft"] = drafts["null"]
+        null = serve(graph, "null EAGLE draft")
+        canon = [r.tokens for r, _, _ in null]
+        graph.params["draft"] = drafts["random"]
+        K1.decode_attention.launches = 0
+        rnd = serve(graph, "random draft, graph")
+        ar_decoded = 0
+        for ids in prompts:
+            r = graph.naive_generate(ids, feats, max_new, share_prefill=True)
+            ar_decoded += len(r.tokens) - 1
+        launches = K1.decode_attention.launches
+        expected = n_layers * ar_decoded if c["on_card"] else 0
+        log(f"[eagle] K1 launches {launches} (random-draft MSD and the AR "
+            f"baseline), expected {expected} (= {n_layers} layers x "
+            f"{ar_decoded} AR tokens decoded)")
+        if launches != expected:
+            raise AssertionError(f"[eagle] K1 launch count {launches} != "
+                                 f"{expected}")
+        out["k1_launches"] = launches
+        report("random draft, graph", rnd, canon, "random")
+        report("random draft, eager", serve(eager, "random draft, eager"),
+               canon)
+        same48 = all(np.array_equal(a, b) for a, b in zip(canon, c["null"]))
+        log(f"[eagle] the {tree['num_nodes']}-node null-draft tokens == the "
+            f"main path's {1 + sum(c['widths'])}-node ones: {same48}")
+
+        # 2. no stop: every step runs and keeps all max_depth layers
+        no_stop = dict(tree, early_stop_threshold=-1.0)
+        graph.eng, eager.eng = engine(no_stop), engine(no_stop)
+        out["no_stop_depths"] = report(
+            "no stop, graph", serve(graph, "no stop, graph"), canon,
+            "no stop")
+        report("no stop, eager", serve(eager, "no stop, eager", (0,)), canon)
+        if out["no_stop_depths"] != {tree["max_depth"]}:
+            raise AssertionError(f"[eagle] no-stop trees of depths "
+                                 f"{out['no_stop_depths']}, want "
+                                 f"{tree['max_depth']} at every step")
+
+        # 3. distilled: one record -> train round with bench's settings on
+        # the random draft's collected trajectories, served by set_draft
+        graph.eng, eager.eng = engine(tree), engine(tree)
+        coll = serve(graph, "collecting hiddens", collect_hiddens=True)
+        report("collecting hiddens", coll, canon)
+        got = [r for r, _, _ in coll]
+        n_img = base.n_img
+        pad_rec = ((len(prompts[0]) + n_img - 1 + max_new + 127) // 128) \
+            * 128
+        emb_host = tp["embed_tokens"].float().cpu().numpy()
+        feats_host = feats.float().cpu().numpy()
+        recs = [record_from_traj(r.traj_hidden, r.exp_ids, c["e0"], 1, n_img,
+                                 feats_host, emb_host, pad_rec) for r in got]
+        sync()
+        t1 = time.perf_counter()
+        trainer = DraftTrainer(dcfg, drafts["random"], tp["lm_head"],
+                               bench_trainer_config(train_steps, 1e-3,
+                                                    pad_rec))
+        hist = []
+        while trainer.step_count < train_steps:
+            hist.append(trainer.run_epoch([], recs, log=lambda *a: None))
+        sync()
+        train_s = time.perf_counter() - t1
+        trained = {k: tree_map(lambda t: t.detach().to(dtype), v)
+                   for k, v in trainer.params.items() if k != "embed_tokens"}
+        trained["embed_tokens"] = tp["embed_tokens"]
+        steps_done = trainer.step_count
+        del trainer
+        log(f"[eagle] trained the EAGLE draft: {steps_done} steps (batch 2 "
+            f"x {pad_rec} rows, lr 1e-3) in {train_s:.2f}s, "
+            f"{train_s / steps_done:.4f} s/step; loss "
+            f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, top1_agree "
+            f"{hist[0]['top1_agree']:.3f} -> {hist[-1]['top1_agree']:.3f}")
+        out["train_s_per_step"] = train_s / steps_done
+        graph.set_draft(trained)
+        eager.set_draft(trained)
+        dist = serve(graph, "distilled, graph")
+        out["distilled_depths"] = report("distilled, graph", dist, canon,
+                                         "distilled")
+        dist_e = serve(eager, "distilled, eager")
+        report("distilled, eager", dist_e, canon)
+        for (a, _, _), (b, _, _) in zip(dist, dist_e):
+            if (a.accept_steps, a.accept_len_sum) != \
+                    (b.accept_steps, b.accept_len_sum):
+                raise AssertionError("[eagle] distilled: graph and eager "
+                                     "accepted differently")
+        if len(out["distilled_depths"]) < 3:
+            raise AssertionError(f"[eagle] the distilled draft's stop depth "
+                                 f"took {out['distilled_depths']}, want 3 or "
+                                 f"more values")
+        col = serve(graph, "collecting calibration",
+                    collect_calibration=True)
+        report("collecting calibration", col, canon)
+        rows = []
+        for r, _, _ in col:
+            valid = r.calib_data["valid"].astype(bool)
+            rows.append({k: v[valid] for k, v in r.calib_data.items()})
+        graph.set_calibrator(bench_fit(rows, tcfg.vocab_size, dev,
+                                       "[eagle]"))
+        report("distilled, calibrated, graph",
+               serve(graph, "calibrated", use_calibration=True), canon,
+               "calibrated")
+        del eager
+
+        # 4. static trees: mc_sim_7b_63 on the EAGLE drafts, medusa_choices
+        # on the main path's medusa draft (its 48-row verify: the main
+        # path's null-draft tokens)
+        st_kw = dict(static_tree, static_choices=mc_sim_7b_63)
+        sgraph = make(st_kw, drafts["null"], True)
+        static_canon = [r.tokens for r, _, _ in serve(sgraph,
+                                                      "static, null")]
+        sgraph.set_draft(trained)
+        report("mc_sim_7b_63 static tree, graph",
+               serve(sgraph, "static, graph"), static_canon, "static")
+        report("mc_sim_7b_63 static tree, eager",
+               serve(make(st_kw, trained, False), "static, eager", (0,)),
+               static_canon)
+        del sgraph
+        widths = c["widths"]
+        mc_kw = dict(top_k=widths[0], max_depth=len(widths),
+                     num_nodes=1 + sum(widths),
+                     medusa_choices=MEDUSA_CHOICES)
+        medusa = c["drafts"]["msd"]
+        mgraph = make(mc_kw, medusa, True, base.dcfg)
+        report("medusa_choices tree, graph",
+               serve(mgraph, "medusa_choices, graph"), c["null"],
+               "medusa_choices")
+        report("medusa_choices tree, eager",
+               serve(make(mc_kw, medusa, False, base.dcfg),
+                     "medusa_choices, eager", (0,)), c["null"])
+
+        # 5. the autotuners; a request after each re-tune equals a fresh
+        # generator's on the picked tree
+        t1 = time.perf_counter()
+        graph.autotune_tree(candidates=autotune, log=lambda m: log(
+            f"[eagle] {m}"))
+        picked = dataclasses.asdict(graph.eng.tree)
+        log(f"[eagle] autotune_tree picked num_nodes "
+            f"{picked['num_nodes']} in {time.perf_counter() - t1:.1f}s")
+        fresh = make(picked, trained, True)
+        for a, b in zip(serve(graph, "re-tuned"), serve(fresh, "fresh")):
+            _same_request("autotune_tree", a[0], b[0])
+        del fresh
+        t1 = time.perf_counter()
+        base_tree = dataclasses.replace(mgraph.eng.tree, medusa_choices=None)
+        tuned = AT.autotune_tree_alpha(
+            mgraph, [AT.widths_tree(w, base_tree) for w in alpha_plans],
+            prompts[0], feats, max_new=max_new, log=lambda m: log(
+                f"[eagle] {m}"))
+        log(f"[eagle] autotune_tree_alpha picked widths "
+            f"{tuned['picked_widths']} in {time.perf_counter() - t1:.1f}s")
+        out["alpha_tune"] = tuned
+        fresh = make(dataclasses.asdict(mgraph.eng.tree), medusa, True,
+                     base.dcfg)
+        for a, b in zip(serve(mgraph, "alpha re-tuned"),
+                        serve(fresh, "alpha fresh")):
+            _same_request("autotune_tree_alpha", a[0], b[0])
+        del fresh, mgraph
+
+    def profile():
+        """The EAGLE expansion alone (max_depth - 1 unrolled frontier
+        forwards and finalize_tree), finalize_tree alone and the medusa
+        expansion, each recorded with its inputs from an eager step and
+        replayed in a CUDA graph; then the EAGLE expansion's kernels by
+        name (one eager call, profiled)."""
+        calls = {}
+
+        def recorder(owner, name):
+            real = getattr(owner, name)
+
+            def record(*args, **kwargs):
+                calls.setdefault(name, []).append((real, args, kwargs))
+                return real(*args, **kwargs)
+            return real, record
+
+        eager = make(tree, trained, False)
+        wraps = [(SE, "_draft_expand"), (SE.tree_mod, "finalize_tree")]
+        reals = []
+        for owner, name in wraps:
+            real, record = recorder(owner, name)
+            reals.append(real)
+            setattr(owner, name, record)
+        try:
+            eager.generate(prompts[0], feats, 2)
+            c["gens"]["eager"].generate(prompts[0], feats, 2)
+        finally:
+            for (owner, name), real in zip(wraps, reals):
+                setattr(owner, name, real)
+        runs = {"eagle": calls["_draft_expand"][0],
+                "medusa": calls["_draft_expand"][-1],
+                "finalize": calls["finalize_tree"][0]}
+        ms = {name: graph_ms(lambda i, f=f, a=a, k=k: f(*a, **k), 1)
+              for name, (f, a, k) in runs.items()}
+        log(f"[eagle] expansion alone (graph replay): EAGLE "
+            f"({tree['max_depth'] - 1} unrolled depths + finalize_tree, "
+            f"{tree['num_nodes']} nodes) {ms['eagle']:.3f} ms, of which "
+            f"finalize_tree {ms['finalize']:.3f} ms; medusa "
+            f"({len(c['widths']) - 1} heads, {1 + sum(c['widths'])} nodes) "
+            f"{ms['medusa']:.3f} ms")
+        f, a, k = runs["eagle"]
+        device_profile(lambda: f(*a, **k), "EAGLE expansion, one eager "
+                       "call", top=8)
+        out["expand_ms"] = ms
+
+    out["profile"] = profile
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[eagle] phase took {out['seconds']:.1f}s")
+    return out
+
+
+def _same_request(label, a, b):
+    if not (np.array_equal(a.tokens, b.tokens)
+            and (a.accept_steps, a.accept_len_sum)
+            == (b.accept_steps, b.accept_len_sum)):
+        raise AssertionError(f"[eagle] {label}: the re-tuned generator's "
+                             f"request differs from a fresh generator's")
+    log(f"[eagle] {label}: re-tuned == fresh generator (tokens, steps, "
+        f"accepted): True; alpha {a.avg_accept_len:.3f}")
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -1523,10 +1926,12 @@ def main():
     run_calib(res)
     sampling = run_sampling(res)
     distill = run_distill(res)
+    eagle = run_eagle(res)
     profile_k1()
     res["profile"]()
     sampling["profile"]()
     distill["profile"]()
+    eagle["profile"]()
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

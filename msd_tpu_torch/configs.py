@@ -3,11 +3,10 @@
 The port's own copy of the JAX package's configs (``msd_tpu/configs.py``):
 the same field names, defaults and constructors, so a config built with the
 same arguments on either side means the same model. Only the fields the
-ported main path reads are here; the drafting modes, sampling and
-attention-backend options of the JAX configs come with the code that reads
-them. The port always verifies with window-canonical attention (the JAX
-``canonical_attn=True`` default) and always gives the draft's fc a bias
-(``fc_bias=True``).
+port reads are here; the sampling and attention-backend options of the
+JAX configs come with the code that reads them. The port always verifies
+with window-canonical attention (the JAX ``canonical_attn=True`` default)
+and always gives the draft's fc a bias (``fc_bias=True``).
 """
 
 from __future__ import annotations
@@ -61,10 +60,11 @@ class LlamaConfig:
 
 @dataclass(frozen=True)
 class DraftConfig:
-    """EAGLE-style one-layer draft head with medusa heads.
+    """EAGLE-style one-layer draft head, optionally with medusa heads.
 
     ``medusa_heads > 0`` drafts with per-depth resblock heads over the
-    depth-1 draft hidden (head ``d-2`` proposes depth ``d``)."""
+    depth-1 draft hidden (head ``d-2`` proposes depth ``d``); 0 drafts by
+    EAGLE recursion (the OPT-Tree frontier)."""
 
     text: LlamaConfig = dataclasses.field(default_factory=LlamaConfig.llava_7b)
     num_layers: int = 1
@@ -75,11 +75,26 @@ class DraftConfig:
 class TreeConfig:
     """Static-shape draft-tree budget."""
 
-    top_k: int = 10
-    max_depth: int = 10
+    top_k: int = 10              # frontier width per depth
+    max_depth: int = 10          # drafting depth bound
     num_nodes: int = 60          # total tree nodes incl. the root token
+    # EAGLE mode: stop deepening once the top-num_draft weight sum grows
+    # by no more than this (cnets.py:1401-1418)
+    early_stop_threshold: float = 0.2
+    # static-tree drafting: a tuple of top-k-index paths (tuples), e.g.
+    # engine.static_tree.MC_SIM_7B_63; num_nodes/max_depth must cover it
+    static_choices: Optional[tuple] = None
     # medusa mode: per-depth candidate widths; None = top_k at every depth
     medusa_widths: Optional[tuple] = None
+    # medusa mode: an explicit sparse tree of per-depth-rank paths (tuples);
+    # node (r1..rd) carries head d's rank-rd token. Overrides
+    # medusa_widths; the prefix closure is added; num_nodes caps it
+    medusa_choices: Optional[tuple] = None
+
+    @property
+    def num_draft(self) -> int:
+        """Draft tokens excluding the root (already-sampled) token."""
+        return self.num_nodes - 1
 
     @property
     def max_path_len(self) -> int:

@@ -2,11 +2,12 @@
 and per-request stats.
 
 The port of the part of the JAX package's ``engine/generator.py`` that the
-benchmark drives: ``generate`` (medusa MSD, greedy or sampled, with the
-calibrated rerank after ``set_calibrator``, the collection of its features
-and of the trajectory's hidden states for distillation), ``naive_generate``
-(the AR baseline, optionally from the MSD prefill), ``first_token`` and
-``set_draft``, for expand-mode prompts with at most one image. ``prefill``
+benchmark drives: ``generate`` (MSD in every drafting mode, greedy or
+sampled, with the calibrated rerank after ``set_calibrator``, the
+collection of its features and of the trajectory's hidden states for
+distillation), ``naive_generate`` (the AR baseline, optionally from the
+MSD prefill), ``first_token``, ``set_draft`` and ``autotune_tree``, for
+expand-mode prompts with at most one image. ``prefill``
 and ``decode`` ranges mark each request's two phases for
 ``torch.profiler``. Sampling draws from one ``torch.Generator`` on the
 generator's device, seeded per request from ``seed``.
@@ -70,20 +71,37 @@ class MSDGenerator:
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
                  attn_feature_mode: str = "reference", device="cuda",
                  cuda_graphs: bool = True):
-        self.tcfg, self.dcfg, self.eng = tcfg, dcfg, eng
+        self.tcfg, self.dcfg = tcfg, dcfg
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
         self.attn_feature_mode = attn_feature_mode
         self.device = torch.device(device)
         self.rng = torch.Generator(device=self.device)
-        max_pos = eng.max_seq_len + eng.tree.num_nodes + 64
-        cos_t, sin_t = L.make_rope(tcfg, max_pos, self.device)
-        self.params = {"target": target_params, "draft": draft_params,
-                       "cos_t": cos_t, "sin_t": sin_t}
-        self.state = SE.alloc_state(self._statics(0),
-                                    target_params["embed_tokens"].dtype,
-                                    self.device)
+        self.params = {"target": target_params, "draft": draft_params}
         self.graphs = StepGraphs(self.device) \
             if cuda_graphs and self.device.type == "cuda" else None
+        self.state = None
+        self.eng = eng
+
+    @property
+    def eng(self) -> EngineConfig:
+        return self._eng
+
+    @eng.setter
+    def eng(self, eng: EngineConfig) -> None:
+        """Adopt engine budgets (e.g. a tree an autotuner picked): the
+        static state and the rope tables are sized by them, so both are
+        allocated anew for ``eng``, after every graph captured over the old
+        ones is released. Later requests capture anew."""
+        if self.graphs is not None:
+            self.graphs.drop_all()
+        self.state = None     # free the old buffers before the new ones
+        self._eng = eng
+        max_pos = eng.max_seq_len + eng.tree.num_nodes + 64
+        self.params["cos_t"], self.params["sin_t"] = L.make_rope(
+            self.tcfg, max_pos, self.device)
+        self.state = SE.alloc_state(
+            self._statics(0), self.params["target"]["embed_tokens"].dtype,
+            self.device)
 
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
@@ -96,6 +114,19 @@ class MSDGenerator:
                           use_calibration=use_calibration,
                           collect_calibration=collect_calibration,
                           collect_hiddens=collect_hiddens)
+
+    def autotune_tree(self, candidates=(40, 48, 50, 56, 60, 96, 128),
+                      log=None) -> None:
+        """The reference's ``total_token = -1`` surface (ea_model.py:
+        156-179): time the verify forward at each candidate node budget on
+        this device (``engine.autotune.autotune_total_token``) and adopt
+        the best tree (reallocating the state, see ``eng``)."""
+        from msd_tpu_torch.engine.autotune import autotune_total_token
+
+        tree = autotune_total_token(self.params["target"], self.tcfg,
+                                    self.eng, candidates=candidates, log=log,
+                                    device=self.device)
+        self.eng = dataclasses.replace(self.eng, tree=tree)
 
     def set_calibrator(self, tables: CalibTables) -> None:
         """Install device calibration tables (``CalibTables.from_host``) for

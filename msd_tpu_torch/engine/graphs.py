@@ -20,7 +20,8 @@ its weight tensors alive, so their addresses cannot be reused by other
 tensors while it is cached; ``StepGraphs.drop`` releases the entries that
 hold given tensors (a generator's ``set_draft``), after which the old
 tensors can be freed and their addresses reused, since no cached graph
-reads them any more.
+reads them any more; ``StepGraphs.drop_all`` releases every entry when the
+state itself is reallocated (a generator adopting new engine budgets).
 
 Each capture first warms the step up on the capture stream (first-use
 uploads, the kernel build, cuBLAS workspaces), then captures it into one
@@ -119,6 +120,15 @@ class StepGraphs:
             torch.cuda.synchronize(self.device)
         for key in stale:
             self.steps[self._cache.pop(key).index] = None
+
+    def drop_all(self) -> None:
+        """Release every cached graph (the state they were captured over
+        is being replaced), once the card has finished any replay."""
+        if self._cache:
+            torch.cuda.synchronize(self.device)
+        for step in self._cache.values():
+            self.steps[step.index] = None
+        self._cache.clear()
 
     def _capture(self, fn, st, params, state, key) -> CapturedStep:
         t0 = time.perf_counter()

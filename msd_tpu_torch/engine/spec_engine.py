@@ -1,17 +1,22 @@
-"""The MSD decode engine: medusa speculative decoding (greedy or sampled,
-optionally with the calibrated tree rerank) and the AR baseline.
+"""The MSD decode engine: speculative decoding with every drafting mode of
+the JAX package (greedy or sampled, optionally with the calibrated tree
+rerank) and the AR baseline.
 
-The port of the JAX package's ``engine/spec_engine.py`` for the medusa
-path:
+The port of the JAX package's ``engine/spec_engine.py``:
 
   prefill : fused multimodal embedding -> target prefill -> first token ->
             draft prefill (EAGLE shift-by-one pairing, image rows bypassing
             the fusion fc).
   decode  : a host loop over one verify step: extend the draft KV with the
-            accepted rows, expand the static medusa tree, verify all nodes
-            in one target forward with window-canonical attention, accept
-            (greedily, or by speculative sampling), gather the accepted
-            path's KV into place. With calibration the medusa candidates
+            accepted rows, draft a tree, verify all nodes in one target
+            forward with window-canonical attention, accept (greedily, or
+            by speculative sampling), gather the accepted path's KV into
+            place. The tree comes from one of four drafting modes:
+            EAGLE recursion (the OPT-Tree frontier with its early stop,
+            ``_draft_expand_eagle``; the default, ``medusa_heads=0``),
+            medusa heads over a static width plan or ``medusa_choices``
+            (``_draft_expand_medusa``), or a static choices tree
+            (``_draft_expand_static``). With calibration the candidates
             are reranked by the calibrated acceptance probability
             (``_rerank``); with collection every step records per-node
             features and labels (``_collect_step``). The JAX
@@ -55,8 +60,10 @@ import torch
 from msd_tpu_torch.calib.device import calibration_bias
 from msd_tpu_torch.configs import (DraftConfig, EngineConfig, LlamaConfig,
                                    TreeConfig)
+from msd_tpu_torch.engine import static_tree
 from msd_tpu_torch.engine import tree as tree_mod
 from msd_tpu_torch.engine.tree import Tree
+from msd_tpu_torch.engine.tree import top_k as _top_k
 from msd_tpu_torch.models import draft as draft_mod
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
@@ -96,6 +103,13 @@ class Statics:
     # write the target hidden of every committed position into
     # ``traj_hidden`` (prefill rows, then the accepted rows of each step)
     collect_hiddens: bool = False
+
+    def __post_init__(self):
+        if self.tree.static_choices is not None and self.need_attn:
+            # the JAX package neither reranks nor collects a static tree
+            raise ValueError("static_choices trees take no calibration: "
+                             "use_calibration and collect_calibration "
+                             "need EAGLE or medusa drafting")
 
     @property
     def s_target(self) -> int:
@@ -251,7 +265,7 @@ def _write(buf: torch.Tensor, val: torch.Tensor, start, dim: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# Draft tree expansion (medusa heads, static layout)
+# Draft tree expansion: EAGLE recursion, medusa heads, static trees
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -260,21 +274,35 @@ def _medusa_layout(t: TreeConfig, medusa_heads: int, device: str):
     head count, device) with numpy as the JAX version builds it at trace
     time. Returns (d_use, W, parents, mask, positions, retrieve, valid,
     slot_depth, slot_rank) with the arrays as device tensors; slot s >= 1
-    carries head (depth - 1)'s rank-``slot_rank`` candidate."""
+    carries head (depth - 1)'s rank-``slot_rank`` candidate.
+
+    ``t.medusa_choices`` gives the tree's paths (prefix-closed, each cut to
+    the 1 + medusa_heads draftable depths, depth-major, the budget cut to
+    num_nodes - 1: prefixes sort first, so the cut keeps the closure);
+    otherwise ``t.medusa_widths`` does, each depth's candidates branching
+    off the previous depth's rank-0 node (backbone chain)."""
     K, D, N = t.top_k, t.max_depth, t.num_nodes
-    widths = list(t.medusa_widths) if t.medusa_widths is not None else [K] * D
-    # fit the width plan into the node budget, shallow depths first; depth
-    # d's candidates branch off depth d-1's rank-0 node (backbone chain)
-    budget, fitted = N - 1, []
-    for wd in widths[:min(D, 1 + medusa_heads)]:
-        take = min(wd, budget)
-        if take <= 0:
-            break
-        fitted.append(take)
-        budget -= take
-    paths = [(0,) * (d - 1) + (r,)
-             for d in range(1, len(fitted) + 1)
-             for r in range(fitted[d - 1])]
+    d_cap = min(D, 1 + medusa_heads)
+    if t.medusa_choices is not None:
+        closed = set()
+        for p in t.medusa_choices:
+            p = tuple(int(r) for r in p)[:d_cap]
+            closed.update(p[:i] for i in range(1, len(p) + 1))
+        paths = sorted(closed, key=lambda p: (len(p), p))[:N - 1]
+    else:
+        widths = list(t.medusa_widths) if t.medusa_widths is not None \
+            else [K] * D
+        # fit the width plan into the node budget, shallow depths first
+        budget, fitted = N - 1, []
+        for wd in widths[:d_cap]:
+            take = min(wd, budget)
+            if take <= 0:
+                break
+            fitted.append(take)
+            budget -= take
+        paths = [(0,) * (d - 1) + (r,)
+                 for d in range(1, len(fitted) + 1)
+                 for r in range(fitted[d - 1])]
     d_use = max((len(p) for p in paths), default=0)
     w = 1 + max((p[-1] for p in paths), default=0)
     slot_of = {p: i + 1 for i, p in enumerate(paths)}
@@ -306,13 +334,6 @@ def _medusa_layout(t: TreeConfig, medusa_heads: int, device: str):
     return (d_use, w, dev(par), dev(mask), dev(depth), dev(ret), dev(valid),
             dev(np.maximum(depth - 1, 0).astype(np.int64)),
             dev(rank.astype(np.int64)))
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """``lax.top_k`` along the last axis: descending, and the lower index
-    first on ties (a stable sort; ``torch.topk`` promises no tie order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _attn_rows(st: Statics, t_rows: int, valid_rows) -> torch.Tensor:
@@ -431,17 +452,174 @@ def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
                 retrieve=ret, valid=valid)
 
 
+def _frontier_bias(s_d: int, write: torch.Tensor, rows: int) -> torch.Tensor:
+    """[rows, s_d] bias of a frontier forward written at ``write``: row i
+    sees the cache below ``write`` (the stable prefix and the frontiers
+    written before it) and its own slot write + i (cnets.py:1183-1202)."""
+    dev = write.device
+    kpos = torch.arange(s_d, device=dev)[None, :]
+    self_pos = write + torch.arange(rows, device=dev)[:, None]
+    keep = (kpos < write) | (kpos == self_pos)
+    return torch.where(keep, 0.0, NEG_INF).to(torch.float32)
+
+
+def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
+                        last_hidden: torch.Tensor, root_token: torch.Tensor,
+                        attn_feat: torch.Tensor,
+                        features: Optional[Dict] = None) -> Tree:
+    """EAGLE recursion with the OPT-Tree frontier (cnets.py:1066-1427):
+    layer 0 = top-k of head(last_hidden); each further layer forwards the
+    K-node frontier at scratch rows E + d*K of the draft cache ``kv``
+    (identity tree mask, ``_frontier_bias``), path weight = parent weight x
+    child prob, global top-K over the [K, K] candidates; the early stop
+    fires when the top-``num_draft`` weight-sum increment over the layers
+    before the newest is at most ``early_stop_threshold``, and the newest
+    layer is dropped (cnets.py:1401-1437). ``finalize_tree`` packs the
+    tree.
+
+    The JAX ``lax.while_loop`` ends on the data; a captured step has a
+    fixed kernel list and may not read ``stop`` on the host, so the loop
+    runs all max_depth - 1 layers: ``stop`` is sticky and ``use_depth`` is
+    frozen once it is set, so ``finalize_tree`` sees the layers below it
+    as JAX computes them. The layers past the stop write scratch rows that
+    nothing reads: layer d reads keys below E + d*K, all written in this
+    step, and the next step's suffix forward rewrites from its draft
+    length.
+
+    With ``st.use_calibration`` the candidates are reranked at depth 1 and
+    at depth layer + 1 (``_rerank``); ``features`` (a dict) receives the
+    per-node ``local_conf``, ``attn`` and ``margin``."""
+    t = st.tree
+    K, D, n_draft = t.top_k, t.max_depth, t.num_draft
+    dp, head = params["draft"], params["target"]["lm_head"]
+    cos_t, sin_t = params["cos_t"], params["sin_t"]
+    dev = last_hidden.device
+    logits0 = (last_hidden @ head).float()
+    w0, ids0 = _top_k(torch.softmax(logits0, dim=-1), K)
+    margin0 = w0[0] - w0[1]
+    if st.use_calibration:
+        ids0, w0, _ = _rerank(st, params, logits0[None], ids0[None],
+                              w0[None], attn_feat,
+                              torch.ones(1, dtype=torch.int32, device=dev))
+        ids0, w0 = ids0[0], w0[0]
+    slots = torch.arange(K, device=dev)
+    wm, tm, pm = [w0], [ids0.to(torch.int32)], [slots.to(torch.int32)]
+    ex = None
+    if features is not None:
+        ex = {"local_conf": [w0], "attn": [attn_feat[:K]],
+              "margin": [margin0.expand(K)]}
+
+    f_tok, f_hid = ids0, last_hidden.expand(K, -1)
+    s_prev = torch.zeros((), device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    use_depth = torch.full((), D, dtype=torch.long, device=dev)
+    for layer in range(1, D):
+        d = layer - 1   # scratch slot of the frontier being forwarded
+        write = E + d * K
+        hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][f_tok.long()],
+                                   f_hid)
+        pos = (E + d).to(torch.int32).expand(K)
+        out, _ = draft_mod.draft_forward(
+            dp, st.dcfg, hin, pos, kv, write,
+            _frontier_bias(st.s_draft, write, K), cos_t, sin_t)
+        logits = (out @ head).float()                             # [K, V]
+        cw, cid = _top_k(torch.softmax(logits, dim=-1), K)        # [K, K]
+        margin_row = cw[:, 0] - cw[:, 1]
+        if st.use_calibration:
+            cid, cw, margin_row = _rerank(
+                st, params, logits, cid, cw, attn_feat,
+                torch.full((K,), layer + 1, dtype=torch.int32, device=dev))
+        pathw = wm[-1][:, None] * cw
+        gw, gidx = _top_k(pathw.reshape(-1), K)
+        sel_par = gidx // K
+        f_tok = cid.reshape(-1)[gidx]
+        wm.append(gw)
+        tm.append(f_tok.to(torch.int32))
+        pm.append(sel_par.to(torch.int32))
+        if ex is not None:
+            ex["local_conf"].append(cw.reshape(-1)[gidx])
+            ex["attn"].append(attn_feat[gidx % K])
+            ex["margin"].append(margin_row[sel_par])
+        # early stop on the weight-sum increment over layers [0, layer)
+        explored = torch.cat(wm[:layer])
+        if n_draft < explored.numel():
+            explored = _top_k(explored, n_draft)[0]
+        s_now = explored.sum()
+        stop_now = (s_now - s_prev) <= t.early_stop_threshold
+        use_depth = torch.where(stop, use_depth,
+                                torch.where(stop_now, layer, layer + 1))
+        stop = stop | stop_now
+        s_prev = s_now
+        f_hid = out[sel_par]
+    extra = None if ex is None else \
+        {name: torch.stack(rows) for name, rows in ex.items()}
+    return tree_mod.finalize_tree(t, root_token, torch.stack(wm),
+                                  torch.stack(tm), torch.stack(pm),
+                                  use_depth, extra, features)
+
+
+def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
+                         E: torch.Tensor, last_hidden: torch.Tensor,
+                         root_token: torch.Tensor) -> Tree:
+    """Static-tree drafting (utils.py:115-233 + choices.py): the tree's
+    shape is ``st.tree.static_choices``; the node at path [..., s] takes
+    its parent distribution's rank-s token. One draft forward per level
+    whose children are drafted (the deepest level's forward feeds nothing
+    and is skipped; its output was unused in the JAX version as well):
+    the level's rows attend to the stable prefix plus their static
+    ancestors, self included, node i's K/V at scratch row E + i - 1.
+    Padded to num_nodes (``static_tree.static_plan``)."""
+    t = st.tree
+    dev = last_hidden.device
+    plan = static_tree.static_plan(t.static_choices, t.max_path_len,
+                                   t.num_nodes, str(dev))
+    dp, head = params["draft"], params["target"]["lm_head"]
+    kpos = torch.arange(st.s_draft, device=dev)[None, :]
+    rel = kpos - E + 1                  # node id whose scratch row is kpos
+    relc = torch.clamp(rel, 0, plan.n - 1)
+    in_tree = (rel >= 1) & (rel < plan.n)
+    prefix = kpos < E
+    top = _top_k((last_hidden @ head).float(), plan.max_slot)[1][None]
+    hid = last_hidden[None]
+    tokens = [root_token.reshape(1).to(torch.int32)]
+    for lv in plan.levels:
+        toks = top[lv.parent_row, lv.slot]                        # [W]
+        tokens.append(toks.to(torch.int32))
+        if lv is plan.levels[-1]:
+            break
+        hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][toks],
+                                   hid[lv.parent_row])
+        pos = (E + lv.depth - 1).to(torch.int32).expand(lv.width)
+        anc = torch.gather(lv.anc, 1, relc.expand(lv.width, -1))
+        bias = torch.where(prefix | (in_tree & anc), 0.0,
+                           NEG_INF).to(torch.float32)
+        hid, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, kv,
+                                         E + lv.first - 1, bias,
+                                         params["cos_t"], params["sin_t"])
+        top = _top_k((hid @ head).float(), plan.max_slot)[1]
+    pad = plan.tree.tokens[plan.n:]
+    return plan.tree._replace(tokens=torch.cat(tokens + [pad]))
+
+
 def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
                   root_token: torch.Tensor,
                   attn_feat: Optional[torch.Tensor] = None,
-                  features: Optional[Dict] = None) -> Tree:
-    if st.dcfg.medusa_heads <= 0:
-        raise NotImplementedError(
-            "the port drafts with medusa heads only (DraftConfig."
-            "medusa_heads > 0); EAGLE recursion and static trees are not "
-            "ported yet")
-    return _draft_expand_medusa(st, params, last_hidden, root_token,
-                                attn_feat, features)
+                  features: Optional[Dict] = None,
+                  kv: Optional[Dict] = None,
+                  E: Optional[torch.Tensor] = None) -> Tree:
+    """The step's draft tree, by the JAX package's precedence: a static
+    choices tree when ``static_choices`` is set, else medusa heads when
+    the draft has them, else EAGLE recursion. ``kv`` (the draft cache) and
+    ``E`` (its stable length) are what the modes that run the draft layer
+    (static, EAGLE) read and write."""
+    if st.tree.static_choices is not None:
+        return _draft_expand_static(st, params, kv, E, last_hidden,
+                                    root_token)
+    if st.dcfg.medusa_heads > 0:
+        return _draft_expand_medusa(st, params, last_hidden, root_token,
+                                    attn_feat, features)
+    return _draft_expand_eagle(st, params, kv, E, last_hidden, root_token,
+                               attn_feat, features)
 
 
 def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
@@ -481,38 +659,47 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
 # Target verification and commit
 # ---------------------------------------------------------------------------
 
-def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
-            sin_t):
-    """One target forward over every tree node (writing their KV rows at
-    E = ``s.cur_len`` into ``s.target_kv`` in place) + lossless acceptance:
-    greedy, or speculative sampling over the step's draws in ``s.rand``
-    with the repetition penalty over the committed ids. Returns (hidden,
-    logits, best, accept_len, next_token)."""
-    tp = params["target"]
-    E = s.cur_len
+def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
+                   tr: Tree, cos_t, sin_t) -> torch.Tensor:
+    """The verify step's target forward over every node of ``tr`` (their
+    K/V rows written at E into ``kv`` in place), with window-canonical
+    attention: node i's last W = MAX_PATH logical positions (committed
+    tail for l < E, tree ancestors/self for l >= E) reduce through fixed
+    window slots and the cache product sees only columns below the window,
+    so node i's logits are a function of its token and logical prefix
+    alone, whatever the draft proposed around it. Returns the final-normed
+    hidden [N, H]."""
     dev = tr.tokens.device
+    s_target = kv["k"].shape[1]
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
     pos = E + tr.positions
-    # window-canonical verification: node i's last W logical positions
-    # (committed tail for l < E, tree ancestors/self for l >= E) reduce
-    # through fixed window slots and the cache product sees only columns
-    # below the window, so node i's logits are a function of its token and
-    # logical prefix alone, whatever the draft proposed around it
-    W = st.tree.max_path_len
+    W = tr.retrieve.shape[1]
     win_start = E + tr.positions - (W - 1)                           # [N]
     l = win_start[:, None] + torch.arange(W, device=dev)[None, :]    # [N, W]
     rel = l - E
     anc = torch.gather(tr.retrieve.long(), 1, torch.clamp(rel, 0, W - 1))
     row = torch.where(rel >= 0, E + torch.clamp(anc, min=0), l)
-    win_idx = torch.clamp(row, 0, st.s_target - 1).long()
+    win_idx = torch.clamp(row, 0, s_target - 1).long()
     win_bias = torch.where(l >= 0, 0.0, NEG_INF).to(torch.float32)
-    cols = torch.arange(st.s_target, device=dev)[None, :]
+    cols = torch.arange(s_target, device=dev)[None, :]
     bias = torch.where(cols < win_start[:, None], 0.0,
                        NEG_INF).to(torch.float32)
-    win = (win_idx, win_bias, win_start)
-    hidden, _ = L.llama_forward(tp, st.tcfg, emb, pos, s.target_kv, E,
-                                bias, cos_t, sin_t,
-                                kv_len=E + st.tree.num_nodes, win=win)
+    hidden, _ = L.llama_forward(tp, tcfg, emb, pos, kv, E, bias, cos_t,
+                                sin_t, kv_len=E + tr.tokens.shape[0],
+                                win=(win_idx, win_bias, win_start))
+    return hidden
+
+
+def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
+            sin_t):
+    """One target forward over every tree node (``verify_forward``, into
+    ``s.target_kv`` at E = ``s.cur_len``) + lossless acceptance: greedy,
+    or speculative sampling over the step's draws in ``s.rand`` with the
+    repetition penalty over the committed ids. Returns (hidden, logits,
+    best, accept_len, next_token)."""
+    tp = params["target"]
+    E = s.cur_len
+    hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t)
     logits = L.lm_head(tp, hidden)                                   # [N, V]
     if st.sp.greedy:
         best, acc_len, next_tok = tree_mod.evaluate_greedy(
@@ -740,7 +927,7 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
 
 
 def decode_step(st: Statics, params: Dict, s: EngineState):
-    """One verify step, in place: draft suffix -> medusa tree (calibrated
+    """One verify step, in place: draft suffix -> draft tree (calibrated
     with ``st.use_calibration``) -> verify -> (``st.collect_calibration``:
     record the step's features) -> commit. Reads and writes only ``s`` and
     the weights, with no host sync and no host-to-device copy (what a
@@ -752,7 +939,7 @@ def decode_step(st: Statics, params: Dict, s: EngineState):
     s.last_draft_hidden.copy_(last_hidden)
     features = {} if st.collect_calibration else None
     tr = _draft_expand(st, params, s.last_draft_hidden, s.bonus, s.attn_feat,
-                       features)
+                       features, s.draft_kv, s.draft_len)
     hidden, logits, best, acc_len, next_tok = _verify(st, params, s, tr,
                                                       cos_t, sin_t)
     if st.collect_calibration:
