@@ -81,14 +81,32 @@ prints no result):
    to a fresh generator's. The stop depth is read through a wrapper of
    the verify step that writes each tree's deepest valid node into a
    device buffer. Alpha, ms/step and the stop-depth histogram per run.
-9. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+9. serve (``run_serve``): the serving path on the main path's weights:
+   the CLIP ViT-L/14-336 tower and mlp2x_gelu projector (bf16, seeded)
+   encode a seeded 336x336 image (ms per image; its rows against the
+   same weights in fp32), whose rows feed every image request;
+   ``generate_batch`` of 64 tokens at B = 1, 2, 4 (every lane must commit
+   the null-draft tokens of the same B, graph == eager; batched == solo
+   printed, not gated; ms/step wall and per replayed step, aggregate
+   tokens/s; no K1 launch, no capture in a timed window); a 4-slot
+   continuous batcher, segment 16, over 8 image and text requests with
+   staggered submission and mixed max_new (every request == the
+   null-draft run of the same schedule, each text request alone in the
+   slots == the mixed run; segments, joins, aggregate tokens/s);
+   ``generate_stream`` (chunks == one-shot); the HTTP server in
+   continuous mode on a free port: concurrent text, image_b64 (a PNG
+   made from numpy) and stream requests, each text equal to its solo
+   repeat, and a ``use_msd: false`` request whose K1 launches must be 32
+   per AR token decoded (the kernels line's ``serve_launches``).
+10. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
    many K1 launches as the wrapper's count, 32 per AR token decoded; a
    sampled MSD request and the acceptance walk's share of its step; one
    train step of the distillation: device time, the GEMMs' share, and its
    fp32 operations (counted from the shapes) against the card's fp32
-   peak; the EAGLE expansion alone against the medusa expansion.
+   peak; the EAGLE expansion alone against the medusa expansion; the
+   continuous schedule's device time and idle share.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -136,6 +154,10 @@ STATIC_TREE = dict(top_k=10, max_depth=10, num_nodes=64)
 # draft stays unsure at some positions (the stop then varies)
 EAGLE_TRAIN_STEPS = 100
 AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
+# the serving phase: batch sizes of generate_batch, the continuous
+# batcher's slots and segment, new tokens per HTTP request
+SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 4), 4, 16
+SERVE_HTTP_NEW = 32
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -527,7 +549,7 @@ def oracle_draft(ref, e0: int):
     def oracle_verify(st, params, s, tr, cos_t, sin_t):
         rank = SE._medusa_layout(st.tree, st.dcfg.medusa_heads,
                                  str(tr.tokens.device))[8]
-        idx = (s.cur_len - e0 + tr.positions).long()
+        idx = (s.cur_len[:, None] - e0 + tr.positions).long()
         chain = tr.valid & (rank == 0) & (tr.positions > 0) \
             & (idx < len(ref))
         tr.tokens.copy_(torch.where(
@@ -1898,6 +1920,365 @@ def run_eagle(res, tree=EAGLE_TREE, static_tree=STATIC_TREE,
     return out
 
 
+def _replay_ms(gen, index: int, n: int = 16) -> float:
+    """Device ms per replay of capture ``index``: n back-to-back replays
+    between CUDA events (whatever its lanes hold: a step computes every
+    lane)."""
+    import torch
+    step = gen.graphs.steps[index]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _png_b64(image: np.ndarray) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
+              segment=SERVE_SEGMENT, http_new=SERVE_HTTP_NEW) -> dict:
+    """The serving path on the main path's weights and generators: the CLIP
+    tower and projector (ViT-L/14-336 by default, bf16 from a seeded
+    generator) encode a seeded 336x336 image whose rows feed every image
+    request; ``generate_batch`` at each B of ``batches``; a continuous
+    batcher of ``n_slots`` slots over 8 mixed image/text requests with
+    staggered submission and mixed max_new; ``generate_stream``; and the
+    HTTP server in continuous mode on a free port (concurrent text, image,
+    stream and ``use_msd: false`` requests, /health). Raises unless every
+    batched lane and slot commits the null-draft tokens of its own batched
+    run (the same B, the same schedule), graph == eager, stream ==
+    one-shot, every HTTP text equals its solo repeat, the batched runs
+    launch no K1 and the ``use_msd: false`` request launches 32 per AR
+    token decoded. Batched == solo is printed, not gated: the B-lane
+    verify's bf16 GEMMs have other row counts than the solo one's."""
+    import threading
+    import urllib.request
+
+    import torch
+    from msd_tpu_torch.configs import (IMAGE_TOKEN_INDEX, ClipVisionConfig,
+                                       LlavaConfig)
+    from msd_tpu_torch.models import llava as LV
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.serve import server as S
+    from msd_tpu_torch.serve.adapter import ServeAdapter, SimpleTokenizer
+    from msd_tpu_torch.serve.continuous import ContinuousScheduler, Request
+    from msd_tpu_torch.utils.mm_utils import process_image
+
+    ctx = res["ctx"]
+    gens, drafts, tcfg = ctx["gens"], ctx["drafts"], ctx["tcfg"]
+    sync, on_card, device = ctx["sync"], ctx["on_card"], ctx["device"]
+    max_new, warm = ctx["max_new"], ctx["max_new_warm"]
+    gen, eager = gens["graph"], gens["eager"]
+    n_layers = tcfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    out = {}
+
+    # 1. the vision tower and projector; one image, encoded once
+    vcfg = vision or ClipVisionConfig()
+    lcfg = LlavaConfig(text=tcfg, vision=vcfg)
+    dtype = gen.params["target"]["embed_tokens"].dtype
+    g = torch.Generator(device=device).manual_seed(7)
+    from msd_tpu_torch.models import clip_vit as CV
+    lp = {"vision": CV.init_clip_params(vcfg, g, device, dtype),
+          "projector": LV.init_projector_params(lcfg, g, device, dtype)}
+    rng = np.random.default_rng(7)
+    image = rng.integers(0, 256, size=(vcfg.image_size, vcfg.image_size, 3),
+                         dtype=np.uint8)
+    pixels = torch.from_numpy(process_image(image, vcfg.image_size)) \
+        .to(device)
+    feats = LV.encode_image(lp, lcfg, pixels)
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        feats = LV.encode_image(lp, lcfg, pixels)
+    sync()
+    clip_ms = (time.perf_counter() - t1) * 1e3 / 5
+    lp32 = {k: {n: (w.float() if not isinstance(w, dict) else
+                    {m: x.float() for m, x in w.items()})
+                for n, w in v.items()} for k, v in lp.items()}
+    ref = LV.encode_image(lp32, lcfg, pixels)
+    rel = float((feats.float() - ref).norm() / ref.norm())
+    if feats.shape != (vcfg.num_patches, tcfg.hidden_size) \
+            or not bool(torch.isfinite(feats).all()) or rel > 0.25:
+        raise AssertionError(f"[serve] image rows {tuple(feats.shape)}, "
+                             f"finite {bool(torch.isfinite(feats).all())}, "
+                             f"relative error against fp32 {rel:.4f}")
+    del lp32, ref
+    out["clip_ms"] = clip_ms
+    log(f"[serve] CLIP tower ({vcfg.num_hidden_layers} layers, hidden "
+        f"{vcfg.hidden_size}, {vcfg.num_patches + 1} tokens, "
+        f"{vcfg.num_hidden_layers + 1 + vcfg.select_layer} blocks run) + "
+        f"projector in {dtype}: {clip_ms:.2f} ms per {vcfg.image_size}px "
+        f"image (eager, no graph), rows {tuple(feats.shape)}, relative "
+        f"error against the same weights in fp32 {rel:.4f}")
+
+    # the smoke's prompt shape: 64 tokens, the image at index 1
+    rng = np.random.default_rng(11)
+    vocab_hi = min(31000, tcfg.vocab_size - 1)
+    n_tok = len(ctx["prompts"][0])
+
+    def prompt(with_image):
+        ids = rng.integers(3, vocab_hi, size=n_tok).astype(np.int32)
+        if with_image:
+            ids[1] = IMAGE_TOKEN_INDEX
+        return ids
+
+    img_prompts = list(ctx["prompts"]) + [prompt(True) for _ in range(
+        max(batches) - len(ctx["prompts"]))]
+
+    def captures():
+        return [s for s in gen.graphs.steps if s is not None] \
+            if gen.graphs is not None else []
+
+    # 2. generate_batch at each B: warm-ups capture one graph per (draft,
+    # B) outside the timed window
+    for B in batches:
+        for name in ("null", "msd"):
+            gen.params["draft"] = drafts[name]
+            gen.generate_batch(img_prompts[:B], [feats] * B, warm)
+        eager.generate_batch(img_prompts[:B], [feats] * B, warm)
+    gen.params["draft"] = drafts["msd"]
+    sync()
+    n_cap = len(captures())
+    K1.decode_attention.launches = 0
+    out["batch"] = {}
+    for B in batches:
+        runs = {}
+        for name in ("msd", "null"):
+            gen.params["draft"] = drafts[name]
+            t1 = time.perf_counter()
+            rs = gen.generate_batch(img_prompts[:B], [feats] * B, max_new)
+            sync()
+            runs[name] = (rs, time.perf_counter() - t1)
+            if gen.graphs is not None and not gen.graphs.reads(
+                    rs[0].graph, gen.params):
+                raise AssertionError(f"[serve] B={B} {name}: replayed a "
+                                     f"graph captured for other weights")
+        gen.params["draft"] = drafts["msd"]
+        ers = eager.generate_batch(img_prompts[:B], [feats] * B, max_new)
+        rs, secs = runs["msd"]
+        for b in range(B):
+            tok = rs[b].tokens
+            if tok.shape != (max_new,) or tok.min() < 0 \
+                    or tok.max() >= tcfg.vocab_size:
+                raise AssertionError(f"[serve] B={B} lane {b}: bad tokens "
+                                     f"{tok.shape} {tok[:8]}")
+            if not np.array_equal(tok, runs["null"][0][b].tokens):
+                raise AssertionError(f"[serve] B={B} lane {b}: MSD tokens "
+                                     f"differ from the null-draft tokens of "
+                                     f"the same batch")
+            if not np.array_equal(tok, ers[b].tokens):
+                raise AssertionError(f"[serve] B={B} lane {b}: graph and "
+                                     f"eager tokens differ")
+        solo = [np.array_equal(gen.generate(img_prompts[b], feats,
+                                            max_new).tokens, rs[b].tokens)
+                for b in range(B)]
+        steps = max(r.accept_steps for r in rs)
+        toks = sum(len(r.tokens) for r in rs)
+        alpha = sum(r.accept_len_sum for r in rs) / \
+            sum(r.accept_steps for r in rs)
+        step_ms = _replay_ms(gen, rs[0].graph) if on_card else float("nan")
+        out["batch"][B] = {"ms_step": secs * 1e3 / steps,
+                           "replay_ms": step_ms, "tok_s": toks / secs,
+                           "solo": solo}
+        log(f"[serve] generate_batch B={B}: every lane == its null-draft "
+            f"tokens of the same B: True; graph == eager: True; batched == "
+            f"solo per lane: {solo}; {steps} steps, "
+            f"{secs * 1e3 / steps:.2f} ms/step wall incl. the {B} "
+            f"prefills, {step_ms:.3f} ms per replayed step (device), "
+            f"aggregate {toks / secs:.1f} tokens/s, alpha {alpha:.3f}")
+    launches = K1.decode_attention.launches
+    if launches or len(captures()) != n_cap:
+        raise AssertionError(f"[serve] batched runs: {launches} K1 launches "
+                             f"(want 0: MSD verifies through "
+                             f"windowed_attention), "
+                             f"{len(captures()) - n_cap} captures in the "
+                             f"timed window")
+    lanes = sorted({(s.key[4][0], s.index) for s in captures()
+                    if s.key[0].__name__ == "decode_step"})
+    log(f"[serve] captures (B, index) of the verify step so far: {lanes}; "
+        f"one per (configuration, draft, B); none in a timed window")
+
+    # 3. continuous batching: one scheduler, the same schedule with the
+    # random and the null draft
+    sched = ContinuousScheduler(gen, n_slots=n_slots, segment=segment)
+    plan = [(0, True, 64), (0, False, 24), (0, True, 48), (1, False, 32),
+            (2, True, 64), (2, False, 40), (4, True, 16), (6, False, 56)]
+    plan = [(at, img, min(n, max_new)) for at, img, n in plan]
+    sched_prompts = [img_prompts[i % len(img_prompts)] if img
+                     else prompt(False) for i, (_, img, _) in enumerate(plan)]
+
+    def run_schedule(draft, which=range(len(plan)), n_new=None):
+        """The requests ``which`` of the plan, each submitted at its
+        segment, through ``sched`` with the ``draft`` draft."""
+        gen.params["draft"] = drafts[draft]
+        reqs = [Request(ids=sched_prompts[i], img_feats=feats
+                        if plan[i][1] else None,
+                        max_new=n_new or plan[i][2], seed=i) for i in which]
+        schedule = [plan[i] for i in which]
+        seg0, joined0 = sched.steps, sched.joined
+        t1 = time.perf_counter()
+        submitted = 0
+        while submitted < len(reqs) or sched.busy:
+            # a request joins at its segment, or at once when all slots
+            # have drained before it
+            while submitted < len(reqs) and (
+                    schedule[submitted][0] <= sched.steps - seg0
+                    or not sched.busy):
+                sched.submit(reqs[submitted])
+                submitted += 1
+            sched.step()
+        sync()
+        gen.params["draft"] = drafts["msd"]
+        return (reqs, time.perf_counter() - t1, sched.steps - seg0,
+                sched.joined - joined0)
+
+    for name in ("null", "msd"):
+        run_schedule(name, (0, 1), warm)
+    n_cap = len(captures())
+    msd, secs, segs, joins = run_schedule("msd")
+    null = run_schedule("null")[0]
+    for i, (a, b) in enumerate(zip(msd, null)):
+        if a.error or not np.array_equal(a.tokens, b.tokens) \
+                or len(a.tokens) != plan[i][2]:
+            raise AssertionError(f"[serve] continuous request {i}: error "
+                                 f"{a.error}, or its tokens differ from the "
+                                 f"null-draft run of the same schedule")
+    if len(captures()) != n_cap:
+        raise AssertionError("[serve] continuous: a capture in the timed "
+                             "run")
+    # a slot's tokens do not depend on what the other slots hold: each
+    # text request alone in the slots commits its tokens of the mixed run
+    alone = [np.array_equal(run_schedule("msd", (i,))[0][0].tokens,
+                            msd[i].tokens)
+             for i, (_, img, _) in enumerate(plan) if not img]
+    if not all(alone):
+        raise AssertionError(f"[serve] continuous: a text request alone in "
+                             f"the slots differs from the mixed run: "
+                             f"{alone}")
+    solo = [np.array_equal(gen.generate(r.ids, r.img_feats,
+                                        r.max_new).tokens, r.tokens)
+            for r in msd]
+    toks = sum(len(r.tokens) for r in msd)
+    out["continuous"] = {"segments": segs, "joins": joins,
+                         "tok_s": toks / secs, "solo": solo}
+    log(f"[serve] continuous, {n_slots} slots, segment {segment}: 8 "
+        f"requests (4 image, 4 text, max_new "
+        f"{[n for _, _, n in plan]}, submitted at segments "
+        f"{[at for at, _, _ in plan]}): every request == its null-draft "
+        f"tokens under the same schedule: True; {segs} segments, {joins} "
+        f"joins, {toks} tokens in {secs:.2f}s, aggregate "
+        f"{toks / secs:.1f} tokens/s; each text request alone in the "
+        f"slots == in the mixed run: {alone}; == solo generate: {solo}")
+
+    # 4. streaming
+    one = gen.generate(img_prompts[0], feats, max_new)
+    chunks = list(gen.generate_stream(img_prompts[0], feats, max_new,
+                                      segment=segment))
+    if len(chunks) < 2 or not np.array_equal(np.concatenate(chunks),
+                                             one.tokens):
+        raise AssertionError(f"[serve] stream: {len(chunks)} chunks, "
+                             f"concatenation differs from generate's tokens")
+    log(f"[serve] generate_stream: {len(chunks)} chunks of "
+        f"{[len(c) for c in chunks]} tokens == generate's tokens: True")
+
+    # 5. the HTTP server, continuous mode
+    sched.close()
+    del sched
+    adapter = ServeAdapter.from_llava(gen, SimpleTokenizer(tcfg.vocab_size),
+                                      lp, lcfg)
+    httpd = S.serve_forever(adapter, port=0, continuous=n_slots,
+                            segment=segment)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+
+    def post(payload, path="/generate"):
+        rq = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(rq, timeout=300) as r:
+            if path == "/generate_stream":
+                return [json.loads(line) for line in r]
+            return json.loads(r.read())
+
+    b64 = _png_b64(image)
+    payloads = {"text": {"prompt": "Describe the weather in one sentence.",
+                         "max_new_tokens": http_new},
+                "text2": {"prompt": "List three colors.",
+                          "max_new_tokens": http_new // 2},
+                "image": {"prompt": "What is in the picture?",
+                          "image_b64": b64, "max_new_tokens": http_new}}
+    try:
+        t1 = time.perf_counter()
+        got = {}
+        threads = [threading.Thread(target=lambda k=k, p=p: got.__setitem__(
+            k, post(p))) for k, p in payloads.items()]
+        threads.append(threading.Thread(target=lambda: got.__setitem__(
+            "stream", post(dict(payloads["text"], segment=8),
+                           "/generate_stream"))))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        concurrent_s = time.perf_counter() - t1
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        same = {}
+        for k, p in payloads.items():
+            again = post(p)
+            same[k] = got[k]["text"] == again["text"] and \
+                got[k]["tokens_generated"] == again["tokens_generated"] > 0
+        stream_text = "".join(x["text"] for x in got["stream"][:-1]).strip()
+        same["stream"] = got["stream"][-1].get("done") is True and \
+            stream_text == got["text"]["text"]
+        K1.decode_attention.launches = 0
+        ar = post(dict(payloads["image"], use_msd=False))
+        launches = K1.decode_attention.launches
+    finally:
+        S.shutdown(httpd)
+    decoded = ar["tokens_generated"] - 1
+    want = n_layers * decoded if on_card else 0
+    out["serve_launches"] = launches
+    log(f"[serve] HTTP, continuous {n_slots} slots: concurrent text, text, "
+        f"image_b64 and stream requests in {concurrent_s:.2f}s; each == "
+        f"its solo repeat (stream == its text's /generate): {same}; "
+        f"/health {health}; use_msd=false: K1 launches {launches}, expected "
+        f"{want} (= {n_layers} layers x {decoded} AR tokens decoded)")
+    if not all(same.values()) or launches != want:
+        raise AssertionError(f"[serve] HTTP: {same}, K1 launches {launches} "
+                             f"!= {want}")
+
+    def profile():
+        """The continuous schedule once more, profiled: its device time and
+        idle share."""
+        nonlocal sched
+        sched = ContinuousScheduler(gen, n_slots=n_slots, segment=segment)
+        prof = device_profile(lambda: run_schedule("msd"),
+                              f"continuous {n_slots} slots, 8 requests",
+                              top=8)
+        out["continuous"]["idle"] = 1 - prof["busy_us"] / prof["wall_us"]
+        sched.close()
+
+    out["profile"] = profile
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] phase took {out['seconds']:.1f}s")
+    return out
+
+
 def _same_request(label, a, b):
     if not (np.array_equal(a.tokens, b.tokens)
             and (a.accept_steps, a.accept_len_sum)
@@ -1927,11 +2308,25 @@ def main():
     sampling = run_sampling(res)
     distill = run_distill(res)
     eagle = run_eagle(res)
+    serve = run_serve(res)
+    k1["serve_launches"] = serve["serve_launches"]
     profile_k1()
     res["profile"]()
     sampling["profile"]()
     distill["profile"]()
     eagle["profile"]()
+    serve["profile"]()
+    log(f"[serve] on {card}: CLIP {serve['clip_ms']:.2f} ms per image; "
+        + "; ".join(f"B={b}: {v['ms_step']:.2f} ms/step wall, "
+                    f"{v['replay_ms']:.3f} ms/step replayed, "
+                    f"{v['tok_s']:.1f} tokens/s, batched == solo "
+                    f"{all(v['solo'])}"
+                    for b, v in serve["batch"].items())
+        + f"; continuous: {serve['continuous']['segments']} segments, "
+        f"{serve['continuous']['joins']} joins, "
+        f"{serve['continuous']['tok_s']:.1f} tokens/s, idle share "
+        f"{serve['continuous']['idle']:.3f}, == solo "
+        f"{all(serve['continuous']['solo'])}")
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

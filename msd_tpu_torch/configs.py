@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 IMAGE_TOKEN_INDEX = -200  # LLaVA's image placeholder id
+DEFAULT_IMAGE_TOKEN = "<image>"
 
 
 @dataclass(frozen=True)
@@ -56,6 +57,65 @@ class LlamaConfig:
             num_key_value_heads=kv_heads if kv_heads is not None else heads,
             max_position_embeddings=max_pos,
         )
+
+
+@dataclass(frozen=True)
+class ClipVisionConfig:
+    """CLIP ViT vision tower (openai/clip-vit-large-patch14-336 shapes),
+    the tower LLaVA-1.5 reads its image features from."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 336
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+    # layer to read features from, counted like HF hidden_states index.
+    # LLaVA uses mm_vision_select_layer=-2.
+    select_layer: int = -2
+    select_feature: str = "patch"  # drop CLS
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @staticmethod
+    def tiny(hidden_size: int = 32, layers: int = 2, heads: int = 4,
+             image_size: int = 28, patch_size: int = 14,
+             intermediate_size: int = 64) -> "ClipVisionConfig":
+        return ClipVisionConfig(
+            hidden_size=hidden_size,
+            intermediate_size=intermediate_size,
+            num_hidden_layers=layers,
+            num_attention_heads=heads,
+            image_size=image_size,
+            patch_size=patch_size,
+        )
+
+
+@dataclass(frozen=True)
+class LlavaConfig:
+    """LLaVA-1.5 VLM: vision tower + mlp2x_gelu projector + LM (the
+    single-image fields; S2 multi-scale features are not ported)."""
+
+    text: LlamaConfig = dataclasses.field(default_factory=LlamaConfig.llava_7b)
+    vision: ClipVisionConfig = dataclasses.field(
+        default_factory=ClipVisionConfig)
+    mm_projector_type: str = "mlp2x_gelu"
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.vision.num_patches
+
+    @property
+    def mm_hidden_size(self) -> int:
+        return self.vision.hidden_size
+
+    @staticmethod
+    def tiny() -> "LlavaConfig":
+        return LlavaConfig(text=LlamaConfig.tiny(),
+                           vision=ClipVisionConfig.tiny())
 
 
 @dataclass(frozen=True)

@@ -1,23 +1,24 @@
 """Host-side wrapper around the engine: prompt bucketing, result extraction
 and per-request stats.
 
-The port of the part of the JAX package's ``engine/generator.py`` that the
-benchmark drives: ``generate`` (MSD in every drafting mode, greedy or
-sampled, with the calibrated rerank after ``set_calibrator``, the
-collection of its features and of the trajectory's hidden states for
-distillation), ``naive_generate`` (the AR baseline, optionally from the
-MSD prefill), ``first_token``, ``set_draft`` and ``autotune_tree``, for
-expand-mode prompts with at most one image. ``prefill``
-and ``decode`` ranges mark each request's two phases for
-``torch.profiler``. Sampling draws from one ``torch.Generator`` on the
-generator's device, seeded per request from ``seed``.
+The port of the JAX package's ``engine/generator.py`` for expand-mode
+prompts with at most one image: ``generate`` (MSD in every drafting mode,
+greedy or sampled, with the calibrated rerank after ``set_calibrator``,
+the collection of its features and of the trajectory's hidden states for
+distillation), ``generate_stream`` (the same tokens in segments),
+``generate_batch`` (B requests as the lanes of one batched step),
+``naive_generate`` (the AR baseline, optionally from the MSD prefill),
+``first_token``, ``set_draft`` and ``autotune_tree``. ``prefill`` and
+``decode`` ranges mark each request's two phases for ``torch.profiler``.
+Sampling draws from one ``torch.Generator`` on the generator's device,
+seeded per request from ``seed`` (a batch: one per lane).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,8 +80,26 @@ class MSDGenerator:
         self.params = {"target": target_params, "draft": draft_params}
         self.graphs = StepGraphs(self.device) \
             if cuda_graphs and self.device.type == "cuda" else None
-        self.state = None
+        self.bstate = None
+        self.lane_rngs: List[torch.Generator] = []
+        self.last_stream_stats: Optional[Dict] = None
         self.eng = eng
+
+    @property
+    def state(self) -> Optional[SE.EngineState]:
+        """The single-lane state every one-request call runs on: lane 0 of
+        ``bstate``, as views."""
+        return self._state
+
+    @state.setter
+    def state(self, state: Optional[SE.EngineState]) -> None:
+        """Adopt a state (a batched state of one lane, or a lane view); it
+        is also the batches' state of one lane, and the states of larger
+        batches are released."""
+        self.bstate = None if state is None else SE.as_lanes(state)
+        self._state = None if state is None else SE.lane(self.bstate, 0)
+        self.lane_states: Dict[int, SE.EngineState] = \
+            {} if state is None else {1: self.bstate}
 
     @property
     def eng(self) -> EngineConfig:
@@ -99,9 +118,14 @@ class MSDGenerator:
         max_pos = eng.max_seq_len + eng.tree.num_nodes + 64
         self.params["cos_t"], self.params["sin_t"] = L.make_rope(
             self.tcfg, max_pos, self.device)
-        self.state = SE.alloc_state(
-            self._statics(0), self.params["target"]["embed_tokens"].dtype,
-            self.device)
+        self.state = self.alloc_lanes(1)
+
+    def alloc_lanes(self, lanes: int) -> SE.EngineState:
+        """A zeroed batched state of ``lanes`` lanes at this generator's
+        budgets and dtype."""
+        return SE.alloc_state(self._statics(0),
+                              self.params["target"]["embed_tokens"].dtype,
+                              self.device, lanes)
 
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
@@ -145,13 +169,13 @@ class MSDGenerator:
         if self.graphs is not None:
             self.graphs.drop(_ptrs(old) - _ptrs(self.params))
 
-    def _step(self, fn, st: SE.Statics):
-        """The graph replaying ``fn`` over the static state (captured now if
-        this step, configuration and weights have none yet), or None for
+    def step_fn(self, fn, st: SE.Statics, state: SE.EngineState):
+        """The graph replaying ``fn`` over ``state`` (captured now if this
+        step, configuration, state and weights have none yet), or None for
         the eager step."""
         if self.graphs is None:
             return None
-        return self.graphs.get(fn, st, self.params, self.state)
+        return self.graphs.get(fn, st, self.params, state)
 
     def _pad(self, ids: np.ndarray) -> np.ndarray:
         """Pad to the next multiple of prompt_pad_multiple (128-token
@@ -228,9 +252,9 @@ class MSDGenerator:
         with record_function("prefill"):
             SE.prefill(st, self.params, self.state, padded, len(ids),
                        img_feats, img_pos, first_token, rng)
-        step = self._step(SE.decode_step, st)
+        step = self.step_fn(SE.decode_step, st, self.bstate)
         with record_function("decode"):
-            SE.decode(st, self.params, self.state, step, rng)
+            SE.decode(st, self.params, self.bstate, step, rng)
         s = self.state
         steps = int(s.steps)
         calib_data = {k: _host(v[:steps]) for k, v in s.calib_log.items()} \
@@ -247,6 +271,113 @@ class MSDGenerator:
             alpha_hist=_host(s.alpha_hist),
             graph=None if step is None else step.index,
             calib_data=calib_data, traj_hidden=traj_hidden, exp_ids=exp_ids)
+
+    def generate_stream(self, ids, img_feats: Optional[torch.Tensor] = None,
+                        max_new_tokens: Optional[int] = None, seed: int = 0,
+                        sp: Optional[SamplingParams] = None,
+                        segment: int = 16,
+                        use_calibration: bool = False
+                        ) -> Iterator[np.ndarray]:
+        """Streaming MSD generation: yields np.int32 arrays of the newly
+        committed tokens every ~``segment`` tokens.
+
+        The prefill runs once, then each segment is ``decode_until`` with
+        a growing bound (``stop_at``, in the state), over the same step,
+        and on the card the same captured graph, as ``generate``: the
+        chunks concatenate to ``generate``'s tokens for the same seed. One
+        host read of the tokens per segment. The generator's state is the
+        stream's until it ends. The final acceptance stats land in
+        ``self.last_stream_stats``."""
+        if use_calibration and "calib" not in self.params:
+            raise ValueError("set_calibrator() before use_calibration=True")
+        ids, padded, img_pos = self._prompt(ids)
+        max_new = max_new_tokens or self.eng.max_new_tokens
+        st = self._statics(max_new, sp, use_calibration)
+        rng = self.rng.manual_seed(seed)
+        SE.prefill(st, self.params, self.state, padded, len(ids), img_feats,
+                   img_pos, rng=rng)
+        e0 = self._e0(ids, img_feats)
+        step = self.step_fn(SE.decode_step, st, self.bstate)
+        s = self.state
+        emitted, target = 0, 0
+        while True:
+            target += segment
+            SE.decode_until(st, self.params, self.bstate, [target], step,
+                            [rng])
+            out = self._tokens(e0, max_new)
+            if len(out) > emitted:
+                yield out[emitted:]
+                emitted = len(out)
+            if bool(s.done):
+                break
+        self.last_stream_stats = {"accept_steps": int(s.steps),
+                                  "accept_len_sum": int(s.acc_sum)}
+
+    def lane_rng(self, b: int) -> torch.Generator:
+        """Lane b's generator of random draws (on the generator's device,
+        made at first use, reseeded by every batch)."""
+        while len(self.lane_rngs) <= b:
+            self.lane_rngs.append(torch.Generator(device=self.device))
+        return self.lane_rngs[b]
+
+    def generate_batch(self, ids_list: Sequence,
+                       img_feats_list: Optional[Sequence] = None,
+                       max_new_tokens: Optional[int] = None, seed: int = 0,
+                       sp: Optional[SamplingParams] = None
+                       ) -> List[GenResult]:
+        """Batched speculative generation: the B prompts decode together as
+        the lanes of one batched state (the JAX package's ``vmap`` of its
+        generate program). Every step, one replayed graph on the card,
+        advances all B lanes: each draft forward and the target's verify
+        forward read the weights once for the B lanes' rows. Lane b is
+        prefilled alone, exactly as ``generate`` prefills it, and steps
+        until its own stop; a finished lane is masked. Each lane's tokens
+        are those of its request run alone wherever the batched products
+        round a row as the one-lane products do: bitwise on the CPU; on the
+        card, bf16 GEMMs over another row count may round otherwise, as
+        verifies of other node counts do (ROADMAP section 3).
+        ``img_feats_list``: one [n_img, H] tensor or None per prompt.
+
+        One state of B lanes per batch size B is kept (``lane_states``;
+        B = 1 is the one-request state), and on the card one graph per
+        (configuration, B) is captured at its first use.
+
+        Sampling: lane b draws from its own generator seeded with
+        ``seed + b``, so lane b reproduces ``generate(..., seed=seed + b)``.
+        This departs from the JAX package, whose lanes take
+        ``jax.random.split(PRNGKey(seed), B)``, a stream the port does not
+        reproduce (no random stream of the port is JAX's)."""
+        B = len(ids_list)
+        max_new = max_new_tokens or self.eng.max_new_tokens
+        st = self._statics(max_new, sp)
+        feats = list(img_feats_list) if img_feats_list is not None \
+            else [None] * B
+        prompts = [self._prompt(ids) for ids in ids_list]   # validates all
+        state = self.lane_states.get(B)
+        if state is None:
+            state = self.lane_states[B] = self.alloc_lanes(B)
+        rngs = [self.lane_rng(b).manual_seed(seed + b) for b in range(B)]
+        with record_function("prefill"):
+            for b, (ids, padded, img_pos) in enumerate(prompts):
+                SE.prefill(st, self.params, SE.lane(state, b), padded,
+                           len(ids), feats[b], img_pos, rng=rngs[b])
+        step = self.step_fn(SE.decode_step, st, state)
+        with record_function("decode"):
+            SE.decode_until(st, self.params, state, [max_new] * B, step,
+                            rngs)
+        cur, steps = _host(state.cur_len), _host(state.steps)
+        acc, hist = _host(state.acc_sum), _host(state.alpha_hist)
+        ids_host = _host(state.ids)
+        out = []
+        for b, (ids, _, _) in enumerate(prompts):
+            e0 = self._e0(ids, feats[b])
+            out.append(GenResult(
+                tokens=_trim(ids_host[b, e0:cur[b] + 1], self.eos_id,
+                             max_new),
+                accept_steps=int(steps[b]), accept_len_sum=int(acc[b]),
+                alpha_hist=hist[b],
+                graph=None if step is None else step.index))
+        return out
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,
@@ -272,7 +403,7 @@ class MSDGenerator:
             else:
                 SE.ar_prefill(st, self.params, self.state, padded, len(ids),
                               img_feats, img_pos, rng)
-        step = self._step(SE.ar_step, st)
+        step = self.step_fn(SE.ar_step, st, self.state)
         with record_function("decode"):
             SE.ar_decode(st, self.params, self.state, step, rng)
         return GenResult(tokens=self._tokens(self._e0(ids, img_feats),

@@ -11,17 +11,21 @@ draws into the state before it (``spec_engine.draw``).
 
 Graphs are cached the way ``jax.jit`` caches executables by their static
 arguments: by the step function, the static configuration (the request's
-token limit excepted: it rides in the state) and the address, shape and
-dtype of every weight tensor the step reads, so a generator whose draft
+token limit excepted: it rides in the state), the state it runs over (its
+lane count and buffers: a generator holds a one-lane state for single
+requests and one state per batch size, a continuous batcher one of its
+slot count) and the address, shape and dtype of every weight tensor the
+step reads, so a generator whose draft
 or calibration tables are swapped captures a graph of its own for the new
 tensors and never replays one that reads the old ones, while steps that
 do not rerank keep their graphs when tables are installed. An entry keeps
-its weight tensors alive, so their addresses cannot be reused by other
-tensors while it is cached; ``StepGraphs.drop`` releases the entries that
-hold given tensors (a generator's ``set_draft``), after which the old
-tensors can be freed and their addresses reused, since no cached graph
-reads them any more; ``StepGraphs.drop_all`` releases every entry when the
-state itself is reallocated (a generator adopting new engine budgets).
+its weight and state tensors alive, so their addresses cannot be reused
+by other tensors while it is cached; ``StepGraphs.drop`` releases the
+entries that hold given tensors (a generator's ``set_draft``, a batcher
+that closes), after which the old tensors can be freed and their
+addresses reused, since no cached graph reads them any more;
+``StepGraphs.drop_all`` releases every entry when the states themselves
+are reallocated (a generator adopting new engine budgets).
 
 Each capture first warms the step up on the capture stream (first-use
 uploads, the kernel build, cuBLAS workspaces), then captures it into one
@@ -65,11 +69,14 @@ class CapturedStep:
     """One captured step; calling it replays the graph."""
 
     def __init__(self, index: int, graph: torch.cuda.CUDAGraph, key: tuple,
-                 weights: List[torch.Tensor], k1_calls: int):
+                 weights: List[torch.Tensor], k1_calls: int,
+                 buffers: List[torch.Tensor] = ()):
         self.index = index
         self.graph = graph
         self.key = key
+        # the weights and the state buffers it reads, alive while cached
         self.weights = weights
+        self.buffers = list(buffers)
         # decode-attention (K1) launches the graph holds
         self.k1_calls = k1_calls
 
@@ -97,7 +104,8 @@ class StepGraphs:
         keyed on, and captured over, the tensors of ``params`` it reads
         (``spec_engine.step_params``)."""
         params = SE.step_params(st, params)
-        key = (fn, dataclasses.replace(st, max_new=0), weights_key(params))
+        key = (fn, dataclasses.replace(st, max_new=0), weights_key(params),
+               state.ids.data_ptr(), tuple(state.ids.shape))
         step = self._cache.get(key)
         if step is None:
             step = self._capture(fn, st, params, state, key)
@@ -115,7 +123,8 @@ class StepGraphs:
         """Release every cached graph that reads a tensor whose address is
         in ``ptrs``, once the card has finished any replay of it."""
         stale = [key for key, step in self._cache.items()
-                 if any(t.data_ptr() in ptrs for t in step.weights)]
+                 if any(t.data_ptr() in ptrs
+                        for t in step.weights + step.buffers)]
         if stale:
             torch.cuda.synchronize(self.device)
         for key in stale:
@@ -150,6 +159,6 @@ class StepGraphs:
         torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
         step = CapturedStep(len(self.steps), graph, key, leaves(params),
-                            k1_calls)
+                            k1_calls, buffers)
         self.steps.append(step)
         return step

@@ -32,15 +32,30 @@ records of ``train/data_gen.record_from_traj``, with the numerics the
 draft's suffix path reads back at serve time.
 
 All engine state lives in one ``EngineState`` of static buffers, allocated
-once per generator (``alloc_state``) and updated IN PLACE: the prefills
-zero and refill it, ``decode_step`` and ``ar_step`` read and write only its
-tensors and the weights. Engine scalars (committed length E, lengths,
-counters, the request's token limit) are 0-dim device tensors, as the
-traced scalars of the JAX programs, so a step issues no host sync and no
-host-to-device copy, and one captured step serves every request. A
-sampling step reads its random draws from the state's ``rand`` buffer,
-which ``draw`` fills from the request's ``torch.Generator`` before each
-step, outside any captured graph.
+once (``alloc_state``) and updated IN PLACE: the prefills zero and refill
+it, ``decode_step`` and ``ar_step`` read and write only its tensors and the
+weights. Engine scalars (committed length E, lengths, counters, the
+request's token limit) are device tensors, as the traced scalars of the
+JAX programs, so a step issues no host sync and no host-to-device copy,
+and one captured step serves every request. A sampling step reads its
+random draws from the state's ``rand`` buffer, which ``draw`` fills from
+the request's ``torch.Generator`` before each step, outside any captured
+graph.
+
+Batched lanes (the port's counterpart of ``jax.vmap`` over the decode
+loop): every field of the state carries a leading lane dimension B, and
+lane b (``lane(state, b)``) is a view that is itself a single-lane state,
+so the single-lane prefills write a request straight into its lane.
+``decode_step`` advances all B lanes at once: one draft forward per draft
+depth over the B lanes' rows and one target verify forward over
+B x num_nodes rows, so every weight is read once per step for all lanes.
+A lane steps only while it is live, ``~done & (new_tokens < stop_at)``,
+where ``stop_at`` (the segment bound of ``decode_until``) rides in the
+state: the step computes every lane, writes its scratch only at or past
+the lane's own committed lengths, and leaves an inactive lane's committed
+state (ids, lengths, counters, bonus, suffix, committed KV rows) bitwise
+unchanged, which is the select ``vmap`` applies to a finished lane. The
+single-lane engine is the case B = 1.
 
 Conventions (post image expansion everywhere): E is the committed expanded
 length (= target KV length); ``bonus`` is the sampled-but-uncommitted next
@@ -52,7 +67,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,7 +82,8 @@ from msd_tpu_torch.engine.tree import top_k as _top_k
 from msd_tpu_torch.models import draft as draft_mod
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
-from msd_tpu_torch.ops.attention import NEG_INF, causal_prefill_bias
+from msd_tpu_torch.ops.attention import (NEG_INF, causal_prefill_bias,
+                                         put_rows, take_rows)
 from msd_tpu_torch.ops.sampling import (SamplingParams,
                                         apply_repetition_penalty,
                                         canon_logits, gumbel_noise,
@@ -136,7 +152,8 @@ class Statics:
 
 
 class EngineState(NamedTuple):
-    """The engine's static buffers; every field is updated in place."""
+    """The engine's static buffers; every field is updated in place. The
+    shapes are one lane's; ``alloc_state`` gives each a leading [B]."""
 
     ids: torch.Tensor            # [S_t] int32 expanded committed ids
     cur_len: torch.Tensor        # E
@@ -164,6 +181,9 @@ class EngineState(NamedTuple):
     #                              final token's [V] (sampling)
     traj_hidden: torch.Tensor    # [S_t, H] target hidden per committed
     #                              position (collect_hiddens)
+    stop_at: torch.Tensor        # segment bound: a lane steps while
+    #                              ~done & (new_tokens < stop_at)
+    live: torch.Tensor           # that condition, as of the last step
 
 
 CALIB_FIELDS = {"token": torch.int32, "depth": torch.int32,
@@ -179,57 +199,79 @@ def _walk_draws(st: Statics) -> int:
     return t.max_depth * tree_mod.sampling_width(t.num_nodes, t.top_k)
 
 
-def alloc_state(st: Statics, dtype: torch.dtype, device) -> EngineState:
-    """Zeroed static buffers for engines of ``st``'s capacity; hiddens and
-    KV caches in ``dtype`` (the weights' dtype).
+def alloc_state(st: Statics, dtype: torch.dtype, device,
+                lanes: int = 1) -> EngineState:
+    """Zeroed static buffers for ``lanes`` engines of ``st``'s capacity,
+    every field with a leading [lanes]; hiddens and KV caches in ``dtype``
+    (the weights' dtype).
 
     The calibration log has ``st.step_limit`` rows: a verify step runs only
     while the committed length is below that limit and commits at least
     one token past a prompt of at least one, so no request takes more
     steps and its row ``steps`` is always in the log."""
     P, N = st.tree.max_path_len, st.tree.num_nodes
+    B = lanes
 
-    def scalar(dt=torch.int32):
-        return torch.zeros((), dtype=dt, device=device)
+    def zeros(*shape, dt=torch.int32):
+        return torch.zeros((B,) + shape, dtype=dt, device=device)
+
+    def kv(cfg, rows, layers):
+        shape = (B, layers, rows, cfg.num_key_value_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
 
     return EngineState(
-        ids=torch.zeros(st.s_target, dtype=torch.int32, device=device),
-        cur_len=scalar(), bonus=scalar(),
-        suffix_tokens=torch.zeros(P, dtype=torch.int32, device=device),
-        suffix_hidden=torch.zeros(P, st.tcfg.hidden_size, dtype=dtype,
-                                  device=device),
-        suffix_len=scalar(),
-        last_draft_hidden=torch.zeros(st.dcfg.text.hidden_size, dtype=dtype,
-                                      device=device),
-        target_kv=L.init_kv_cache(st.tcfg, st.s_target, dtype, device),
-        draft_kv=draft_mod.init_draft_kv(st.dcfg, st.s_draft, dtype, device),
-        draft_len=scalar(), max_new=scalar(), new_tokens=scalar(),
-        steps=scalar(), acc_sum=scalar(),
-        alpha_hist=torch.zeros(16, dtype=torch.int32, device=device),
-        done=scalar(torch.bool), img_pos=scalar(),
-        attn_feat=torch.zeros(st.tree.top_k, dtype=torch.float32,
-                              device=device),
-        calib_log={k: torch.zeros(st.step_limit, N, dtype=dt, device=device)
+        ids=zeros(st.s_target), cur_len=zeros(), bonus=zeros(),
+        suffix_tokens=zeros(P),
+        suffix_hidden=zeros(P, st.tcfg.hidden_size, dt=dtype),
+        suffix_len=zeros(),
+        last_draft_hidden=zeros(st.dcfg.text.hidden_size, dt=dtype),
+        target_kv=kv(st.tcfg, st.s_target, st.tcfg.num_hidden_layers),
+        draft_kv=kv(st.dcfg.text, st.s_draft, st.dcfg.num_layers),
+        draft_len=zeros(), max_new=zeros(), new_tokens=zeros(),
+        steps=zeros(), acc_sum=zeros(), alpha_hist=zeros(16),
+        done=zeros(dt=torch.bool), img_pos=zeros(),
+        attn_feat=zeros(st.tree.top_k, dt=torch.float32),
+        calib_log={k: zeros(st.step_limit, N, dt=dt)
                    for k, dt in CALIB_FIELDS.items()},
-        rand=torch.zeros(_walk_draws(st) + st.tcfg.vocab_size,
-                         dtype=torch.float32, device=device),
-        traj_hidden=torch.zeros(st.s_target, st.tcfg.hidden_size,
-                                dtype=dtype, device=device))
+        rand=zeros(_walk_draws(st) + st.tcfg.vocab_size, dt=torch.float32),
+        traj_hidden=zeros(st.s_target, st.tcfg.hidden_size, dt=dtype),
+        stop_at=zeros(), live=zeros(dt=torch.bool))
+
+
+def _map(state: EngineState, fn) -> EngineState:
+    return EngineState(*({k: fn(v) for k, v in x.items()}
+                         if isinstance(x, dict) else fn(x) for x in state))
+
+
+def lane(state: EngineState, b: int) -> EngineState:
+    """Lane b of a batched state: views, themselves a single-lane state."""
+    return _map(state, lambda x: x[b])
+
+
+def as_lanes(state: EngineState) -> EngineState:
+    """A single-lane state (a lane view) as a batched state of one lane:
+    views of the same buffers. A batched state is returned as it is."""
+    if state.cur_len.dim() == 1:
+        return state
+    return _map(state, lambda x: x.unsqueeze(0))
 
 
 def draw(state: EngineState, rng: torch.Generator):
     """Fill the state's ``rand`` with the next step's uniform draws from
     ``rng`` (one launch, outside any captured graph, so every replay of a
     sampling step consumes fresh draws and reseeding ``rng`` changes
-    them)."""
+    them). ``state`` is one lane (a lane view); ``decode_until`` fills
+    each live lane's row from that lane's generator the same way."""
     state.rand.uniform_(0.0, 1.0, generator=rng)
 
 
 def _step_draws(st: Statics, s: EngineState):
-    """(acceptance-walk uniforms [D, K], Gumbel noise [V]) from ``rand``."""
+    """(acceptance-walk uniforms [..., D, K], Gumbel noise [..., V]) from
+    ``rand``."""
     n = _walk_draws(st)
-    return (s.rand[:n].view(st.tree.max_depth, -1),
-            gumbel_noise(s.rand[n:]))
+    return (s.rand[..., :n].unflatten(-1, (st.tree.max_depth, -1)),
+            gumbel_noise(s.rand[..., n:]))
 
 
 def step_params(st: Statics, params: Dict) -> Dict:
@@ -251,15 +293,25 @@ def state_tensors(state: EngineState) -> List[torch.Tensor]:
 
 def _reset(st: Statics, state: EngineState):
     """Zero every buffer, as a fresh allocation is zeroed, so no request
-    sees rows an earlier one left behind; set the request's token limit."""
+    sees rows an earlier one left behind; set the request's token limit,
+    which is also the lane's segment bound until ``decode_until`` sets
+    one (a prefilled lane is live)."""
     for x in state_tensors(state):
         x.zero_()
     state.max_new.fill_(st.max_new)
+    state.stop_at.fill_(st.max_new)
+    state.live.fill_(st.max_new > 0)
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, start, dim: int = 0):
     """In-place ``lax.dynamic_update_slice`` of ``val`` into ``buf`` along
-    ``dim`` at ``start`` (int or 0-dim tensor, clamped as JAX clamps)."""
+    ``dim`` at ``start`` (int or 0-dim tensor, clamped as JAX clamps).
+    With lanes (``start`` [B]): buf [B, S, ...] and val [B, n, ...], each
+    lane at its own start along dim 1."""
+    if isinstance(start, torch.Tensor) and start.dim() == 1:
+        rows = L.update_rows(buf.shape[1], start, val.shape[1], buf.device)
+        put_rows(buf, rows, val, 1)
+        return
     rows = L.update_rows(buf.shape[dim], start, val.shape[dim], buf.device)
     buf.index_copy_(dim, rows, val)
 
@@ -339,12 +391,13 @@ def _medusa_layout(t: TreeConfig, medusa_heads: int, device: str):
 def _attn_rows(st: Statics, t_rows: int, valid_rows) -> torch.Tensor:
     """The rows of a draft forward's [Hq, T, S] attention probabilities
     that ``_attn_feature_vec`` reads: row min(k, T - 1) for each child slot
-    k ("reference"), or the last valid row ("last_row"). valid_rows: 0-dim
-    int tensor on the device."""
+    k ("reference"), or the last valid row ("last_row"). valid_rows: int
+    tensor on the device, 0-dim or one per lane ([B] -> rows [B, R])."""
     if st.attn_feature_mode == "last_row":
-        return torch.clamp(valid_rows.long() - 1, 0, t_rows - 1).reshape(1)
-    return torch.clamp(torch.arange(st.tree.top_k, device=valid_rows.device),
+        return torch.clamp(valid_rows.long() - 1, 0, t_rows - 1)[..., None]
+    rows = torch.clamp(torch.arange(st.tree.top_k, device=valid_rows.device),
                        max=t_rows - 1)
+    return rows.expand(valid_rows.shape + rows.shape)
 
 
 def _attn_feature_vec(st: Statics, attn_probs: torch.Tensor,
@@ -357,20 +410,23 @@ def _attn_feature_vec(st: Statics, attn_probs: torch.Tensor,
     cnets.py:516-575: candidate_idx indexes ROWS of the latest prefix
     forward (rows beyond the valid length give 0.0), span = [img_pos-1,
     img_pos-1+n_img), its start clamped into the cache as
-    ``lax.dynamic_slice`` clamps it.
+    ``lax.dynamic_slice`` clamps it. With lanes: attn_probs [B, Hq, R, S],
+    img_pos and valid_rows [B] -> [B, TOP_K].
     """
     K = st.tree.top_k
     n_img = max(st.n_img, 1)
-    mean_h = attn_probs.mean(dim=0)                               # [R, S]
+    mean_h = attn_probs.mean(dim=-3)                             # [.., R, S]
     start = torch.clamp(img_pos - 1, min=0)
-    span = mean_h.index_select(1, L.update_rows(mean_h.shape[1], start,
-                                                n_img, mean_h.device))
-    row_mean = span.mean(dim=1)                                   # [R]
+    cols = L.update_rows(mean_h.shape[-1], start, n_img, mean_h.device)
+    span = torch.gather(mean_h, -1, cols[..., None, :].expand(
+        mean_h.shape[:-1] + (n_img,)))
+    row_mean = span.mean(dim=-1)                                 # [.., R]
+    valid = valid_rows[..., None]
     if st.attn_feature_mode == "last_row":
-        ok = (valid_rows > 0) & (st.n_img > 0)
-        return torch.where(ok, row_mean.expand(K), 0.0)
+        ok = (valid > 0) & (st.n_img > 0)
+        return torch.where(ok, row_mean.expand(valid_rows.shape + (K,)), 0.0)
     k_idx = torch.arange(K, device=row_mean.device)
-    ok = (k_idx < valid_rows) & (k_idx < t_rows) & (st.n_img > 0)
+    ok = (k_idx < valid) & (k_idx < t_rows) & (st.n_img > 0)
     return torch.where(ok, row_mean, 0.0)
 
 
@@ -381,9 +437,11 @@ def _rerank(st: Statics, params: Dict, logits: torch.Tensor,
     within its own candidates.
 
     logits/cand_ids/cand_probs: [R, V] / [R, K] / [R, K]; depth: [R]
-    per-row depths. Implements cnets.py:1286-1339: calibrated logit bias
-    scatter-added at the candidate ids, re-softmax, reselect K within each
-    row's candidate set (lowest column first on ties, as ``lax.top_k``).
+    per-row depths; attn_feat: the visual-attention feature per child slot,
+    [K'] for every row or [R, K'] per row (rows of different lanes).
+    Implements cnets.py:1286-1339: calibrated logit bias scatter-added at
+    the candidate ids, re-softmax, reselect K within each row's candidate
+    set (lowest column first on ties, as ``lax.top_k``).
     Returns (new_ids, new_probs, margin_row).
     """
     R, K = cand_ids.shape
@@ -391,16 +449,17 @@ def _rerank(st: Statics, params: Dict, logits: torch.Tensor,
     # top1 prob (no runner-up), cnets.py's single-candidate fallback
     margin_row = cand_probs[:, 0] - cand_probs[:, 1] if K > 1 \
         else cand_probs[:, 0]                                     # [R]
-    if attn_feat.shape[0] < K:  # medusa width can exceed the top_k slots
+    attn_feat = attn_feat.expand(R, attn_feat.shape[-1])
+    if attn_feat.shape[1] < K:  # medusa width can exceed the top_k slots
         attn_feat = torch.cat([attn_feat, attn_feat.new_zeros(
-            K - attn_feat.shape[0])])
+            R, K - attn_feat.shape[1])], dim=1)
 
     def per_candidate(row_values):
         return row_values[:, None].expand(R, K).reshape(-1)
 
     bias = calibration_bias(
         params["calib"], cand_ids.reshape(-1), cand_probs.reshape(-1),
-        attn_feat[:K].repeat(R), per_candidate(depth),
+        attn_feat[:, :K].reshape(-1), per_candidate(depth),
         per_candidate(margin_row)).reshape(R, K)
     ids = cand_ids.long()
     logits_c = logits.scatter_add(1, ids, bias.to(logits.dtype))
@@ -410,6 +469,21 @@ def _rerank(st: Statics, params: Dict, logits: torch.Tensor,
     return torch.gather(cand_ids, 1, order), new_scores, margin_row
 
 
+def _rerank_lanes(st: Statics, params: Dict, logits: torch.Tensor,
+                  cand_ids: torch.Tensor, cand_probs: torch.Tensor,
+                  attn_feat: torch.Tensor, depth: torch.Tensor):
+    """``_rerank`` of [B, R, .] rows, each lane with its own attn_feat
+    [B, K'] and the same depth [R] per lane: (ids, probs [B, R, K],
+    margin [B, R])."""
+    B, R = cand_ids.shape[:2]
+    ids, probs, margin = _rerank(
+        st, params, logits.flatten(0, 1), cand_ids.flatten(0, 1),
+        cand_probs.flatten(0, 1), attn_feat.repeat_interleave(R, dim=0),
+        depth.repeat(B))
+    return (ids.unflatten(0, (B, R)), probs.unflatten(0, (B, R)),
+            margin.unflatten(0, (B, R)))
+
+
 def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
                          root_token: torch.Tensor,
                          attn_feat: Optional[torch.Tensor] = None,
@@ -417,49 +491,58 @@ def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
     """Medusa expansion: depth-1 candidates from head(last_hidden), depth
     d >= 2 from resblock head d-2 over the same last_hidden, all through one
     stacked lm_head product. The tree layout is static (_medusa_layout);
-    only the tokens are data.
+    only the tokens are data. Lanes: last_hidden [B, H], root_token [B],
+    attn_feat [B, TOP_K]; the tree's fields are [B, ...].
 
     With ``st.use_calibration`` each depth's candidate row is reranked
     (``_rerank``, over ``attn_feat``). ``features``, a dict, receives the
     per-node collection features ``local_conf``, ``attn`` and ``margin``
-    ([N] fp32; the root and unused slots 0)."""
+    ([B, N] fp32; the root and unused slots 0)."""
     d_use, w, par, mask, depth, ret, valid, slot_depth, slot_rank = \
         _medusa_layout(st.tree, st.dcfg.medusa_heads, str(last_hidden.device))
+    B, N = last_hidden.shape[0], st.tree.num_nodes
     dp = params["draft"]
     head = params["target"]["lm_head"]
-    mh = draft_mod.medusa_hiddens(dp["medusa"], last_hidden)     # [Km, H]
-    xs = torch.cat([last_hidden[None], mh[:d_use - 1]], dim=0)
-    logits = (xs @ head).float()                                 # [d_use, V]
+    mh = draft_mod.medusa_hiddens(dp["medusa"], last_hidden)    # [Km, B, H]
+    xs = torch.cat([last_hidden[:, None], mh[:d_use - 1].transpose(0, 1)],
+                   dim=1)                                       # [B, d_use, H]
+    logits = (xs @ head).float()                                # [B, d_use, V]
     probs = torch.softmax(logits, dim=-1)
-    wts, idx = _top_k(probs, w)                                  # [d_use, W]
+    wts, idx = _top_k(probs, w)                                 # [B, d_use, W]
     # pre-rerank top1-top2 margin of each depth's candidate row
-    margin = wts[:, 0] - wts[:, 1] if w > 1 else wts.new_zeros(d_use)
+    margin = wts[..., 0] - wts[..., 1] if w > 1 \
+        else wts.new_zeros(B, d_use)
     if st.use_calibration:
         # row r holds depth r + 1
-        idx, wts, _ = _rerank(st, params, logits, idx, wts, attn_feat,
-                              torch.arange(1, d_use + 1, device=idx.device))
-    cand = idx[slot_depth, slot_rank].to(torch.int32)            # [N]
+        idx, wts, _ = _rerank_lanes(
+            st, params, logits, idx, wts, attn_feat,
+            torch.arange(1, d_use + 1, device=idx.device))
+    cand = idx[:, slot_depth, slot_rank].to(torch.int32)        # [B, N]
     tokens = torch.where(valid, cand, torch.full_like(cand, -1))
-    tokens[0] = root_token
+    tokens[:, 0] = root_token
     if features is not None:
         node = valid & (depth > 0)
-        af = attn_feat[torch.clamp(slot_rank, max=attn_feat.shape[0] - 1)]
+        af = attn_feat[:, torch.clamp(slot_rank, max=attn_feat.shape[1] - 1)]
         features.update(
-            local_conf=torch.where(node, wts[slot_depth, slot_rank], 0.0),
+            local_conf=torch.where(node, wts[:, slot_depth, slot_rank], 0.0),
             attn=torch.where(node, af, 0.0),
-            margin=torch.where(node, margin[slot_depth], 0.0))
-    return Tree(tokens=tokens, parents=par, mask=mask, positions=depth,
-                retrieve=ret, valid=valid)
+            margin=torch.where(node, margin[:, slot_depth], 0.0))
+    return Tree(tokens=tokens, parents=par.expand(B, N),
+                mask=mask.expand(B, N, N), positions=depth.expand(B, N),
+                retrieve=ret.expand((B,) + ret.shape),
+                valid=valid.expand(B, N))
 
 
 def _frontier_bias(s_d: int, write: torch.Tensor, rows: int) -> torch.Tensor:
-    """[rows, s_d] bias of a frontier forward written at ``write``: row i
-    sees the cache below ``write`` (the stable prefix and the frontiers
-    written before it) and its own slot write + i (cnets.py:1183-1202)."""
+    """[B, rows, s_d] bias of a frontier forward written at ``write`` [B]:
+    row i sees the cache below ``write`` (the stable prefix and the
+    frontiers written before it) and its own slot write + i
+    (cnets.py:1183-1202)."""
     dev = write.device
-    kpos = torch.arange(s_d, device=dev)[None, :]
-    self_pos = write + torch.arange(rows, device=dev)[:, None]
-    keep = (kpos < write) | (kpos == self_pos)
+    kpos = torch.arange(s_d, device=dev)
+    w = write[:, None, None]
+    self_pos = w + torch.arange(rows, device=dev)[:, None]
+    keep = (kpos < w) | (kpos == self_pos)
     return torch.where(keep, 0.0, NEG_INF).to(torch.float32)
 
 
@@ -475,7 +558,9 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     fires when the top-``num_draft`` weight-sum increment over the layers
     before the newest is at most ``early_stop_threshold``, and the newest
     layer is dropped (cnets.py:1401-1437). ``finalize_tree`` packs the
-    tree.
+    tree. Lanes: kv [B, L_d, S_d, Hkv, D], E and root_token [B],
+    last_hidden [B, H], attn_feat [B, TOP_K]; each lane has its own
+    frontier, stop and depth.
 
     The JAX ``lax.while_loop`` ends on the data; a captured step has a
     fixed kernel list and may not read ``stop`` on the host, so the loop
@@ -491,71 +576,74 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     per-node ``local_conf``, ``attn`` and ``margin``."""
     t = st.tree
     K, D, n_draft = t.top_k, t.max_depth, t.num_draft
+    B, H = last_hidden.shape
     dp, head = params["draft"], params["target"]["lm_head"]
     cos_t, sin_t = params["cos_t"], params["sin_t"]
     dev = last_hidden.device
-    logits0 = (last_hidden @ head).float()
-    w0, ids0 = _top_k(torch.softmax(logits0, dim=-1), K)
-    margin0 = w0[0] - w0[1]
+    logits0 = (last_hidden @ head).float()                          # [B, V]
+    w0, ids0 = _top_k(torch.softmax(logits0, dim=-1), K)            # [B, K]
+    margin0 = w0[:, 0] - w0[:, 1]
     if st.use_calibration:
-        ids0, w0, _ = _rerank(st, params, logits0[None], ids0[None],
-                              w0[None], attn_feat,
-                              torch.ones(1, dtype=torch.int32, device=dev))
-        ids0, w0 = ids0[0], w0[0]
+        ids0, w0, _ = _rerank_lanes(
+            st, params, logits0[:, None], ids0[:, None], w0[:, None],
+            attn_feat, torch.ones(1, dtype=torch.int32, device=dev))
+        ids0, w0 = ids0[:, 0], w0[:, 0]
     slots = torch.arange(K, device=dev)
-    wm, tm, pm = [w0], [ids0.to(torch.int32)], [slots.to(torch.int32)]
+    wm, tm = [w0], [ids0.to(torch.int32)]
+    pm = [slots.to(torch.int32).expand(B, K)]
     ex = None
     if features is not None:
-        ex = {"local_conf": [w0], "attn": [attn_feat[:K]],
-              "margin": [margin0.expand(K)]}
+        ex = {"local_conf": [w0], "attn": [attn_feat[:, :K]],
+              "margin": [margin0[:, None].expand(B, K)]}
 
-    f_tok, f_hid = ids0, last_hidden.expand(K, -1)
-    s_prev = torch.zeros((), device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    use_depth = torch.full((), D, dtype=torch.long, device=dev)
+    f_tok, f_hid = ids0, last_hidden[:, None].expand(B, K, H)
+    s_prev = torch.zeros(B, device=dev)
+    stop = torch.zeros(B, dtype=torch.bool, device=dev)
+    use_depth = torch.full((B,), D, dtype=torch.long, device=dev)
     for layer in range(1, D):
         d = layer - 1   # scratch slot of the frontier being forwarded
         write = E + d * K
         hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][f_tok.long()],
                                    f_hid)
-        pos = (E + d).to(torch.int32).expand(K)
+        pos = (E + d).to(torch.int32)[:, None].expand(B, K)
         out, _ = draft_mod.draft_forward(
             dp, st.dcfg, hin, pos, kv, write,
             _frontier_bias(st.s_draft, write, K), cos_t, sin_t)
-        logits = (out @ head).float()                             # [K, V]
-        cw, cid = _top_k(torch.softmax(logits, dim=-1), K)        # [K, K]
-        margin_row = cw[:, 0] - cw[:, 1]
+        logits = (out @ head).float()                            # [B, K, V]
+        cw, cid = _top_k(torch.softmax(logits, dim=-1), K)       # [B, K, K]
+        margin_row = cw[..., 0] - cw[..., 1]
         if st.use_calibration:
-            cid, cw, margin_row = _rerank(
+            cid, cw, margin_row = _rerank_lanes(
                 st, params, logits, cid, cw, attn_feat,
                 torch.full((K,), layer + 1, dtype=torch.int32, device=dev))
-        pathw = wm[-1][:, None] * cw
-        gw, gidx = _top_k(pathw.reshape(-1), K)
+        pathw = wm[-1][:, :, None] * cw
+        gw, gidx = _top_k(pathw.reshape(B, -1), K)
         sel_par = gidx // K
-        f_tok = cid.reshape(-1)[gidx]
+        f_tok = torch.gather(cid.reshape(B, -1), 1, gidx)
         wm.append(gw)
         tm.append(f_tok.to(torch.int32))
         pm.append(sel_par.to(torch.int32))
         if ex is not None:
-            ex["local_conf"].append(cw.reshape(-1)[gidx])
-            ex["attn"].append(attn_feat[gidx % K])
-            ex["margin"].append(margin_row[sel_par])
+            ex["local_conf"].append(torch.gather(cw.reshape(B, -1), 1, gidx))
+            ex["attn"].append(torch.gather(attn_feat[:, :K], 1, gidx % K))
+            ex["margin"].append(torch.gather(margin_row, 1, sel_par))
         # early stop on the weight-sum increment over layers [0, layer)
-        explored = torch.cat(wm[:layer])
-        if n_draft < explored.numel():
+        explored = torch.cat(wm[:layer], dim=1)
+        if n_draft < explored.shape[1]:
             explored = _top_k(explored, n_draft)[0]
-        s_now = explored.sum()
+        s_now = explored.sum(dim=-1)
         stop_now = (s_now - s_prev) <= t.early_stop_threshold
         use_depth = torch.where(stop, use_depth,
                                 torch.where(stop_now, layer, layer + 1))
         stop = stop | stop_now
         s_prev = s_now
-        f_hid = out[sel_par]
+        f_hid = take_rows(out, sel_par, 1)
     extra = None if ex is None else \
-        {name: torch.stack(rows) for name, rows in ex.items()}
-    return tree_mod.finalize_tree(t, root_token, torch.stack(wm),
-                                  torch.stack(tm), torch.stack(pm),
-                                  use_depth, extra, features)
+        {name: torch.stack(rows, dim=1) for name, rows in ex.items()}
+    return tree_mod.finalize_tree(t, root_token, torch.stack(wm, dim=1),
+                                  torch.stack(tm, dim=1),
+                                  torch.stack(pm, dim=1), use_depth, extra,
+                                  features)
 
 
 def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
@@ -568,37 +656,41 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
     and is skipped; its output was unused in the JAX version as well):
     the level's rows attend to the stable prefix plus their static
     ancestors, self included, node i's K/V at scratch row E + i - 1.
-    Padded to num_nodes (``static_tree.static_plan``)."""
+    Padded to num_nodes (``static_tree.static_plan``). Lanes as in
+    ``_draft_expand_eagle``."""
     t = st.tree
     dev = last_hidden.device
+    B = last_hidden.shape[0]
     plan = static_tree.static_plan(t.static_choices, t.max_path_len,
                                    t.num_nodes, str(dev))
     dp, head = params["draft"], params["target"]["lm_head"]
-    kpos = torch.arange(st.s_draft, device=dev)[None, :]
-    rel = kpos - E + 1                  # node id whose scratch row is kpos
-    relc = torch.clamp(rel, 0, plan.n - 1)
-    in_tree = (rel >= 1) & (rel < plan.n)
-    prefix = kpos < E
-    top = _top_k((last_hidden @ head).float(), plan.max_slot)[1][None]
-    hid = last_hidden[None]
-    tokens = [root_token.reshape(1).to(torch.int32)]
+    kpos = torch.arange(st.s_draft, device=dev)
+    rel = kpos - E[:, None] + 1         # node id whose scratch row is kpos
+    relc = torch.clamp(rel, 0, plan.n - 1)                     # [B, S_d]
+    in_tree = ((rel >= 1) & (rel < plan.n))[:, None]
+    prefix = (kpos < E[:, None])[:, None]
+    top = _top_k((last_hidden @ head).float(), plan.max_slot)[1][:, None]
+    hid = last_hidden[:, None]
+    tokens = [root_token[:, None].to(torch.int32)]
     for lv in plan.levels:
-        toks = top[lv.parent_row, lv.slot]                        # [W]
+        toks = top[:, lv.parent_row, lv.slot]                   # [B, W]
         tokens.append(toks.to(torch.int32))
         if lv is plan.levels[-1]:
             break
         hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][toks],
-                                   hid[lv.parent_row])
-        pos = (E + lv.depth - 1).to(torch.int32).expand(lv.width)
-        anc = torch.gather(lv.anc, 1, relc.expand(lv.width, -1))
+                                   hid[:, lv.parent_row])
+        pos = (E + lv.depth - 1).to(torch.int32)[:, None].expand(B, lv.width)
+        anc = torch.gather(lv.anc.expand(B, -1, -1), 2,
+                           relc[:, None].expand(B, lv.width, -1))
         bias = torch.where(prefix | (in_tree & anc), 0.0,
                            NEG_INF).to(torch.float32)
         hid, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, kv,
                                          E + lv.first - 1, bias,
                                          params["cos_t"], params["sin_t"])
         top = _top_k((hid @ head).float(), plan.max_slot)[1]
-    pad = plan.tree.tokens[plan.n:]
-    return plan.tree._replace(tokens=torch.cat(tokens + [pad]))
+    pad = plan.tree.tokens[plan.n:].expand(B, -1)
+    tr = Tree(*(x.expand((B,) + x.shape) for x in plan.tree))
+    return tr._replace(tokens=torch.cat(tokens + [pad], dim=1))
 
 
 def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
@@ -607,11 +699,12 @@ def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
                   features: Optional[Dict] = None,
                   kv: Optional[Dict] = None,
                   E: Optional[torch.Tensor] = None) -> Tree:
-    """The step's draft tree, by the JAX package's precedence: a static
-    choices tree when ``static_choices`` is set, else medusa heads when
-    the draft has them, else EAGLE recursion. ``kv`` (the draft cache) and
-    ``E`` (its stable length) are what the modes that run the draft layer
-    (static, EAGLE) read and write."""
+    """The step's draft tree for each lane (last_hidden [B, H], root_token
+    and E [B]), by the JAX package's precedence: a static choices tree
+    when ``static_choices`` is set, else medusa heads when the draft has
+    them, else EAGLE recursion. ``kv`` (the draft cache) and ``E`` (its
+    stable length) are what the modes that run the draft layer (static,
+    EAGLE) read and write."""
     if st.tree.static_choices is not None:
         return _draft_expand_static(st, params, kv, E, last_hidden,
                                     root_token)
@@ -623,36 +716,42 @@ def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
 
 
 def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
-                          cos_t, sin_t) -> torch.Tensor:
-    """Extend the draft stable KV (in place, at ``draft_len``) with the
-    accepted rows. Always runs MAX_PATH rows (suffix_len of them valid).
-    With calibration or collection, also refreshes ``s.attn_feat`` from
-    the rows' layer-0 attention when any row is valid. Returns the draft
-    hidden of the last valid row (the previous one when no row is
-    valid)."""
+                          cos_t, sin_t):
+    """Extend each lane's draft stable KV (at its ``draft_len``, in place)
+    with the accepted rows. Always runs MAX_PATH rows (suffix_len of them
+    valid). Returns (the draft hidden of the last valid row, the previous
+    one when no row is valid: [B, H]; the visual-attention feature
+    [B, TOP_K], with calibration or collection refreshed from the rows'
+    layer-0 attention when any row is valid). Writes only draft KV rows at
+    or past ``draft_len``."""
     dp = params["draft"]
     P = st.tree.max_path_len
     dev = s.suffix_tokens.device
+    B = s.suffix_tokens.shape[0]
     emb = dp["embed_tokens"][torch.clamp(s.suffix_tokens, min=0).long()]
     hin = draft_mod.draft_fuse(dp, emb, s.suffix_hidden)
-    pos = s.draft_len + torch.arange(P, device=dev, dtype=torch.int32)
+    pos = s.draft_len[:, None] + torch.arange(P, device=dev,
+                                              dtype=torch.int32)
     # causal over the growing prefix: row i sees cache slots [0, draft_len+i]
-    kpos = torch.arange(st.s_draft, device=dev)[None, :]
-    bias = torch.where(kpos <= pos[:, None], 0.0, NEG_INF).to(torch.float32)
+    kpos = torch.arange(st.s_draft, device=dev)
+    bias = torch.where(kpos <= pos[..., None], 0.0,
+                       NEG_INF).to(torch.float32)
+    attn_feat = s.attn_feat
     if st.need_attn:
         out, _, attn_p = draft_mod.draft_forward(
             dp, st.dcfg, hin, pos, s.draft_kv, s.draft_len, bias, cos_t,
             sin_t, return_attn=True,
             attn_rows=_attn_rows(st, P, s.suffix_len))
         attn_new = _attn_feature_vec(st, attn_p, s.img_pos, s.suffix_len, P)
-        s.attn_feat.copy_(torch.where(s.suffix_len > 0, attn_new,
-                                      s.attn_feat))
+        attn_feat = torch.where((s.suffix_len > 0)[:, None], attn_new,
+                                s.attn_feat)
     else:
         out, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, s.draft_kv,
                                          s.draft_len, bias, cos_t, sin_t)
-    idx = torch.clamp(s.suffix_len - 1, min=0).reshape(1)
-    return torch.where(s.suffix_len > 0, out.index_select(0, idx)[0],
-                       s.last_draft_hidden)
+    idx = torch.clamp(s.suffix_len - 1, min=0).long()
+    last = out[torch.arange(B, device=dev), idx]
+    return (torch.where((s.suffix_len > 0)[:, None], last,
+                        s.last_draft_hidden), attn_feat)
 
 
 # ---------------------------------------------------------------------------
@@ -668,39 +767,43 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
     window slots and the cache product sees only columns below the window,
     so node i's logits are a function of its token and logical prefix
     alone, whatever the draft proposed around it. Returns the final-normed
-    hidden [N, H]."""
+    hidden [N, H]. With lanes (E [B], the tree's fields [B, ...], kv
+    [B, L, S, Hkv, D]) it is one forward over B x N rows, each lane over
+    its own cache: [B, N, H]."""
     dev = tr.tokens.device
-    s_target = kv["k"].shape[1]
+    s_target = kv["k"].shape[-3]
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
-    pos = E + tr.positions
-    W = tr.retrieve.shape[1]
-    win_start = E + tr.positions - (W - 1)                           # [N]
-    l = win_start[:, None] + torch.arange(W, device=dev)[None, :]    # [N, W]
-    rel = l - E
-    anc = torch.gather(tr.retrieve.long(), 1, torch.clamp(rel, 0, W - 1))
-    row = torch.where(rel >= 0, E + torch.clamp(anc, min=0), l)
+    e1 = E[..., None]
+    pos = e1 + tr.positions
+    W = tr.retrieve.shape[-1]
+    win_start = pos - (W - 1)                                     # [.., N]
+    l = win_start[..., None] + torch.arange(W, device=dev)        # [.., N, W]
+    rel = l - e1[..., None]
+    anc = torch.gather(tr.retrieve.long(), -1, torch.clamp(rel, 0, W - 1))
+    row = torch.where(rel >= 0, e1[..., None] + torch.clamp(anc, min=0), l)
     win_idx = torch.clamp(row, 0, s_target - 1).long()
     win_bias = torch.where(l >= 0, 0.0, NEG_INF).to(torch.float32)
-    cols = torch.arange(s_target, device=dev)[None, :]
-    bias = torch.where(cols < win_start[:, None], 0.0,
+    cols = torch.arange(s_target, device=dev)
+    bias = torch.where(cols < win_start[..., None], 0.0,
                        NEG_INF).to(torch.float32)
     hidden, _ = L.llama_forward(tp, tcfg, emb, pos, kv, E, bias, cos_t,
-                                sin_t, kv_len=E + tr.tokens.shape[0],
+                                sin_t, kv_len=E + tr.tokens.shape[-1],
                                 win=(win_idx, win_bias, win_start))
     return hidden
 
 
 def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
             sin_t):
-    """One target forward over every tree node (``verify_forward``, into
-    ``s.target_kv`` at E = ``s.cur_len``) + lossless acceptance: greedy,
-    or speculative sampling over the step's draws in ``s.rand`` with the
-    repetition penalty over the committed ids. Returns (hidden, logits,
-    best, accept_len, next_token)."""
+    """One target forward over every tree node of every lane
+    (``verify_forward``, into ``s.target_kv`` at E = ``s.cur_len``) +
+    lossless acceptance: greedy, or speculative sampling over the step's
+    draws in ``s.rand`` with the repetition penalty over the committed ids.
+    Returns (hidden [B, N, H], logits [B, N, V], best, accept_len,
+    next_token [B])."""
     tp = params["target"]
     E = s.cur_len
     hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t)
-    logits = L.lm_head(tp, hidden)                                   # [N, V]
+    logits = L.lm_head(tp, hidden)                                # [B, N, V]
     if st.sp.greedy:
         best, acc_len, next_tok = tree_mod.evaluate_greedy(
             tr, canon_logits(logits, st.sp.greedy_round_bits))
@@ -717,37 +820,41 @@ def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
 
 
 def _collect_step(st: Statics, s: EngineState, tr: Tree,
-                  logits: torch.Tensor, best, acc_len, features: Dict):
+                  logits: torch.Tensor, best, acc_len, features: Dict,
+                  act: torch.Tensor):
     """Record per-node calibration features + labels for this verify step
-    in row ``s.steps`` of ``s.calib_log``.
+    in row ``s.steps`` of each active lane's ``s.calib_log``.
 
     The verify pass already computed the target's conditional distribution
     at every tree node, so base_confidence / base_top1 / base_margin come
     from ``logits[parent]`` (the JAX package's replacement for the
     reference's per-parent-path re-forwards, cnets.py:577-716)."""
     N, P = st.tree.num_nodes, st.tree.max_path_len
+    B, _, V = logits.shape
     dev = logits.device
-    p_node = torch.softmax(logits, dim=-1)                        # [N, V]
+    p_node = torch.softmax(logits, dim=-1)                        # [B, N, V]
     # values only: their tie order does not matter
-    top2 = torch.topk(p_node, 2, dim=-1).values                   # [N, 2]
+    top2 = torch.topk(p_node, 2, dim=-1).values                   # [B, N, 2]
     argmax_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     par = tr.parents.long()
     tok = torch.clamp(tr.tokens, min=0).long()
-    base_conf = p_node[par, tok]
-    base_top1 = (argmax_tok[par] == tr.tokens).to(torch.int32)
-    base_margin = top2[par, 0] - top2[par, 1]
+    base_conf = torch.gather(p_node.reshape(B, N * V), 1, par * V + tok)
+    base_top1 = (torch.gather(argmax_tok, 1, par) == tr.tokens) \
+        .to(torch.int32)
+    top2_par = torch.gather(top2, 1, par[..., None].expand(B, N, 2))
+    base_margin = top2_par[..., 0] - top2_par[..., 1]
 
     # accept[n]: node n on the accepted path. The JAX package scatters
     # (slot <= accept_len) & (path >= 0) at max(path, 0); the padding slots
     # of a shallow path land on the root too, and the last write wins, as
     # XLA applies a scatter's updates in order
-    path = tree_mod.accepted_path(tr, best).long()                # [P]
+    path = tree_mod.accepted_path(tr, best).long()                # [B, P]
     slot = torch.arange(P, device=dev)
-    on = (slot <= acc_len) & (path >= 0)
-    hits = torch.clamp(path, min=0)[None, :] == \
-        torch.arange(N, device=dev)[:, None]                      # [N, P]
-    last = (P - 1) - torch.argmax(hits.flip(1).to(torch.int32), dim=1)
-    accept = (hits.any(dim=1) & on[last]).to(torch.int32)
+    on = (slot <= acc_len[:, None]) & (path >= 0)
+    hits = torch.clamp(path, min=0)[:, None, :] == \
+        torch.arange(N, device=dev)[:, None]                      # [B, N, P]
+    last = (P - 1) - torch.argmax(hits.flip(-1).to(torch.int32), dim=-1)
+    accept = (hits.any(dim=-1) & torch.gather(on, 1, last)).to(torch.int32)
 
     node = torch.arange(N, device=dev)
     row = {"token": tr.tokens, "depth": tr.positions.to(torch.int32),
@@ -756,57 +863,79 @@ def _collect_step(st: Statics, s: EngineState, tr: Tree,
            "base_top1": base_top1, "base_margin": base_margin,
            "accept": accept,
            "valid": (tr.valid & (node > 0)).to(torch.int32)}
-    i = s.steps.long().reshape(1)
+    b = torch.arange(B, device=dev)
+    i = torch.clamp(s.steps.long(), max=st.step_limit - 1)
     for key, val in row.items():
-        s.calib_log[key].index_copy_(0, i, val[None].to(
-            s.calib_log[key].dtype))
+        log = s.calib_log[key]
+        log[b, i] = torch.where(act[:, None], val.to(log.dtype), log[b, i])
+
+
+def _keep(buf: torch.Tensor, val: torch.Tensor, act: torch.Tensor):
+    """buf <- val in the active lanes (``act`` [B]), in place."""
+    act = act.reshape(act.shape + (1,) * (buf.dim() - 1))
+    buf.copy_(torch.where(act, val.to(buf.dtype), buf))
 
 
 def _commit(st: Statics, s: EngineState, tr: Tree, hidden: torch.Tensor,
-            best, acc_len, next_tok):
-    """Commit the accepted path in place: write its tokens into ids, gather
-    its KV rows into the prefix rows [E, E+P), stage the next draft suffix
-    (with ``st.collect_hiddens`` also its hiddens into ``traj_hidden`` at
-    E), advance the length and counters and set ``done``."""
+            best, acc_len, next_tok, act: torch.Tensor, draft_len,
+            last_hidden, attn_feat):
+    """Commit each active lane's accepted path in place: write its tokens
+    into ids, gather its KV rows into the prefix rows [E, E+P), stage the
+    next draft suffix (with ``st.collect_hiddens`` also its hiddens into
+    ``traj_hidden`` at E), advance the lengths and counters, set ``done``
+    and keep the step's draft length, last draft hidden and attention
+    feature. An inactive lane (``act`` false) keeps every committed value;
+    the rows it writes at or past its E are scratch that its next active
+    step rewrites before reading. Last, ``live`` is refreshed."""
     P = st.tree.max_path_len
     E = s.cur_len
     dev = hidden.device
-    path = tree_mod.accepted_path(tr, best).long()        # [P], -1 padded
+    B = hidden.shape[0]
+    path = tree_mod.accepted_path(tr, best).long()        # [B, P], -1 padded
     pc = torch.clamp(path, min=0)
     slot = torch.arange(P, device=dev)
-    ct = torch.where(slot <= acc_len, tr.tokens[pc],
-                     torch.zeros_like(tr.tokens[pc]))
-    _write(s.ids, ct, E)
+    acc = acc_len[:, None]
+    tok_pc = torch.gather(tr.tokens, 1, pc)
+    ct = torch.where(slot <= acc, tok_pc, torch.zeros_like(tok_pc))
+    rows = L.update_rows(s.ids.shape[1], E, P, dev)       # [B, P]
+    b = torch.arange(B, device=dev)[:, None]
+    s.ids[b, rows] = torch.where(act[:, None], ct, s.ids[b, rows])
 
     # the source rows E + pc and the destination rows [E, E+P) overlap:
     # gather into a temporary first, then write
-    src = E + pc
+    src = E[:, None] + pc
     for kv in s.target_kv.values():
-        _write(kv, kv[:, src], E, dim=1)                  # [L, P, Hkv, D]
+        kv[b, :, rows] = kv[b, :, src]                    # [B, P, L, Hkv, D]
 
     zero = torch.zeros_like(ct)
-    ct_shift = torch.cat([ct[1:], zero[:1]])
-    s.suffix_tokens.copy_(torch.where(
-        slot < acc_len, ct_shift,
-        torch.where(slot == acc_len, next_tok.to(ct.dtype), zero)))
-    s.suffix_hidden.copy_(hidden[pc])
+    ct_shift = torch.cat([ct[:, 1:], zero[:, :1]], dim=1)
+    _keep(s.suffix_tokens, torch.where(
+        slot < acc, ct_shift,
+        torch.where(slot == acc, next_tok[:, None].to(ct.dtype), zero)), act)
+    suffix_hidden = take_rows(hidden, pc, 1)
+    _keep(s.suffix_hidden, suffix_hidden, act)
     if st.collect_hiddens:
         # rows past the accepted path are overwritten by the next commit
-        _write(s.traj_hidden, s.suffix_hidden, E)
+        _write(s.traj_hidden, suffix_hidden, E)
     n_new = (acc_len + 1).to(torch.int32)
-    eos_hit = torch.any((ct == st.eos_id) & (slot <= acc_len)) \
+    eos_hit = torch.any((ct == st.eos_id) & (slot <= acc), dim=1) \
         | (next_tok == st.eos_id)
-    # E is s.cur_len: every read of E comes before it advances
-    s.cur_len.add_(n_new)
-    s.new_tokens.add_(n_new)
-    s.done.copy_(eos_hit | (s.new_tokens >= s.max_new)
-                 | (s.cur_len >= st.step_limit))
-    s.alpha_hist.index_add_(0, torch.clamp(n_new, max=15).reshape(1),
-                            torch.ones_like(n_new).reshape(1))
-    s.bonus.copy_(next_tok)
-    s.suffix_len.copy_(n_new)
-    s.steps.add_(1)
-    s.acc_sum.add_(n_new)
+    cur = E + n_new
+    new_tokens = s.new_tokens + n_new
+    _keep(s.done, eos_hit | (new_tokens >= s.max_new)
+          | (cur >= st.step_limit), act)
+    _keep(s.cur_len, cur, act)
+    _keep(s.new_tokens, new_tokens, act)
+    s.alpha_hist.scatter_add_(1, torch.clamp(n_new, max=15).long()[:, None],
+                              act.to(torch.int32)[:, None])
+    _keep(s.bonus, next_tok, act)
+    _keep(s.suffix_len, n_new, act)
+    _keep(s.steps, s.steps + 1, act)
+    _keep(s.acc_sum, s.acc_sum + n_new, act)
+    _keep(s.draft_len, draft_len, act)
+    _keep(s.last_draft_hidden, last_hidden, act)
+    _keep(s.attn_feat, attn_feat, act)
+    s.live.copy_(~s.done & (s.new_tokens < s.stop_at))
 
 
 # ---------------------------------------------------------------------------
@@ -927,41 +1056,73 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
 
 
 def decode_step(st: Statics, params: Dict, s: EngineState):
-    """One verify step, in place: draft suffix -> draft tree (calibrated
-    with ``st.use_calibration``) -> verify -> (``st.collect_calibration``:
-    record the step's features) -> commit. Reads and writes only ``s`` and
-    the weights, with no host sync and no host-to-device copy (what a
-    CUDA-graph capture needs); a sampling step takes its draws from
-    ``s.rand``."""
+    """One verify step of every lane, in place: draft suffix -> draft tree
+    (calibrated with ``st.use_calibration``) -> verify ->
+    (``st.collect_calibration``: record the step's features) -> commit,
+    for the lanes that are live (``~done & (new_tokens < stop_at)``).
+    ``s`` is a batched state (a lane view steps as one lane). Reads and
+    writes only ``s`` and the weights, with no host sync and no
+    host-to-device copy (what a CUDA-graph capture needs); a sampling step
+    takes its draws from ``s.rand``."""
+    s = as_lanes(s)
     cos_t, sin_t = params["cos_t"], params["sin_t"]
-    last_hidden = _draft_suffix_forward(st, params, s, cos_t, sin_t)
-    s.draft_len.add_(s.suffix_len)
-    s.last_draft_hidden.copy_(last_hidden)
+    act = ~s.done & (s.new_tokens < s.stop_at)
+    last_hidden, attn_feat = _draft_suffix_forward(st, params, s, cos_t,
+                                                   sin_t)
+    draft_len = s.draft_len + s.suffix_len
     features = {} if st.collect_calibration else None
-    tr = _draft_expand(st, params, s.last_draft_hidden, s.bonus, s.attn_feat,
-                       features, s.draft_kv, s.draft_len)
+    tr = _draft_expand(st, params, last_hidden, s.bonus, attn_feat,
+                       features, s.draft_kv, draft_len)
     hidden, logits, best, acc_len, next_tok = _verify(st, params, s, tr,
                                                       cos_t, sin_t)
     if st.collect_calibration:
-        _collect_step(st, s, tr, logits, best, acc_len, features)
-    _commit(st, s, tr, hidden, best, acc_len, next_tok)
+        _collect_step(st, s, tr, logits, best, acc_len, features, act)
+    _commit(st, s, tr, hidden, best, acc_len, next_tok, act, draft_len,
+            last_hidden, attn_feat)
+
+
+def decode_until(st: Statics, params: Dict, state: EngineState, stop_at,
+                 step: Optional[Callable[[], None]] = None,
+                 rngs: Optional[Sequence[torch.Generator]] = None):
+    """A decode segment: steps every lane until none is live, lane b
+    stepping while ``~done & (new_tokens < stop_at[b])`` (EOS, max_new
+    and the cache limit set ``done``), and reads the lanes' live flags
+    on the host once per step ([B] in one copy). ``stop_at``: one bound
+    per lane (a sequence of ints; 0 keeps a lane out of the segment).
+    ``step`` runs one step over ``state`` (a graph replay); by default
+    the eager ``decode_step``. When sampling, each live lane's draws come
+    from its own ``rngs[b]`` before each step (``draw``), so a lane
+    consumes exactly the draws of its request run alone. At the end each
+    lane's pending token is surfaced at ids[cur_len], so hosts can read
+    ids[:cur_len + 1]; the lane's next commit overwrites it. Streaming is
+    repeated segments with growing bounds: the step, and its graph, are
+    the same for every segment."""
+    state = as_lanes(state)
+    step = step or functools.partial(decode_step, st, params, state)
+    bounds = torch.as_tensor(np.asarray(stop_at, np.int32))
+    state.stop_at.copy_(bounds.to(state.stop_at.device))
+    state.live.copy_(~state.done & (state.new_tokens < state.stop_at))
+    live = state.live.cpu().numpy()
+    while live.any():
+        if not st.sp.greedy:
+            for b in np.flatnonzero(live):
+                state.rand[b].uniform_(0.0, 1.0, generator=rngs[b])
+        step()
+        live = state.live.cpu().numpy()
+    cur = state.cur_len.long()[:, None]
+    state.ids.scatter_(1, cur, state.bonus[:, None])
 
 
 def decode(st: Statics, params: Dict, state: EngineState,
            step: Optional[Callable[[], None]] = None,
            rng: Optional[torch.Generator] = None):
-    """The speculative decode loop: steps until ``done`` (EOS, max_new or
-    the cache limit), reading ``done`` on the host once per step. ``step``
-    runs one step over ``state`` (a graph replay); by default the eager
-    ``decode_step``. When sampling, each step's draws come from ``rng``
-    first (``draw``)."""
-    step = step or functools.partial(decode_step, st, params, state)
-    while not bool(state.done):
-        if not st.sp.greedy:
-            draw(state, rng)
-        step()
-    # surface the final pending token so hosts can read ids[:cur_len + 1]
-    _write(state.ids, state.bonus[None], state.cur_len)
+    """The speculative decode loop of one request (a single-lane state):
+    steps until ``done`` (EOS, max_new or the cache limit), the segment of
+    ``decode_until`` bounded by the request's token limit, reading
+    ``done`` on the host once per step. ``step`` runs one step over
+    ``state`` (a graph replay); by default the eager ``decode_step``.
+    When sampling, each step's draws come from ``rng`` first."""
+    decode_until(st, params, state, [st.max_new], step, [rng])
 
 
 # ---------------------------------------------------------------------------

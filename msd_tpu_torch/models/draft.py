@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from msd_tpu_torch.configs import DraftConfig
 from msd_tpu_torch.models import llama as L
-from msd_tpu_torch.ops.attention import attention_probs, masked_attention
+from msd_tpu_torch.ops.attention import (attention_probs, masked_attention,
+                                         put_rows, take_rows)
 from msd_tpu_torch.ops.rope import apply_rope
 
 Params = Dict
@@ -89,20 +90,23 @@ def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
     or, with ``return_attn``, (hidden, kv, attn_probs): layer 0's attention
     probabilities [Hq, T, S], used for visual-attention calibration
     features; ``attn_rows`` ([R] row indices) limits them to those query
-    rows, [Hq, R, S], with the same values.
+    rows, [Hq, R, S], with the same values. Takes a leading lane dimension
+    as ``llama.llama_forward`` does (kv [B, num_layers, S, Hkv, D],
+    attn_rows [B, R]).
     """
     x = hidden_in
     attn_p = None
     for i in range(cfg.num_layers):
         lp = L._layer(params["layers"], i)
         x_in = x
-        x = L._layer_forward(lp, cfg.text, x, positions, kv["k"][i],
-                             kv["v"][i], write_pos, bias, cos_t, sin_t,
+        x = L._layer_forward(lp, cfg.text, x, positions,
+                             kv["k"].select(-4, i), kv["v"].select(-4, i),
+                             write_pos, bias, cos_t, sin_t,
                              skip_input_norm=(i == 0))
         if return_attn and i == 0:
             attn_p = _layer_attn_probs(lp, cfg.text, x_in, positions,
-                                       kv["k"][0], write_pos, bias, cos_t,
-                                       sin_t, attn_rows)
+                                       kv["k"].select(-4, 0), write_pos,
+                                       bias, cos_t, sin_t, attn_rows)
     if return_attn:
         return x, kv, attn_p
     return x, kv
@@ -118,15 +122,19 @@ def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
     ``x @ W.T``), the keys written over a copy of the cache ``kv_k``
     [S, Hkv, D] at write_pos. The calibration feature is defined by these
     values, so the port keeps them. ``rows`` limits the query rows."""
-    t = x.shape[0]
     hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
-    q = (x @ lp["q_proj"]).reshape(t, hq, d)
-    k = (x @ lp["k_proj"]).reshape(t, hkv, d)
+    lanes = x.dim() - 2
+    q = (x @ lp["q_proj"]).unflatten(-1, (hq, d))
+    k = (x @ lp["k_proj"]).unflatten(-1, (hkv, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
-    keys = kv_k.index_copy(0, L.update_rows(kv_k.shape[0], write_pos, t,
-                                            x.device), k)
+    keys = kv_k.clone()
+    wrows = L.update_rows(kv_k.shape[-3], write_pos, x.shape[-2], x.device)
+    if wrows.dim() == 1:
+        keys.index_copy_(lanes, wrows, k)
+    else:
+        put_rows(keys, wrows, k, lanes)
     if rows is not None:
-        q, bias = q[rows], bias[rows]
+        q, bias = take_rows(q, rows, lanes), take_rows(bias, rows, lanes)
     return attention_probs(q, keys, bias)
 
 

@@ -28,10 +28,10 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos_t: torch.Tensor,
                sin_t: torch.Tensor, positions: torch.Tensor):
-    """q: [T, Hq, D], k: [T, Hkv, D], positions: [T] int. fp32 math, cast
-    back to the input dtypes."""
-    cos = cos_t[positions.long()][:, None, :]
-    sin = sin_t[positions.long()][:, None, :]
+    """q: [..., T, Hq, D], k: [..., T, Hkv, D], positions: [..., T] int.
+    fp32 math, cast back to the input dtypes."""
+    cos = cos_t[positions.long()].unsqueeze(-2)
+    sin = sin_t[positions.long()].unsqueeze(-2)
     qf, kf = q.float(), k.float()
     q_out = qf * cos + _rotate_half(qf) * sin
     k_out = kf * cos + _rotate_half(kf) * sin

@@ -59,14 +59,22 @@ def apply_repetition_penalty(logits: torch.Tensor, ids_buf: torch.Tensor,
     """HF RepetitionPenaltyLogitsProcessor over the committed context.
 
     logits: [..., V]; ids_buf: [S] committed token buffer; tokens at index
-    >= cur_len (an int or a 0-dim device tensor) are ignored.
+    >= cur_len (an int or a 0-dim device tensor) are ignored. With lanes:
+    ids_buf [B, S], cur_len [B] and logits [B, ..., V], each lane over its
+    own ids.
     """
     v = logits.shape[-1]
-    s = ids_buf.shape[0]
+    s = ids_buf.shape[-1]
     pos = torch.arange(s, device=ids_buf.device)
+    if isinstance(cur_len, torch.Tensor):
+        cur_len = cur_len[..., None]
     safe = torch.where(pos < cur_len, ids_buf.long(), v)     # v = dropped
-    present = torch.zeros(v + 1, dtype=torch.bool, device=logits.device)
-    present = present.scatter_(0, safe, True)[:v]
+    present = torch.zeros(ids_buf.shape[:-1] + (v + 1,), dtype=torch.bool,
+                          device=logits.device)
+    present = present.scatter_(-1, safe, True)[..., :v]
+    # lanes: broadcast over the logits' rows
+    present = present.reshape(present.shape[:-1] + (1,) * (
+        logits.dim() - present.dim()) + (v,))
     pen = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(present, pen, logits)
 

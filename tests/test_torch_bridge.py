@@ -123,7 +123,7 @@ def test_draft_npz_codec_both_ways(tmp_path):
 
 
 PORT_FILES = sorted((REPO / "msd_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "step_times.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

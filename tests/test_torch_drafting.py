@@ -69,6 +69,11 @@ _J_FINALIZE = jax.jit(JT.finalize_tree, static_argnums=(0,))
 _J_EXPAND = jax.jit(JSE._draft_expand, static_argnums=(0,))
 
 
+def _lane0(tr):
+    """Lane 0 of a batched tree."""
+    return TT.Tree(*(x[0] for x in tr))
+
+
 def _tree_fields(ttr, jtr):
     for field in TT.Tree._fields:
         np.testing.assert_array_equal(getattr(ttr, field).numpy(),
@@ -258,12 +263,16 @@ def _expand_both(jst, tst, jtp, dp, seed, calib=None, hidden_scale=1.0):
                                       for n, a in kv.items()},
                        jnp.int32(E), jnp.asarray(hid), jnp.int32(5), cos,
                        sin, jnp.asarray(af))
+    # the port expands a batch of lanes: this one lane is lane 0
     feats = {} if tst.collect_calibration else None
-    ttr = TSE._draft_expand(tst, tparams, _t(hid),
-                            torch.tensor(5, dtype=torch.int32), _t(af),
-                            feats, {n: _t(a) for n, a in kv.items()},
-                            torch.tensor(E, dtype=torch.int32))
-    return jtr, ttr, feats
+    ttr = TSE._draft_expand(tst, tparams, _t(hid)[None],
+                            torch.tensor([5], dtype=torch.int32),
+                            _t(af)[None], feats,
+                            {n: _t(a)[None] for n, a in kv.items()},
+                            torch.tensor([E], dtype=torch.int32))
+    if feats is not None:
+        feats = {k: v[0] for k, v in feats.items()}
+    return jtr, _lane0(ttr), feats
 
 
 @pytest.fixture(scope="module")
@@ -404,8 +413,8 @@ def test_medusa_choices_tree_matches_jax(choices, nodes):
     ttr = TSE._draft_expand(
         tst, {"target": bridge.to_torch(_host(jtp), "cpu"),
               "draft": bridge.to_torch(_host(drafts["msd"]), "cpu")},
-        _t(hid), torch.tensor(9, dtype=torch.int32))
-    _tree_fields(ttr, jtr)
+        _t(hid)[None], torch.tensor([9], dtype=torch.int32))
+    _tree_fields(_lane0(ttr), jtr)
 
 
 # ---------------------------------------------------------------------------

@@ -255,8 +255,10 @@ def test_medusa_tree_matches_jax(widths, nodes):
     jtr, _ = JSE._draft_expand_medusa(jst, jparams, None, jnp.asarray(hid),
                                       jnp.int32(9), jnp.zeros((4,)))
     tgen.params["draft"] = tdrafts["msd"]
-    ttr = TSE._draft_expand(tst, tgen.params, torch.from_numpy(hid),
-                            torch.tensor(9, dtype=torch.int32))
+    # the port expands a batch of lanes: this one lane is lane 0
+    ttr = TSE._draft_expand(tst, tgen.params, torch.from_numpy(hid)[None],
+                            torch.tensor([9], dtype=torch.int32))
+    ttr = TT.Tree(*(x[0] for x in ttr))
     for field in TT.Tree._fields:
         np.testing.assert_array_equal(getattr(ttr, field).numpy(),
                                       np.asarray(getattr(jtr, field)),
@@ -271,8 +273,9 @@ def test_evaluate_greedy_matches_jax():
     tgen.params["draft"] = tdrafts["msd"]
     for trial in range(6):
         ttr = TSE._draft_expand(tst, tgen.params, torch.from_numpy(
-            rng.normal(size=(64,)).astype(np.float32)),
-            torch.tensor(3, dtype=torch.int32))
+            rng.normal(size=(1, 64)).astype(np.float32)),
+            torch.tensor([3], dtype=torch.int32))
+        ttr = TT.Tree(*(x[0] for x in ttr))
         logits = rng.normal(size=(ttr.tokens.shape[0], 64)).astype(np.float32)
         # plant agreements along a branch so acceptance goes deep
         for node in range(1, ttr.tokens.shape[0]):

@@ -535,3 +535,51 @@ def test_collecting_and_swapped_draft_graphs_on_card(cuda_device):
     assert graph.graphs.reads(swapped.graph, graph.params)
     _same(swapped, eager.generate(ids, feats, MAX_NEW))
     np.testing.assert_array_equal(swapped.tokens, plain.tokens)
+
+
+@pytest.mark.cuda
+def test_batched_lanes_graphs_on_card(cuda_device):
+    """Tiny bf16 model: generate_batch at B = 3 replays one graph of its
+    own (keyed on B and its state), its lanes equal the eager lanes and
+    the null-draft lanes of the same B; a greedy and a sampled continuous
+    schedule replay a graph over the scheduler's slots and equal eager
+    schedules; a closed scheduler's graphs are released."""
+    from msd_tpu_torch.serve.continuous import ContinuousScheduler, Request
+
+    generator, drafts, cfg = _bundle(cuda_device, torch.bfloat16,
+                                     hidden=256, heads=2)
+    graph, eager = generator(), generator(False)
+    prompts = _prompts(cfg, cuda_device, torch.bfloat16)
+    ids = [prompts[k][0] for k in ("image", "long_text", "short_text")]
+    feats = [prompts[k][1] for k in ("image", "long_text", "short_text")]
+    out = {}
+    for name in ("msd", "null"):
+        for mode, gen in (("graph", graph), ("eager", eager)):
+            gen.params["draft"] = drafts[name]
+            out[mode, name] = gen.generate_batch(ids, feats, MAX_NEW)
+    index = out["graph", "msd"][0].graph
+    assert graph.graphs.steps[index].key[4][0] == 3
+    for lane in range(3):
+        _same(out["graph", "msd"][lane], out["eager", "msd"][lane])
+        np.testing.assert_array_equal(out["graph", "msd"][lane].tokens,
+                                      out["graph", "null"][lane].tokens)
+    graph.params["draft"] = eager.params["draft"] = drafts["msd"]
+    for sp in (None, SAMPLED):
+        done = {}
+        for mode, gen in (("graph", graph), ("eager", eager)):
+            sched = ContinuousScheduler(gen, n_slots=2, segment=5, sp=sp)
+            reqs = [Request(ids=i, img_feats=f, max_new=MAX_NEW, seed=s)
+                    for s, (i, f) in enumerate(zip(ids, feats))]
+            for r in reqs:
+                sched.submit(r)
+            sched.run_all()
+            done[mode] = reqs
+            if mode == "graph":
+                n_live = sum(s is not None for s in graph.graphs.steps)
+                sched.close()
+                assert sum(s is not None
+                           for s in graph.graphs.steps) == n_live - 1
+        for a, b in zip(done["graph"], done["eager"]):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+            assert (a.accept_steps, a.accept_len_sum) == \
+                (b.accept_steps, b.accept_len_sum)
