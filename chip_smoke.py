@@ -85,10 +85,14 @@ prints no result):
    the CLIP ViT-L/14-336 tower and mlp2x_gelu projector (bf16, seeded)
    encode a seeded 336x336 image (ms per image; its rows against the
    same weights in fp32), whose rows feed every image request;
-   ``generate_batch`` of 64 tokens at B = 1, 2, 4 (every lane must commit
-   the null-draft tokens of the same B, graph == eager; batched == solo
-   printed, not gated; ms/step wall and per replayed step, aggregate
-   tokens/s; no K1 launch, no capture in a timed window); a 4-slot
+   ``generate_batch`` of 64 tokens at B = 1, 2, 4 over image prompts and
+   at B = 2, 4 over text prompts (every lane must commit the null-draft
+   tokens of the same B, graph == eager; batched == solo printed, not
+   gated: for the first lane that differs, the first op whose rows differ
+   from the solo run's and the per-layer verify hiddens
+   (``lane_divergence``), and the cost of one weight GEMM per lane; ms/step
+   wall and per replayed step, aggregate tokens/s; no K1 launch, no
+   capture in a timed window); a 4-slot
    continuous batcher, segment 16, over 8 image and text requests with
    staggered submission and mixed max_new (every request == the
    null-draft run of the same schedule, each text request alone in the
@@ -98,7 +102,22 @@ prints no result):
    made from numpy) and stream requests, each text equal to its solo
    repeat, and a ``use_msd: false`` request whose K1 launches must be 32
    per AR token decoded (the kernels line's ``serve_launches``).
-10. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+10. weights (``run_weights``): the main path's target, the ``[serve]``
+   tower and projector written as an HF-layout LLaVA checkpoint (bf16,
+   <= 5 GB shards, index, config.json) and the main draft by
+   ``save_draft``, in a temporary directory removed at the end (the phase
+   fails if the disk cannot hold it); ``load_llava``/``load_draft`` must
+   give every tensor bitwise; the server ``server.main`` builds from the
+   directory (``ServeAdapter.from_pretrained``) answers a text, an image,
+   a stream and a ``use_msd: false`` request, each equal to a generator
+   over the weights in memory; K1 launches 32 per AR token decoded.
+   Write and load seconds.
+11. quant (``run_quant``): on prompt 0, an int8 target, an int4 target and
+   the bf16 target with an int8 draft: MSD == null-draft tokens, graph ==
+   eager, the oracle draft accepted to full depth, K1 32 per AR token;
+   the int8 draft's tokens == the bf16 draft's. Replayed AR token and
+   verify step beside the bf16 main path's, peak memory.
+12. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
    many K1 launches as the wrapper's count, 32 per AR token decoded; a
@@ -107,6 +126,12 @@ prints no result):
    fp32 operations (counted from the shapes) against the card's fp32
    peak; the EAGLE expansion alone against the medusa expansion; the
    continuous schedule's device time and idle share.
+13. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
+   int8 target (40 layers, hidden 5120, 40 heads) and two bf16 medusa
+   drafts initialised on the card from seeded generators, the target
+   quantized layer by layer; one image prompt x 32 tokens, MSD, null-draft
+   MSD and AR, graph-replayed: MSD == the null-draft tokens, K1 40 per AR
+   token decoded; K1 against its plain twin at 40 heads and timed there.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -117,7 +142,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1937,6 +1964,258 @@ def _replay_ms(gen, index: int, n: int = 16) -> float:
     return start.elapsed_time(end) / n
 
 
+_VIEW_OPS = {"view", "_unsafe_view", "as_strided", "select", "slice",
+             "expand", "transpose", "t", "permute", "unsqueeze", "squeeze",
+             "unflatten", "reshape", "alias", "detach", "lift_fresh",
+             "_to_copy_alias"}
+
+
+def _op_log(compare=None, lanes=1, lane=0):
+    """A dispatch mode over the port's ops: without ``compare``, it records
+    (op, where, output) of every op that makes new values (views and
+    in-place writes skipped); with ``compare`` (such a record of a one-lane
+    run), it holds the rows of ``lane`` of each op of a ``lanes``-lane run
+    against the next op of the record with the same name and matching
+    shape, and keeps the first that differs. ``where`` names the port's
+    source line that issued the op and, inside ``llama_forward``, the
+    layer."""
+    import os
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def where():
+        f = sys._getframe(2)
+        while f is not None and "msd_tpu_torch" not in f.f_code.co_filename:
+            f = f.f_back
+        if f is None:
+            return "?"
+        return (f"{os.path.relpath(f.f_code.co_filename, root)}:"
+                f"{f.f_lineno} ({f.f_code.co_name})")
+
+    def rows(out, ref):
+        if out.dim() and ref.dim() and out.shape[1:] == ref.shape[1:] and \
+                out.shape[0] == lanes * ref.shape[0]:
+            return out.reshape((lanes, ref.shape[0]) + out.shape[1:])[lane]
+        return out if out.shape == ref.shape else None
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.pos, self.compared, self.in_verify = [], 0, 0, 0
+            self.first = self.first_verify = None
+            self.layer, self.verify = None, False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            res = out[0] if isinstance(out, (tuple, list)) and out else out
+            if (name in _VIEW_OPS or name.endswith("_")
+                    or getattr(func, "is_view", False)
+                    or not isinstance(res, torch.Tensor)):
+                return out
+            loc = where() + ("" if not self.verify else " in the verify"
+                             + ("" if self.layer is None
+                                else f", layer {self.layer}"))
+            if compare is None:
+                self.ops.append((name, loc, res.detach().clone()))
+                return out
+            if self.first_verify is not None:
+                return out
+            for k in range(self.pos, min(self.pos + 8, len(compare))):
+                cname, cloc, ref = compare[k]
+                mine = rows(res, ref) if cname == name else None
+                if mine is None or mine.dtype != ref.dtype:
+                    continue
+                self.pos = k + 1
+                self.compared += 1
+                self.in_verify += self.verify
+                if not torch.equal(mine, ref):
+                    err = float((mine.double() - ref.double()).abs()
+                                .nan_to_num().max()) \
+                        if mine.is_floating_point() else float("nan")
+                    diff = (name, loc, tuple(res.shape), tuple(ref.shape),
+                            err)
+                    self.first = self.first or diff
+                    if self.verify:
+                        self.first_verify = diff
+                break
+            return out
+
+    return OpLog()
+
+
+def lane_divergence(gen, prompts, feats, max_new: int, lane: int,
+                    max_steps: int = 4) -> str:
+    """Why lane ``lane`` of a batch of ``prompts`` (one image-row tensor or
+    None each) commits other tokens than its solo run: prefill both (a
+    state of the batch's lane count and a one-lane state), compare the
+    lane's state with the solo state, then step both eagerly in lockstep
+    (``decode_step``, every lane live up to ``max_new``) and, at the first
+    step where any of the lane's op outputs differs from the solo run's,
+    name the first such op and compare the verify forward's per-layer
+    hiddens. Returns the report line."""
+    import torch
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.models import llama as Lm
+
+    st = gen._statics(max_new)
+    lanes = 1 << (len(prompts) - 1).bit_length()
+
+    def prefilled(ps, fs, n):
+        state = gen.alloc_lanes(n)
+        for i, (ids, f) in enumerate(zip(ps, fs)):
+            ids, padded, img_pos = gen._prompt(ids)
+            SE.prefill(st, gen.params, SE.lane(state, i), padded, len(ids),
+                       f, img_pos)
+        state.stop_at.zero_()
+        state.stop_at[:len(ps)] = max_new
+        return state
+
+    bstate = prefilled(prompts, feats, lanes)
+    sstate = prefilled([prompts[lane]], [feats[lane]], 1)
+    mine, solo = SE.lane(bstate, lane), SE.lane(sstate, 0)
+    e = int(solo.cur_len)
+    fields = [n for n in ("ids", "cur_len", "bonus", "suffix_tokens",
+                          "suffix_hidden", "suffix_len", "draft_len")
+              if not torch.equal(getattr(mine, n), getattr(solo, n))]
+    fields += [f"target_kv.{k}" for k in ("k", "v") if not torch.equal(
+        mine.target_kv[k][:, :e], solo.target_kv[k][:, :e])]
+    parts = [f"prefill: lane state == solo state: "
+             f"{not fields}{'' if not fields else f' (differ: {fields})'}"]
+
+    real_layer, real_verify = Lm._layer_forward, SE.verify_forward
+    hiddens = []
+    mode = {"log": None, "verify": False, "layer": 0}
+
+    def layer(*a, **kw):
+        if mode["verify"] and mode["log"] is not None:
+            mode["log"].layer = mode["layer"]
+        x = real_layer(*a, **kw)
+        if mode["verify"]:
+            hiddens.append(x.detach().clone())
+            mode["layer"] += 1
+        return x
+
+    def verify(*a, **kw):
+        mode["verify"], mode["layer"] = True, 0
+        if mode["log"] is not None:
+            mode["log"].verify = True
+        try:
+            return real_verify(*a, **kw)
+        finally:
+            mode["verify"] = False
+            if mode["log"] is not None:
+                mode["log"].layer, mode["log"].verify = None, False
+
+    Lm._layer_forward, SE.verify_forward = layer, verify
+    try:
+        for step in range(1, max_steps + 1):
+            hiddens.clear()
+            rec = mode["log"] = _op_log()
+            with rec:
+                SE.decode_step(st, gen.params, sstate)
+            solo_h = list(hiddens)
+            hiddens.clear()
+            cmp = mode["log"] = _op_log(rec.ops, lanes, lane)
+            with cmp:
+                SE.decode_step(st, gen.params, bstate)
+            cur = int(solo.cur_len)
+            same_ids = torch.equal(mine.ids[:cur + 1], solo.ids[:cur + 1])
+            per_layer = [float((h[lane].double() - s[0].double()).abs()
+                               .max()) for h, s in zip(hiddens, solo_h)]
+            del rec
+            def said(diff):
+                name, loc, shp, ref_shp, err = diff
+                return (f"aten.{name} at {loc}, output {shp} against the "
+                        f"solo {ref_shp}, max |diff| {err:.3e}")
+
+            line = (f"step {step} ({cmp.compared} ops compared, "
+                    f"{cmp.in_verify} of the verify forward): ")
+            if cmp.first is None:
+                parts.append(line + f"all equal, committed ids equal "
+                             f"{same_ids}")
+                continue
+            line += f"first differing op {said(cmp.first)}"
+            if cmp.first_verify is None:
+                parts.append(line + f"; the verify forward equal; "
+                             f"committed ids equal {same_ids}")
+                continue
+            nz = [i for i, d in enumerate(per_layer) if d > 0]
+            parts.append(
+                line + f"; first differing op of the verify forward "
+                f"{said(cmp.first_verify)}; verify hiddens differ from "
+                f"layer {nz[0] if nz else None} on, max |diff| per layer "
+                f"{[float(f'{d:.2e}') for d in per_layer]}; committed ids "
+                f"equal {same_ids}")
+            break
+    finally:
+        Lm._layer_forward, SE.verify_forward = real_layer, real_verify
+        mode["log"] = None
+        del bstate, sstate
+    return "; ".join(parts)
+
+
+def lane_gemm_cost(tcfg, dtype, lanes: int, rows: int) -> str:
+    """Device ms of one verify step's weight GEMMs (the 7 of each of
+    ``tcfg``'s layers and lm_head) for ``lanes`` lanes of ``rows`` rows:
+    as one product over lanes x rows rows (the engine's route), as one
+    product per lane (a route whose rounding cannot depend on the lane
+    count: each lane's product is the solo one) and as one batched
+    product over the lanes (``bmm``); and whether each route gives a lane
+    the bits of its solo product."""
+    import torch
+    h, inter, v = tcfg.hidden_size, tcfg.intermediate_size, tcfg.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [(h, h)] * 4 + [(h, inter)] * 2 + [(inter, h)]
+    ws = [torch.randn(s, generator=g, device="cuda", dtype=dtype)
+          for s in shapes] + [torch.randn(h, v, generator=g, device="cuda",
+                                          dtype=dtype)]
+    xs = {k: torch.randn(lanes, rows, k, generator=g, device="cuda",
+                         dtype=dtype) for k in (h, inter)}
+    n = tcfg.num_hidden_layers
+
+    def one(i):
+        for w in ws[:-1]:
+            xs[w.shape[0]] @ w
+        if i == n - 1:
+            xs[h] @ ws[-1]
+
+    def per_lane(i):
+        for w in ws[:-1]:
+            for b in range(lanes):
+                xs[w.shape[0]][b] @ w
+        if i == n - 1:
+            for b in range(lanes):
+                xs[h][b] @ ws[-1]
+
+    def batched(i):
+        for w in ws[:-1]:
+            torch.bmm(xs[w.shape[0]], w.expand((lanes,) + w.shape))
+        if i == n - 1:
+            torch.bmm(xs[h], ws[-1].expand((lanes,) + ws[-1].shape))
+
+    # which routes give lane 1 the solo product's bits, per weight shape
+    same = {"one product": [], "bmm": []}
+    for w in ws:
+        x = xs[w.shape[0]]
+        solo = x[1] @ w
+        same["one product"].append(torch.equal((x @ w)[1], solo))
+        same["bmm"].append(torch.equal(
+            torch.bmm(x, w.expand((lanes,) + w.shape))[1], solo))
+    t_one = graph_ms(one, n) * n
+    t_lane = graph_ms(per_lane, n) * n
+    t_bmm = graph_ms(batched, n) * n
+    return (f"{n} layers' GEMMs + lm_head at {lanes} lanes x {rows} rows: "
+            f"{t_one:.3f} ms as one product, {t_lane:.3f} ms as one per "
+            f"lane (+{t_lane - t_one:.3f} ms per step), {t_bmm:.3f} ms as "
+            f"a batched product over the lanes (+{t_bmm - t_one:.3f} ms); "
+            f"lane 1 == its solo product per weight (q, k, v, o, gate, up, "
+            f"down, lm_head): {same}")
+
+
 def _png_b64(image: np.ndarray) -> str:
     import base64
     import io
@@ -2037,6 +2316,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
 
     img_prompts = list(ctx["prompts"]) + [prompt(True) for _ in range(
         max(batches) - len(ctx["prompts"]))]
+    txt_prompts = [prompt(False) for _ in range(max(batches))]
 
     def captures():
         return [s for s in gen.graphs.steps if s is not None] \
@@ -2053,13 +2333,17 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     sync()
     n_cap = len(captures())
     K1.decode_attention.launches = 0
-    out["batch"] = {}
-    for B in batches:
+    out["batch"], out["text_batch"] = {}, {}
+    differing = None
+    for B, kind in [(B, "image") for B in batches] + \
+            [(B, "text") for B in batches if B > 1]:
+        ps = (img_prompts if kind == "image" else txt_prompts)[:B]
+        fs = [feats if kind == "image" else None] * B
         runs = {}
         for name in ("msd", "null"):
             gen.params["draft"] = drafts[name]
             t1 = time.perf_counter()
-            rs = gen.generate_batch(img_prompts[:B], [feats] * B, max_new)
+            rs = gen.generate_batch(ps, fs, max_new)
             sync()
             runs[name] = (rs, time.perf_counter() - t1)
             if gen.graphs is not None and not gen.graphs.reads(
@@ -2067,24 +2351,31 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {name}: replayed a "
                                      f"graph captured for other weights")
         gen.params["draft"] = drafts["msd"]
-        ers = eager.generate_batch(img_prompts[:B], [feats] * B, max_new)
+        ers = eager.generate_batch(ps, fs, max_new)
         rs, secs = runs["msd"]
         for b in range(B):
             tok = rs[b].tokens
             if tok.shape != (max_new,) or tok.min() < 0 \
                     or tok.max() >= tcfg.vocab_size:
-                raise AssertionError(f"[serve] B={B} lane {b}: bad tokens "
-                                     f"{tok.shape} {tok[:8]}")
+                raise AssertionError(f"[serve] B={B} {kind} lane {b}: bad "
+                                     f"tokens {tok.shape} {tok[:8]}")
             if not np.array_equal(tok, runs["null"][0][b].tokens):
-                raise AssertionError(f"[serve] B={B} lane {b}: MSD tokens "
-                                     f"differ from the null-draft tokens of "
-                                     f"the same batch")
+                raise AssertionError(f"[serve] B={B} {kind} lane {b}: MSD "
+                                     f"tokens differ from the null-draft "
+                                     f"tokens of the same batch")
             if not np.array_equal(tok, ers[b].tokens):
-                raise AssertionError(f"[serve] B={B} lane {b}: graph and "
-                                     f"eager tokens differ")
-        solo = [np.array_equal(gen.generate(img_prompts[b], feats,
-                                            max_new).tokens, rs[b].tokens)
-                for b in range(B)]
+                raise AssertionError(f"[serve] B={B} {kind} lane {b}: graph "
+                                     f"and eager tokens differ")
+        solo = [np.array_equal(gen.generate(ps[b], fs[b], max_new).tokens,
+                               rs[b].tokens) for b in range(B)]
+        if differing is None and not all(solo):
+            differing = (kind, ps, fs, solo.index(False))
+        if kind == "text":
+            out["text_batch"][B] = solo
+            log(f"[serve] generate_batch B={B}, text prompts: every lane "
+                f"== its null-draft tokens of the same B: True; graph == "
+                f"eager: True; batched == solo per lane: {solo}")
+            continue
         steps = max(r.accept_steps for r in rs)
         toks = sum(len(r.tokens) for r in rs)
         alpha = sum(r.accept_len_sum for r in rs) / \
@@ -2110,6 +2401,17 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                     if s.key[0].__name__ == "decode_step"})
     log(f"[serve] captures (B, index) of the verify step so far: {lanes}; "
         f"one per (configuration, draft, B); none in a timed window")
+    # why a lane departs from its solo run (ROADMAP section 3): the first
+    # op whose rows differ, and what a lane-count-invariant route costs
+    if differing is not None:
+        kind, ps, fs, b = differing
+        out["divergence"] = lane_divergence(eager, ps, fs, max_new, b)
+        log(f"[serve] batched != solo, {kind} B={len(ps)} lane {b}: "
+            f"{out['divergence']}")
+    if on_card:
+        log(f"[serve] lane-invariant route: "
+            + lane_gemm_cost(tcfg, dtype, max(batches),
+                             gen.eng.tree.num_nodes))
 
     # 3. continuous batching: one scheduler, the same schedule with the
     # random and the null draft
@@ -2274,8 +2576,556 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
         sched.close()
 
     out["profile"] = profile
+    out["llava"], out["lcfg"], out["image"] = lp, lcfg, image
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[serve] phase took {out['seconds']:.1f}s")
+    return out
+
+
+def _flat_tensors(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _bitwise_diff(label, mine, ref) -> list:
+    """Names of the tensors of ``mine`` that are not bitwise those of
+    ``ref`` (same keys, shapes and dtypes)."""
+    import torch
+    a, b = _flat_tensors(mine), _flat_tensors(ref)
+    if sorted(a) != sorted(b):
+        return [f"{label}: keys {sorted(set(a) ^ set(b))}"]
+    return [f"{label}/{k}" for k in a
+            if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+            or not torch.equal(a[k], b[k])]
+
+
+def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
+    """Serving from a checkpoint: the main path's target, the CLIP tower
+    and projector of ``[serve]`` written as an HF-layout LLaVA checkpoint
+    (bf16, shards of at most 5 GB, index and config.json) and the main
+    draft with ``save_draft``, in a temporary directory deleted at the
+    end; the checkpoint loaded back (``load_llava``, ``load_draft``: every
+    tensor bitwise the in-memory one); the server ``server.main`` builds
+    (``parse_args`` and ``server_from_args``: ``ServeAdapter.
+    from_pretrained``) answering a text, an image, a stream and a
+    ``use_msd: false`` request one at a time, each equal to a generator
+    over the in-memory weights with the adapter's configuration (tokens,
+    and the served text and count); the AR request's K1 launches = layers
+    x AR tokens decoded. Fails when the disk cannot hold the checkpoint
+    (it is never shrunk)."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.serve import server as S
+    from msd_tpu_torch.serve.adapter import ServeAdapter
+    from msd_tpu_torch.utils import weights as W
+
+    ctx = res["ctx"]
+    gen, drafts, tcfg = ctx["gens"]["graph"], ctx["drafts"], ctx["tcfg"]
+    sync, on_card = ctx["sync"], ctx["on_card"]
+    device = ctx["device"]
+    tp = gen.params["target"]
+    lp, lcfg = serve["llava"], serve["lcfg"]
+    dtype = tp["embed_tokens"].dtype
+    t_phase = time.perf_counter()
+    params = {"target": tp, **lp}
+    ckpt_bytes = sum(t.numel() for t in W.hf_llava_state(params).values()) \
+        * dtype.itemsize
+    draft_bytes = 4 * sum(t.numel() for k, t in
+                          _flat_tensors(drafts["msd"]).items()
+                          if k != "embed_tokens")
+    root = tempfile.mkdtemp(prefix="msd_ckpt_")
+    out = {}
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[weights] checkpoint {ckpt_bytes / 1e9:.3f} GB ({dtype}) + "
+            f"draft {draft_bytes / 1e9:.3f} GB (fp32) to write under "
+            f"{root}; free disk {free / 1e9:.1f} GB")
+        if free < 1.05 * (ckpt_bytes + draft_bytes):
+            raise AssertionError(f"[weights] the disk cannot hold the "
+                                 f"checkpoint: {free / 1e9:.1f} GB free")
+        ckpt, ddir = f"{root}/llava", f"{root}/draft"
+        t1 = time.perf_counter()
+        written = W.save_llava(params, lcfg, ckpt, dtype)
+        written += os.path.getsize(W.save_draft(drafts["msd"], ddir))
+        out["write_s"] = time.perf_counter() - t1
+        shards = [os.path.getsize(os.path.join(ckpt, f)) / 1e9
+                  for f in sorted(os.listdir(ckpt))
+                  if f.endswith(".safetensors")]
+        log(f"[weights] wrote {written / 1e9:.3f} GB in "
+            f"{out['write_s']:.1f}s: {len(shards)} shards of "
+            f"{[round(x, 2) for x in shards]} GB, index, config.json, the "
+            f"draft; free disk now "
+            f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+
+        # loaded back: bitwise the tensors in memory
+        t1 = time.perf_counter()
+        loaded, lcfg2 = W.load_llava(ckpt, dtype, device)
+        dloaded, dcfg2 = W.load_draft(ddir, lcfg2.text,
+                                      loaded["target"]["embed_tokens"],
+                                      dtype, device)
+        sync()
+        out["load_s"] = time.perf_counter() - t1
+        bad = _bitwise_diff("target", loaded["target"], tp) \
+            + _bitwise_diff("vision", loaded["vision"], lp["vision"]) \
+            + _bitwise_diff("projector", loaded["projector"],
+                            lp["projector"]) \
+            + _bitwise_diff("draft", dloaded, drafts["msd"])
+        n_tensors = sum(len(_flat_tensors(x)) for x in (loaded, dloaded))
+        log(f"[weights] load_llava + load_draft in {out['load_s']:.1f}s: "
+            f"{n_tensors} tensors, bitwise equal to the weights in memory: "
+            f"{not bad}; medusa heads {dcfg2.medusa_heads}, tower "
+            f"{lcfg2.vision.num_hidden_layers} layers at "
+            f"{lcfg2.vision.image_size}px")
+        if bad or dcfg2.medusa_heads != len(ctx["widths"]) - 1 \
+                or lcfg2.vision != lcfg.vision:
+            raise AssertionError(f"[weights] the loaded checkpoint differs "
+                                 f"from the weights in memory: {bad[:8]}")
+        del loaded, dloaded
+        gc.collect()
+
+        # the server server.main runs, on a free port and a thread
+        t1 = time.perf_counter()
+        args = S.parse_args(["--pretrained", ckpt, "--msd_model_path", ddir,
+                             "--port", "0", "--max-seq-len",
+                             str(gen.eng.max_seq_len), "--device",
+                             str(device)])
+        httpd = S.server_from_args(args)
+        sync()
+        out["serve_load_s"] = time.perf_counter() - t1
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        adapter = httpd.worker.adapter
+        agen = adapter.gen
+        ref = MSDGenerator(tp, drafts["msd"], agen.tcfg, agen.dcfg,
+                           agen.eng, n_img=agen.n_img, eos_id=agen.eos_id,
+                           sp=agen.sp, device=device)
+        mem = ServeAdapter.from_llava(ref, adapter.tokenizer, lp, lcfg)
+        prep = S.EngineWorker(mem)._prep
+        port = httpd.server_address[1]
+
+        def post(payload, path="/generate"):
+            rq = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(rq, timeout=600) as r:
+                if path == "/generate_stream":
+                    return [json.loads(line) for line in r]
+                return json.loads(r.read())
+
+        def text(tokens):
+            return adapter.tokenizer.decode(list(tokens),
+                                            skip_special_tokens=True).strip()
+
+        payloads = {
+            "text": {"prompt": "Describe the weather in one sentence.",
+                     "max_new_tokens": http_new},
+            "image": {"prompt": "What is in the picture?",
+                      "image_b64": _png_b64(serve["image"]),
+                      "max_new_tokens": http_new},
+            "ar": {"prompt": "What is in the picture?",
+                   "image_b64": _png_b64(serve["image"]),
+                   "max_new_tokens": http_new, "use_msd": False}}
+        same = {}
+        try:
+            for name, p in payloads.items():
+                ids, feats, sp, n, use_msd = prep(p)
+                run = ref.generate if use_msd else ref.naive_generate
+                want = run(ids, img_feats=feats, max_new_tokens=n, sp=sp)
+                _, afeats, _, _, _ = S.EngineWorker(adapter)._prep(p)
+                arun = agen.generate if use_msd else agen.naive_generate
+                got = arun(ids, img_feats=afeats, max_new_tokens=n, sp=sp)
+                K1.decode_attention.launches = 0
+                t1 = time.perf_counter()
+                served = post(p)
+                secs = time.perf_counter() - t1
+                launches = K1.decode_attention.launches
+                same[name] = (np.array_equal(got.tokens, want.tokens)
+                              and (feats is None
+                                   or torch.equal(afeats, feats))
+                              and served["text"] == text(want.tokens)
+                              and served["tokens_generated"]
+                              == len(want.tokens) > 0)
+                if name == "ar":
+                    decoded = len(want.tokens) - 1
+                    k1_want = (tcfg.num_hidden_layers * decoded
+                               if on_card else 0)
+                    out["launches"] = launches
+                    log(f"[weights] use_msd=false: K1 launches {launches}, "
+                        f"expected {k1_want} (= {tcfg.num_hidden_layers} "
+                        f"layers x {decoded} AR tokens decoded)")
+                    if launches != k1_want:
+                        raise AssertionError(f"[weights] K1 launches "
+                                             f"{launches} != {k1_want}")
+                log(f"[weights] {name} request ({len(want.tokens)} tokens, "
+                    f"{secs:.2f}s served): checkpoint generator == "
+                    f"in-memory generator, served text and count == its "
+                    f"tokens: {same[name]}")
+            ids, feats, sp, n, _ = prep(payloads["text"])
+            want = ref.generate(ids, img_feats=feats, max_new_tokens=n,
+                                sp=sp)
+            lines = post(dict(payloads["text"], segment=8),
+                         "/generate_stream")
+            same["stream"] = (lines[-1].get("done") is True
+                              and "".join(x["text"] for x in lines[:-1])
+                              .strip() == text(want.tokens))
+            log(f"[weights] stream request: {len(lines) - 1} chunks == the "
+                f"in-memory generator's text: {same['stream']}")
+        finally:
+            S.shutdown(httpd)
+        if not all(same.values()):
+            raise AssertionError(f"[weights] served requests differ from "
+                                 f"the in-memory generator: {same}")
+        out["same"] = same
+        del adapter, agen, httpd, ref, mem
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[weights] write {out['write_s']:.1f}s, load {out['load_s']:.1f}s,"
+        f" server.main's load {out['serve_load_s']:.1f}s; phase took "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
+def quantized_layers(layer, n: int, bits: int, device) -> dict:
+    """Stacked int8/int4 decoder-layer weights made one layer at a time:
+    ``layer(i)`` gives layer i's full-precision weights, which are
+    quantized (``llama.quantize_layer``) and copied into stacks allocated
+    once, so no full-precision stack is ever whole beside them."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+    out = {}
+    for i in range(n):
+        for k, v in L.quantize_layer(layer(i), bits).items():
+            if k not in out:
+                out[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                     device=device)
+            out[k][i].copy_(v)
+    return out
+
+
+def quantized_target(tp: dict, bits: int) -> dict:
+    """``llama.quantize_llama_params(tp, True, bits)``, layer by layer."""
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops.quant import quantize_tensor
+    layers = tp["layers"]
+    out = {"embed_tokens": tp["embed_tokens"], "norm": tp["norm"],
+           "layers": quantized_layers(
+               lambda i: {k: w[i] for k, w in layers.items()},
+               layers["q_proj"].shape[0], bits, tp["norm"].device)}
+    out["lm_head"], out["lm_head" + L.quant_suffix(bits)] = \
+        quantize_tensor(tp["lm_head"], -2, bits)
+    return out
+
+
+def _weight_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in _flat_tensors(tree).values())
+
+
+def _quant_runs(label, tp, drafts, tcfg, dcfg, eng, sp, ids, feats, max_new,
+                warm, widths, device, on_card, sync, e0,
+                want_tokens=None) -> dict:
+    """One weight combination on one prompt: graph MSD with the main
+    draft, with the null draft, the AR baseline from the shared prefill,
+    eager MSD and the oracle draft on a generator of its own. Raises
+    unless MSD == the null-draft tokens == eager MSD (== ``want_tokens``
+    when given), the oracle is accepted to full depth, and the AR request
+    launches K1 layers x AR tokens decoded times. Returns the timings."""
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    def make(graphs):
+        return MSDGenerator(tp, drafts["msd"], tcfg, dcfg, eng,
+                            n_img=len(feats), eos_id=-1, sp=sp,
+                            device=device, cuda_graphs=graphs)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen, eager = make(True), make(False)
+    gen.naive_generate(ids, feats, warm, share_prefill=True)
+    for name in ("null", "msd"):
+        gen.params["draft"] = drafts[name]
+        gen.generate(ids, feats, warm)
+    sync()
+    caps = len(gen.graphs.steps) if gen.graphs is not None else 0
+    runs, secs = {}, {}
+    K1.decode_attention.launches = 0
+    for name in ("ar", "msd", "null"):
+        gen.params["draft"] = drafts["msd" if name == "ar" else name]
+        t1 = time.perf_counter()
+        runs[name] = gen.naive_generate(ids, feats, max_new,
+                                        share_prefill=True) \
+            if name == "ar" else gen.generate(ids, feats, max_new)
+        sync()
+        secs[name] = time.perf_counter() - t1
+    launches = K1.decode_attention.launches
+    gen.params["draft"] = drafts["msd"]
+    runs["eager"] = eager.generate(ids, feats, max_new)
+    if gen.graphs is not None and len(gen.graphs.steps) != caps:
+        raise AssertionError(f"[quant] {label}: a capture in a timed run")
+    decoded = len(runs["ar"].tokens) - 1
+    k1_want = tcfg.num_hidden_layers * decoded if on_card else 0
+    msd = runs["msd"].tokens
+    same = {"MSD == null draft": np.array_equal(msd, runs["null"].tokens),
+            "graph == eager": np.array_equal(msd, runs["eager"].tokens)}
+    if want_tokens is not None:
+        same["== the unquantized draft"] = np.array_equal(msd, want_tokens)
+    # the oracle draft, on a generator that captures inside the block
+    steps_want, hist_want = oracle_schedule(len(widths), max_new)
+    ref = torch.from_numpy(runs["null"].tokens.astype(np.int32)).to(device)
+    oracle = make(True)
+    with oracle_draft(ref, e0):
+        r = oracle.generate(ids, feats, max_new)
+    full = min(len(widths) + 1, 15)
+    same["oracle accepted to full depth"] = bool(
+        np.array_equal(r.tokens, runs["null"].tokens)
+        and r.accept_steps == steps_want
+        and r.alpha_hist[full] == hist_want[full])
+    out = {"launches": launches, "same": same,
+           "ar_ms": secs["ar"] * 1e3 / len(runs["ar"].tokens),
+           "msd_ms_step": secs["msd"] * 1e3 / runs["msd"].accept_steps,
+           "alpha": runs["msd"].avg_accept_len,
+           "bytes": _weight_bytes(tp) + _weight_bytes(drafts["msd"])}
+    if on_card:
+        out["ar_replay_ms"] = _replay_ms(gen, runs["ar"].graph)
+        out["step_replay_ms"] = _replay_ms(gen, runs["msd"].graph)
+        out["peak"] = torch.cuda.max_memory_allocated()
+    else:
+        out["ar_replay_ms"] = out["step_replay_ms"] = float("nan")
+        out["peak"] = 0
+    log(f"[quant] {label}: {same}; AR {out['ar_ms']:.2f} ms/token wall "
+        f"incl. prefill, {out['ar_replay_ms']:.3f} ms per replayed AR "
+        f"token; MSD {out['msd_ms_step']:.2f} ms/step wall incl. prefill, "
+        f"{out['step_replay_ms']:.3f} ms per replayed step, alpha "
+        f"{out['alpha']:.3f}; K1 launches {launches}, expected {k1_want} "
+        f"(= {tcfg.num_hidden_layers} layers x {decoded} AR tokens "
+        f"decoded); weights {out['bytes'] / 1e9:.2f} GB, peak "
+        f"{out['peak'] / 2**30:.2f} GiB allocated")
+    if not all(same.values()) or launches != k1_want:
+        raise AssertionError(f"[quant] {label}: {same}, K1 launches "
+                             f"{launches} != {k1_want}")
+    del gen, eager, oracle
+    return out
+
+
+def dequant_cost(tq: dict) -> str:
+    """Device ms to dequantize every weight one AR token reads from the
+    quantized target ``tq`` (each layer's seven, then lm_head), graph-
+    replayed, by two stock expressions with the same bits: the port's one
+    kernel (``torch.mul(w_q, scale, out=bf16)``: the product in fp32,
+    rounded as it is written) and the three of ``(w_q.float() * scale)
+    .to(bf16)``; with the bytes each moves and their time at the card's
+    memory rate."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops.quant import unpack_int4
+
+    layers = tq["layers"]
+    n = layers["q_proj"].shape[0]
+    names = list(L._QUANT_AXES)
+    int4 = "q_proj_qs4" in layers
+    sfx = "_qs4" if int4 else "_qs"
+
+    def weights(i):
+        out = [(layers[k][i], layers[k + sfx][i]) for k in names]
+        if i == n - 1:
+            out.append((tq["lm_head"], tq["lm_head" + sfx]))
+        return out
+
+    def one(i):
+        for q, sc in weights(i):
+            q = unpack_int4(q) if int4 else q
+            torch.mul(q, sc, out=torch.empty(q.shape, dtype=torch.bfloat16,
+                                             device=q.device))
+
+    def three(i):
+        for q, sc in weights(i):
+            q = unpack_int4(q) if int4 else q
+            (q.float() * sc).to(torch.bfloat16)
+
+    elems = sum(q.numel() * (2 if int4 else 1)
+                for i in range(n) for q, _ in weights(i))
+    t_one, t_three = graph_ms(one, n) * n, graph_ms(three, n) * n
+    b_one, b_three = 3 * elems, 11 * elems     # int8 in, bf16 (fp32) out
+    return (f"dequantizing one AR token's {elems / 1e9:.2f}G weights "
+            f"({'int4' if int4 else 'int8'}): one kernel {t_one:.3f} ms "
+            f"({b_one / 1e9:.1f} GB, {b_one / HBM_BYTES_PER_S * 1e3:.2f} ms "
+            f"at the memory rate), three kernels {t_three:.3f} ms "
+            f"({b_three / 1e9:.1f} GB, "
+            f"{b_three / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+
+
+def run_quant(res) -> dict:
+    """Weight-only quantization on the main path's prompt 0 and weights:
+    an int8 target, an int4 target (lm_head included), and the bf16
+    target with an int8 draft (``_quant_runs`` each: MSD == null draft ==
+    eager, the oracle at full depth, K1 per AR token; the int8 draft's
+    tokens == the bf16 draft's, drafting being lossless); beside them the
+    bf16 main path's replayed AR token and verify step."""
+    import gc
+
+    import torch
+    from msd_tpu_torch.models import draft as D
+
+    ctx = res["ctx"]
+    gen, drafts = ctx["gens"]["graph"], ctx["drafts"]
+    on_card, sync = ctx["on_card"], ctx["sync"]
+    ids, feats = ctx["prompts"][0], ctx["feats"]
+    t_phase = time.perf_counter()
+    tp = gen.params["target"]
+    out = {}
+    if on_card:
+        out["bf16"] = {"ar_replay_ms": _replay_ms(
+            gen, res["graph", "ar"][0].graph), "step_replay_ms": _replay_ms(
+            gen, res["graph", "msd"][0].graph)}
+        log(f"[quant] bf16 main path, same card: "
+            f"{out['bf16']['ar_replay_ms']:.3f} ms per replayed AR token, "
+            f"{out['bf16']['step_replay_ms']:.3f} ms per replayed step; "
+            f"weights {(_weight_bytes(tp) + _weight_bytes(drafts['msd'])) / 1e9:.2f} GB")
+    combos = (("int8 target", 8, None), ("int4 target", 4, None),
+              ("int8 draft", None, 8))
+    for label, tbits, dbits in combos:
+        t1 = time.perf_counter()
+        tq = quantized_target(tp, tbits) if tbits else tp
+        dq = {name: D.quantize_draft_params(drafts[name], dbits)
+              if dbits else drafts[name] for name in ("msd", "null")}
+        sync()
+        log(f"[quant] {label}: quantized in "
+            f"{time.perf_counter() - t1:.1f}s")
+        if tbits and on_card:
+            log(f"[quant] {label}: " + dequant_cost(tq))
+        out[label] = _quant_runs(
+            label, tq, dq, ctx["tcfg"], gen.dcfg, gen.eng, gen.sp, ids,
+            feats, ctx["max_new"], ctx["max_new_warm"], ctx["widths"],
+            ctx["device"], on_card, sync, ctx["e0"],
+            want_tokens=res["graph", "msd"][0].tokens if dbits else None)
+        del tq, dq
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[quant] 7B phase took {out['seconds']:.1f}s")
+    return out
+
+
+def time_k1(hq: int, layers: int, kv_len: int = 672, s: int = 1280):
+    """K1 at the AR row of Hq = Hkv = ``hq`` heads against its plain twin
+    (the stated tolerance), then timed over ``layers`` layer caches in a
+    CUDA graph, with its byte bound. Returns (max_abs_err, us, bound us)."""
+    import torch
+    from msd_tpu_torch.ops import decode_attention as K1
+    bf16 = torch.bfloat16
+    q, k, v, bias, n = _attn_inputs(1, hq, hq, s, kv_len, bf16, hq)
+    err = check_k1(f"T=1 Hq=Hkv={hq} S={s} kv_len={kv_len} bfloat16",
+                   q, k, v, bias, n, kv_len)
+    g = torch.Generator(device="cuda").manual_seed(hq)
+    ks = torch.randn(layers, s, hq, 128, generator=g, device="cuda").to(bf16)
+    vs = torch.randn(layers, s, hq, 128, generator=g, device="cuda").to(bf16)
+    bias = torch.zeros(1, s, device="cuda")
+    us = 1e3 * min(graph_ms(lambda i: K1.decode_attention(
+        q, ks[i % layers], vs[i % layers], bias, n), layers) for _ in "ab")
+    nbytes = 2 * hq * 128 * 2 + 2 * kv_len * hq * 128 * 2 + kv_len * 4
+    return err, us, nbytes / HBM_BYTES_PER_S * 1e6
+
+
+def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
+            prompt_tokens: int = PROMPT_TOKENS, n_img: int = N_IMG,
+            widths=WIDTHS, max_seq: int = MAX_SEQ, cfg=None) -> dict:
+    """LLaVA-13B with an int8 target (``bench.py --model 13b --quant
+    int8``): 40 layers, hidden 5120, 40 heads; the target and two medusa
+    drafts initialised on the card from seeded generators, the target
+    quantized layer by layer (its bf16 layers are never whole); one
+    64-token image prompt x ``max_new`` tokens through ``_quant_runs``
+    (MSD, null-draft MSD, AR, eager MSD, the oracle draft; K1 40 per AR
+    token decoded). K1 is held to its plain twin at 40 heads and timed
+    there."""
+    import torch
+    from msd_tpu_torch.configs import (IMAGE_TOKEN_INDEX, DraftConfig,
+                                       EngineConfig, LlamaConfig, TreeConfig)
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops.quant import quantize_tensor
+    from msd_tpu_torch.ops.sampling import SamplingParams
+
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else torch.float32
+    cfg = cfg or dataclasses.replace(LlamaConfig.llava_13b(),
+                                     residual_dtype="float32")
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    g = torch.Generator(device=device).manual_seed(13)
+    h, n = cfg.hidden_size, cfg.num_hidden_layers
+    layers = quantized_layers(
+        lambda i: {k: w[0] for k, w in L.init_layers(
+            cfg, 1, g, device, dtype).items()}, n, bits, device)
+    embed = torch.randn(cfg.vocab_size, h, generator=g, dtype=dtype,
+                        device=device).mul_(h ** -0.5)
+    head = torch.randn(h, cfg.vocab_size, generator=g, dtype=dtype,
+                       device=device).mul_(h ** -0.5 * HEAD_SHARPEN)
+    tp = {"embed_tokens": embed, "layers": layers,
+          "norm": torch.ones(h, dtype=dtype, device=device)}
+    tp["lm_head"], tp["lm_head" + L.quant_suffix(bits)] = \
+        quantize_tensor(head, -2, bits)
+    del head
+    dcfg = DraftConfig(text=cfg, medusa_heads=len(widths) - 1)
+    drafts = {}
+    for name in ("msd", "null"):
+        dp = D.init_draft_params(dcfg, g, device, dtype)
+        dp["medusa"] = D.init_medusa_params(dcfg, g, device, dtype)
+        dp["embed_tokens"] = embed
+        drafts[name] = dp
+    sync()
+    init_s = time.perf_counter() - t_phase
+    log(f"[13b] LLaVA-13B target int8 ({n} layers, hidden {h}, "
+        f"{cfg.num_attention_heads} heads) initialised and quantized layer "
+        f"by layer on {device} in {init_s:.1f}s: target "
+        f"{_weight_bytes(tp) / 1e9:.2f} GB, two bf16 medusa drafts "
+        f"{2 * (_weight_bytes(drafts['msd']) - embed.numel() * embed.element_size()) / 1e9:.2f} GB; "
+        f"allocated {(torch.cuda.memory_allocated() - base) / 2**30 if on_card else 0:.2f} GiB "
+        f"over the {base / 2**30:.2f} GiB held before")
+    rng = np.random.default_rng(13)
+    ids = rng.integers(3, min(31000, cfg.vocab_size - 1),
+                       size=prompt_tokens).astype(np.int32)
+    ids[1] = IMAGE_TOKEN_INDEX
+    feats = torch.from_numpy(rng.normal(size=(n_img, h)) * 0.02).to(
+        device=device, dtype=dtype)
+    tree = TreeConfig(top_k=widths[0], max_depth=len(widths),
+                      num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
+    eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
+                       tree=tree)
+    out = _quant_runs("13B int8 target", tp, drafts, cfg, dcfg, eng,
+                      SamplingParams(greedy_round_bits=ROUND_BITS), ids,
+                      feats, max_new, 4, widths, device, on_card, sync,
+                      prompt_tokens + n_img - 1)
+    out["init_s"] = init_s
+    if on_card:
+        err, us, bound = time_k1(cfg.num_attention_heads, n)
+        out.update(k1_err=err, k1_us=us, k1_bound_us=bound)
+        log(f"[13b] K1 at the 13B AR row (T=1, Hq=Hkv="
+            f"{cfg.num_attention_heads}, S=1280, kv_len 672, bf16): "
+            f"{us:.2f} us over {n} layer caches, bound {bound:.2f} us "
+            f"(bytes), max_abs_err {err:.3e}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[13b] phase took {out['seconds']:.1f}s")
     return out
 
 
@@ -2310,6 +3160,12 @@ def main():
     eagle = run_eagle(res)
     serve = run_serve(res)
     k1["serve_launches"] = serve["serve_launches"]
+    weights = run_weights(res, serve)
+    k1["weights_launches"] = weights["launches"]
+    quant = run_quant(res)
+    k1["quant_launches"] = {label: quant[label]["launches"]
+                            for label in ("int8 target", "int4 target",
+                                          "int8 draft")}
     profile_k1()
     res["profile"]()
     sampling["profile"]()
@@ -2327,6 +3183,28 @@ def main():
         f"{serve['continuous']['tok_s']:.1f} tokens/s, idle share "
         f"{serve['continuous']['idle']:.3f}, == solo "
         f"{all(serve['continuous']['solo'])}")
+    # the 7B weights and generators go before the 13B model comes
+    del res, sampling, distill, eagle, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[13b] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"after the 7B phases are released")
+    big = run_13b()
+    k1["launches_13b"] = big["launches"]
+    k1["ms_40_heads"] = big["k1_us"] / 1e3
+    log(f"[quant] on {card}: per replayed AR token / verify step (ms): "
+        f"bf16 {quant['bf16']['ar_replay_ms']:.3f} / "
+        f"{quant['bf16']['step_replay_ms']:.3f}; "
+        + "; ".join(f"{label} {quant[label]['ar_replay_ms']:.3f} / "
+                    f"{quant[label]['step_replay_ms']:.3f} (peak "
+                    f"{quant[label]['peak'] / 2**30:.2f} GiB)"
+                    for label in ("int8 target", "int4 target",
+                                  "int8 draft"))
+        + f"; 13B int8 {big['ar_replay_ms']:.3f} / "
+        f"{big['step_replay_ms']:.3f} (peak {big['peak'] / 2**30:.2f} GiB);"
+        f" K1 {k1['ms'] * 1e3:.2f} us at 32 heads, {big['k1_us']:.2f} us "
+        f"at 40; checkpoint write {weights['write_s']:.1f}s, load "
+        f"{weights['load_s']:.1f}s")
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

@@ -3,10 +3,13 @@
 The port's own copy of the JAX package's configs (``msd_tpu/configs.py``):
 the same field names, defaults and constructors, so a config built with the
 same arguments on either side means the same model. Only the fields the
-port reads are here; the sampling and attention-backend options of the
-JAX configs come with the code that reads them. The port always verifies
-with window-canonical attention (the JAX ``canonical_attn=True`` default)
-and always gives the draft's fc a bias (``fc_bias=True``).
+port reads are here. Left out: ``attn_impl`` and ``pallas_min_s`` (the
+port routes every row group of at most 4 grouped query rows to its
+decode-attention kernel), ``canonical_attn=False`` and ``canonical_ar``
+(the port always verifies with window-canonical attention, the JAX
+default), and the Qwen fields. The draft's fc always has a bias
+(``fc_bias=True``). Quantized weights are a property of the param dicts
+(``models.llama.quantize_llama_params``), not of these configs.
 """
 
 from __future__ import annotations
@@ -43,6 +46,12 @@ class LlamaConfig:
     @staticmethod
     def llava_7b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def llava_13b() -> "LlamaConfig":
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_hidden_layers=40, num_attention_heads=40,
+                           num_key_value_heads=40)
 
     @staticmethod
     def tiny(vocab_size: int = 256, hidden_size: int = 64, layers: int = 2,

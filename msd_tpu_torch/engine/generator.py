@@ -95,11 +95,19 @@ class MSDGenerator:
     def state(self, state: Optional[SE.EngineState]) -> None:
         """Adopt a state (a batched state of one lane, or a lane view); it
         is also the batches' state of one lane, and the states of larger
-        batches are released."""
+        batches are released with their graphs."""
+        for dropped in getattr(self, "lane_states", {}).values():
+            self._release(dropped)
         self.bstate = None if state is None else SE.as_lanes(state)
         self._state = None if state is None else SE.lane(self.bstate, 0)
         self.lane_states: Dict[int, SE.EngineState] = \
             {} if state is None else {1: self.bstate}
+
+    def _release(self, state: SE.EngineState) -> None:
+        """Release the graphs captured over ``state``, so its buffers can
+        be freed (as ``ContinuousScheduler.close`` does for its own)."""
+        if self.graphs is not None:
+            self.graphs.drop({t.data_ptr() for t in SE.state_tensors(state)})
 
     @property
     def eng(self) -> EngineConfig:
@@ -323,7 +331,8 @@ class MSDGenerator:
     def generate_batch(self, ids_list: Sequence,
                        img_feats_list: Optional[Sequence] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,
-                       sp: Optional[SamplingParams] = None
+                       sp: Optional[SamplingParams] = None,
+                       seeds: Optional[Sequence[int]] = None
                        ) -> List[GenResult]:
         """Batched speculative generation: the B prompts decode together as
         the lanes of one batched state (the JAX package's ``vmap`` of its
@@ -338,33 +347,40 @@ class MSDGenerator:
         verifies of other node counts do (ROADMAP section 3).
         ``img_feats_list``: one [n_img, H] tensor or None per prompt.
 
-        One state of B lanes per batch size B is kept (``lane_states``;
-        B = 1 is the one-request state), and on the card one graph per
-        (configuration, B) is captured at its first use.
+        B is run on a state of the next power of two of lanes, the pad
+        lanes kept out of every step (``stop_at`` 0; a step computes them
+        and commits nothing of theirs), so a generator keeps at most the
+        states of 1, 2, 4, 8, ... lanes (``lane_states``; 1 is the
+        one-request state) and on the card one graph per (configuration,
+        lane count), captured at its first use.
 
         Sampling: lane b draws from its own generator seeded with
-        ``seed + b``, so lane b reproduces ``generate(..., seed=seed + b)``.
-        This departs from the JAX package, whose lanes take
-        ``jax.random.split(PRNGKey(seed), B)``, a stream the port does not
-        reproduce (no random stream of the port is JAX's)."""
+        ``seeds[b]`` (default ``seed + b``), so lane b reproduces
+        ``generate(..., seed=seeds[b])``. This departs from the JAX
+        package, whose lanes take ``jax.random.split(PRNGKey(seed), B)``, a
+        stream the port does not reproduce (no random stream of the port is
+        JAX's)."""
         B = len(ids_list)
+        lanes = 1 << (B - 1).bit_length()
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp)
         feats = list(img_feats_list) if img_feats_list is not None \
             else [None] * B
+        seeds = [seed + b for b in range(B)] if seeds is None else seeds
         prompts = [self._prompt(ids) for ids in ids_list]   # validates all
-        state = self.lane_states.get(B)
+        state = self.lane_states.get(lanes)
         if state is None:
-            state = self.lane_states[B] = self.alloc_lanes(B)
-        rngs = [self.lane_rng(b).manual_seed(seed + b) for b in range(B)]
+            state = self.lane_states[lanes] = self.alloc_lanes(lanes)
+        rngs = [self.lane_rng(b).manual_seed(int(s))
+                for b, s in enumerate(seeds)]
         with record_function("prefill"):
             for b, (ids, padded, img_pos) in enumerate(prompts):
                 SE.prefill(st, self.params, SE.lane(state, b), padded,
                            len(ids), feats[b], img_pos, rng=rngs[b])
         step = self.step_fn(SE.decode_step, st, state)
         with record_function("decode"):
-            SE.decode_until(st, self.params, state, [max_new] * B, step,
-                            rngs)
+            SE.decode_until(st, self.params, state,
+                            [max_new] * B + [0] * (lanes - B), step, rngs)
         cur, steps = _host(state.cur_len), _host(state.steps)
         acc, hist = _host(state.acc_sum), _host(state.alpha_hist)
         ids_host = _host(state.ids)

@@ -502,7 +502,9 @@ def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
         _medusa_layout(st.tree, st.dcfg.medusa_heads, str(last_hidden.device))
     B, N = last_hidden.shape[0], st.tree.num_nodes
     dp = params["draft"]
-    head = params["target"]["lm_head"]
+    # a quantized head is read dequantized, as the verify reads it (the
+    # JAX expansions multiply by its raw integers: ROADMAP section 3)
+    head = L._w(params["target"], "lm_head", last_hidden.dtype)
     mh = draft_mod.medusa_hiddens(dp["medusa"], last_hidden)    # [Km, B, H]
     xs = torch.cat([last_hidden[:, None], mh[:d_use - 1].transpose(0, 1)],
                    dim=1)                                       # [B, d_use, H]
@@ -577,7 +579,8 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     t = st.tree
     K, D, n_draft = t.top_k, t.max_depth, t.num_draft
     B, H = last_hidden.shape
-    dp, head = params["draft"], params["target"]["lm_head"]
+    dp = params["draft"]
+    head = L._w(params["target"], "lm_head", last_hidden.dtype)
     cos_t, sin_t = params["cos_t"], params["sin_t"]
     dev = last_hidden.device
     logits0 = (last_hidden @ head).float()                          # [B, V]
@@ -663,7 +666,8 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
     B = last_hidden.shape[0]
     plan = static_tree.static_plan(t.static_choices, t.max_path_len,
                                    t.num_nodes, str(dev))
-    dp, head = params["draft"], params["target"]["lm_head"]
+    dp = params["draft"]
+    head = L._w(params["target"], "lm_head", last_hidden.dtype)
     kpos = torch.arange(st.s_draft, device=dev)
     rel = kpos - E[:, None] + 1         # node id whose scratch row is kpos
     relc = torch.clamp(rel, 0, plan.n - 1)                     # [B, S_d]

@@ -115,3 +115,40 @@ def clip_encode(params: Params, cfg: ClipVisionConfig,
     for li in range(n_run):
         x = _block({name: w[li] for name, w in layers.items()}, cfg, x)
     return x[1:]  # drop CLS
+
+
+def params_from_hf_clip(state: Dict[str, torch.Tensor], cfg: ClipVisionConfig,
+                        prefix: str = "vision_model.", dtype=torch.float32,
+                        device="cuda") -> Params:
+    """The tower from HF CLIPVisionModel weights: Linear [out, in] kept as
+    ``x @ W`` [in, out]; the patch conv [H, 3, P, P] reshaped to the unfold
+    layout [3*P*P, H] (channel-major within a patch)."""
+    from msd_tpu_torch.models.llama import upload
+
+    def get(name, transpose=False):
+        return upload(state[prefix + name], device, dtype, transpose)
+
+    names = {"ln1_w": ("layer_norm1.weight", False),
+             "ln1_b": ("layer_norm1.bias", False),
+             "ln2_w": ("layer_norm2.weight", False),
+             "ln2_b": ("layer_norm2.bias", False),
+             "fc1": ("mlp.fc1.weight", True), "fc1_b": ("mlp.fc1.bias", False),
+             "fc2": ("mlp.fc2.weight", True), "fc2_b": ("mlp.fc2.bias", False)}
+    for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                         ("o", "out_proj")):
+        names[f"{ours}_proj"] = (f"self_attn.{theirs}.weight", True)
+        names[f"{ours}_bias"] = (f"self_attn.{theirs}.bias", False)
+    layers = {ours: torch.stack([
+        get(f"encoder.layers.{i}.{theirs}", transpose)
+        for i in range(cfg.num_hidden_layers)])
+        for ours, (theirs, transpose) in names.items()}
+    conv = state[prefix + "embeddings.patch_embedding.weight"]
+    return {
+        "patch_embed": upload(conv.reshape(cfg.hidden_size, -1), device,
+                              dtype, True),
+        "class_embed": get("embeddings.class_embedding"),
+        "pos_embed": get("embeddings.position_embedding.weight"),
+        "pre_ln_w": get("pre_layrnorm.weight"),
+        "pre_ln_b": get("pre_layrnorm.bias"),
+        "layers": layers,
+    }

@@ -6,7 +6,8 @@ expanded position j pairs the embedding of the NEXT token with the target
 hidden at j; rows inside the image span bypass fc and carry the shifted
 fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H],
 ``layers`` stacked as in ``models/llama``, medusa ``mw`` [K, H, H] and
-``mb`` [K, H].
+``mb`` [K, H]. ``quantize_draft_params`` stores the layer, ``fc_w`` and
+``mw`` as int8/int4 (read through ``llama._w``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from msd_tpu_torch.configs import DraftConfig
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.ops.attention import (attention_probs, masked_attention,
                                          put_rows, take_rows)
+from msd_tpu_torch.ops.quant import quantize_tensor
 from msd_tpu_torch.ops.rope import apply_rope
 
 Params = Dict
@@ -57,7 +59,7 @@ def init_medusa_params(cfg: DraftConfig, generator: torch.Generator,
 def medusa_hiddens(mp: Params, x: torch.Tensor) -> torch.Tensor:
     """x: [..., H] depth-1 draft hidden -> [K, ..., H] per-depth hiddens,
     h_k = x + silu(x @ mw[k] + mb[k]). All K heads read the same x."""
-    mw, mb = mp["mw"], mp["mb"]
+    mw, mb = L._w(mp, "mw"), mp["mb"]
     y = torch.einsum("...h,khg->k...g", x.to(mw.dtype), mw)
     y = y + mb.reshape((mb.shape[0],) + (1,) * (x.dim() - 1) + (mb.shape[-1],))
     return x[None] + F.silu(y.float()).to(x.dtype)
@@ -69,7 +71,7 @@ def draft_fuse(params: Params, emb_next: torch.Tensor,
     """fc([emb_next, target_hidden]) with image rows passing emb_next
     through. emb_next, target_hidden: [T, H]; image_row_mask: [T] bool."""
     x = torch.cat([emb_next, target_hidden.to(emb_next.dtype)], dim=-1)
-    fc_w = params["fc_w"]
+    fc_w = L._w(params, "fc_w")
     fused = x.to(fc_w.dtype) @ fc_w
     if "fc_b" in params:
         fused = fused + params["fc_b"]
@@ -124,8 +126,8 @@ def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
     values, so the port keeps them. ``rows`` limits the query rows."""
     hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     lanes = x.dim() - 2
-    q = (x @ lp["q_proj"]).unflatten(-1, (hq, d))
-    k = (x @ lp["k_proj"]).unflatten(-1, (hkv, d))
+    q = (x @ L._w(lp, "q_proj", x.dtype)).unflatten(-1, (hq, d))
+    k = (x @ L._w(lp, "k_proj", x.dtype)).unflatten(-1, (hkv, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     keys = kv_k.clone()
     wrows = L.update_rows(kv_k.shape[-3], write_pos, x.shape[-2], x.device)
@@ -160,3 +162,49 @@ def init_draft_kv(cfg: DraftConfig, max_len: int, dtype=torch.float32,
                   device="cuda") -> Params:
     return L.init_kv_cache(cfg.text, max_len, dtype, device,
                            num_layers=cfg.num_layers)
+
+
+def quantize_draft_params(params: Params, bits: int = 8) -> Params:
+    """Weight-only int8/int4 transform of the draft (decoder layers, the fc
+    fuse, the medusa resblocks). Lossless for committed tokens: the draft
+    only proposes and the target decides, so it may change alpha, never
+    the greedy trajectory. ``embed_tokens`` (a gather, usually the
+    target's own), biases and norms stay as they are."""
+    out = dict(params)
+    out["layers"] = L.quantize_layer(params["layers"], bits)
+    sfx = L.quant_suffix(bits)
+    if "fc_w" in out:
+        out["fc_w"], out["fc_w" + sfx] = quantize_tensor(out["fc_w"], -2,
+                                                         bits)
+    if "medusa" in out and "mw" in out["medusa"]:
+        med = dict(out["medusa"])
+        med["mw"], med["mw" + sfx] = quantize_tensor(med["mw"], -2, bits)
+        out["medusa"] = med
+    return out
+
+
+def params_from_torch_draft(state: Dict[str, torch.Tensor], cfg: DraftConfig,
+                            dtype=torch.float32, device="cuda") -> Params:
+    """The draft param dict from a reference draft checkpoint (the
+    cnets.Model state_dict layout: ``layers.{i}.*`` as HF LLaMA layers,
+    layer 0 without ``input_layernorm``, ``fc.weight`` [H, 2H],
+    ``fc.bias``, ``embed_tokens.weight``)."""
+    h = cfg.text.hidden_size
+    layers = {}
+    for ours, (theirs, transpose) in L._HF_LAYER_MAP.items():
+        rows = []
+        for i in range(cfg.num_layers):
+            key = f"layers.{i}.{theirs}"
+            if ours == "input_layernorm" and key not in state:
+                rows.append(torch.ones(h, dtype=dtype, device=device))
+                continue
+            rows.append(L.upload(state[key], device, dtype, transpose))
+        layers[ours] = torch.stack(rows)
+    p = {
+        "embed_tokens": L.upload(state["embed_tokens.weight"], device, dtype),
+        "fc_w": L.upload(state["fc.weight"], device, dtype, True),
+        "layers": layers,
+    }
+    if "fc.bias" in state:
+        p["fc_b"] = L.upload(state["fc.bias"], device, dtype)
+    return p

@@ -12,6 +12,10 @@ B x T rows.
   ``lm_head`` ``[H, V]``; ``embed_tokens`` ``[V, H]``.
 - KV cache ``{"k", "v"}`` of ``[L, S, Hkv, D]`` (``[B, L, S, Hkv, D]``
   with lanes), seq-major.
+- Weight-only int8/int4 weights (``quantize_llama_params``): the integers
+  under the weight's name, the fp32 scales under ``<name>_qs`` (int8) or
+  ``<name>_qs4`` (int4, packed along the last axis); every weight read
+  goes through ``_w``, which dequantizes.
 
 Unlike JAX, the KV cache is updated IN PLACE: ``llama_forward`` writes the
 new rows at ``write_pos`` into the caller's cache tensors and returns the
@@ -32,6 +36,8 @@ from msd_tpu_torch.ops.attention import (masked_attention, put_rows,
 from msd_tpu_torch.ops.decode_attention import (KERNEL_MAX_GT,
                                                 decode_attention)
 from msd_tpu_torch.ops.norms import rms_norm
+from msd_tpu_torch.ops.quant import (dequantize, dequantize_int4,
+                                     quantize_tensor)
 from msd_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = Dict
@@ -107,6 +113,20 @@ def _layer(lp_all: Params, li: int) -> Params:
     return {name: w[li] for name, w in lp_all.items()}
 
 
+def _w(lp: Params, name: str, dtype=None) -> torch.Tensor:
+    """Weight ``name`` of ``lp``, dequantized (bf16, as in JAX) when it is
+    stored int8 or int4, then cast to ``dtype`` (the activation dtype of
+    the product: torch does not promote a bf16 weight against fp32
+    activations as JAX does)."""
+    if name + "_qs4" in lp:
+        w = dequantize_int4(lp[name], lp[name + "_qs4"])
+    elif name + "_qs" in lp:
+        w = dequantize(lp[name], lp[name + "_qs"])
+    else:
+        w = lp[name]
+    return w if dtype is None else w.to(dtype)
+
+
 def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                positions: torch.Tensor, cos_t, sin_t, skip_input_norm: bool):
     """Pre-attention projections. Returns (q, k, v) as [..., T, H*, D]."""
@@ -116,21 +136,22 @@ def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                                            cfg.rms_norm_eps)
     # matmuls in the param dtype even when the residual rides in fp32
     h = h.to(lp["input_layernorm"].dtype)
-    q = (h @ lp["q_proj"].T).unflatten(-1, (hq, d))
-    k = (h @ lp["k_proj"].T).unflatten(-1, (hkv, d))
-    v = (h @ lp["v_proj"].T).unflatten(-1, (hkv, d))
+    q = (h @ _w(lp, "q_proj", h.dtype).T).unflatten(-1, (hq, d))
+    k = (h @ _w(lp, "k_proj", h.dtype).T).unflatten(-1, (hkv, d))
+    v = (h @ _w(lp, "v_proj", h.dtype).T).unflatten(-1, (hkv, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     return q, k, v
 
 
 def _layer_post_attn(lp: Params, cfg: LlamaConfig, resid: torch.Tensor,
                      attn: torch.Tensor) -> torch.Tensor:
-    x = resid + (attn.flatten(-2) @ lp["o_proj"]).to(resid.dtype)
+    x = resid + (attn.flatten(-2) @ _w(lp, "o_proj", attn.dtype)) \
+        .to(resid.dtype)
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     h = h.to(lp["post_attention_layernorm"].dtype)
-    gate = F.silu((h @ lp["gate_proj"]).float()).to(h.dtype)
-    up = h @ lp["up_proj"]
-    return x + ((gate * up) @ lp["down_proj"]).to(resid.dtype)
+    gate = F.silu((h @ _w(lp, "gate_proj", h.dtype)).float()).to(h.dtype)
+    up = h @ _w(lp, "up_proj", h.dtype)
+    return x + ((gate * up) @ _w(lp, "down_proj", h.dtype)).to(resid.dtype)
 
 
 def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
@@ -211,7 +232,7 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
 
 def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """[T, H] -> [T, V] logits in fp32."""
-    return (hidden @ params["lm_head"]).float()
+    return (hidden @ _w(params, "lm_head", hidden.dtype)).float()
 
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -220,3 +241,96 @@ def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 def make_rope(cfg: LlamaConfig, max_seq_len: int, device="cuda"):
     return rope_table(max_seq_len, cfg.head_dim, cfg.rope_theta, device)
+
+
+# weight-only quantization: the contraction axis of each weight. q/k/v
+# stacks are [L, out, in] (in contracted); the rest [L, in, out] or
+# [in, out]. Norms, biases and embeddings stay as they are (few bytes; the
+# embedding is a gather, not a product).
+_QUANT_AXES = {"q_proj": -1, "k_proj": -1, "v_proj": -1,
+               "o_proj": -2, "gate_proj": -2, "up_proj": -2, "down_proj": -2}
+
+
+def quant_suffix(bits: int) -> str:
+    return "_qs" if bits == 8 else "_qs4"
+
+
+def quantize_layer(lp: Params, bits: int = 8) -> Params:
+    """The weight-only int8/int4 transform of one layer's (or one stack of
+    layers') weights: each weight of ``_QUANT_AXES`` in ``lp`` becomes its
+    integers plus its scales."""
+    out = dict(lp)
+    for name, axis in _QUANT_AXES.items():
+        if name in lp:
+            out[name], out[name + quant_suffix(bits)] = quantize_tensor(
+                lp[name], axis, bits)
+    return out
+
+
+def quantize_llama_params(params: Params, quant_lm_head: bool = True,
+                          bits: int = 8) -> Params:
+    """Weight-only int8/int4 transform of a stacked LLaMA param dict (the
+    JAX ``quantize_llama_params``; the reference's load-8bit/load-4bit
+    serving). int4 scales live under ``_qs4`` keys so ``_w`` unpacks."""
+    out = dict(params)
+    out["layers"] = quantize_layer(params["layers"], bits)
+    if quant_lm_head:
+        out["lm_head"], out["lm_head" + quant_suffix(bits)] = \
+            quantize_tensor(params["lm_head"], -2, bits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HF weight import (a flat state dict of host tensors -> the stacked dict)
+# ---------------------------------------------------------------------------
+
+_HF_LAYER_MAP = {
+    "input_layernorm": ("input_layernorm.weight", False),
+    "post_attention_layernorm": ("post_attention_layernorm.weight", False),
+    "q_proj": ("self_attn.q_proj.weight", False),  # kept [out, in]
+    "k_proj": ("self_attn.k_proj.weight", False),
+    "v_proj": ("self_attn.v_proj.weight", False),
+    "o_proj": ("self_attn.o_proj.weight", True),
+    "gate_proj": ("mlp.gate_proj.weight", True),
+    "up_proj": ("mlp.up_proj.weight", True),
+    "down_proj": ("mlp.down_proj.weight", True),
+}
+
+
+def upload(t: torch.Tensor, device, dtype, transpose: bool = False
+           ) -> torch.Tensor:
+    """A host tensor on ``device`` in ``dtype``: one copy in its source
+    dtype, then the cast and the transpose of its last two axes on the
+    device (made contiguous, so products read it as a freshly made
+    weight)."""
+    x = t.to(device).to(dtype)
+    return x.transpose(-1, -2).contiguous() if transpose else x
+
+
+def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                   prefix: str = "model.", dtype=torch.float32,
+                   device="cuda") -> Params:
+    """The stacked param dict from a HF-LLaMA flat state dict of host
+    tensors (HF Linear stores [out, in]; o/gate/up/down and lm_head are
+    kept [in, out]).
+
+    Per weight, the L layers are stacked into one host tensor in the
+    SOURCE dtype (plain copies), uploaded with one copy, then cast and
+    transposed on the device, as the JAX version does (its 7B load took 23
+    minutes converting tensor by tensor, one minute this way)."""
+    L = cfg.num_hidden_layers
+    stacked = {}
+    for ours, (theirs, transpose) in _HF_LAYER_MAP.items():
+        first = state[f"{prefix}layers.0.{theirs}"]
+        buf = torch.empty((L,) + tuple(first.shape), dtype=first.dtype)
+        for i in range(L):
+            buf[i] = state[f"{prefix}layers.{i}.{theirs}"]
+        stacked[ours] = upload(buf, device, dtype, transpose)
+        del buf
+    return {
+        "embed_tokens": upload(state[f"{prefix}embed_tokens.weight"], device,
+                               dtype),
+        "layers": stacked,
+        "norm": upload(state[f"{prefix}norm.weight"], device, dtype),
+        "lm_head": upload(state["lm_head.weight"], device, dtype, True),
+    }

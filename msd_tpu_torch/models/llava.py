@@ -84,3 +84,17 @@ def fuse_embeddings(embed_table: torch.Tensor, ids: torch.Tensor,
     img_idx = torch.clamp(j - img_pos, 0, n_img - 1)
     img_emb = img_feats[img_idx].to(text_emb.dtype)
     return torch.where(in_img[:, None], img_emb, text_emb)
+
+
+def params_from_hf_projector(state: Dict[str, torch.Tensor],
+                             dtype=torch.float32, device="cuda",
+                             prefix: str = "model.mm_projector.") -> Params:
+    """The projector from a LLaVA state dict (``{prefix}0.*``, ``{prefix}2.*``
+    Linear layers, stored [out, in])."""
+    from msd_tpu_torch.models.llama import upload
+
+    def get(name, transpose=False):
+        return upload(state[prefix + name], device, dtype, transpose)
+
+    return {"fc1": get("0.weight", True), "fc1_b": get("0.bias"),
+            "fc2": get("2.weight", True), "fc2_b": get("2.bias")}

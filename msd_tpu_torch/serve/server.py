@@ -29,8 +29,10 @@ error. A request's sampling parameters are the generator's with the
 request's temperature and top_p. ``use_msd: false`` decodes with the AR
 baseline. Build the adapter (``serve/adapter.py``) and call
 ``serve_forever(adapter, port)``, then ``serve_forever()`` on the returned
-server; a command-line entry that loads a checkpoint comes with the
-port's weight loading.
+server, or serve a checkpoint from the command line:
+
+  python -m msd_tpu_torch.serve.server --pretrained <llava dir> \
+      --msd_model_path <draft dir> [--port 8399] [--continuous N]
 """
 
 from __future__ import annotations
@@ -185,15 +187,18 @@ class EngineWorker(threading.Thread):
         return self._decode_result(r.tokens, time.time() - t0, r)
 
     def _handle_group(self, group):
-        """Serve compatible requests as the lanes of one batched step."""
+        """Serve compatible requests as the lanes of one batched step, each
+        lane drawing from its own request's seed."""
         preps = [self._prep(g.payload) for g in group]
         ids_list = [pr[0] for pr in preps]
         feats_list = ([pr[1] for pr in preps]
                       if preps[0][1] is not None else None)
         _, _, sp, max_new, _ = preps[0]
         t0 = time.time()
+        seeds = [int(g.payload.get("seed", 0)) for g in group]
         rs = self.adapter.gen.generate_batch(ids_list, feats_list,
-                                             max_new_tokens=max_new, sp=sp)
+                                             max_new_tokens=max_new, sp=sp,
+                                             seeds=seeds)
         dt = time.time() - t0
         self.batches += 1
         for g, r in zip(group, rs):
@@ -448,3 +453,52 @@ def shutdown(httpd) -> None:
     httpd.server_close()
     httpd.worker.stop()
     httpd.worker.join(timeout=60)
+
+
+def parse_args(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser("msd_tpu_torch.serve")
+    ap.add_argument("--pretrained", required=True)
+    ap.add_argument("--msd_model_path", required=True)
+    ap.add_argument("--port", type=int, default=8399)
+    ap.add_argument("--no-msd", dest="use_msd", action="store_false")
+    ap.add_argument("--max-seq-len", type=int, default=None,
+                    help="allocated KV length per request")
+    ap.add_argument("--continuous", type=int, default=0, metavar="N",
+                    help="continuous batching over N slots (0 = static "
+                         "micro-batching); each slot owns a full KV "
+                         "allocation: size N to the free device memory")
+    ap.add_argument("--segment", type=int, default=16,
+                    help="tokens per scheduling segment in continuous mode")
+    ap.add_argument("--device", default="cuda",
+                    help="weights in bf16 on a CUDA device, else fp32")
+    return ap.parse_args(argv)
+
+
+def server_from_args(args):
+    """The server ``main`` runs: the checkpoint's adapter
+    (``ServeAdapter.from_pretrained``) behind ``serve_forever``; the
+    caller runs its ``serve_forever()``."""
+    import torch
+
+    from msd_tpu_torch.serve.adapter import ServeAdapter
+
+    kw = {"max_seq_len": args.max_seq_len} if args.max_seq_len else {}
+    adapter = ServeAdapter.from_pretrained(
+        args.pretrained, args.msd_model_path,
+        dtype=torch.bfloat16 if args.device.startswith("cuda")
+        else torch.float32, device=args.device,
+        use_msd=args.use_msd, **kw)
+    return serve_forever(adapter, args.port, continuous=args.continuous,
+                         segment=args.segment)
+
+
+def main(argv=None):
+    httpd = server_from_args(parse_args(argv))
+    print(f"serving on :{httpd.server_address[1]}", flush=True)
+    httpd.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

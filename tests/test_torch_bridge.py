@@ -130,9 +130,10 @@ PORT_FILES = sorted((REPO / "msd_tpu_torch").rglob("*.py")) + \
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_imports_neither_jax_nor_msd_tpu(path):
     """The card's machine has no JAX: no module of the port, and not the
-    smoke, may import jax or anything of the JAX package."""
+    smoke, may import jax or anything of the JAX package; nor safetensors,
+    which the card's machine lacks too (the port has its own reader)."""
     banned = ("jax", "jaxlib", "msd_tpu", "flax", "optax", "orbax",
-              "ml_dtypes")
+              "ml_dtypes", "safetensors")
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         names = []
         if isinstance(node, ast.Import):

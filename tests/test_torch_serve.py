@@ -210,7 +210,7 @@ def test_generate_batch_mixed_images_and_reuse(medusa):
     first = tgen.generate_batch(prompts, fl, MAX_NEW)
     tgen.generate_batch([_ids(23, 40)] * 3, None, MAX_NEW)
     again = tgen.generate_batch(prompts, fl, MAX_NEW)
-    assert sorted(tgen.lane_states) == [1, 3]
+    assert sorted(tgen.lane_states) == [1, 4]     # 3 lanes padded to 4
     assert tgen.lane_states[1] is tgen.bstate
     for s, a, b in zip(solos, first, again):
         _same(a, s)
@@ -266,6 +266,53 @@ def test_inactive_lane_is_left_unchanged(medusa):
                            before.draft_kv[key][:, :d])
     assert int(SE.lane(state, 0).steps) == 2 and int(lane1.steps) == 1
     assert state.live.tolist() == [True, False]
+
+
+def test_batches_keep_power_of_two_lane_states(medusa):
+    """Batches of 1..8 prompts run on states of 1, 2, 4 and 8 lanes (the
+    pad lanes out of every step), so only those states are kept; a padded
+    batch of 3 commits, lane for lane, the tokens of the unpadded batch of
+    4 that holds the same 3 prompts and of their solo runs."""
+    _, tgen, _, _ = medusa
+    prompts = [_ids(80 + i, 9 + 3 * i) for i in range(8)]
+    runs = {B: tgen.generate_batch(prompts[:B], max_new_tokens=8)
+            for B in range(1, 9)}
+    assert sorted(tgen.lane_states) == [1, 2, 4, 8]
+    assert tgen.lane_states[1] is tgen.bstate
+    assert tgen.lane_states[4].ids.shape[0] == 4
+    for b in range(3):
+        _same(runs[3][b], runs[4][b])
+        _same(runs[3][b], tgen.generate(prompts[b], max_new_tokens=8))
+    for B in (5, 6, 7):
+        for b in range(B):
+            _same(runs[B][b], runs[8][b])
+
+
+def test_micro_batched_requests_keep_their_seeds(served):
+    """Two sampled /generate requests with seeds 5 and 9, queued together
+    so the micro-batching worker serves them as the lanes of one batch:
+    each answer equals the request's solo answer."""
+    adapter, _ = served
+    payloads = [{"prompt": "count to ten", "max_new_tokens": 12,
+                 "temperature": 8.0, "seed": s} for s in (5, 9)]
+    worker = TServer.EngineWorker(adapter)
+    works = [TServer._Work(p) for p in payloads]
+    for w in works:
+        worker.q.put(w)
+    worker.start()
+    try:
+        for w in works:
+            assert w.done.wait(timeout=120) and w.error is None, w.error
+        assert worker.batches == 1
+        assert [w.result["batch_size"] for w in works] == [2, 2]
+        solo = [worker._handle(p) for p in payloads]
+    finally:
+        worker.stop()
+        worker.join(timeout=60)
+    for w, s in zip(works, solo):
+        assert w.result["text"] == s["text"]
+        assert w.result["tokens_generated"] == s["tokens_generated"]
+    assert solo[0]["text"] != solo[1]["text"]
 
 
 # ---------------------------------------------------------------------------
@@ -508,24 +555,70 @@ def test_http_server_refuses_images_without_an_encoder(served):
         TServer.shutdown(httpd)
 
 
-def test_smoke_serve_phase_at_tiny_size():
-    """chip_smoke.run_serve on the CPU at a tiny width, after its main
-    path: a tiny CLIP tower, generate_batch at B = 1, 2, 4 (each lane ==
-    its null-draft tokens, graph == eager), the continuous schedule
-    (== null-draft), the stream and the HTTP server in continuous mode
-    (each text == its solo repeat); the phase raises otherwise."""
+SMOKE_CFG = dataclasses.replace(
+    TC.LlamaConfig.tiny(vocab_size=512, hidden_size=256, layers=2, heads=2,
+                        intermediate_size=512, max_pos=2048),
+    residual_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def smoke_serve():
+    """chip_smoke's main path and [serve] phase on the CPU at a tiny
+    width (a tiny CLIP tower whose 56-pixel images give the main path's
+    16 rows, with CLIP's 64-dim heads, which a checkpoint's loader
+    assumes)."""
     import chip_smoke
 
-    cfg = dataclasses.replace(
-        TC.LlamaConfig.tiny(vocab_size=512, hidden_size=256, layers=2,
-                            heads=2, intermediate_size=512, max_pos=2048),
-        residual_dtype="float32")
-    res = chip_smoke.run_main_path(cfg, (4, 3, 2, 2, 1), 384, 24, 16, 20,
-                                   device="cpu", dtype=torch.float32)
+    res = chip_smoke.run_main_path(SMOKE_CFG, (4, 3, 2, 2, 1), 384, 24, 16,
+                                   20, device="cpu", dtype=torch.float32)
     out = chip_smoke.run_serve(res, vision=TC.ClipVisionConfig.tiny(
-        hidden_size=32, layers=2, heads=4, image_size=56, patch_size=14,
-        intermediate_size=64), http_new=12)
+        hidden_size=128, layers=2, heads=2, image_size=56, patch_size=14,
+        intermediate_size=256), http_new=12)
+    return res, out
+
+
+def test_smoke_serve_phase_at_tiny_size(smoke_serve):
+    """chip_smoke.run_serve on the CPU at a tiny width, after its main
+    path: a tiny CLIP tower, generate_batch at B = 1, 2, 4 over image
+    prompts and at B = 2, 4 over text prompts (each lane == its
+    null-draft tokens, graph == eager, and on the CPU == its solo run), the
+    continuous schedule (== null-draft), the stream and the HTTP server in
+    continuous mode (each text == its solo repeat); the phase raises
+    otherwise."""
+    _, out = smoke_serve
     assert sorted(out["batch"]) == [1, 2, 4]
     assert all(all(v["solo"]) for v in out["batch"].values())
+    assert sorted(out["text_batch"]) == [2, 4]
+    assert all(all(v) for v in out["text_batch"].values())
+    assert "divergence" not in out        # no lane differs on the CPU
     assert out["continuous"]["joins"] == 8 and all(out["continuous"]["solo"])
     assert out["serve_launches"] == 0     # CPU tensors take the plain twin
+
+
+def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
+    """chip_smoke's [weights], [quant] and [13b] phases on the CPU at a
+    tiny width: the checkpoint written, read back bitwise and served by
+    server.main's server equal to the weights in memory; int8 and int4
+    targets and an int8 draft lossless, graph == eager, the oracle at full
+    depth (the layer-by-layer quantization equal to
+    quantize_llama_params); the 13B phase's path on a tiny int8 target.
+    Each phase raises otherwise."""
+    import chip_smoke
+    from msd_tpu_torch.models import llama as TL
+
+    res, serve = smoke_serve
+    weights = chip_smoke.run_weights(res, serve, http_new=12)
+    assert all(weights["same"].values()) and weights["launches"] == 0
+    quant = chip_smoke.run_quant(res)
+    assert {k for k in quant if k != "seconds"} == {
+        "int8 target", "int4 target", "int8 draft"}
+    tp = res["ctx"]["gens"]["graph"].params["target"]
+    for bits in (8, 4):
+        mine = bridge.flatten(chip_smoke.quantized_target(tp, bits))
+        want = bridge.flatten(TL.quantize_llama_params(tp, True, bits))
+        assert sorted(mine) == sorted(want)
+        assert all(torch.equal(mine[k], want[k]) for k in want)
+    big = chip_smoke.run_13b(max_new=12, device="cpu", prompt_tokens=20,
+                             n_img=16, widths=(4, 3, 2, 2, 1), max_seq=384,
+                             cfg=SMOKE_CFG)
+    assert big["launches"] == 0
