@@ -183,7 +183,7 @@ EAGLE_TRAIN_STEPS = 100
 AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
 # the serving phase: batch sizes of generate_batch, the continuous
 # batcher's slots and segment, new tokens per HTTP request
-SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 4), 4, 16
+SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
@@ -2061,8 +2061,8 @@ def lane_divergence(gen, prompts, feats, max_new: int, lane: int,
     from msd_tpu_torch.engine import spec_engine as SE
     from msd_tpu_torch.models import llama as Lm
 
-    st = gen._statics(max_new)
     lanes = 1 << (len(prompts) - 1).bit_length()
+    st = gen._statics(max_new, lanes=lanes)
 
     def prefilled(ps, fs, n):
         state = gen.alloc_lanes(n)
@@ -2158,62 +2158,26 @@ def lane_divergence(gen, prompts, feats, max_new: int, lane: int,
     return "; ".join(parts)
 
 
-def lane_gemm_cost(tcfg, dtype, lanes: int, rows: int) -> str:
-    """Device ms of one verify step's weight GEMMs (the 7 of each of
-    ``tcfg``'s layers and lm_head) for ``lanes`` lanes of ``rows`` rows:
-    as one product over lanes x rows rows (the engine's route), as one
-    product per lane (a route whose rounding cannot depend on the lane
-    count: each lane's product is the solo one) and as one batched
-    product over the lanes (``bmm``); and whether each route gives a lane
-    the bits of its solo product."""
-    import torch
-    h, inter, v = tcfg.hidden_size, tcfg.intermediate_size, tcfg.vocab_size
-    g = torch.Generator(device="cuda").manual_seed(5)
-    shapes = [(h, h)] * 4 + [(h, inter)] * 2 + [(inter, h)]
-    ws = [torch.randn(s, generator=g, device="cuda", dtype=dtype)
-          for s in shapes] + [torch.randn(h, v, generator=g, device="cuda",
-                                          dtype=dtype)]
-    xs = {k: torch.randn(lanes, rows, k, generator=g, device="cuda",
-                         dtype=dtype) for k in (h, inter)}
-    n = tcfg.num_hidden_layers
-
-    def one(i):
-        for w in ws[:-1]:
-            xs[w.shape[0]] @ w
-        if i == n - 1:
-            xs[h] @ ws[-1]
-
-    def per_lane(i):
-        for w in ws[:-1]:
-            for b in range(lanes):
-                xs[w.shape[0]][b] @ w
-        if i == n - 1:
-            for b in range(lanes):
-                xs[h][b] @ ws[-1]
-
-    def batched(i):
-        for w in ws[:-1]:
-            torch.bmm(xs[w.shape[0]], w.expand((lanes,) + w.shape))
-        if i == n - 1:
-            torch.bmm(xs[h], ws[-1].expand((lanes,) + ws[-1].shape))
-
-    # which routes give lane 1 the solo product's bits, per weight shape
-    same = {"one product": [], "bmm": []}
-    for w in ws:
-        x = xs[w.shape[0]]
-        solo = x[1] @ w
-        same["one product"].append(torch.equal((x @ w)[1], solo))
-        same["bmm"].append(torch.equal(
-            torch.bmm(x, w.expand((lanes,) + w.shape))[1], solo))
-    t_one = graph_ms(one, n) * n
-    t_lane = graph_ms(per_lane, n) * n
-    t_bmm = graph_ms(batched, n) * n
-    return (f"{n} layers' GEMMs + lm_head at {lanes} lanes x {rows} rows: "
-            f"{t_one:.3f} ms as one product, {t_lane:.3f} ms as one per "
-            f"lane (+{t_lane - t_one:.3f} ms per step), {t_bmm:.3f} ms as "
-            f"a batched product over the lanes (+{t_bmm - t_one:.3f} ms); "
-            f"lane 1 == its solo product per weight (q, k, v, o, gate, up, "
-            f"down, lm_head): {same}")
+def lane_step_ms(gen, prompts, feats, max_new: int, lanes: int,
+                 per_lane=None) -> float:
+    """Device ms per replayed verify step on a fresh state of ``lanes``
+    lanes whose first lanes hold ``prompts`` prefilled: with the products
+    the lane count computes one lane at a time (``Statics.per_lane``), or
+    with ``per_lane`` in their place (``frozenset()``: every product over
+    all lanes' rows). The state and its graph are released after."""
+    from msd_tpu_torch.engine import spec_engine as SE
+    st = gen._statics(max_new, lanes=lanes)
+    if per_lane is not None:
+        st = dataclasses.replace(st, per_lane=per_lane)
+    state = gen.alloc_lanes(lanes)
+    try:
+        for b, (ids, f) in enumerate(zip(prompts, feats)):
+            ids, padded, img_pos = gen._prompt(ids)
+            SE.prefill(st, gen.params, SE.lane(state, b), padded, len(ids),
+                       f, img_pos)
+        return _replay_ms(gen, gen.step_fn(SE.decode_step, st, state).index)
+    finally:
+        gen._release(state)
 
 
 def _png_b64(image: np.ndarray) -> str:
@@ -2236,12 +2200,15 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     staggered submission and mixed max_new; ``generate_stream``; and the
     HTTP server in continuous mode on a free port (concurrent text, image,
     stream and ``use_msd: false`` requests, /health). Raises unless every
-    batched lane and slot commits the null-draft tokens of its own batched
-    run (the same B, the same schedule), graph == eager, stream ==
-    one-shot, every HTTP text equals its solo repeat, the batched runs
-    launch no K1 and the ``use_msd: false`` request launches 32 per AR
-    token decoded. Batched == solo is printed, not gated: the B-lane
-    verify's bf16 GEMMs have other row counts than the solo one's."""
+    batched lane (image and text prompts) and every slot commits the
+    null-draft tokens of its own batched run (the same B, the same
+    schedule) and the tokens of its request run alone, graph == eager,
+    stream == one-shot, every HTTP text equals its solo repeat, the
+    batched runs launch no K1 and the ``use_msd: false`` request launches
+    32 per AR token decoded. A lane that departs from its solo run is
+    explained (``lane_divergence``) before the phase fails. On the card it
+    also times the replayed step of B = 3 on 3 lanes (unpadded) and, at
+    4 and 8 lanes, with and without the per-lane products."""
     import threading
     import urllib.request
 
@@ -2370,6 +2337,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                                rs[b].tokens) for b in range(B)]
         if differing is None and not all(solo):
             differing = (kind, ps, fs, solo.index(False))
+        lanes = 1 << (B - 1).bit_length()
+        per_lane = sorted(gen._statics(max_new, lanes=lanes).per_lane)
         if kind == "text":
             out["text_batch"][B] = solo
             log(f"[serve] generate_batch B={B}, text prompts: every lane "
@@ -2383,8 +2352,10 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
         step_ms = _replay_ms(gen, rs[0].graph) if on_card else float("nan")
         out["batch"][B] = {"ms_step": secs * 1e3 / steps,
                            "replay_ms": step_ms, "tok_s": toks / secs,
-                           "solo": solo}
-        log(f"[serve] generate_batch B={B}: every lane == its null-draft "
+                           "solo": solo, "lanes": lanes,
+                           "per_lane": per_lane}
+        log(f"[serve] generate_batch B={B} on {lanes} lanes (verify "
+            f"products per lane: {per_lane}): every lane == its null-draft "
             f"tokens of the same B: True; graph == eager: True; batched == "
             f"solo per lane: {solo}; {steps} steps, "
             f"{secs * 1e3 / steps:.2f} ms/step wall incl. the {B} "
@@ -2401,17 +2372,37 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                     if s.key[0].__name__ == "decode_step"})
     log(f"[serve] captures (B, index) of the verify step so far: {lanes}; "
         f"one per (configuration, draft, B); none in a timed window")
-    # why a lane departs from its solo run (ROADMAP section 3): the first
-    # op whose rows differ, and what a lane-count-invariant route costs
+    # a lane that departs from its solo run: the first op whose rows
+    # differ, then the phase fails
     if differing is not None:
         kind, ps, fs, b = differing
-        out["divergence"] = lane_divergence(eager, ps, fs, max_new, b)
+        report = lane_divergence(eager, ps, fs, max_new, b)
         log(f"[serve] batched != solo, {kind} B={len(ps)} lane {b}: "
-            f"{out['divergence']}")
+            f"{report}")
+        raise AssertionError(f"[serve] {kind} B={len(ps)} lane {b}: "
+                             f"batched tokens differ from its solo run")
+    # the price of the padded lanes and of the per-lane products
     if on_card:
-        log(f"[serve] lane-invariant route: "
-            + lane_gemm_cost(tcfg, dtype, max(batches),
-                             gen.eng.tree.num_nodes))
+        out["unpadded_3_ms"] = lane_step_ms(gen, img_prompts[:3],
+                                            [feats] * 3, max_new, 3)
+        out["route"] = {}
+        for n in (4, 8):
+            if n > max(batches):
+                continue
+            args = (gen, img_prompts[:n], [feats] * n, max_new, n)
+            ms = [lane_step_ms(*args), lane_step_ms(*args, frozenset()),
+                  lane_step_ms(*args, frozenset()), lane_step_ms(*args)]
+            out["route"][n] = {"per_lane": min(ms[0], ms[3]),
+                               "one_product": min(ms[1], ms[2])}
+        log(f"[serve] replayed step, B=3 on 3 lanes (unpadded): "
+            f"{out['unpadded_3_ms']:.3f} ms; " + "; ".join(
+                f"{n} lanes with the products "
+                f"{out['batch'][n]['per_lane']} per lane "
+                f"{v['per_lane']:.3f} ms, every product over all lanes "
+                f"{v['one_product']:.3f} ms (+"
+                f"{v['per_lane'] - v['one_product']:.3f} ms, "
+                f"{(v['per_lane'] - v['one_product']) / v['one_product']:.3f}"
+                f" of the step)" for n, v in out["route"].items()))
 
     # 3. continuous batching: one scheduler, the same schedule with the
     # random and the null draft
@@ -2473,6 +2464,9 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     solo = [np.array_equal(gen.generate(r.ids, r.img_feats,
                                         r.max_new).tokens, r.tokens)
             for r in msd]
+    if not all(solo):
+        raise AssertionError(f"[serve] continuous: requests differ from "
+                             f"their solo runs: {solo}")
     toks = sum(len(r.tokens) for r in msd)
     out["continuous"] = {"segments": segs, "joins": joins,
                          "tok_s": toks / secs, "solo": solo}
@@ -2801,37 +2795,6 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
     return out
 
 
-def quantized_layers(layer, n: int, bits: int, device) -> dict:
-    """Stacked int8/int4 decoder-layer weights made one layer at a time:
-    ``layer(i)`` gives layer i's full-precision weights, which are
-    quantized (``llama.quantize_layer``) and copied into stacks allocated
-    once, so no full-precision stack is ever whole beside them."""
-    import torch
-    from msd_tpu_torch.models import llama as L
-    out = {}
-    for i in range(n):
-        for k, v in L.quantize_layer(layer(i), bits).items():
-            if k not in out:
-                out[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
-                                     device=device)
-            out[k][i].copy_(v)
-    return out
-
-
-def quantized_target(tp: dict, bits: int) -> dict:
-    """``llama.quantize_llama_params(tp, True, bits)``, layer by layer."""
-    from msd_tpu_torch.models import llama as L
-    from msd_tpu_torch.ops.quant import quantize_tensor
-    layers = tp["layers"]
-    out = {"embed_tokens": tp["embed_tokens"], "norm": tp["norm"],
-           "layers": quantized_layers(
-               lambda i: {k: w[i] for k, w in layers.items()},
-               layers["q_proj"].shape[0], bits, tp["norm"].device)}
-    out["lm_head"], out["lm_head" + L.quant_suffix(bits)] = \
-        quantize_tensor(tp["lm_head"], -2, bits)
-    return out
-
-
 def _weight_bytes(tree) -> int:
     return sum(t.numel() * t.element_size()
                for t in _flat_tensors(tree).values())
@@ -2982,6 +2945,7 @@ def run_quant(res) -> dict:
 
     import torch
     from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.models import llama as L
 
     ctx = res["ctx"]
     gen, drafts = ctx["gens"]["graph"], ctx["drafts"]
@@ -3002,7 +2966,7 @@ def run_quant(res) -> dict:
               ("int8 draft", None, 8))
     for label, tbits, dbits in combos:
         t1 = time.perf_counter()
-        tq = quantized_target(tp, tbits) if tbits else tp
+        tq = L.quantize_llama_params(tp, True, tbits) if tbits else tp
         dq = {name: D.quantize_draft_params(drafts[name], dbits)
               if dbits else drafts[name] for name in ("msd", "null")}
         sync()
@@ -3074,9 +3038,9 @@ def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
     base = torch.cuda.memory_allocated() if on_card else 0
     g = torch.Generator(device=device).manual_seed(13)
     h, n = cfg.hidden_size, cfg.num_hidden_layers
-    layers = quantized_layers(
-        lambda i: {k: w[0] for k, w in L.init_layers(
-            cfg, 1, g, device, dtype).items()}, n, bits, device)
+    layers = L.quantize_layers(
+        lambda i: L._layer(L.init_layers(cfg, 1, g, device, dtype), 0), n,
+        bits)
     embed = torch.randn(cfg.vocab_size, h, generator=g, dtype=dtype,
                         device=device).mul_(h ** -0.5)
     head = torch.randn(h, cfg.vocab_size, generator=g, dtype=dtype,
@@ -3173,11 +3137,16 @@ def main():
     eagle["profile"]()
     serve["profile"]()
     log(f"[serve] on {card}: CLIP {serve['clip_ms']:.2f} ms per image; "
-        + "; ".join(f"B={b}: {v['ms_step']:.2f} ms/step wall, "
-                    f"{v['replay_ms']:.3f} ms/step replayed, "
+        + "; ".join(f"B={b} on {v['lanes']} lanes: {v['ms_step']:.2f} "
+                    f"ms/step wall, {v['replay_ms']:.3f} ms/step replayed, "
                     f"{v['tok_s']:.1f} tokens/s, batched == solo "
                     f"{all(v['solo'])}"
                     for b, v in serve["batch"].items())
+        + f"; B=3 on 3 lanes {serve['unpadded_3_ms']:.3f} ms/step replayed"
+        + "".join(f"; {n} lanes, per-lane products "
+                  f"{serve['batch'][n]['per_lane']}: {v['per_lane']:.3f} "
+                  f"ms/step replayed, {v['one_product']:.3f} without"
+                  for n, v in serve["route"].items())
         + f"; continuous: {serve['continuous']['segments']} segments, "
         f"{serve['continuous']['joins']} joins, "
         f"{serve['continuous']['tok_s']:.1f} tokens/s, idle share "

@@ -123,6 +123,7 @@ class MSDGenerator:
             self.graphs.drop_all()
         self.state = None     # free the old buffers before the new ones
         self._eng = eng
+        self._per_lane: Dict[int, frozenset] = {}
         max_pos = eng.max_seq_len + eng.tree.num_nodes + 64
         self.params["cos_t"], self.params["sin_t"] = L.make_rope(
             self.tcfg, max_pos, self.device)
@@ -138,14 +139,22 @@ class MSDGenerator:
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
                  collect_calibration: bool = False,
-                 collect_hiddens: bool = False) -> SE.Statics:
+                 collect_hiddens: bool = False,
+                 lanes: int = 1) -> SE.Statics:
+        """The statics of a run on a state of ``lanes`` lanes; the verify
+        products a lane count needs one lane at a time are found at its
+        first use (``llama.lane_variant``)."""
+        if lanes not in self._per_lane:
+            self._per_lane[lanes] = L.lane_variant(
+                self.params["target"], lanes, self.eng.tree.num_nodes)
         return SE.Statics(tcfg=self.tcfg, dcfg=self.dcfg, tree=self.eng.tree,
                           eng=self.eng, sp=sp or self.sp, n_img=self.n_img,
                           eos_id=self.eos_id, max_new=max_new,
                           attn_feature_mode=self.attn_feature_mode,
                           use_calibration=use_calibration,
                           collect_calibration=collect_calibration,
-                          collect_hiddens=collect_hiddens)
+                          collect_hiddens=collect_hiddens,
+                          per_lane=self._per_lane[lanes])
 
     def autotune_tree(self, candidates=(40, 48, 50, 56, 60, 96, 128),
                       log=None) -> None:
@@ -341,10 +350,9 @@ class MSDGenerator:
         forward read the weights once for the B lanes' rows. Lane b is
         prefilled alone, exactly as ``generate`` prefills it, and steps
         until its own stop; a finished lane is masked. Each lane's tokens
-        are those of its request run alone wherever the batched products
-        round a row as the one-lane products do: bitwise on the CPU; on the
-        card, bf16 GEMMs over another row count may round otherwise, as
-        verifies of other node counts do (ROADMAP section 3).
+        are those of its request run alone: the verify products that the
+        device rounds otherwise over B lanes' rows than over one lane's
+        run one lane at a time (``Statics.per_lane``).
         ``img_feats_list``: one [n_img, H] tensor or None per prompt.
 
         B is run on a state of the next power of two of lanes, the pad
@@ -363,7 +371,7 @@ class MSDGenerator:
         B = len(ids_list)
         lanes = 1 << (B - 1).bit_length()
         max_new = max_new_tokens or self.eng.max_new_tokens
-        st = self._statics(max_new, sp)
+        st = self._statics(max_new, sp, lanes=lanes)
         feats = list(img_feats_list) if img_feats_list is not None \
             else [None] * B
         seeds = [seed + b for b in range(B)] if seeds is None else seeds

@@ -48,7 +48,10 @@ lane b (``lane(state, b)``) is a view that is itself a single-lane state,
 so the single-lane prefills write a request straight into its lane.
 ``decode_step`` advances all B lanes at once: one draft forward per draft
 depth over the B lanes' rows and one target verify forward over
-B x num_nodes rows, so every weight is read once per step for all lanes.
+B x num_nodes rows, so every weight is read once per step for all lanes,
+but for the products of ``Statics.per_lane``: those the device would
+round otherwise over B x num_nodes rows than over one lane's are computed
+one lane at a time, so each lane commits the tokens of its run alone.
 A lane steps only while it is live, ``~done & (new_tokens < stop_at)``,
 where ``stop_at`` (the segment bound of ``decode_until``) rides in the
 state: the step computes every lane, writes its scratch only at or past
@@ -119,6 +122,9 @@ class Statics:
     # write the target hidden of every committed position into
     # ``traj_hidden`` (prefill rows, then the accepted rows of each step)
     collect_hiddens: bool = False
+    # the target products the verify forward computes one lane at a time
+    # (``llama.lane_variant`` of the state's lane count)
+    per_lane: frozenset = frozenset()
 
     def __post_init__(self):
         if self.tree.static_choices is not None and self.need_attn:
@@ -763,7 +769,8 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
 # ---------------------------------------------------------------------------
 
 def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
-                   tr: Tree, cos_t, sin_t) -> torch.Tensor:
+                   tr: Tree, cos_t, sin_t, per_lane=frozenset()
+                   ) -> torch.Tensor:
     """The verify step's target forward over every node of ``tr`` (their
     K/V rows written at E into ``kv`` in place), with window-canonical
     attention: node i's last W = MAX_PATH logical positions (committed
@@ -773,7 +780,8 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
     alone, whatever the draft proposed around it. Returns the final-normed
     hidden [N, H]. With lanes (E [B], the tree's fields [B, ...], kv
     [B, L, S, Hkv, D]) it is one forward over B x N rows, each lane over
-    its own cache: [B, N, H]."""
+    its own cache: [B, N, H]; the products in ``per_lane`` are computed one
+    lane at a time."""
     dev = tr.tokens.device
     s_target = kv["k"].shape[-3]
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
@@ -792,7 +800,8 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
                        NEG_INF).to(torch.float32)
     hidden, _ = L.llama_forward(tp, tcfg, emb, pos, kv, E, bias, cos_t,
                                 sin_t, kv_len=E + tr.tokens.shape[-1],
-                                win=(win_idx, win_bias, win_start))
+                                win=(win_idx, win_bias, win_start),
+                                per_lane=per_lane)
     return hidden
 
 
@@ -806,8 +815,9 @@ def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
     next_token [B])."""
     tp = params["target"]
     E = s.cur_len
-    hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t)
-    logits = L.lm_head(tp, hidden)                                # [B, N, V]
+    hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t,
+                            st.per_lane)
+    logits = L.lm_head(tp, hidden, st.per_lane)                   # [B, N, V]
     if st.sp.greedy:
         best, acc_len, next_tok = tree_mod.evaluate_greedy(
             tr, canon_logits(logits, st.sp.greedy_round_bits))

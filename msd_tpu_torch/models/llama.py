@@ -12,6 +12,9 @@ B x T rows.
   ``lm_head`` ``[H, V]``; ``embed_tokens`` ``[V, H]``.
 - KV cache ``{"k", "v"}`` of ``[L, S, Hkv, D]`` (``[B, L, S, Hkv, D]``
   with lanes), seq-major.
+- With lanes, a product named in ``per_lane`` is computed one lane at a
+  time, so each lane's rows round as its one-lane product rounds them
+  (``lane_variant`` finds the products that need it on the device).
 - Weight-only int8/int4 weights (``quantize_llama_params``): the integers
   under the weight's name, the fp32 scales under ``<name>_qs`` (int8) or
   ``<name>_qs4`` (int4, packed along the last axis); every weight read
@@ -127,8 +130,58 @@ def _w(lp: Params, name: str, dtype=None) -> torch.Tensor:
     return w if dtype is None else w.to(dtype)
 
 
+_TRANSPOSED = ("q_proj", "k_proj", "v_proj")
+
+
+def _proj(lp: Params, name: str, h: torch.Tensor,
+          per_lane=frozenset()) -> torch.Tensor:
+    """h @ weight ``name`` of ``lp`` (``h @ W.T`` for q/k/v), in h's dtype.
+    With lanes (h [B, T, K]) and ``name`` in ``per_lane``: one product per
+    lane, each over the T rows a one-lane forward multiplies, instead of
+    one product over B x T rows, whose kernel may round a lane's rows
+    otherwise (``lane_variant``)."""
+    w = _w(lp, name, h.dtype)
+    if name in _TRANSPOSED:
+        w = w.T
+    if name not in per_lane or h.dim() < 3:
+        return h @ w
+    out = h.new_empty(h.shape[:-1] + (w.shape[-1],))
+    for b in range(h.shape[0]):
+        torch.matmul(h[b], w, out=out[b])
+    return out
+
+
+def lane_variant(params: Params, lanes: int, rows: int) -> frozenset:
+    """The target's products (the layer weights and ``lm_head``) that give
+    a lane of ``lanes`` x ``rows`` rows other bits than the lane's own
+    ``rows``-row product does: on the card, cuBLAS may pick another kernel
+    (tile, split of K) for another row count. Found by trial: one product
+    each on seeded inputs of the real shapes, dtypes and weights (layer 0),
+    whole against per lane, which is exact, as the kernel a shape gets does
+    not depend on the values. The batched engine's verify forward computes
+    these one lane at a time, so a batched lane commits the tokens of its
+    run alone."""
+    if lanes == 1:
+        return frozenset()
+    lp = _layer(params["layers"], 0)
+    dtype = lp["input_layernorm"].dtype
+    dev = lp["input_layernorm"].device
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = set()
+    for name in _STACKED + ("lm_head",):
+        src = params if name == "lm_head" else lp
+        w = _w(src, name, dtype)
+        k = w.shape[-1] if name in _TRANSPOSED else w.shape[0]
+        x = torch.randn(lanes, rows, k, generator=g, device=dev, dtype=dtype)
+        if not torch.equal(_proj(src, name, x),
+                           _proj(src, name, x, frozenset({name}))):
+            out.add(name)
+    return frozenset(out)
+
+
 def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
-               positions: torch.Tensor, cos_t, sin_t, skip_input_norm: bool):
+               positions: torch.Tensor, cos_t, sin_t, skip_input_norm: bool,
+               per_lane=frozenset()):
     """Pre-attention projections. Returns (q, k, v) as [..., T, H*, D]."""
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     # the draft's layer 0 skips input_layernorm (EAGLE convention)
@@ -136,22 +189,22 @@ def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                                            cfg.rms_norm_eps)
     # matmuls in the param dtype even when the residual rides in fp32
     h = h.to(lp["input_layernorm"].dtype)
-    q = (h @ _w(lp, "q_proj", h.dtype).T).unflatten(-1, (hq, d))
-    k = (h @ _w(lp, "k_proj", h.dtype).T).unflatten(-1, (hkv, d))
-    v = (h @ _w(lp, "v_proj", h.dtype).T).unflatten(-1, (hkv, d))
+    q = _proj(lp, "q_proj", h, per_lane).unflatten(-1, (hq, d))
+    k = _proj(lp, "k_proj", h, per_lane).unflatten(-1, (hkv, d))
+    v = _proj(lp, "v_proj", h, per_lane).unflatten(-1, (hkv, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     return q, k, v
 
 
 def _layer_post_attn(lp: Params, cfg: LlamaConfig, resid: torch.Tensor,
-                     attn: torch.Tensor) -> torch.Tensor:
-    x = resid + (attn.flatten(-2) @ _w(lp, "o_proj", attn.dtype)) \
+                     attn: torch.Tensor, per_lane=frozenset()) -> torch.Tensor:
+    x = resid + _proj(lp, "o_proj", attn.flatten(-2), per_lane) \
         .to(resid.dtype)
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     h = h.to(lp["post_attention_layernorm"].dtype)
-    gate = F.silu((h @ _w(lp, "gate_proj", h.dtype)).float()).to(h.dtype)
-    up = h @ _w(lp, "up_proj", h.dtype)
-    return x + ((gate * up) @ _w(lp, "down_proj", h.dtype)).to(resid.dtype)
+    gate = F.silu(_proj(lp, "gate_proj", h, per_lane).float()).to(h.dtype)
+    up = _proj(lp, "up_proj", h, per_lane)
+    return x + _proj(lp, "down_proj", gate * up, per_lane).to(resid.dtype)
 
 
 def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
@@ -183,12 +236,13 @@ def _layer_forward(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                    positions: torch.Tensor, kv_k: torch.Tensor,
                    kv_v: torch.Tensor, write_pos, bias: torch.Tensor,
                    cos_t, sin_t, skip_input_norm: bool = False,
-                   kv_len=None, win=None) -> torch.Tensor:
+                   kv_len=None, win=None, per_lane=frozenset()
+                   ) -> torch.Tensor:
     """One decoder layer over x [..., T, H]; writes its K/V rows into
     kv_k/kv_v [..., S, Hkv, D] at write_pos (an int, a 0-dim tensor or one
     start per lane) in place. Returns the new x."""
     q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t,
-                         skip_input_norm)
+                         skip_input_norm, per_lane)
     lanes = x.dim() - 2
     rows = update_rows(kv_k.shape[-3], write_pos, x.shape[-2], x.device)
     if rows.dim() == 1:     # the same rows in every lane
@@ -198,14 +252,14 @@ def _layer_forward(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
         put_rows(kv_k, rows, k, lanes)
         put_rows(kv_v, rows, v, lanes)
     attn = _attend(cfg, q, kv_k, kv_v, bias, kv_len, win)
-    return _layer_post_attn(lp, cfg, x, attn)
+    return _layer_post_attn(lp, cfg, x, attn, per_lane)
 
 
 def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
                   positions: torch.Tensor, kv: Params, write_pos,
                   bias: torch.Tensor, cos_t: torch.Tensor,
-                  sin_t: torch.Tensor, kv_len=None,
-                  win=None) -> Tuple[torch.Tensor, Params]:
+                  sin_t: torch.Tensor, kv_len=None, win=None,
+                  per_lane=frozenset()) -> Tuple[torch.Tensor, Params]:
     """All decoder layers over embeds [T, H] at positions [T].
 
     kv: {'k','v'} [L, S, Hkv, D]; bias [T, S]; write_pos: int or 0-dim
@@ -214,7 +268,8 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
     ``kv`` itself. Returns (final-normed hidden [T, H] in embeds.dtype, kv).
     With lanes: embeds [B, T, H], positions [B, T], kv [B, L, S, Hkv, D],
     bias [B, T, S], write_pos and kv_len [B] (or an int), win's arrays
-    with a leading B.
+    with a leading B; ``per_lane`` names the products computed one lane at
+    a time (``_proj``).
     """
     out_dtype = embeds.dtype
     x = embeds
@@ -225,14 +280,16 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
         x = _layer_forward(_layer(layers, li), cfg, x, positions,
                            kv["k"].select(-4, li), kv["v"].select(-4, li),
                            write_pos, bias, cos_t,
-                           sin_t, kv_len=kv_len, win=win)
+                           sin_t, kv_len=kv_len, win=win,
+                           per_lane=per_lane)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
     return x, kv
 
 
-def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """[T, H] -> [T, V] logits in fp32."""
-    return (hidden @ _w(params, "lm_head", hidden.dtype)).float()
+def lm_head(params: Params, hidden: torch.Tensor,
+            per_lane=frozenset()) -> torch.Tensor:
+    """[..., T, H] -> [..., T, V] logits in fp32."""
+    return _proj(params, "lm_head", hidden, per_lane).float()
 
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -267,13 +324,32 @@ def quantize_layer(lp: Params, bits: int = 8) -> Params:
     return out
 
 
+def quantize_layers(layer, n: int, bits: int = 8) -> Params:
+    """Stacked int8/int4 decoder-layer weights made one layer at a time:
+    ``layer(i)`` gives layer i's full-precision weights (views of a stack,
+    or made on the spot, as a 13B init from seeds makes them), which are
+    quantized (``quantize_layer``) and copied into stacks allocated at the
+    first layer. So the temporaries are one layer's, never a stack's."""
+    out = {}
+    for i in range(n):
+        for k, v in quantize_layer(layer(i), bits).items():
+            if k not in out:
+                out[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                     device=v.device)
+            out[k][i].copy_(v)
+    return out
+
+
 def quantize_llama_params(params: Params, quant_lm_head: bool = True,
                           bits: int = 8) -> Params:
     """Weight-only int8/int4 transform of a stacked LLaMA param dict (the
     JAX ``quantize_llama_params``; the reference's load-8bit/load-4bit
-    serving). int4 scales live under ``_qs4`` keys so ``_w`` unpacks."""
+    serving), layer by layer (``quantize_layers``). int4 scales live under
+    ``_qs4`` keys so ``_w`` unpacks."""
+    layers = params["layers"]
     out = dict(params)
-    out["layers"] = quantize_layer(params["layers"], bits)
+    out["layers"] = quantize_layers(lambda i: _layer(layers, i),
+                                    layers["q_proj"].shape[0], bits)
     if quant_lm_head:
         out["lm_head"], out["lm_head" + quant_suffix(bits)] = \
             quantize_tensor(params["lm_head"], -2, bits)

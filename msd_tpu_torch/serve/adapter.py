@@ -99,7 +99,7 @@ class ServeAdapter:
 
     @classmethod
     def from_pretrained(cls, pretrained: str, msd_model_path: str,
-                        dtype=torch.bfloat16, device="cuda", eng=None,
+                        dtype=None, device="cuda", eng=None,
                         **kw) -> "ServeAdapter":
         """An adapter over a LLaVA checkpoint dir and an MSD draft dir, by
         the steps of the JAX ``LlavaMSD.from_pretrained``: the checkpoint's
@@ -110,7 +110,9 @@ class ServeAdapter:
         medusa draft, a tapered static tree over its heads (widths
         max(1, 10 // (1 + i))); the image rows of the tower; the
         tokenizer's EOS; the vocabulary's token classes. ``kw`` also
-        takes the adapter's fields (``use_msd``, ``image_size``)."""
+        takes the adapter's fields (``use_msd``, ``image_size``). The
+        weights are loaded in ``dtype``: by default bf16 on a CUDA device
+        and fp32 elsewhere."""
         from msd_tpu_torch.calib.token_class import classify_vocab
         from msd_tpu_torch.configs import EngineConfig, TreeConfig
         from msd_tpu_torch.engine.generator import MSDGenerator
@@ -125,6 +127,9 @@ class ServeAdapter:
                 pretrained, use_fast=True, local_files_only=True)
         except Exception:
             tokenizer = SimpleTokenizer()
+        if dtype is None:
+            dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
+                else torch.float32
         params, lcfg = load_llava(pretrained, dtype, device)
         draft, dcfg = load_draft(msd_model_path, lcfg.text,
                                  base_embed=params["target"]["embed_tokens"],

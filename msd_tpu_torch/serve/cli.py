@@ -81,7 +81,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top_p", type=float, default=1.0)
     ap.add_argument("--max-new-tokens", type=int, default=512)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="weights in bf16 on a CUDA device, else fp32")
     args = ap.parse_args(argv)
 
     adapter = _load_adapter(args)

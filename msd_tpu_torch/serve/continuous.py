@@ -104,7 +104,7 @@ class ContinuousScheduler:
         self.segment = int(segment)
         self.sp = sp if sp is not None else gen.sp
         self.st = gen._statics(gen.eng.max_new_tokens, self.sp,
-                               use_calibration)
+                               use_calibration, lanes=n_slots)
         self.queue: "deque[Request]" = deque()
         self.slots: List[Optional[_Active]] = [None] * n_slots
         self.state = gen.alloc_lanes(n_slots)

@@ -480,15 +480,11 @@ def server_from_args(args):
     """The server ``main`` runs: the checkpoint's adapter
     (``ServeAdapter.from_pretrained``) behind ``serve_forever``; the
     caller runs its ``serve_forever()``."""
-    import torch
-
     from msd_tpu_torch.serve.adapter import ServeAdapter
 
     kw = {"max_seq_len": args.max_seq_len} if args.max_seq_len else {}
     adapter = ServeAdapter.from_pretrained(
-        args.pretrained, args.msd_model_path,
-        dtype=torch.bfloat16 if args.device.startswith("cuda")
-        else torch.float32, device=args.device,
+        args.pretrained, args.msd_model_path, device=args.device,
         use_msd=args.use_msd, **kw)
     return serve_forever(adapter, args.port, continuous=args.continuous,
                          segment=args.segment)

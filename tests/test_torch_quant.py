@@ -125,6 +125,24 @@ def test_quantized_forward_matches_jax(bits, quant_lm_head):
                                    **TLL.TOL)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_layers_from_a_per_layer_callable(bits):
+    """quantize_layers over layers made one at a time (as the 13B init from
+    seeds makes them) equals quantize_llama_params over the stack, which
+    the test above holds to JAX's bitwise."""
+    jcfg, tcfg = TLL._cfgs("float32")
+    _, tp = TLL._params(jcfg)
+    layers = tp["layers"]
+    n = layers["q_proj"].shape[0]
+    made = TL.quantize_layers(
+        lambda i: {k: w[i].clone() for k, w in layers.items()}, n, bits)
+    want = TL.quantize_llama_params(tp, True, bits)["layers"]
+    assert sorted(made) == sorted(want)
+    for k in want:
+        assert made[k].dtype == want[k].dtype and torch.equal(made[k],
+                                                              want[k]), k
+
+
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------

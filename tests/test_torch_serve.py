@@ -288,6 +288,40 @@ def test_batches_keep_power_of_two_lane_states(medusa):
             _same(runs[B][b], runs[8][b])
 
 
+def test_per_lane_products_keep_solo_tokens(medusa, monkeypatch):
+    """The batched verify's per-lane route (``Statics.per_lane``): a
+    generator told that every target product rounds otherwise over B
+    lanes, as ``llama.lane_variant`` finds some do on the card, computes
+    each one lane at a time; its lanes commit, lane for lane, the tokens of
+    the batch with every product over all lanes' rows and of their solo
+    runs, image and text. On the CPU no product needs the route."""
+    from msd_tpu_torch.models import llama as TL
+
+    _, tgen, _, tlp = medusa
+    tp = tgen.params["target"]
+    rows = tgen.eng.tree.num_nodes
+    assert TL.lane_variant(tp, 1, rows) == frozenset()
+    assert TL.lane_variant(tp, 4, rows) == frozenset()
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, rows, H)).astype(np.float32))
+    assert torch.equal(TL._proj(tp, "lm_head", x),
+                       TL._proj(tp, "lm_head", x, frozenset({"lm_head"})))
+    every = frozenset(TL._STACKED + ("lm_head",))
+    monkeypatch.setattr(TL, "lane_variant", lambda *a: every)
+    gen = TGen(tp, tgen.params["draft"], tgen.tcfg, tgen.dcfg, tgen.eng,
+               n_img=tgen.n_img, eos_id=2, sp=tgen.sp, device="cpu")
+    feats = _feats(tlp)
+    prompts = [_ids(90 + i, 10 + 2 * i, image=i % 2 == 0) for i in range(3)]
+    fs = [feats if i % 2 == 0 else None for i in range(3)]
+    mine = gen.generate_batch(prompts, fs, max_new_tokens=10)
+    assert gen._statics(10, lanes=4).per_lane == every
+    plain = tgen.generate_batch(prompts, fs, max_new_tokens=10)
+    assert tgen._statics(10, lanes=4).per_lane == frozenset()
+    for b in range(3):
+        _same(mine[b], plain[b])
+        _same(mine[b], gen.generate(prompts[b], fs[b], max_new_tokens=10))
+
+
 def test_micro_batched_requests_keep_their_seeds(served):
     """Two sampled /generate requests with seeds 5 and 9, queued together
     so the micro-batching worker serves them as the lanes of one batch:
@@ -579,18 +613,20 @@ def smoke_serve():
 
 def test_smoke_serve_phase_at_tiny_size(smoke_serve):
     """chip_smoke.run_serve on the CPU at a tiny width, after its main
-    path: a tiny CLIP tower, generate_batch at B = 1, 2, 4 over image
-    prompts and at B = 2, 4 over text prompts (each lane == its
-    null-draft tokens, graph == eager, and on the CPU == its solo run), the
-    continuous schedule (== null-draft), the stream and the HTTP server in
-    continuous mode (each text == its solo repeat); the phase raises
-    otherwise."""
+    path: a tiny CLIP tower, generate_batch at B = 1, 2, 3, 4, 8 over image
+    prompts and at B = 2, 3, 4, 8 over text prompts (each lane == its
+    null-draft tokens, graph == eager and == its solo run; B = 3 on 4
+    lanes), the continuous schedule (== null-draft and == solo), the
+    stream and the HTTP server in continuous mode (each text == its solo
+    repeat); the phase raises otherwise."""
     _, out = smoke_serve
-    assert sorted(out["batch"]) == [1, 2, 4]
+    assert sorted(out["batch"]) == [1, 2, 3, 4, 8]
+    assert [out["batch"][b]["lanes"] for b in (1, 2, 3, 4, 8)] == \
+        [1, 2, 4, 4, 8]
     assert all(all(v["solo"]) for v in out["batch"].values())
-    assert sorted(out["text_batch"]) == [2, 4]
+    assert all(v["per_lane"] == [] for v in out["batch"].values())
+    assert sorted(out["text_batch"]) == [2, 3, 4, 8]
     assert all(all(v) for v in out["text_batch"].values())
-    assert "divergence" not in out        # no lane differs on the CPU
     assert out["continuous"]["joins"] == 8 and all(out["continuous"]["solo"])
     assert out["serve_launches"] == 0     # CPU tensors take the plain twin
 
@@ -600,11 +636,9 @@ def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
     tiny width: the checkpoint written, read back bitwise and served by
     server.main's server equal to the weights in memory; int8 and int4
     targets and an int8 draft lossless, graph == eager, the oracle at full
-    depth (the layer-by-layer quantization equal to
-    quantize_llama_params); the 13B phase's path on a tiny int8 target.
+    depth; the 13B phase's path on a tiny int8 target.
     Each phase raises otherwise."""
     import chip_smoke
-    from msd_tpu_torch.models import llama as TL
 
     res, serve = smoke_serve
     weights = chip_smoke.run_weights(res, serve, http_new=12)
@@ -612,12 +646,6 @@ def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
     quant = chip_smoke.run_quant(res)
     assert {k for k in quant if k != "seconds"} == {
         "int8 target", "int4 target", "int8 draft"}
-    tp = res["ctx"]["gens"]["graph"].params["target"]
-    for bits in (8, 4):
-        mine = bridge.flatten(chip_smoke.quantized_target(tp, bits))
-        want = bridge.flatten(TL.quantize_llama_params(tp, True, bits))
-        assert sorted(mine) == sorted(want)
-        assert all(torch.equal(mine[k], want[k]) for k in want)
     big = chip_smoke.run_13b(max_new=12, device="cpu", prompt_tokens=20,
                              n_img=16, widths=(4, 3, 2, 2, 1), max_seq=384,
                              cfg=SMOKE_CFG)

@@ -340,6 +340,9 @@ def test_server_main_serves_a_checkpoint(ckpts):
                                         "max_new_tokens": 10})
         adapter = httpd.worker.adapter
         assert adapter.gen.eng.max_seq_len == 256
+        # off the card the weights load in fp32
+        assert adapter.gen.params["target"]["embed_tokens"].dtype == \
+            torch.float32
         assert adapter.gen.dcfg.medusa_heads == 3
         again = _post(port, "/generate", {"prompt": "count to ten",
                                           "max_new_tokens": 10})
@@ -351,6 +354,21 @@ def test_server_main_serves_a_checkpoint(ckpts):
         assert ar["text"] == out["text"]      # greedy MSD == greedy AR
     finally:
         TServer.shutdown(httpd)
+
+
+def test_cli_loads_a_checkpoint_as_the_server_does(ckpts):
+    """cli's adapter over a checkpoint: off the card in fp32, as
+    server.main's (``ServeAdapter.from_pretrained`` picks the dtype from
+    the device for both)."""
+    import argparse
+
+    args = argparse.Namespace(
+        tiny=False, pretrained=ckpts["llava"], device="cpu", no_msd=False,
+        msd_model_path=_medusa_draft(str(ckpts["root"] / "cli_draft"),
+                                     False), max_new_tokens=8)
+    adapter = cli._load_adapter(args)
+    for w in bridge.flatten(adapter.gen.params["target"]).values():
+        assert w.dtype == torch.float32 and w.device.type == "cpu"
 
 
 def test_cli_main_tiny_answers_a_piped_turn(monkeypatch, capsys):
