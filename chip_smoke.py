@@ -85,14 +85,14 @@ prints no result):
    the CLIP ViT-L/14-336 tower and mlp2x_gelu projector (bf16, seeded)
    encode a seeded 336x336 image (ms per image; its rows against the
    same weights in fp32), whose rows feed every image request;
-   ``generate_batch`` of 64 tokens at B = 1, 2, 4 over image prompts and
-   at B = 2, 4 over text prompts (every lane must commit the null-draft
-   tokens of the same B, graph == eager; batched == solo printed, not
-   gated: for the first lane that differs, the first op whose rows differ
-   from the solo run's and the per-layer verify hiddens
-   (``lane_divergence``), and the cost of one weight GEMM per lane; ms/step
-   wall and per replayed step, aggregate tokens/s; no K1 launch, no
-   capture in a timed window); a 4-slot
+   ``generate_batch`` of 64 tokens at B = 1, 2, 3, 4, 8 over image
+   prompts and at B = 2, 3, 4, 8 over text prompts (every lane must
+   commit the null-draft tokens of the same B and its solo run's, graph
+   == eager over the first 32 tokens; for the first lane that departs
+   from its solo run, the first op whose rows differ (``lane_divergence``)
+   before the phase fails; the replayed step with and without the
+   per-lane products; ms/step wall and per replayed step, aggregate
+   tokens/s; no K1 launch, no capture in a timed window); a 4-slot
    continuous batcher, segment 16, over 8 image and text requests with
    staggered submission and mixed max_new (every request == the
    null-draft run of the same schedule, each text request alone in the
@@ -108,16 +108,29 @@ prints no result):
    ``save_draft``, in a temporary directory removed at the end (the phase
    fails if the disk cannot hold it); ``load_llava``/``load_draft`` must
    give every tensor bitwise; the server ``server.main`` builds from the
-   directory (``ServeAdapter.from_pretrained``) answers a text, an image,
+   directory (``LlavaMSD.from_pretrained``) answers a text, an image,
    a stream and a ``use_msd: false`` request, each equal to a generator
    over the weights in memory; K1 launches 32 per AR token decoded.
    Write and load seconds.
-11. quant (``run_quant``): on prompt 0, an int8 target, an int4 target and
+11. harness (``run_harness``), on that checkpoint before it is deleted:
+   the eval CLI ``msd_tpu_torch.harness.__main__.main`` called in
+   process, 8 synthetic docs of synthetic_vqa, pope and ai2d_ppl, 32 new
+   tokens: calibrated MSD with online calibration (train_ratio 0.5, the
+   calibrator fitted and pickled at the boundary), the AR adapter
+   ``llava``, the calibrated run again from the pickle (skip_to_test)
+   and MSD with the null draft. Calibrated == skip_to_test == null-draft
+   responses and token ids; loglikelihoods bitwise equal across runs and
+   repeats and equal to a plain recompute within 1e-4; K1 only in the AR
+   run, 32 per AR step run (a capture's warm-up steps included); no
+   capture after a combination's first request. Seconds per
+   task, ms per generated token, alpha, the AR run's agreement with MSD
+   and its greedy share, peak memory.
+12. quant (``run_quant``): on prompt 0, an int8 target, an int4 target and
    the bf16 target with an int8 draft: MSD == null-draft tokens, graph ==
    eager, the oracle draft accepted to full depth, K1 32 per AR token;
    the int8 draft's tokens == the bf16 draft's. Replayed AR token and
    verify step beside the bf16 main path's, peak memory.
-12. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
+13. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
    many K1 launches as the wrapper's count, 32 per AR token decoded; a
@@ -126,7 +139,7 @@ prints no result):
    fp32 operations (counted from the shapes) against the card's fp32
    peak; the EAGLE expansion alone against the medusa expansion; the
    continuous schedule's device time and idle share.
-13. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
+14. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
    int8 target (40 layers, hidden 5120, 40 heads) and two bf16 medusa
    drafts initialised on the card from seeded generators, the target
    quantized layer by layer; one image prompt x 32 tokens, MSD, null-draft
@@ -185,6 +198,14 @@ AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
 # batcher's slots and segment, new tokens per HTTP request
 SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
+# the eager batches that hold generate_batch's graphs to the same steps
+# run eagerly decode this many of the 64 tokens (a depth cut that keeps
+# the whole smoke under ~950 s)
+SERVE_EAGER_NEW = 32
+# the harness phase: its tasks (two generation tasks, one scored by
+# loglikelihood), synthetic docs per task and new tokens per request
+HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
+HARNESS_LIMIT, HARNESS_NEW = 8, 32
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -2191,7 +2212,8 @@ def _png_b64(image: np.ndarray) -> str:
 
 
 def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
-              segment=SERVE_SEGMENT, http_new=SERVE_HTTP_NEW) -> dict:
+              segment=SERVE_SEGMENT, http_new=SERVE_HTTP_NEW,
+              eager_new=SERVE_EAGER_NEW) -> dict:
     """The serving path on the main path's weights and generators: the CLIP
     tower and projector (ViT-L/14-336 by default, bf16 from a seeded
     generator) encode a seeded 336x336 image whose rows feed every image
@@ -2202,8 +2224,9 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     stream and ``use_msd: false`` requests, /health). Raises unless every
     batched lane (image and text prompts) and every slot commits the
     null-draft tokens of its own batched run (the same B, the same
-    schedule) and the tokens of its request run alone, graph == eager,
-    stream == one-shot, every HTTP text equals its solo repeat, the
+    schedule) and the tokens of its request run alone, graph == eager
+    (the eager batch decodes the first ``eager_new`` tokens; greedy
+    decoding makes them a prefix of the graph run's), stream == one-shot, every HTTP text equals its solo repeat, the
     batched runs launch no K1 and the ``use_msd: false`` request launches
     32 per AR token decoded. A lane that departs from its solo run is
     explained (``lane_divergence``) before the phase fails. On the card it
@@ -2218,7 +2241,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     from msd_tpu_torch.models import llava as LV
     from msd_tpu_torch.ops import decode_attention as K1
     from msd_tpu_torch.serve import server as S
-    from msd_tpu_torch.serve.adapter import ServeAdapter, SimpleTokenizer
+    from msd_tpu_torch.harness.models.llava_msd import (LlavaMSD,
+                                                         SimpleTokenizer)
     from msd_tpu_torch.serve.continuous import ContinuousScheduler, Request
     from msd_tpu_torch.utils.mm_utils import process_image
 
@@ -2318,7 +2342,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {name}: replayed a "
                                      f"graph captured for other weights")
         gen.params["draft"] = drafts["msd"]
-        ers = eager.generate_batch(ps, fs, max_new)
+        n_eager = min(eager_new, max_new)
+        ers = eager.generate_batch(ps, fs, n_eager)
         rs, secs = runs["msd"]
         for b in range(B):
             tok = rs[b].tokens
@@ -2330,7 +2355,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: MSD "
                                      f"tokens differ from the null-draft "
                                      f"tokens of the same batch")
-            if not np.array_equal(tok, ers[b].tokens):
+            if not np.array_equal(tok[:n_eager], ers[b].tokens):
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: graph "
                                      f"and eager tokens differ")
         solo = [np.array_equal(gen.generate(ps[b], fs[b], max_new).tokens,
@@ -2343,7 +2368,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
             out["text_batch"][B] = solo
             log(f"[serve] generate_batch B={B}, text prompts: every lane "
                 f"== its null-draft tokens of the same B: True; graph == "
-                f"eager: True; batched == solo per lane: {solo}")
+                f"eager (first {n_eager} tokens): True; batched == solo "
+                f"per lane: {solo}")
             continue
         steps = max(r.accept_steps for r in rs)
         toks = sum(len(r.tokens) for r in rs)
@@ -2356,8 +2382,9 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                            "per_lane": per_lane}
         log(f"[serve] generate_batch B={B} on {lanes} lanes (verify "
             f"products per lane: {per_lane}): every lane == its null-draft "
-            f"tokens of the same B: True; graph == eager: True; batched == "
-            f"solo per lane: {solo}; {steps} steps, "
+            f"tokens of the same B: True; graph == eager (first "
+            f"{n_eager} tokens): True; batched == solo per lane: {solo}; "
+            f"{steps} steps, "
             f"{secs * 1e3 / steps:.2f} ms/step wall incl. the {B} "
             f"prefills, {step_ms:.3f} ms per replayed step (device), "
             f"aggregate {toks / secs:.1f} tokens/s, alpha {alpha:.3f}")
@@ -2493,8 +2520,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     # 5. the HTTP server, continuous mode
     sched.close()
     del sched
-    adapter = ServeAdapter.from_llava(gen, SimpleTokenizer(tcfg.vocab_size),
-                                      lp, lcfg)
+    adapter = LlavaMSD.from_llava(gen, SimpleTokenizer(tcfg.vocab_size), lp,
+                                  lcfg)
     httpd = S.serve_forever(adapter, port=0, continuous=n_slots,
                             segment=segment)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -2598,20 +2625,24 @@ def _bitwise_diff(label, mine, ref) -> list:
             or not torch.equal(a[k], b[k])]
 
 
-def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
+def run_weights(res, serve, http_new=SERVE_HTTP_NEW,
+                harness=None) -> dict:
     """Serving from a checkpoint: the main path's target, the CLIP tower
     and projector of ``[serve]`` written as an HF-layout LLaVA checkpoint
     (bf16, shards of at most 5 GB, index and config.json) and the main
     draft with ``save_draft``, in a temporary directory deleted at the
     end; the checkpoint loaded back (``load_llava``, ``load_draft``: every
     tensor bitwise the in-memory one); the server ``server.main`` builds
-    (``parse_args`` and ``server_from_args``: ``ServeAdapter.
+    (``parse_args`` and ``server_from_args``: ``LlavaMSD.
     from_pretrained``) answering a text, an image, a stream and a
     ``use_msd: false`` request one at a time, each equal to a generator
     over the in-memory weights with the adapter's configuration (tokens,
     and the served text and count); the AR request's K1 launches = layers
     x AR tokens decoded. Fails when the disk cannot hold the checkpoint
-    (it is never shrunk)."""
+    (it is never shrunk). With ``harness`` (keyword arguments of
+    ``run_harness``), the main path's null draft is saved beside the
+    draft and the ``[harness]`` phase runs on the checkpoint before it is
+    deleted (``out["harness"]``)."""
     import gc
     import shutil
     import tempfile
@@ -2622,7 +2653,7 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
     from msd_tpu_torch.engine.generator import MSDGenerator
     from msd_tpu_torch.ops import decode_attention as K1
     from msd_tpu_torch.serve import server as S
-    from msd_tpu_torch.serve.adapter import ServeAdapter
+    from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
     from msd_tpu_torch.utils import weights as W
 
     ctx = res["ctx"]
@@ -2704,7 +2735,7 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
         ref = MSDGenerator(tp, drafts["msd"], agen.tcfg, agen.dcfg,
                            agen.eng, n_img=agen.n_img, eos_id=agen.eos_id,
                            sp=agen.sp, device=device)
-        mem = ServeAdapter.from_llava(ref, adapter.tokenizer, lp, lcfg)
+        mem = LlavaMSD.from_llava(ref, adapter.tokenizer, lp, lcfg)
         prep = S.EngineWorker(mem)._prep
         port = httpd.server_address[1]
 
@@ -2786,12 +2817,392 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW) -> dict:
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t_phase
+        if harness is not None:
+            null_dir = f"{root}/null"
+            W.save_draft(drafts["null"], null_dir)
+            out["harness"] = run_harness(ckpt, ddir, null_dir, root,
+                                         gen.eng.max_seq_len, device,
+                                         **harness)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    out["seconds"] = time.perf_counter() - t_phase
     log(f"[weights] write {out['write_s']:.1f}s, load {out['load_s']:.1f}s,"
         f" server.main's load {out['serve_load_s']:.1f}s; phase took "
         f"{out['seconds']:.1f}s")
+    return out
+
+
+def plain_score(gen, ids, cont_start: int, feats) -> tuple:
+    """The plain recompute of ``MSDGenerator.score``: an eager
+    ``llama_forward`` over the same expanded sequence (padded to the
+    prompt bucket, as ``score`` pads it), then ``log_softmax`` over the
+    logits and a gather of the continuation rows' next tokens. Returns
+    (logprob_sum, is_greedy)."""
+    import torch
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models import llava as LV
+    from msd_tpu_torch.ops.attention import causal_prefill_bias
+
+    ids = np.asarray(ids, np.int32)
+    m = gen.eng.prompt_pad_multiple
+    padded = np.zeros((-(-len(ids) // m) * m,), np.int32)
+    padded[:len(ids)] = ids
+    t = torch.from_numpy(padded).to(gen.device)
+    tp, dev = gen.params["target"], gen.device
+    n = gen.n_img if feats is not None else 0
+    off = max(n - 1, 0)
+    rows = len(padded) + off
+    at = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0]
+    img_pos = int(at[0]) if len(at) else len(ids)
+    if n:
+        emb = LV.fuse_embeddings(tp["embed_tokens"], t, feats, img_pos, rows)
+        exp = LV.expand_ids(t.clamp(min=0), img_pos, n, rows)
+    else:
+        emb = tp["embed_tokens"][t.clamp(min=0).long()]
+        exp = t
+    kv = L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev)
+    hidden, _ = L.llama_forward(
+        tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
+        kv, 0, causal_prefill_bias(rows, rows, device=dev),
+        gen.params["cos_t"], gen.params["sin_t"])
+    logp = torch.log_softmax(L.lm_head(tp, hidden), dim=-1)
+    r = torch.arange(cont_start + off - 1, len(ids) + off - 1, device=dev)
+    nxt = exp[r + 1].long()
+    return (float(logp[r, nxt].sum()),
+            bool((logp[r].argmax(dim=-1) == nxt).all()))
+
+
+def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
+                max_seq: int, device="cuda", limit: int = HARNESS_LIMIT,
+                max_new: int = HARNESS_NEW, tasks=HARNESS_TASKS) -> dict:
+    """The eval harness on the ``[weights]`` checkpoint, through its entry
+    point ``msd_tpu_torch.harness.__main__.main(argv)`` called in process
+    (its JSON print kept off this script's output), ``limit`` synthetic
+    docs per task and ``max_new`` new tokens per request:
+
+    A. ``llava_msd_calibrated --use_msd --use_calibration --train_ratio
+       0.5`` with a ``calibrator_path``: the first task collects on its
+       first half of docs, fits and pickles the calibrator at the
+       boundary and decodes the rest with calibrated trees; the later
+       tasks read the pickle (``skip_to_test``); ``--log_dir`` and
+       ``--output_path`` written;
+    B. ``llava``: the AR baseline (K1 in every AR token);
+    C. A again with A's pickle: every doc calibrated (``skip_to_test``);
+    D. ``llava_msd`` with an independently seeded random draft (the null
+       draft) on the generation tasks: the canonical greedy AR.
+
+    Fails unless: A's responses == D's (the window-canonical verify makes
+    the committed tokens draft-invariant, so this is losslessness through
+    the harness) and C's == A's; A collected on the first half of the
+    first task's docs and fitted there, later tasks and C loaded the
+    pickle, and A wrote acceptance_rate.json and calibration_data.json;
+    the loglikelihoods of A, B and C are bitwise equal, two calls of
+    ``score`` on one request (C) are bitwise equal and each score is its
+    plain recompute (``plain_score``) within 1e-4 x max(1, |lp|) with the
+    same greedy flag; K1 launches 0 in A, C, D and in B layers x (AR
+    tokens decoded + the warm-up steps of each AR-token capture); no
+    request captures a graph after the first request of its (mode,
+    max_new, sampling, tables) combination in a run. B's responses are
+    not equal to A's on the card: the AR token (one row, K1) and the
+    verify (a tree of rows, ``windowed_attention``) round differently in
+    bf16 (the main path prints it: "fast-AR agrees with MSD for the first
+    n/64 tokens"); their agreement is printed, and so is whether B's own
+    responses score as greedy (the scoring forward reduces over other row
+    counts than the AR decode): both are gated off the card (fp32)."""
+    import io
+
+    import torch
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.engine.graphs import WARMUP_STEPS
+    from msd_tpu_torch.harness import __main__ as HM
+    from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = smi_name_and_limit() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
+    cur = {"run": None, "task": None}
+    reqs, scores, calls, fits = [], [], [], []
+    ar_steps = [0]
+    orig = {"generate": MSDGenerator.generate,
+            "naive_generate": MSDGenerator.naive_generate,
+            "score": MSDGenerator.score, "ar_decode": SE.ar_decode,
+            "fit": LlavaMSD._fit_calibrator,
+            "generate_until": LlavaMSD.generate_until,
+            "loglikelihood": LlavaMSD.loglikelihood}
+
+    def n_graphs(gen):
+        return 0 if gen.graphs is None else len(gen.graphs.steps)
+
+    def wrap_gen(kind):
+        def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
+            before = n_graphs(self)
+            t1 = time.perf_counter()
+            r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
+            sync()
+            secs = time.perf_counter() - t1
+            mode = "ar" if kind == "naive_generate" else \
+                "calibrated" if kw.get("use_calibration") else \
+                "collect" if kw.get("collect_calibration") else "msd"
+            rec = {**cur, "mode": mode, "s": secs, "n": len(r.tokens),
+                   "tokens": r.tokens.tolist(),
+                   "captured": n_graphs(self) - before,
+                   "layers": self.tcfg.num_hidden_layers,
+                   "key": (mode, max_new_tokens, kw.get("sp"),
+                           id(self.params.get("calib"))
+                           if mode == "calibrated" else None)}
+            if mode == "ar" and len(r.tokens):
+                full = np.concatenate([np.asarray(ids, np.int32),
+                                       r.tokens]).astype(np.int32)
+                rec["greedy"] = orig["score"](self, full, len(ids),
+                                              img_feats)[1]
+            reqs.append(rec)
+            return r
+        return wrapped
+
+    def score(self, ids, cont_start, img_feats=None):
+        t1 = time.perf_counter()
+        got = orig["score"](self, ids, cont_start, img_feats)
+        sync()
+        rec = {**cur, "out": got, "s": time.perf_counter() - t1}
+        if cur["run"] == "C":
+            rec["again"] = orig["score"](self, ids, cont_start, img_feats)
+            rec["plain"] = plain_score(self, ids, cont_start, img_feats)
+        scores.append(rec)
+        return got
+
+    def ar_decode(*a, **kw):
+        n = orig["ar_decode"](*a, **kw)
+        ar_steps[0] += n - 1
+        return n
+
+    def fit(self):
+        loaded = bool(self.calibrator_path
+                      and os.path.exists(self.calibrator_path))
+        at = sum(1 for r in reqs if (r["run"], r["task"])
+                 == (cur["run"], cur["task"]))
+        rows = len(self._calib_rows)
+        orig["fit"](self)
+        fits.append({**cur, "at": at, "rows": rows, "loaded": loaded,
+                     "fitted": self.calibrator is not None})
+
+    def per_task(kind):
+        # the evaluator calls the adapter once per task, in the run's task
+        # order (a request's task_name is the task config's own name:
+        # synthetic_vqa's is chartqa)
+        def wrapped(self, requests):
+            cur["task"] = order[sum(c["run"] == cur["run"] for c in calls)]
+            t1 = time.perf_counter()
+            out = orig[kind](self, requests)
+            sync()
+            calls.append({**cur, "s": time.perf_counter() - t1,
+                          "n": len(requests)})
+            return out
+        return wrapped
+
+    hdir = os.path.join(root, "harness")
+    os.makedirs(hdir, exist_ok=True)
+    pkl, logdir = f"{hdir}/calibrator.pkl", f"{hdir}/logs"
+    # the draft goes by the --msd_model_path flag: an msd_model_path
+    # model arg would reach from_pretrained twice (in both packages)
+    margs = f"pretrained={ckpt},max_seq_len={max_seq}"
+    common = ["--device", str(device), "--limit", str(limit),
+              "--gen_kwargs", f"max_new_tokens={max_new}", "--log_samples"]
+    msd = ["--model", "llava_msd_calibrated", "--use_msd",
+           "--use_calibration", "--tasks", ",".join(tasks),
+           "--msd_model_path", draft_dir]
+    runs = {
+        "A": msd + ["--model_args", f"{margs},calibrator_path={pkl}",
+                    "--train_ratio", "0.5", "--log_dir", logdir,
+                    "--output_path", f"{hdir}/a.json"],
+        "B": ["--model", "llava", "--model_args", margs,
+              "--msd_model_path", draft_dir, "--tasks", ",".join(tasks)],
+        "C": msd + ["--model_args", f"{margs},calibrator_path={pkl}"],
+        "D": ["--model", "llava_msd", "--use_msd", "--model_args", margs,
+              "--msd_model_path", null_dir, "--tasks", ",".join(gen_tasks)],
+    }
+    out = {"card": card}
+    MSDGenerator.generate = wrap_gen("generate")
+    MSDGenerator.naive_generate = wrap_gen("naive_generate")
+    MSDGenerator.score = score
+    SE.ar_decode = ar_decode
+    LlavaMSD._fit_calibrator = fit
+    LlavaMSD.generate_until = per_task("generate_until")
+    LlavaMSD.loglikelihood = per_task("loglikelihood")
+    try:
+        for name, argv in runs.items():
+            cur.update(run=name, task=None)
+            order = argv[argv.index("--tasks") + 1].split(",")
+            steps0 = ar_steps[0]
+            # the counts of this slice's path: zeroed just before, read
+            # just after
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                payload = HM.main(argv + common)
+            sync()
+            out[name] = {"payload": payload, "s": time.perf_counter() - t1,
+                         "launches": K1.decode_attention.launches,
+                         "ar_steps": ar_steps[0] - steps0}
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        MSDGenerator.generate = orig["generate"]
+        MSDGenerator.naive_generate = orig["naive_generate"]
+        MSDGenerator.score = orig["score"]
+        SE.ar_decode = orig["ar_decode"]
+        LlavaMSD._fit_calibrator = orig["fit"]
+        LlavaMSD.generate_until = orig["generate_until"]
+        LlavaMSD.loglikelihood = orig["loglikelihood"]
+
+    def responses(name, task):
+        return [s["response"] for s in
+                out[name]["payload"]["details"][task]["samples"]]
+
+    def tokens(name, task):
+        return [r["tokens"] for r in reqs if (r["run"], r["task"])
+                == (name, task)]
+
+    # responses and, below the byte tokenizer's lossy decode (every id
+    # past 258 prints as one character), the committed token ids
+    bad = []
+    for t in gen_tasks:
+        if responses("A", t) != responses("D", t) \
+                or tokens("A", t) != tokens("D", t):
+            bad.append(f"A != D (null draft) on {t}")
+        if responses("C", t) != responses("A", t) \
+                or tokens("C", t) != tokens("A", t):
+            bad.append(f"C != A on {t}")
+    if "ai2d_ppl" in tasks:
+        for name in ("B", "C"):
+            if responses(name, "ai2d_ppl") != responses("A", "ai2d_ppl"):
+                bad.append(f"{name}'s loglikelihoods != A's (bitwise)")
+    c_scores = [r for r in scores if r["run"] == "C"]
+    if any(r["again"] != r["out"] for r in c_scores):
+        bad.append("score is not bitwise repeatable")
+    worst = max((abs(r["out"][0] - r["plain"][0])
+                 / max(1.0, abs(r["plain"][0])) for r in c_scores),
+                default=0.0)
+    if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in c_scores):
+        bad.append(f"score != its plain recompute (worst relative "
+                   f"{worst:.3e} against 1e-4, or a greedy flag)")
+    # the online calibration phases of A (and C's skip_to_test)
+    half = int(limit * 0.5)
+    a_first = [r["mode"] for r in reqs
+               if (r["run"], r["task"]) == ("A", gen_tasks[0])]
+    want_first = ["collect"] * half + ["calibrated"] * (limit - half)
+    a_fits = [f for f in fits if f["run"] == "A"]
+    phases_ok = (
+        a_first == want_first
+        and a_fits[0] == {"run": "A", "task": gen_tasks[0], "at": half,
+                          "rows": half, "loaded": False, "fitted": True}
+        and all(f["loaded"] and f["at"] == 0 for f in a_fits[1:])
+        and all(f["loaded"] and f["at"] == 0 and f["fitted"]
+                for f in fits if f["run"] == "C")
+        and all(r["mode"] == "calibrated" for r in reqs
+                if r["run"] == "C" or (r["run"] == "A"
+                                       and r["task"] != gen_tasks[0]))
+        and os.path.exists(pkl))
+    written = {}
+    for fname in ("acceptance_rate.json", "calibration_data.json"):
+        path = os.path.join(logdir, fname)
+        if os.path.exists(path):
+            with open(path) as f:
+                written[fname] = json.load(f)
+    phases_ok = phases_ok and len(written) == 2 and \
+        len(written["calibration_data.json"]["candidates"]["token"]) > 0
+    if not phases_ok:
+        bad.append(f"online calibration phases: A's first task {a_first}, "
+                   f"fits {fits}, files {sorted(written)}")
+    # K1: the AR baseline only, layers x AR steps run
+    layers = reqs[0]["layers"]
+    b_caps = sum(r["captured"] for r in reqs
+                 if r["run"] == "B" and r["mode"] == "ar")
+    k1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
+        if on_card else 0
+    if out["B"]["launches"] != k1_want or any(
+            out[n]["launches"] for n in ("A", "C", "D")):
+        bad.append(f"K1 launches {[out[n]['launches'] for n in runs]}, "
+                   f"want [0, {k1_want}, 0, 0]")
+    # captures: only at the first request of a combination in a run
+    seen, late = set(), []
+    for r in reqs:
+        k = (r["run"],) + r["key"]
+        if k in seen and r["captured"]:
+            late.append((r["run"], r["task"], r["mode"]))
+        seen.add(k)
+    if late:
+        bad.append(f"graphs captured inside later requests: {late}")
+    greedy = [r["greedy"] for r in reqs if r["run"] == "B" and "greedy" in r]
+    agree = {t: sum(a == b for a, b in zip(tokens("A", t), tokens("B", t)))
+             for t in gen_tasks}
+    prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+              for t in gen_tasks for a, b in zip(tokens("A", t),
+                                                 tokens("B", t))]
+    same_text = {t: sum(a == b for a, b in zip(responses("A", t),
+                                               responses("B", t)))
+                 for t in gen_tasks}
+    if not on_card:
+        if not all(greedy):
+            bad.append("B's responses do not score as greedy (fp32)")
+        if any(responses("A", t) != responses("B", t)
+               or tokens("A", t) != tokens("B", t) for t in gen_tasks):
+            bad.append("B's responses != A's (fp32)")
+    if bad:
+        raise AssertionError(f"[harness] {bad}")
+
+    def ms_per_token(name):
+        rs = [r for r in reqs if r["run"] == name]
+        return 1e3 * sum(r["s"] for r in rs) / max(1, sum(r["n"] for r in rs))
+
+    ppl = [r for r in scores if r["run"] == "B"]
+    out.update(
+        launches=out["B"]["launches"], ar_steps=out["B"]["ar_steps"],
+        ar_captures=b_caps, worst_score_rel=worst, agree=agree,
+        same_text=same_text, prefix=prefix,
+        greedy_share=sum(greedy) / max(1, len(greedy)),
+        ppl_greedy_share=sum(r["out"][1] for r in ppl) / max(1, len(ppl)),
+        ms_token={n: ms_per_token(n) for n in ("A", "B", "D")},
+        alpha=out["A"]["payload"]["msd_stats"]["avg_accept_len"],
+        task_s={(c["run"], c["task"]): c["s"] for c in calls},
+        peak=torch.cuda.max_memory_allocated() if on_card else 0,
+        seconds=time.perf_counter() - t_phase)
+    log(f"[harness] runs A (calibrated MSD), B (AR), C (skip_to_test), D "
+        f"(null draft) through harness.__main__.main, {limit} synthetic "
+        f"docs per task, {max_new} new tokens: "
+        + "; ".join(f"{n} {out[n]['s']:.1f}s" for n in runs) + f" on {card}")
+    log("[harness] seconds per task: " + "; ".join(
+        f"{r}/{t} {s:.2f}" for (r, t), s in out["task_s"].items())
+        + f" (C's ai2d_ppl includes each score's repeat and recompute) on "
+        f"{card}")
+    log(f"[harness] A == D (null draft) and C == A on {gen_tasks}, "
+        f"responses and token ids: True; "
+        f"A fitted at doc {half} of {gen_tasks[0]} from {half} collecting "
+        f"requests, later tasks and C read the pickle; ai2d_ppl "
+        f"loglikelihoods A == B == C bitwise, repeat bitwise, plain "
+        f"recompute worst relative {worst:.3e} (limit 1e-4) on {card}")
+    log(f"[harness] ms per generated token (prefill included): A "
+        f"{out['ms_token']['A']:.2f}, B {out['ms_token']['B']:.2f}, D "
+        f"{out['ms_token']['D']:.2f}; A's avg_accept_len "
+        f"{out['alpha']:.3f}; B's tokens == A's in {agree} of {limit} "
+        f"requests per task, first difference at token {prefix}, "
+        f"responses equal {same_text} (the byte tokenizer prints every id "
+        f"past 258 alike; neither gated on the card); B's own responses "
+        f"score greedy: "
+        f"{sum(greedy)}/{len(greedy)}; ai2d_ppl continuations greedy: "
+        f"{out['ppl_greedy_share']:.3f}; K1 launches in B {out['launches']}"
+        f" = {layers} x ({out['ar_steps']} AR tokens decoded + "
+        f"{WARMUP_STEPS} warm-up steps x {b_caps} capture), 0 in A, C, D; "
+        f"peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
+        f"{out['seconds']:.1f}s on {card}")
     return out
 
 
@@ -3124,8 +3535,9 @@ def main():
     eagle = run_eagle(res)
     serve = run_serve(res)
     k1["serve_launches"] = serve["serve_launches"]
-    weights = run_weights(res, serve)
+    weights = run_weights(res, serve, harness={})
     k1["weights_launches"] = weights["launches"]
+    k1["harness_launches"] = weights["harness"]["launches"]
     quant = run_quant(res)
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",

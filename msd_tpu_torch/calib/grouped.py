@@ -1,8 +1,11 @@
 """Grouped isotonic calibrator: host-side fit, exportable to device tables.
 
 The port's own copy of the JAX package's ``calib/grouped.py``: the fit,
-the host prediction and the table export. Its metrics (``ece``,
-``evaluate``) and pickling serve the offline reports and come with them.
+the host prediction, the table export, the metrics (``ece``,
+``evaluate``) and the pickle (``save``, ``load``). ``load`` reads a
+pickle of either package's calibrator into the port's classes; the JAX
+package's ``load`` reads the port's pickle as it is, whenever the port
+is importable beside it.
 
 Faithful rebuild of EAGLE/eagle/model/calibrators.py:
 - Feature pipeline (:46-101): token_category -> token_type {content:0,
@@ -24,6 +27,7 @@ table for device-side lookup (no sklearn/pandas in the decode hot path).
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -174,3 +178,54 @@ class GroupedIsotonicCalibrator:
             "margin_quantiles": np.asarray(self.margin_quantiles, np.float32),
             "global_mean": np.float32(self.global_mean),
         }
+
+    # ---------------- metrics ----------------
+    def ece(self, p: np.ndarray, y: np.ndarray, n_bins: int = 20,
+            equal_freq: bool = True) -> float:
+        p, y = np.asarray(p, float), np.asarray(y, float)
+        if equal_freq:
+            bounds = np.unique(np.quantile(p, np.linspace(0, 1, n_bins + 1)))
+            if len(bounds) < 2:
+                return 0.0
+        else:
+            bounds = np.linspace(0, 1, n_bins + 1)
+        e, tot = 0.0, 0.0
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            m = (p > lo) & (p <= hi)
+            if m.sum() == 0:
+                continue
+            e += m.sum() * abs(p[m].mean() - y[m].mean())
+            tot += m.sum()
+        return e / tot if tot else 0.0
+
+    def evaluate(self, features: Dict, soft_labels: np.ndarray,
+                 hard_labels: np.ndarray) -> Dict[str, float]:
+        p = self.predict_proba(features)
+        y = np.asarray(hard_labels, float)
+        return {
+            "brier": float(np.mean((p - y) ** 2)),
+            "ece_eqfreq20": self.ece(p, y, 20, True),
+            "ece_fixed10": self.ece(p, y, 10, False),
+            "soft_mse": float(np.mean((p - np.asarray(soft_labels)) ** 2)),
+        }
+
+    # ---------------- persistence ----------------
+    def save(self, path: str):
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+
+    @staticmethod
+    def load(path: str) -> "GroupedIsotonicCalibrator":
+        with open(path, "rb") as f:
+            return _PortUnpickler(f).load()
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Reads the JAX package's calibrator classes as the port's copies
+    (the same fields), so a pickle written by either package loads
+    without importing the JAX package."""
+
+    def find_class(self, module: str, name: str):
+        if module.startswith("msd_tpu.calib."):
+            module = "msd_tpu_torch" + module[len("msd_tpu"):]
+        return super().find_class(module, name)

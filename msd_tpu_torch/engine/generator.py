@@ -8,7 +8,8 @@ the collection of its features and of the trajectory's hidden states for
 distillation), ``generate_stream`` (the same tokens in segments),
 ``generate_batch`` (B requests as the lanes of one batched step),
 ``naive_generate`` (the AR baseline, optionally from the MSD prefill),
-``first_token``, ``set_draft`` and ``autotune_tree``. ``prefill`` and
+``score`` (a teacher-forced loglikelihood), ``first_token``,
+``set_draft`` and ``autotune_tree``. ``prefill`` and
 ``decode`` ranges mark each request's two phases for ``torch.profiler``.
 Sampling draws from one ``torch.Generator`` on the generator's device,
 seeded per request from ``seed`` (a batch: one per lane).
@@ -193,6 +194,14 @@ class MSDGenerator:
         if self.graphs is None:
             return None
         return self.graphs.get(fn, st, self.params, state)
+
+    @property
+    def max_prompt_tokens(self) -> int:
+        """Longest raw (before image expansion) prompt that ``generate``
+        and ``naive_generate`` accept under the engine budget: ``_pad``'s
+        limit less the image rows' expansion. The harness adapters
+        truncate longer eval prompts to it."""
+        return self._statics(0).step_limit - 1 - max(self.n_img - 1, 0)
 
     def _pad(self, ids: np.ndarray) -> np.ndarray:
         """Pad to the next multiple of prompt_pad_multiple (128-token
@@ -402,6 +411,27 @@ class MSDGenerator:
                 alpha_hist=hist[b],
                 graph=None if step is None else step.index))
         return out
+
+    def score(self, ids, cont_start: int,
+              img_feats: Optional[torch.Tensor] = None) -> tuple:
+        """Teacher-forced loglikelihood of ids[cont_start:] given
+        ids[:cont_start] (the lmms ``loglikelihood`` request): one eager
+        forward (``engine/scoring.py``) over the request padded to the
+        prompt bucket. Returns (logprob_sum: float, is_greedy: bool)."""
+        from msd_tpu_torch.engine import scoring as SC
+
+        ids = np.asarray(ids, np.int32)
+        if not 0 < cont_start < len(ids):
+            raise ValueError(
+                f"cont_start={cont_start} outside (0, {len(ids)})")
+        m = self.eng.prompt_pad_multiple
+        padded = np.zeros((((len(ids) + m - 1) // m) * m,), np.int32)
+        padded[:len(ids)] = ids
+        lp, n_match, n_cont = SC.score_program(
+            self.tcfg, self.n_img, self.params,
+            torch.from_numpy(padded).to(self.device), len(ids),
+            int(cont_start), img_feats, self._img_pos(ids))
+        return float(lp), bool(int(n_match) == int(n_cont))
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,

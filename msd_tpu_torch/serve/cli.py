@@ -57,16 +57,16 @@ def chat_once(adapter, conv, text: str, feats, sp, max_new: int,
 
 
 def _load_adapter(args):
-    from msd_tpu_torch.serve.adapter import ServeAdapter
+    from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
     if args.tiny:
-        return ServeAdapter.from_tiny(device=args.device,
-                                      use_msd=not args.no_msd)
+        return LlavaMSD.from_tiny(device=args.device,
+                                  use_msd=not args.no_msd)
     if not args.pretrained:
         raise SystemExit("--pretrained (or --tiny) is required")
-    return ServeAdapter.from_pretrained(args.pretrained, args.msd_model_path,
-                                        device=args.device,
-                                        use_msd=not args.no_msd,
-                                        max_new_tokens=args.max_new_tokens)
+    return LlavaMSD.from_pretrained(args.pretrained, args.msd_model_path,
+                                    device=args.device,
+                                    use_msd=not args.no_msd,
+                                    max_new_tokens=args.max_new_tokens)
 
 
 def main(argv=None):

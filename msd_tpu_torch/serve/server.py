@@ -27,9 +27,9 @@ encoder (the CLIP tower and projector) and the vicuna_v1 prompt with the
 <image> placeholder; an adapter without an encoder answers it with an
 error. A request's sampling parameters are the generator's with the
 request's temperature and top_p. ``use_msd: false`` decodes with the AR
-baseline. Build the adapter (``serve/adapter.py``) and call
-``serve_forever(adapter, port)``, then ``serve_forever()`` on the returned
-server, or serve a checkpoint from the command line:
+baseline. Build the adapter (``harness/models/llava_msd.LlavaMSD``) and
+call ``serve_forever(adapter, port)``, then ``serve_forever()`` on the
+returned server, or serve a checkpoint from the command line:
 
   python -m msd_tpu_torch.serve.server --pretrained <llava dir> \
       --msd_model_path <draft dir> [--port 8399] [--continuous N]
@@ -478,12 +478,12 @@ def parse_args(argv=None):
 
 def server_from_args(args):
     """The server ``main`` runs: the checkpoint's adapter
-    (``ServeAdapter.from_pretrained``) behind ``serve_forever``; the
-    caller runs its ``serve_forever()``."""
-    from msd_tpu_torch.serve.adapter import ServeAdapter
+    (``LlavaMSD.from_pretrained``) behind ``serve_forever``; the caller
+    runs its ``serve_forever()``."""
+    from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
 
     kw = {"max_seq_len": args.max_seq_len} if args.max_seq_len else {}
-    adapter = ServeAdapter.from_pretrained(
+    adapter = LlavaMSD.from_pretrained(
         args.pretrained, args.msd_model_path, device=args.device,
         use_msd=args.use_msd, **kw)
     return serve_forever(adapter, args.port, continuous=args.continuous,

@@ -14,6 +14,7 @@ daemon threads, gives each request a timeout and is shut down in
 """
 
 import base64
+import copy
 import dataclasses
 import io
 import json
@@ -45,7 +46,8 @@ from msd_tpu_torch.engine.generator import MSDGenerator as TGen
 from msd_tpu_torch.ops.sampling import SamplingParams as TSP
 from msd_tpu_torch.serve import cli
 from msd_tpu_torch.serve import server as TServer
-from msd_tpu_torch.serve.adapter import ServeAdapter, SimpleTokenizer
+from msd_tpu_torch.harness.models.llava_msd import LlavaMSD as TLlavaMSD
+from msd_tpu_torch.harness.models.llava_msd import SimpleTokenizer
 from msd_tpu_torch.serve.continuous import ContinuousScheduler, Request
 from msd_tpu_torch.utils.conversation import vicuna_v1
 from tests.test_torch_drafting import EAGLE, SMALL_CHOICES, _export, _weights
@@ -463,7 +465,7 @@ def test_sampled_slots_reproduce_their_seeds(eagle):
 
 def test_chat_once_streams_the_reply(medusa):
     _, tgen, _, _ = medusa
-    adapter = ServeAdapter(tgen, SimpleTokenizer(V))
+    adapter = TLlavaMSD(tgen, SimpleTokenizer(V))
     conv, out = vicuna_v1(), io.StringIO()
     reply = cli.chat_once(adapter, conv, "hello there", None, tgen.sp, 16,
                           out=out)
@@ -509,7 +511,7 @@ def served():
     jl, tl = _lcfgs()
     enc = jax.jit(lambda px: JV.encode_image(jlp, jl, px))
     jadapter = LlavaMSD(jgen, JTok(V), enc, image_size=28)
-    adapter = ServeAdapter.from_llava(tgen, SimpleTokenizer(V), tlp, tl)
+    adapter = TLlavaMSD.from_llava(tgen, SimpleTokenizer(V), tlp, tl)
     texts = {}
     httpd = JServer.serve_forever(jadapter, port=0)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -578,7 +580,9 @@ def test_http_server_matches_solo_and_jax(served, continuous):
 
 def test_http_server_refuses_images_without_an_encoder(served):
     adapter, _ = served
-    httpd, port = _serve(dataclasses.replace(adapter, encode_image_fn=None))
+    blind = copy.copy(adapter)
+    blind.encode_image_fn = None
+    httpd, port = _serve(blind)
     try:
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port, "/generate", REQUESTS["image"])
@@ -650,3 +654,24 @@ def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
                              n_img=16, widths=(4, 3, 2, 2, 1), max_seq=384,
                              cfg=SMOKE_CFG)
     assert big["launches"] == 0
+
+
+def test_smoke_harness_phase_at_tiny_size(smoke_serve):
+    """chip_smoke's [harness] phase on the CPU at a tiny width, on the
+    [weights] checkpoint through the harness CLI's main: calibrated MSD
+    with online calibration, the AR adapter, skip_to_test and the null
+    draft give the same responses; the loglikelihoods are bitwise equal
+    across runs and repeats and equal their plain recompute; the AR
+    adapter's responses score as greedy (fp32); no late capture. The
+    phase raises otherwise."""
+    import chip_smoke
+
+    res, serve = smoke_serve
+    out = chip_smoke.run_weights(res, serve, http_new=12,
+                                 harness=dict(limit=4, max_new=8))["harness"]
+    assert out["launches"] == 0          # CPU tensors take the plain twin
+    assert out["agree"] == out["same_text"] == \
+        {"synthetic_vqa": 4, "pope": 4}
+    assert out["greedy_share"] == 1.0
+    assert out["worst_score_rel"] <= 1e-4
+    assert out["A"]["payload"]["msd_stats"]["accept_steps"] > 0

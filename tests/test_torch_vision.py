@@ -31,7 +31,7 @@ from msd_tpu_torch.models import clip_vit as TCV
 from msd_tpu_torch.models import llama as TL
 from msd_tpu_torch.models import llava as TV
 from msd_tpu_torch.ops.attention import causal_prefill_bias
-from msd_tpu_torch.serve.adapter import SimpleTokenizer as TTok
+from msd_tpu_torch.harness.models.llava_msd import SimpleTokenizer as TTok
 from msd_tpu_torch.utils import conversation as TConv
 from msd_tpu_torch.utils import mm_utils as TMM
 from tests.hf_ref import (hf_state_numpy, rand_ids, tiny_hf_clip,

@@ -4,7 +4,7 @@ fp32): the port's safetensors reader and writer against the
 ``safetensors`` package, ``load_llava`` (one file, shards, a LoRA
 adapter), ``load_draft`` (EAGLE, stacked and per-head medusa heads, the
 target's embedding), ``save_draft``, ``clip_config_from_state``,
-``ServeAdapter.from_pretrained`` against ``LlavaMSD.from_pretrained``,
+the port's ``LlavaMSD.from_pretrained`` against the JAX package's,
 ``server.main``'s server and ``cli.main --tiny``. Every param equals the
 JAX loader's bitwise."""
 
@@ -29,7 +29,7 @@ from msd_tpu_torch import bridge
 from msd_tpu_torch.configs import EngineConfig, TreeConfig
 from msd_tpu_torch.serve import cli
 from msd_tpu_torch.serve import server as TServer
-from msd_tpu_torch.serve.adapter import ServeAdapter
+from msd_tpu_torch.harness.models.llava_msd import LlavaMSD as TLlavaMSD
 from msd_tpu_torch.utils import safetensors_io as SIO
 from msd_tpu_torch.utils import weights as TW
 from tests.test_weights_roundtrip import (H, make_draft_checkpoint,
@@ -283,7 +283,7 @@ def test_save_draft_round_trips_both_ways(ckpts, tmp_path):
 
 @pytest.mark.parametrize("draft", ["eagle", "medusa"])
 def test_from_pretrained_generates_jax_tokens(ckpts, draft, tmp_path):
-    """ServeAdapter.from_pretrained and LlavaMSD.from_pretrained over the
+    """The port's and the JAX package's LlavaMSD.from_pretrained over the
     same checkpoint: the same engine budgets (an explicit EAGLE tree, or
     the medusa taper from max_seq_len), EOS, image rows and vocabulary
     classes; their generators commit the same tokens, text and image."""
@@ -297,9 +297,9 @@ def test_from_pretrained_generates_jax_tokens(ckpts, draft, tmp_path):
     if draft == "eagle":
         kw["eng"] = EngineConfig(max_seq_len=256, prompt_pad_multiple=32,
                                  tree=TreeConfig(**TREE))
-    mine = ServeAdapter.from_pretrained(ckpts["llava"], path,
-                                        dtype=torch.float32, device="cpu",
-                                        **kw)
+    mine = TLlavaMSD.from_pretrained(ckpts["llava"], path,
+                                     dtype=torch.float32, device="cpu",
+                                     **kw)
     assert mine.gen.eng.max_seq_len == theirs.gen.eng.max_seq_len == 256
     assert mine.gen.eng.tree.__dict__ == theirs.gen.eng.tree.__dict__
     assert (mine.gen.n_img, mine.gen.eos_id) == \
@@ -358,7 +358,7 @@ def test_server_main_serves_a_checkpoint(ckpts):
 
 def test_cli_loads_a_checkpoint_as_the_server_does(ckpts):
     """cli's adapter over a checkpoint: off the card in fp32, as
-    server.main's (``ServeAdapter.from_pretrained`` picks the dtype from
+    server.main's (``LlavaMSD.from_pretrained`` picks the dtype from
     the device for both)."""
     import argparse
 
