@@ -88,7 +88,7 @@ prints no result):
    ``generate_batch`` of 64 tokens at B = 1, 2, 3, 4, 8 over image
    prompts and at B = 2, 3, 4, 8 over text prompts (every lane must
    commit the null-draft tokens of the same B and its solo run's, graph
-   == eager over the first 32 tokens; for the first lane that departs
+   == eager; for the first lane that departs
    from its solo run, the first op whose rows differ (``lane_divergence``)
    before the phase fails; the replayed step with and without the
    per-lane products; ms/step wall and per replayed step, aggregate
@@ -112,19 +112,23 @@ prints no result):
    a stream and a ``use_msd: false`` request, each equal to a generator
    over the weights in memory; K1 launches 32 per AR token decoded.
    Write and load seconds.
-11. harness (``run_harness``), on that checkpoint before it is deleted:
-   the eval CLI ``msd_tpu_torch.harness.__main__.main`` called in
-   process, 8 synthetic docs of synthetic_vqa, pope and ai2d_ppl, 32 new
-   tokens: calibrated MSD with online calibration (train_ratio 0.5, the
+11. harness (``run_harness``), on the checkpoint ``run_weights`` leaves
+   to ``main``, which removes it after: the eval CLI
+   ``msd_tpu_torch.harness.__main__.main`` called in process, 8
+   synthetic docs of synthetic_vqa, pope and ai2d_ppl, 32 new tokens:
+   calibrated MSD with online calibration (train_ratio 0.5, the
    calibrator fitted and pickled at the boundary), the AR adapter
    ``llava``, the calibrated run again from the pickle (skip_to_test)
    and MSD with the null draft. Calibrated == skip_to_test == null-draft
-   responses and token ids; loglikelihoods bitwise equal across runs and
-   repeats and equal to a plain recompute within 1e-4; K1 only in the AR
-   run, 32 per AR step run (a capture's warm-up steps included); no
-   capture after a combination's first request. Seconds per
-   task, ms per generated token, alpha, the AR run's agreement with MSD
-   and its greedy share, peak memory.
+   responses and token ids; calibrated == AR token ids up to each
+   request's first split, and every split a tie of the target's logits
+   within 2 bf16 ulps; loglikelihoods bitwise equal across runs and
+   repeats and equal to a plain recompute (unpadded, built apart from
+   the scoring program) within 1e-4; K1 only in the AR run, 32 per AR
+   step run (a capture's warm-up steps included); no capture after a
+   combination's first request. Seconds per task, ms per generated
+   token, alpha, the splits and the target's usual top-1 margin, the AR
+   run's greedy share, peak memory.
 12. quant (``run_quant``): on prompt 0, an int8 target, an int4 target and
    the bf16 target with an int8 draft: MSD == null-draft tokens, graph ==
    eager, the oracle draft accepted to full depth, K1 32 per AR token;
@@ -158,8 +162,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -198,14 +204,14 @@ AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
 # batcher's slots and segment, new tokens per HTTP request
 SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
-# the eager batches that hold generate_batch's graphs to the same steps
-# run eagerly decode this many of the 64 tokens (a depth cut that keeps
-# the whole smoke under ~950 s)
-SERVE_EAGER_NEW = 32
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
 HARNESS_LIMIT, HARNESS_NEW = 8, 32
+# where the AR adapter's tokens first depart from MSD's, the target's
+# logits of the two tokens must lie within this many bf16 ulps of the
+# larger (a tie that bf16 rounding decides; see run_harness)
+HARNESS_TIE = 2
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -2212,8 +2218,7 @@ def _png_b64(image: np.ndarray) -> str:
 
 
 def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
-              segment=SERVE_SEGMENT, http_new=SERVE_HTTP_NEW,
-              eager_new=SERVE_EAGER_NEW) -> dict:
+              segment=SERVE_SEGMENT, http_new=SERVE_HTTP_NEW) -> dict:
     """The serving path on the main path's weights and generators: the CLIP
     tower and projector (ViT-L/14-336 by default, bf16 from a seeded
     generator) encode a seeded 336x336 image whose rows feed every image
@@ -2224,9 +2229,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     stream and ``use_msd: false`` requests, /health). Raises unless every
     batched lane (image and text prompts) and every slot commits the
     null-draft tokens of its own batched run (the same B, the same
-    schedule) and the tokens of its request run alone, graph == eager
-    (the eager batch decodes the first ``eager_new`` tokens; greedy
-    decoding makes them a prefix of the graph run's), stream == one-shot, every HTTP text equals its solo repeat, the
+    schedule) and the tokens of its request run alone, graph == eager,
+    stream == one-shot, every HTTP text equals its solo repeat, the
     batched runs launch no K1 and the ``use_msd: false`` request launches
     32 per AR token decoded. A lane that departs from its solo run is
     explained (``lane_divergence``) before the phase fails. On the card it
@@ -2342,8 +2346,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {name}: replayed a "
                                      f"graph captured for other weights")
         gen.params["draft"] = drafts["msd"]
-        n_eager = min(eager_new, max_new)
-        ers = eager.generate_batch(ps, fs, n_eager)
+        ers = eager.generate_batch(ps, fs, max_new)
         rs, secs = runs["msd"]
         for b in range(B):
             tok = rs[b].tokens
@@ -2355,7 +2358,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: MSD "
                                      f"tokens differ from the null-draft "
                                      f"tokens of the same batch")
-            if not np.array_equal(tok[:n_eager], ers[b].tokens):
+            if not np.array_equal(tok, ers[b].tokens):
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: graph "
                                      f"and eager tokens differ")
         solo = [np.array_equal(gen.generate(ps[b], fs[b], max_new).tokens,
@@ -2368,8 +2371,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
             out["text_batch"][B] = solo
             log(f"[serve] generate_batch B={B}, text prompts: every lane "
                 f"== its null-draft tokens of the same B: True; graph == "
-                f"eager (first {n_eager} tokens): True; batched == solo "
-                f"per lane: {solo}")
+                f"eager: True; batched == solo per lane: {solo}")
             continue
         steps = max(r.accept_steps for r in rs)
         toks = sum(len(r.tokens) for r in rs)
@@ -2382,9 +2384,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                            "per_lane": per_lane}
         log(f"[serve] generate_batch B={B} on {lanes} lanes (verify "
             f"products per lane: {per_lane}): every lane == its null-draft "
-            f"tokens of the same B: True; graph == eager (first "
-            f"{n_eager} tokens): True; batched == solo per lane: {solo}; "
-            f"{steps} steps, "
+            f"tokens of the same B: True; graph == eager: True; batched == "
+            f"solo per lane: {solo}; {steps} steps, "
             f"{secs * 1e3 / steps:.2f} ms/step wall incl. the {B} "
             f"prefills, {step_ms:.3f} ms per replayed step (device), "
             f"aggregate {toks / secs:.1f} tokens/s, alpha {alpha:.3f}")
@@ -2625,8 +2626,7 @@ def _bitwise_diff(label, mine, ref) -> list:
             or not torch.equal(a[k], b[k])]
 
 
-def run_weights(res, serve, http_new=SERVE_HTTP_NEW,
-                harness=None) -> dict:
+def run_weights(res, serve, http_new=SERVE_HTTP_NEW, root=None) -> dict:
     """Serving from a checkpoint: the main path's target, the CLIP tower
     and projector of ``[serve]`` written as an HF-layout LLaVA checkpoint
     (bf16, shards of at most 5 GB, index and config.json) and the main
@@ -2639,10 +2639,9 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW,
     over the in-memory weights with the adapter's configuration (tokens,
     and the served text and count); the AR request's K1 launches = layers
     x AR tokens decoded. Fails when the disk cannot hold the checkpoint
-    (it is never shrunk). With ``harness`` (keyword arguments of
-    ``run_harness``), the main path's null draft is saved beside the
-    draft and the ``[harness]`` phase runs on the checkpoint before it is
-    deleted (``out["harness"]``)."""
+    (it is never shrunk). Given ``root``, the checkpoint is written there
+    and left to the caller, which hands ``out["ckpt"]`` and
+    ``out["draft"]`` to ``run_harness`` and removes it."""
     import gc
     import shutil
     import tempfile
@@ -2670,7 +2669,8 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW,
     draft_bytes = 4 * sum(t.numel() for k, t in
                           _flat_tensors(drafts["msd"]).items()
                           if k != "embed_tokens")
-    root = tempfile.mkdtemp(prefix="msd_ckpt_")
+    own = root is None
+    root = tempfile.mkdtemp(prefix="msd_ckpt_") if own else root
     out = {}
     try:
         free = shutil.disk_usage(root).free
@@ -2817,69 +2817,112 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW,
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-        out["seconds"] = time.perf_counter() - t_phase
-        if harness is not None:
-            null_dir = f"{root}/null"
-            W.save_draft(drafts["null"], null_dir)
-            out["harness"] = run_harness(ckpt, ddir, null_dir, root,
-                                         gen.eng.max_seq_len, device,
-                                         **harness)
+        out.update(seconds=time.perf_counter() - t_phase, ckpt=ckpt,
+                   draft=ddir)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
     log(f"[weights] write {out['write_s']:.1f}s, load {out['load_s']:.1f}s,"
         f" server.main's load {out['serve_load_s']:.1f}s; phase took "
         f"{out['seconds']:.1f}s")
     return out
 
 
-def plain_score(gen, ids, cont_start: int, feats) -> tuple:
-    """The plain recompute of ``MSDGenerator.score``: an eager
-    ``llama_forward`` over the same expanded sequence (padded to the
-    prompt bucket, as ``score`` pads it), then ``log_softmax`` over the
-    logits and a gather of the continuation rows' next tokens. Returns
-    (logprob_sum, is_greedy)."""
+def plain_logits(gen, ids, feats):
+    """The target's fp32 logits over the unpadded sequence ``ids`` with
+    the image rows (``feats``) spliced in at its ``<image>`` token, built
+    apart from ``MSDGenerator.score``'s program: the embeddings and the
+    expanded ids by concatenation, the causal mask by ``triu``, no bucket
+    padding. Only ``llama_forward`` and ``lm_head`` are shared with it.
+    Returns (logits [rows, V], expanded ids [rows] with -1 on image
+    rows)."""
     import torch
     from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
     from msd_tpu_torch.models import llama as L
-    from msd_tpu_torch.models import llava as LV
-    from msd_tpu_torch.ops.attention import causal_prefill_bias
 
-    ids = np.asarray(ids, np.int32)
-    m = gen.eng.prompt_pad_multiple
-    padded = np.zeros((-(-len(ids) // m) * m,), np.int32)
-    padded[:len(ids)] = ids
-    t = torch.from_numpy(padded).to(gen.device)
+    ids = np.asarray(ids, np.int64)
     tp, dev = gen.params["target"], gen.device
-    n = gen.n_img if feats is not None else 0
-    off = max(n - 1, 0)
-    rows = len(padded) + off
-    at = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0]
-    img_pos = int(at[0]) if len(at) else len(ids)
-    if n:
-        emb = LV.fuse_embeddings(tp["embed_tokens"], t, feats, img_pos, rows)
-        exp = LV.expand_ids(t.clamp(min=0), img_pos, n, rows)
+    table = tp["embed_tokens"]
+
+    def embed(x):
+        return table[torch.from_numpy(x).to(dev)]
+
+    if feats is None:
+        emb, exp = embed(ids), ids
     else:
-        emb = tp["embed_tokens"][t.clamp(min=0).long()]
-        exp = t
-    kv = L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev)
+        p = int(np.nonzero(ids == IMAGE_TOKEN_INDEX)[0][0])
+        emb = torch.cat([embed(ids[:p]), feats.to(table.dtype),
+                         embed(ids[p + 1:])])
+        exp = np.concatenate([ids[:p], np.full(len(feats), -1), ids[p + 1:]])
+    rows = emb.shape[0]
+    mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
     hidden, _ = L.llama_forward(
         tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
-        kv, 0, causal_prefill_bias(rows, rows, device=dev),
+        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask,
         gen.params["cos_t"], gen.params["sin_t"])
-    logp = torch.log_softmax(L.lm_head(tp, hidden), dim=-1)
-    r = torch.arange(cont_start + off - 1, len(ids) + off - 1, device=dev)
-    nxt = exp[r + 1].long()
+    return L.lm_head(tp, hidden), exp
+
+
+def plain_score(gen, ids, cont_start: int, feats) -> tuple:
+    """The plain recompute of ``MSDGenerator.score``: ``plain_logits``,
+    then ``log_softmax`` and a gather of the continuation rows' next
+    tokens. Returns (logprob_sum, is_greedy)."""
+    import torch
+
+    logits, exp = plain_logits(gen, ids, feats)
+    off = len(exp) - len(ids)
+    logp = torch.log_softmax(logits, dim=-1)
+    r = torch.arange(cont_start + off - 1, len(exp) - 1, device=gen.device)
+    nxt = torch.from_numpy(exp).to(gen.device)[r + 1]
     return (float(logp[r, nxt].sum()),
             bool((logp[r].argmax(dim=-1) == nxt).all()))
 
 
-def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
-                max_seq: int, device="cuda", limit: int = HARNESS_LIMIT,
-                max_new: int = HARNESS_NEW, tasks=HARNESS_TASKS) -> dict:
-    """The eval harness on the ``[weights]`` checkpoint, through its entry
-    point ``msd_tpu_torch.harness.__main__.main(argv)`` called in process
-    (its JSON print kept off this script's output), ``limit`` synthetic
-    docs per task and ``max_new`` new tokens per request:
+def bf16_ulp(x):
+    """The spacing of bf16 values (8 significant bits) at |x|, for a
+    float or a tensor."""
+    import torch
+
+    t = torch.as_tensor(x, dtype=torch.float32).abs().clamp(min=2 ** -126)
+    return torch.exp2(torch.floor(torch.log2(t)) - 7)
+
+
+def first_split(gen, ids, feats, a, b) -> dict:
+    """Where the committed tokens ``a`` (MSD) and ``b`` (AR) of one
+    request first differ, and how near a tie the target makes that
+    choice: ``plain_logits`` over the prompt and ``b``; at the row that
+    picks token k, the gap between the logits of a[k] and b[k] (a sequence
+    that ended first picks EOS there) in bf16 ulps of the larger, and
+    their ranks; and the top-1 minus top-2 margin, in ulps of the top-1,
+    of every row that picks one of b's tokens (how far apart the target's
+    choices usually lie)."""
+    logits, exp = plain_logits(gen, np.concatenate([ids, b]), feats)
+    first = len(exp) - len(b) - 1
+    top2 = logits[first:len(exp) - 1].topk(2, dim=-1).values
+    out = {"margins": ((top2[:, 0] - top2[:, 1])
+                       / bf16_ulp(top2[:, 0])).tolist()}
+    if list(a) == list(b):
+        return out
+    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    row = logits[first + k]
+    ta, tb = (int(s[k]) if k < len(s) else gen.eos_id for s in (a, b))
+    la, lb = float(row[ta]), float(row[tb])
+    out.update(at=k, gap=abs(la - lb), logit=max(abs(la), abs(lb)),
+               ulps=abs(la - lb) / float(bf16_ulp(max(abs(la), abs(lb)))),
+               ranks=(int((row > row[ta]).sum()), int((row > row[tb]).sum())))
+    return out
+
+
+def run_harness(res, ckpt: str, draft_dir: str, root: str,
+                limit: int = HARNESS_LIMIT, max_new: int = HARNESS_NEW,
+                tasks=HARNESS_TASKS) -> dict:
+    """The eval harness on the ``[weights]`` checkpoint (``ckpt``, the
+    medusa draft in ``draft_dir``; the main path's null draft is saved
+    beside them under ``root``), through its entry point
+    ``msd_tpu_torch.harness.__main__.main(argv)`` called in process (its
+    JSON print kept off this script's output), ``limit`` synthetic docs
+    per task and ``max_new`` new tokens per request:
 
     A. ``llava_msd_calibrated --use_msd --use_calibration --train_ratio
        0.5`` with a ``calibrator_path``: the first task collects on its
@@ -2892,24 +2935,35 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
     D. ``llava_msd`` with an independently seeded random draft (the null
        draft) on the generation tasks: the canonical greedy AR.
 
-    Fails unless: A's responses == D's (the window-canonical verify makes
-    the committed tokens draft-invariant, so this is losslessness through
-    the harness) and C's == A's; A collected on the first half of the
-    first task's docs and fitted there, later tasks and C loaded the
-    pickle, and A wrote acceptance_rate.json and calibration_data.json;
-    the loglikelihoods of A, B and C are bitwise equal, two calls of
-    ``score`` on one request (C) are bitwise equal and each score is its
-    plain recompute (``plain_score``) within 1e-4 x max(1, |lp|) with the
-    same greedy flag; K1 launches 0 in A, C, D and in B layers x (AR
-    tokens decoded + the warm-up steps of each AR-token capture); no
-    request captures a graph after the first request of its (mode,
-    max_new, sampling, tables) combination in a run. B's responses are
-    not equal to A's on the card: the AR token (one row, K1) and the
-    verify (a tree of rows, ``windowed_attention``) round differently in
-    bf16 (the main path prints it: "fast-AR agrees with MSD for the first
-    n/64 tokens"); their agreement is printed, and so is whether B's own
-    responses score as greedy (the scoring forward reduces over other row
-    counts than the AR decode): both are gated off the card (fp32)."""
+    What main() returns and writes gives the responses, ``msd_stats``,
+    the pickle and the log files. Wrappers, restored after, record only
+    what those do not show: each request's committed token ids, mode and
+    captures (``MSDGenerator.generate``/``naive_generate``), the scoring
+    requests (``MSDGenerator.score``) and the AR steps run
+    (``spec_engine.ar_decode``). A run's generate requests belong to its
+    generation tasks in order, ``limit`` each.
+
+    Fails unless: A's responses and token ids == D's (the window-canonical
+    verify makes the committed tokens draft-invariant) and C's == A's;
+    A's token ids == B's up to each request's first split, and each split
+    is a rounding tie of the target: the two tokens' plain logits
+    (``first_split``) lie within ``HARNESS_TIE`` bf16 ulps (on the card
+    the AR row, K1, and the verify rows round differently in bf16; off
+    the card, in fp32, no split is allowed); A collected on the first
+    half of the first task's docs and decoded the rest calibrated, later
+    tasks and C decoded every doc calibrated from the pickle, which C left
+    as A wrote it, and A wrote acceptance_rate.json and
+    calibration_data.json holding its collected rows; the loglikelihoods
+    of A, B and C are bitwise equal, two calls of ``score`` on one request
+    (C) are bitwise equal and each score is its plain recompute
+    (``plain_score``) within 1e-4 x max(1, |lp|) with the same greedy
+    flag; K1 launches 0 in A, C, D and in B layers x (AR tokens decoded +
+    the warm-up steps of each AR-token capture); no request captures a
+    graph after the first request of its (mode, max_new, sampling,
+    tables) combination in a run. Whether B's own responses score as
+    greedy (the scoring forward reduces over other row counts than the
+    AR decode) is printed, and gated off the card."""
+    import hashlib
     import io
 
     import torch
@@ -2917,25 +2971,24 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
     from msd_tpu_torch.engine.generator import MSDGenerator
     from msd_tpu_torch.engine.graphs import WARMUP_STEPS
     from msd_tpu_torch.harness import __main__ as HM
-    from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
     from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.utils import weights as W
 
-    on_card = str(device).startswith("cuda")
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ctx = res["ctx"]
+    device, on_card, sync = ctx["device"], ctx["on_card"], ctx["sync"]
     card = smi_name_and_limit() if on_card else "cpu"
     t_phase = time.perf_counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    null_dir = f"{root}/null"
+    W.save_draft(ctx["drafts"]["null"], null_dir)
     gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
-    cur = {"run": None, "task": None}
-    reqs, scores, calls, fits = [], [], [], []
+    run = [None]
+    reqs, scores = [], []
     ar_steps = [0]
     orig = {"generate": MSDGenerator.generate,
             "naive_generate": MSDGenerator.naive_generate,
-            "score": MSDGenerator.score, "ar_decode": SE.ar_decode,
-            "fit": LlavaMSD._fit_calibrator,
-            "generate_until": LlavaMSD.generate_until,
-            "loglikelihood": LlavaMSD.loglikelihood}
+            "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
 
     def n_graphs(gen):
         return 0 if gen.graphs is None else len(gen.graphs.steps)
@@ -2946,22 +2999,30 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
             t1 = time.perf_counter()
             r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
             sync()
-            secs = time.perf_counter() - t1
+            t2 = time.perf_counter()
             mode = "ar" if kind == "naive_generate" else \
                 "calibrated" if kw.get("use_calibration") else \
                 "collect" if kw.get("collect_calibration") else "msd"
-            rec = {**cur, "mode": mode, "s": secs, "n": len(r.tokens),
+            mine = [q for q in reqs if q["run"] == run[0]]
+            rec = {"run": run[0], "task": gen_tasks[len(mine) // limit],
+                   "mode": mode, "t": (t1, t2), "n": len(r.tokens),
                    "tokens": r.tokens.tolist(),
                    "captured": n_graphs(self) - before,
                    "layers": self.tcfg.num_hidden_layers,
                    "key": (mode, max_new_tokens, kw.get("sp"),
                            id(self.params.get("calib"))
                            if mode == "calibrated" else None)}
-            if mode == "ar" and len(r.tokens):
+            if mode == "collect":
+                rec["rows"] = int(np.asarray(r.calib_data["valid"]).sum())
+            if mode == "ar":
+                # B against A's request of the same doc
                 full = np.concatenate([np.asarray(ids, np.int32),
                                        r.tokens]).astype(np.int32)
                 rec["greedy"] = orig["score"](self, full, len(ids),
                                               img_feats)[1]
+                a = [q for q in reqs if q["run"] == "A"][len(mine)]
+                rec["split"] = first_split(self, ids, img_feats,
+                                           a["tokens"], rec["tokens"])
             reqs.append(rec)
             return r
         return wrapped
@@ -2970,8 +3031,9 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         t1 = time.perf_counter()
         got = orig["score"](self, ids, cont_start, img_feats)
         sync()
-        rec = {**cur, "out": got, "s": time.perf_counter() - t1}
-        if cur["run"] == "C":
+        rec = {"run": run[0], "task": "ai2d_ppl", "out": got,
+               "t": (t1, time.perf_counter())}
+        if run[0] == "C":
             rec["again"] = orig["score"](self, ids, cont_start, img_feats)
             rec["plain"] = plain_score(self, ids, cont_start, img_feats)
         scores.append(rec)
@@ -2982,36 +3044,13 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         ar_steps[0] += n - 1
         return n
 
-    def fit(self):
-        loaded = bool(self.calibrator_path
-                      and os.path.exists(self.calibrator_path))
-        at = sum(1 for r in reqs if (r["run"], r["task"])
-                 == (cur["run"], cur["task"]))
-        rows = len(self._calib_rows)
-        orig["fit"](self)
-        fits.append({**cur, "at": at, "rows": rows, "loaded": loaded,
-                     "fitted": self.calibrator is not None})
-
-    def per_task(kind):
-        # the evaluator calls the adapter once per task, in the run's task
-        # order (a request's task_name is the task config's own name:
-        # synthetic_vqa's is chartqa)
-        def wrapped(self, requests):
-            cur["task"] = order[sum(c["run"] == cur["run"] for c in calls)]
-            t1 = time.perf_counter()
-            out = orig[kind](self, requests)
-            sync()
-            calls.append({**cur, "s": time.perf_counter() - t1,
-                          "n": len(requests)})
-            return out
-        return wrapped
-
     hdir = os.path.join(root, "harness")
     os.makedirs(hdir, exist_ok=True)
     pkl, logdir = f"{hdir}/calibrator.pkl", f"{hdir}/logs"
     # the draft goes by the --msd_model_path flag: an msd_model_path
     # model arg would reach from_pretrained twice (in both packages)
-    margs = f"pretrained={ckpt},max_seq_len={max_seq}"
+    margs = (f"pretrained={ckpt},"
+             f"max_seq_len={ctx['gens']['graph'].eng.max_seq_len}")
     common = ["--device", str(device), "--limit", str(limit),
               "--gen_kwargs", f"max_new_tokens={max_new}", "--log_samples"]
     msd = ["--model", "llava_msd_calibrated", "--use_msd",
@@ -3027,18 +3066,14 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         "D": ["--model", "llava_msd", "--use_msd", "--model_args", margs,
               "--msd_model_path", null_dir, "--tasks", ",".join(gen_tasks)],
     }
-    out = {"card": card}
+    out, digest = {"card": card}, {}
     MSDGenerator.generate = wrap_gen("generate")
     MSDGenerator.naive_generate = wrap_gen("naive_generate")
     MSDGenerator.score = score
     SE.ar_decode = ar_decode
-    LlavaMSD._fit_calibrator = fit
-    LlavaMSD.generate_until = per_task("generate_until")
-    LlavaMSD.loglikelihood = per_task("loglikelihood")
     try:
         for name, argv in runs.items():
-            cur.update(run=name, task=None)
-            order = argv[argv.index("--tasks") + 1].split(",")
+            run[0] = name
             steps0 = ar_steps[0]
             # the counts of this slice's path: zeroed just before, read
             # just after
@@ -3050,6 +3085,9 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
             out[name] = {"payload": payload, "s": time.perf_counter() - t1,
                          "launches": K1.decode_attention.launches,
                          "ar_steps": ar_steps[0] - steps0}
+            if os.path.exists(pkl):
+                with open(pkl, "rb") as f:
+                    digest[name] = hashlib.sha256(f.read()).hexdigest()
             gc.collect()
             if on_card:
                 torch.cuda.empty_cache()
@@ -3058,21 +3096,24 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         MSDGenerator.naive_generate = orig["naive_generate"]
         MSDGenerator.score = orig["score"]
         SE.ar_decode = orig["ar_decode"]
-        LlavaMSD._fit_calibrator = orig["fit"]
-        LlavaMSD.generate_until = orig["generate_until"]
-        LlavaMSD.loglikelihood = orig["loglikelihood"]
 
     def responses(name, task):
         return [s["response"] for s in
                 out[name]["payload"]["details"][task]["samples"]]
 
-    def tokens(name, task):
-        return [r["tokens"] for r in reqs if (r["run"], r["task"])
-                == (name, task)]
+    def of(name, task=None):
+        return [r for r in reqs if r["run"] == name
+                and task in (None, r["task"])]
 
+    def tokens(name, task):
+        return [r["tokens"] for r in of(name, task)]
+
+    bad = [f"{n} ran {len(of(n))} generate requests" for n in runs
+           if len(of(n)) != limit * len(gen_tasks)]
+    if bad:
+        raise AssertionError(f"[harness] {bad}")
     # responses and, below the byte tokenizer's lossy decode (every id
     # past 258 prints as one character), the committed token ids
-    bad = []
     for t in gen_tasks:
         if responses("A", t) != responses("D", t) \
                 or tokens("A", t) != tokens("D", t):
@@ -3080,6 +3121,19 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         if responses("C", t) != responses("A", t) \
                 or tokens("C", t) != tokens("A", t):
             bad.append(f"C != A on {t}")
+        for x, y, r in zip(responses("A", t), responses("B", t),
+                           of("B", t)):
+            if x != y and "at" not in r["split"]:
+                bad.append(f"A's response != B's, their tokens equal, {t}")
+    # A against B: token ids equal up to the first split, and a split
+    # only where the target's logits of the two tokens tie within the
+    # rounding noise of the card's bf16
+    splits = [r["split"] for r in of("B")]
+    ties = [s for s in splits if "at" in s]
+    if (ties and not on_card) or not all(
+            s["ulps"] <= HARNESS_TIE for s in ties):
+        bad.append(f"A != B at a split that is no rounding tie: "
+                   f"{[dict(s, margins=None) for s in ties]}")
     if "ai2d_ppl" in tasks:
         for name in ("B", "C"):
             if responses(name, "ai2d_ppl") != responses("A", "ai2d_ppl"):
@@ -3093,38 +3147,33 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
     if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in c_scores):
         bad.append(f"score != its plain recompute (worst relative "
                    f"{worst:.3e} against 1e-4, or a greedy flag)")
-    # the online calibration phases of A (and C's skip_to_test)
+    # the online calibration phases of A and C's skip_to_test, from the
+    # requests' modes, the pickle and the log files
     half = int(limit * 0.5)
-    a_first = [r["mode"] for r in reqs
-               if (r["run"], r["task"]) == ("A", gen_tasks[0])]
-    want_first = ["collect"] * half + ["calibrated"] * (limit - half)
-    a_fits = [f for f in fits if f["run"] == "A"]
-    phases_ok = (
-        a_first == want_first
-        and a_fits[0] == {"run": "A", "task": gen_tasks[0], "at": half,
-                          "rows": half, "loaded": False, "fitted": True}
-        and all(f["loaded"] and f["at"] == 0 for f in a_fits[1:])
-        and all(f["loaded"] and f["at"] == 0 and f["fitted"]
-                for f in fits if f["run"] == "C")
-        and all(r["mode"] == "calibrated" for r in reqs
-                if r["run"] == "C" or (r["run"] == "A"
-                                       and r["task"] != gen_tasks[0]))
-        and os.path.exists(pkl))
+    a_first = [r["mode"] for r in of("A", gen_tasks[0])]
+    collected = sum(r.get("rows", 0) for r in of("A"))
     written = {}
     for fname in ("acceptance_rate.json", "calibration_data.json"):
         path = os.path.join(logdir, fname)
         if os.path.exists(path):
             with open(path) as f:
                 written[fname] = json.load(f)
-    phases_ok = phases_ok and len(written) == 2 and \
-        len(written["calibration_data.json"]["candidates"]["token"]) > 0
+    logged = len(written["calibration_data.json"]["candidates"]["token"]) \
+        if "calibration_data.json" in written else 0
+    phases_ok = (
+        a_first == ["collect"] * half + ["calibrated"] * (limit - half)
+        and all(r["mode"] == "calibrated" for r in of("C") + [
+            r for r in of("A") if r["task"] != gen_tasks[0]])
+        and digest.get("A") is not None
+        and digest.get("A") == digest.get("C")
+        and len(written) == 2 and collected > 0 and logged == collected)
     if not phases_ok:
         bad.append(f"online calibration phases: A's first task {a_first}, "
-                   f"fits {fits}, files {sorted(written)}")
+                   f"rows collected {collected}, logged {logged}, pickle "
+                   f"after {sorted(digest)}, files {sorted(written)}")
     # K1: the AR baseline only, layers x AR steps run
     layers = reqs[0]["layers"]
-    b_caps = sum(r["captured"] for r in reqs
-                 if r["run"] == "B" and r["mode"] == "ar")
+    b_caps = sum(r["captured"] for r in of("B"))
     k1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
         if on_card else 0
     if out["B"]["launches"] != k1_want or any(
@@ -3140,63 +3189,72 @@ def run_harness(ckpt: str, draft_dir: str, null_dir: str, root: str,
         seen.add(k)
     if late:
         bad.append(f"graphs captured inside later requests: {late}")
-    greedy = [r["greedy"] for r in reqs if r["run"] == "B" and "greedy" in r]
-    agree = {t: sum(a == b for a, b in zip(tokens("A", t), tokens("B", t)))
-             for t in gen_tasks}
-    prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                   min(len(a), len(b)))
-              for t in gen_tasks for a, b in zip(tokens("A", t),
-                                                 tokens("B", t))]
-    same_text = {t: sum(a == b for a, b in zip(responses("A", t),
-                                               responses("B", t)))
-                 for t in gen_tasks}
-    if not on_card:
-        if not all(greedy):
-            bad.append("B's responses do not score as greedy (fp32)")
-        if any(responses("A", t) != responses("B", t)
-               or tokens("A", t) != tokens("B", t) for t in gen_tasks):
-            bad.append("B's responses != A's (fp32)")
+    greedy = [r["greedy"] for r in of("B")]
+    if not on_card and not all(greedy):
+        bad.append("B's responses do not score as greedy (fp32)")
     if bad:
         raise AssertionError(f"[harness] {bad}")
 
     def ms_per_token(name):
-        rs = [r for r in reqs if r["run"] == name]
-        return 1e3 * sum(r["s"] for r in rs) / max(1, sum(r["n"] for r in rs))
+        rs = of(name)
+        return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
+            / max(1, sum(r["n"] for r in rs))
 
+    spans = {}
+    for r in reqs + scores:
+        lo, hi = spans.get((r["run"], r["task"]), r["t"])
+        spans[(r["run"], r["task"])] = (min(lo, r["t"][0]),
+                                        max(hi, r["t"][1]))
+    margins = np.asarray([m for s in splits for m in s["margins"]])
     ppl = [r for r in scores if r["run"] == "B"]
     out.update(
         launches=out["B"]["launches"], ar_steps=out["B"]["ar_steps"],
-        ar_captures=b_caps, worst_score_rel=worst, agree=agree,
-        same_text=same_text, prefix=prefix,
+        ar_captures=b_caps, worst_score_rel=worst,
+        agree={t: sum("at" not in r["split"] for r in of("B", t))
+               for t in gen_tasks},
+        same_text={t: sum(x == y for x, y in zip(responses("A", t),
+                                                 responses("B", t)))
+                   for t in gen_tasks},
+        ties=[dict(s, margins=None) for s in ties],
+        margin_median=float(np.median(margins)),
+        near_ties=int((margins <= HARNESS_TIE).sum()),
         greedy_share=sum(greedy) / max(1, len(greedy)),
         ppl_greedy_share=sum(r["out"][1] for r in ppl) / max(1, len(ppl)),
         ms_token={n: ms_per_token(n) for n in ("A", "B", "D")},
         alpha=out["A"]["payload"]["msd_stats"]["avg_accept_len"],
-        task_s={(c["run"], c["task"]): c["s"] for c in calls},
+        task_s={k: hi - lo for k, (lo, hi) in spans.items()},
         peak=torch.cuda.max_memory_allocated() if on_card else 0,
         seconds=time.perf_counter() - t_phase)
     log(f"[harness] runs A (calibrated MSD), B (AR), C (skip_to_test), D "
         f"(null draft) through harness.__main__.main, {limit} synthetic "
         f"docs per task, {max_new} new tokens: "
         + "; ".join(f"{n} {out[n]['s']:.1f}s" for n in runs) + f" on {card}")
-    log("[harness] seconds per task: " + "; ".join(
-        f"{r}/{t} {s:.2f}" for (r, t), s in out["task_s"].items())
+    log("[harness] seconds per task (first request's start to last's "
+        "end): " + "; ".join(
+            f"{r}/{t} {s:.2f}" for (r, t), s in out["task_s"].items())
         + f" (C's ai2d_ppl includes each score's repeat and recompute) on "
         f"{card}")
     log(f"[harness] A == D (null draft) and C == A on {gen_tasks}, "
-        f"responses and token ids: True; "
-        f"A fitted at doc {half} of {gen_tasks[0]} from {half} collecting "
-        f"requests, later tasks and C read the pickle; ai2d_ppl "
+        f"responses and token ids: True; A collected {collected} rows on "
+        f"docs 0-{half - 1} of {gen_tasks[0]} and decoded from doc {half} "
+        f"calibrated, later tasks and C from the pickle; ai2d_ppl "
         f"loglikelihoods A == B == C bitwise, repeat bitwise, plain "
-        f"recompute worst relative {worst:.3e} (limit 1e-4) on {card}")
+        f"recompute (unpadded) worst relative {worst:.3e} (limit 1e-4) on "
+        f"{card}")
+    log(f"[harness] A == B: token ids equal in {out['agree']} of {limit} "
+        f"requests per task, responses in {out['same_text']}; each other "
+        f"request splits at a rounding tie (the two logits within "
+        f"{HARNESS_TIE} bf16 ulps): "
+        + ("; ".join(f"token {s['at']}, gap {s['gap']:.4f} = "
+                     f"{s['ulps']:.1f} ulps at |logit| {s['logit']:.4f}, "
+                     f"ranks {s['ranks']}" for s in ties) or "none")
+        + f"; top-1 minus top-2 over B's {len(margins)} tokens: median "
+        f"{out['margin_median']:.2f} ulps, {out['near_ties']} within "
+        f"{HARNESS_TIE} on {card}")
     log(f"[harness] ms per generated token (prefill included): A "
         f"{out['ms_token']['A']:.2f}, B {out['ms_token']['B']:.2f}, D "
         f"{out['ms_token']['D']:.2f}; A's avg_accept_len "
-        f"{out['alpha']:.3f}; B's tokens == A's in {agree} of {limit} "
-        f"requests per task, first difference at token {prefix}, "
-        f"responses equal {same_text} (the byte tokenizer prints every id "
-        f"past 258 alike; neither gated on the card); B's own responses "
-        f"score greedy: "
+        f"{out['alpha']:.3f}; B's own responses score greedy: "
         f"{sum(greedy)}/{len(greedy)}; ai2d_ppl continuations greedy: "
         f"{out['ppl_greedy_share']:.3f}; K1 launches in B {out['launches']}"
         f" = {layers} x ({out['ar_steps']} AR tokens decoded + "
@@ -3535,9 +3593,14 @@ def main():
     eagle = run_eagle(res)
     serve = run_serve(res)
     k1["serve_launches"] = serve["serve_launches"]
-    weights = run_weights(res, serve, harness={})
+    root = tempfile.mkdtemp(prefix="msd_ckpt_")
+    try:
+        weights = run_weights(res, serve, root=root)
+        harness = run_harness(res, weights["ckpt"], weights["draft"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     k1["weights_launches"] = weights["launches"]
-    k1["harness_launches"] = weights["harness"]["launches"]
+    k1["harness_launches"] = harness["launches"]
     quant = run_quant(res)
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",

@@ -656,20 +656,24 @@ def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
     assert big["launches"] == 0
 
 
-def test_smoke_harness_phase_at_tiny_size(smoke_serve):
+def test_smoke_harness_phase_at_tiny_size(smoke_serve, tmp_path):
     """chip_smoke's [harness] phase on the CPU at a tiny width, on the
-    [weights] checkpoint through the harness CLI's main: calibrated MSD
-    with online calibration, the AR adapter, skip_to_test and the null
-    draft give the same responses; the loglikelihoods are bitwise equal
+    checkpoint [weights] leaves in the caller's directory, through the
+    harness CLI's main: calibrated MSD with online calibration, the AR
+    adapter, skip_to_test and the null draft give the same responses and
+    token ids (fp32: no split); the loglikelihoods are bitwise equal
     across runs and repeats and equal their plain recompute; the AR
     adapter's responses score as greedy (fp32); no late capture. The
     phase raises otherwise."""
     import chip_smoke
 
     res, serve = smoke_serve
-    out = chip_smoke.run_weights(res, serve, http_new=12,
-                                 harness=dict(limit=4, max_new=8))["harness"]
+    weights = chip_smoke.run_weights(res, serve, http_new=12,
+                                     root=str(tmp_path))
+    out = chip_smoke.run_harness(res, weights["ckpt"], weights["draft"],
+                                 str(tmp_path), limit=4, max_new=8)
     assert out["launches"] == 0          # CPU tensors take the plain twin
+    assert out["ties"] == []
     assert out["agree"] == out["same_text"] == \
         {"synthetic_vqa": 4, "pope": 4}
     assert out["greedy_share"] == 1.0
