@@ -17,7 +17,9 @@ prints no result):
    over eager calls and CUDA-graph replays; times kernel, plain version
    and one PyTorch library call with CUDA graphs of launches over 32
    layer-sized caches (each launch finds its cache out of L2, as in a
-   decode step) at four kv_len and at kv_len 0 (K1's fixed cost); and,
+   decode step) at four kv_len and at kv_len 0 (K1's fixed cost), and at
+   Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4: G*T = 7, the kernel's wide
+   regime) over 28 caches at kv_len 272 beside SDPA with enable_gqa; and,
    last, profiles 32 K1 calls, which must show one kernel launched 32
    times.
 4. main path at LLaVA-1.5-7B width (random weights from seeded generators
@@ -149,6 +151,22 @@ prints no result):
    quantized layer by layer; one image prompt x 32 tokens, MSD, null-draft
    MSD and AR, graph-replayed: MSD == the null-draft tokens, K1 40 per AR
    token decoded; K1 against its plain twin at 40 heads and timed there.
+15. qwen (``run_qwen``), after the 13B model is released: Qwen2-VL-7B at
+   full width from seeded generators (the GQA 28/4 decoder with q/k/v
+   biases, bf16 weights, fp32 residual; the 32-layer tower on a seeded
+   336px image, 144 merged rows; 13-head medusa and null drafts at its
+   width): two 64-token prompts with the inline image span and a text
+   prompt x 64 tokens, graph, eager and null-draft MSD and the AR
+   baseline, the oracle draft after the image, ``generate_batch`` at
+   B = 2; ``save_qwen2_vl`` and ``save_draft`` write the checkpoint, read
+   back bitwise, and the harness CLI runs ``qwen2_vl_msd`` on it (MSD, AR,
+   the null draft). Fails unless MSD == eager == null draft, every
+   committed token is the canonical argmax of an independent mrope
+   recompute or within ``QWEN_TIE`` bf16 ulps of its top, AR departs from
+   MSD only at such ties, the oracle is accepted to full depth, the
+   batch equals the solo runs, K1 launches 28 per AR token decoded (0 in
+   MSD) and the scores are bitwise repeatable and equal their recompute
+   within 1e-4.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -187,9 +205,9 @@ MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 64, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
 # bench.py's distill (1700 steps over 5 record -> train rounds) cut to two
-# rounds and a step budget that keeps the phase under two minutes on the
-# card (~0.5 s a step at 7B width)
-DISTILL_STEPS, DISTILL_ROUNDS = 160, 2
+# rounds of 50 steps (~0.5 s a step at 7B width), the schedule's floor, so
+# the whole smoke, [qwen] included, stays near 1000 s on the card
+DISTILL_STEPS, DISTILL_ROUNDS = 100, 2
 # bench.py's --draft-mode eagle tree (bench.py:396-408): OPT-Tree frontier
 # of 10 per depth, 8 depths, 96 nodes, early stop at 0.2 (95 draft nodes >
 # 8 x 10 explored: the dead-padded budget)
@@ -212,6 +230,22 @@ HARNESS_LIMIT, HARNESS_NEW = 8, 32
 # logits of the two tokens must lie within this many bf16 ulps of the
 # larger (a tie that bf16 rounding decides; see run_harness)
 HARNESS_TIE = 2
+# the Qwen2-VL phase: synthetic docs per harness task, and the std of the
+# q/k/v biases drawn into the seeded target (Qwen2's attention has them;
+# zeros would leave the bias add untested)
+QWEN_LIMIT, QWEN_BIAS_STD = 4, 0.1
+# how far (bf16 ulps of the top logit) a committed Qwen token may lie below
+# the independent recompute's top logit when it is not the recompute's
+# canonical argmax, on the card, and how far apart the two tokens of an
+# AR-vs-MSD split may lie. Two recomputes of one sequence that differ only
+# in row count (so in cuBLAS's kernels) gave logits up to 7 ulps apart on
+# an H100 (a text prompt; 0 on the image prompts), committed tokens lay up
+# to 4 ulps below the top (8 of 192, some the third choice of a three-way
+# near tie) and splits up to 3 ulps apart; the top-1 minus top-2 margin's
+# median is 6-8 ulps over Qwen's 152064-token vocabulary. 2 ulps (one step
+# of the 6-bit canonical grid) is below that noise. Off the card (fp32)
+# every token must be the canonical argmax and no split is allowed.
+QWEN_TIE = 8
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -498,6 +532,11 @@ def phase_kernels(card: str) -> dict:
               for n in (n_split - 1, n_split, n_split + 1, 1279, 1280)]
     cases += [(1, 32, 8, 1280, K1.launch_shape(1, 32, 8, K1.sm_count(0))[2]
                + 1, bf16)]
+    # Qwen2-VL-7B's AR row: G*T = 7 grouped rows, two row groups of 4 per
+    # kv head (the kernel's wide regime); kv_len 272 is a 210-row image
+    # prompt after 62 AR tokens; the split grid's edge
+    q_split = K1.launch_shape(1, 28, 4, K1.sm_count(0))[2]
+    cases += [(1, 28, 4, 1280, n, bf16) for n in (1, 272, 1279, q_split + 1)]
     max_err = 0.0
     for i, (t, hq, hkv, s, kv_len, dtype) in enumerate(cases):
         q, k, v, bias, n = _attn_inputs(t, hq, hkv, s, kv_len, dtype, i)
@@ -568,6 +607,7 @@ def phase_kernels(card: str) -> dict:
                      "library_ms": timed["library"]}
             profiled = kernel
     entry["ms_by_kv_len"] = by_len
+    entry["qwen_ar"] = time_qwen_ar(card, q_split)
 
     def profile():
         # one kernel per call: 32 calls show one kernel name, 32 launches
@@ -3477,6 +3517,67 @@ def time_k1(hq: int, layers: int, kv_len: int = 672, s: int = 1280):
     return err, us, nbytes / HBM_BYTES_PER_S * 1e6
 
 
+def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
+                 s: int = 1280, layers: int = 28) -> dict:
+    """K1 at Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4, bf16) over 28 layer
+    caches at kv_len 272, in CUDA graphs: kernel (twice), its plain twin
+    and SDPA with ``enable_gqa``, and the byte bound. Returns the kernels
+    line's fields for this shape (``launches`` set by ``[qwen]``)."""
+    import torch
+    import torch.nn.functional as F
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    bf16 = torch.bfloat16
+    hq, hkv = 28, 4
+    g = torch.Generator(device="cuda").manual_seed(28)
+    q = torch.randn(1, hq, 128, generator=g, device="cuda").to(bf16)
+    ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
+    vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
+    bias = torch.zeros(1, s, device="cuda")
+    n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    mask = bias[:, :kv_len].to(bf16)[None, None]
+    err = max(check_k1(f"T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} "
+                       f"layer {i} bfloat16", q, ks[i], vs[i], bias, n,
+                       kv_len) for i in (0, layers - 1))
+
+    def kernel(i):
+        K1.decode_attention(q, ks[i % layers], vs[i % layers], bias, n)
+
+    def plain(i):
+        K1.decode_attention_reference(q, ks[i % layers], vs[i % layers],
+                                      bias, kv_len)
+
+    def library(i):
+        kk = ks[i % layers, :kv_len].permute(1, 0, 2)[None]
+        vv = vs[i % layers, :kv_len].permute(1, 0, 2)[None]
+        F.scaled_dot_product_attention(q.permute(1, 0, 2)[None], kk, vv,
+                                       attn_mask=mask, enable_gqa=True)
+
+    timed = {name: graph_ms(fn, layers) for name, fn in (
+        ("plain", plain), ("kernel", kernel), ("library", library),
+        ("kernel2", kernel), ("plain2", plain))}
+    ms = min(timed["kernel"], timed["kernel2"])
+    nbytes = 2 * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 + kv_len * 4
+    ops = 4 * hq * kv_len * 128
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+    log(f"[K1] Qwen2-VL AR row T=1 Hq={hq} Hkv={hkv} (G*T = 7: "
+        f"{-(-7 // 4)} row groups of 4 per kv head, {n_split} splits) "
+        f"S={s} kv_len={kv_len} bf16 over {layers} layer caches on {card}: "
+        f"kernel {timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
+        f"us, plain {timed['plain'] * 1e3:.2f}/{timed['plain2'] * 1e3:.2f} "
+        f"us, sdpa (enable_gqa) {timed['library'] * 1e3:.2f} us, bound "
+        f"{bound_s * 1e6:.2f} us ({nbytes / 1e6:.3f} MB by "
+        f"{'bytes' if by_bytes else 'operations'}), share of bound "
+        f"{bound_s * 1e3 / ms:.3f}")
+    return {"shape": f"T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} bf16",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": min(timed["plain"], timed["plain2"]),
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": timed["library"]}
+
+
 def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
             prompt_tokens: int = PROMPT_TOKENS, n_img: int = N_IMG,
             widths=WIDTHS, max_seq: int = MAX_SEQ, cfg=None) -> dict:
@@ -3559,6 +3660,652 @@ def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
             f"(bytes), max_abs_err {err:.3e}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[13b] phase took {out['seconds']:.1f}s")
+    return out
+
+
+def qwen_plain_logits(gen, ids, feats, grid):
+    """The target's fp32 logits over the unpadded inline sequence ``ids``
+    (a Qwen2-VL prompt, its image-pad span replaced by ``feats`` when
+    given), built apart from ``qwen_prefill``, the decode steps and
+    ``qwen_score_program``: the embeddings by concatenation, the 3-D
+    positions of the whole sequence from ``mrope_positions`` gathered by
+    ``mrope_gather`` (1-D positions without an image), the causal mask by
+    ``triu``, no bucket padding, no KV cache reuse. Only ``llama_forward``
+    and ``lm_head`` are shared with the engine."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, mrope_gather,
+                                              mrope_positions)
+
+    ids = np.asarray(ids, np.int64)
+    tp, dev = gen.params["target"], gen.device
+    table = tp["embed_tokens"]
+
+    def embed(x):
+        return table[torch.from_numpy(
+            np.clip(x, 0, table.shape[0] - 1)).to(dev)]
+
+    rows = len(ids)
+    if feats is None:
+        emb, start, n, (gh, gw) = embed(ids), rows, 0, (1, 1)
+    else:
+        start, n, (gh, gw) = int(np.argmax(ids == IMAGE_PAD_ID)), len(feats), \
+            grid
+        emb = torch.cat([embed(ids[:start]), feats.to(table.dtype),
+                         embed(ids[start + n:])])
+    pos3, _ = mrope_positions(rows, start, n, gh, gw)
+    cos, sin = mrope_gather(gen.params["cos_t"], gen.params["sin_t"],
+                            torch.from_numpy(pos3).to(dev),
+                            gen.mrope_section)
+    mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
+    hidden, _ = L.llama_forward(
+        tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
+        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask, cos, sin)
+    return L.lm_head(tp, hidden)
+
+
+def qwen_token_check(gen, ids, feats, grid, toks, other=None,
+                     tie: float = 0.0) -> dict:
+    """Every committed token ``toks`` of one inline request held to
+    ``qwen_plain_logits`` over the prompt and those tokens: each must be
+    the recompute's argmax after the engine's canonical rounding of the
+    logits or lie within ``tie`` bf16 ulps of the top logit. With ``other`` (the AR run's tokens of the same request):
+    where they first depart from ``toks``, the two tokens' logits, in bf16
+    ulps of the larger, and their ranks (a sequence that ended first picks
+    EOS there). The recompute's own bf16 noise is measured as the largest
+    difference, in ulps, of the committed rows' logits from a second
+    recompute over 16 more rows (another row count, so other GEMM
+    kernels). Returns {"worst", "noise", "bad": [(k, ulps, rank)],
+    "off": tokens off the canonical argmax, "split": {...} or None}."""
+    import torch
+    from msd_tpu_torch.ops.sampling import canon_logits
+
+    toks = [int(t) for t in toks]
+    seq = np.concatenate([ids, toks])
+    logits = qwen_plain_logits(gen, seq, feats, grid)
+    longer = qwen_plain_logits(gen, np.concatenate([seq, seq[-16:]]), feats,
+                               grid)
+    first = len(ids) - 1
+    rows = logits[first:first + len(toks)]
+    top = rows.max(dim=-1).values
+    noise = ((rows - longer[first:first + len(toks)]).abs().max(dim=-1)
+             .values / bf16_ulp(top))
+    canon = canon_logits(rows, ROUND_BITS)
+    idx = torch.tensor(toks, device=rows.device)[:, None]
+    picked = rows.gather(1, idx)[:, 0]
+    ulps = (top - picked) / bf16_ulp(top)
+    rank = (rows > picked[:, None]).sum(dim=-1)
+    is_max = canon.gather(1, idx)[:, 0] >= canon.max(dim=-1).values
+    ok = is_max | (ulps <= tie)
+    off = torch.where(is_max, 0.0, ulps)
+    out = {"worst": float(off.max()) if len(toks) else 0.0,
+           "noise": float(noise.max()) if len(toks) else 0.0,
+           "off": int((~is_max).sum()),
+           "bad": [(int(k), float(ulps[k]), int(rank[k])) for k in
+                   np.flatnonzero(~ok.cpu().numpy())], "split": None}
+    if other is not None:
+        other = [int(t) for t in other]
+        k = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y),
+                 min(len(toks), len(other)))
+        if k < max(len(toks), len(other)):
+            row = logits[first + k]
+            ta, tb = (s[k] if k < len(s) else gen.eos_id
+                      for s in (toks, other))
+            la, lb = float(row[ta]), float(row[tb])
+            big = max(abs(la), abs(lb))
+            out["split"] = {"at": k, "gap": abs(la - lb), "logit": big,
+                            "ulps": abs(la - lb) / float(bf16_ulp(big)),
+                            "ranks": (int((row > row[ta]).sum()),
+                                      int((row > row[tb]).sum()))}
+    return out
+
+
+def qwen_split_ok(split, tie: float) -> bool:
+    """An AR-vs-MSD split is a rounding tie of the recompute: the two
+    tokens' logits within ``tie`` bf16 ulps (no split at all off the card,
+    ``tie`` 0)."""
+    return split is None or (tie > 0 and split["ulps"] <= tie)
+
+
+def qwen_plain_score(gen, ids, cont_start: int, feats, grid) -> tuple:
+    """The plain recompute of an inline ``MSDGenerator.score``:
+    ``qwen_plain_logits``, ``log_softmax`` and a gather of the
+    continuation rows' next tokens. Returns (logprob_sum, is_greedy)."""
+    import torch
+
+    logits = qwen_plain_logits(gen, ids, feats, grid)
+    logp = torch.log_softmax(logits, dim=-1)
+    r = torch.arange(cont_start - 1, len(ids) - 1, device=gen.device)
+    nxt = torch.from_numpy(np.asarray(ids, np.int64)).to(gen.device)[r + 1]
+    return (float(logp[r, nxt].sum()),
+            bool((logp[r].argmax(dim=-1) == nxt).all()))
+
+
+def qwen_prompt(rng, n_tokens: int, n_img: int, vocab_hi: int,
+                with_image: bool) -> np.ndarray:
+    """A random ``n_tokens`` text prompt; with an image, the Qwen2-VL
+    span <|vision_start|> <|image_pad|> x n_img <|vision_end|> after its
+    first token."""
+    from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, VISION_END_ID,
+                                              VISION_START_ID)
+    ids = rng.integers(3, vocab_hi, size=n_tokens)
+    if with_image:
+        ids = np.concatenate([ids[:1], [VISION_START_ID],
+                              np.full(n_img, IMAGE_PAD_ID), [VISION_END_ID],
+                              ids[1:]])
+    return ids.astype(np.int32)
+
+
+def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
+             max_seq: int = MAX_SEQ, max_new: int = MAX_NEW,
+             prompt_tokens: int = PROMPT_TOKENS, image_size: int = 336,
+             limit: int = QWEN_LIMIT, harness_new: int = HARNESS_NEW,
+             tasks=HARNESS_TASKS, max_new_warm: int = 4) -> dict:
+    """Qwen2-VL-7B at full width (``qcfg``/``vcfg`` cut it for the CPU):
+    the qkv-bias GQA 28/4 decoder (bf16 weights, fp32 residual, q/k/v
+    biases drawn at std ``QWEN_BIAS_STD``, ``lm_head`` x6), a 13-head
+    medusa draft and a null draft at its width, and the Qwen2-VL tower,
+    all from seeded generators on the device; a seeded ``image_size``
+    image through the tower (144 merged rows at 336); two image prompts
+    (``prompt_tokens`` text tokens around the inline <|vision_start|>
+    <|image_pad|> x 144 <|vision_end|> span) and one text prompt, each x
+    ``max_new`` tokens, 6 canonical rounding bits, the main path's tree.
+
+    Generator runs: graph MSD, eager MSD, graph null-draft MSD and graph
+    ``naive_generate`` (AR); the oracle draft (the null-draft tokens on
+    the rank-0 chain) on the image prompts; ``generate_batch`` at B = 2
+    over the image prompts. Harness runs on the checkpoint
+    ``save_qwen2_vl`` and ``save_draft`` write under ``root``:
+    ``harness.__main__.main`` in process with ``--model qwen2_vl_msd``,
+    A ``--use_msd``, B the AR adapter, D the null draft.
+
+    Fails unless: graph MSD == eager MSD == the null draft, bitwise, on
+    every prompt, and A == D; every committed MSD (and A) token is the
+    canonical argmax of an independent mrope recompute
+    (``qwen_token_check``) or, on the card, within ``QWEN_TIE`` bf16
+    ulps of its top logit; AR (and B) equals MSD (and A) up
+    to each request's first split, each split such a tie (none off the
+    card); the oracle
+    draft is accepted to full depth; each batched lane equals its solo
+    run; K1 launches layers x AR tokens decoded in the generator's AR
+    runs and in B (a capture's warm-up steps included), 0 in every MSD
+    run; ai2d_ppl scores bitwise equal across A, B and a repeat and
+    within 1e-4 (relative, floor 1) of their recompute; the loaded
+    checkpoint is bitwise the weights in memory; no graph is captured
+    in a timed window or after a combination's first harness request."""
+    import io
+
+    import torch
+    from msd_tpu_torch.configs import DraftConfig, EngineConfig, TreeConfig
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.engine.graphs import WARMUP_STEPS
+    from msd_tpu_torch.harness import __main__ as HM
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.models.qwen2vl import (Qwen2VLTextConfig,
+                                              init_qwen2_params)
+    from msd_tpu_torch.models.qwen2vl_vision import (
+        Qwen2VisionConfig, init_qwen_vision_params, qwen_vision_encode)
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.ops.sampling import SamplingParams
+    from msd_tpu_torch.utils import weights as W
+    from msd_tpu_torch.utils.mm_utils import process_image
+
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else torch.float32
+    card = smi_name_and_limit() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    qcfg = qcfg or Qwen2VLTextConfig()
+    vcfg = vcfg or Qwen2VisionConfig(hidden_size=qcfg.hidden_size)
+    lc = dataclasses.replace(qcfg.as_llama(), residual_dtype="float32")
+    g = torch.Generator(device=device).manual_seed(15)
+    tp = init_qwen2_params(qcfg, g, device, dtype)
+    for name in ("q_bias", "k_bias", "v_bias"):
+        tp["layers"][name].normal_(0.0, QWEN_BIAS_STD, generator=g)
+    tp["lm_head"].mul_(HEAD_SHARPEN)
+    dcfg = DraftConfig(text=lc, medusa_heads=len(widths) - 1)
+    drafts = {}
+    for name in ("msd", "null"):
+        dp = D.init_draft_params(dcfg, g, device, dtype)
+        dp["medusa"] = D.init_medusa_params(dcfg, g, device, dtype)
+        dp["embed_tokens"] = tp["embed_tokens"]
+        drafts[name] = dp
+    vision = init_qwen_vision_params(vcfg, g, device, dtype)
+    sync()
+    out = {"card": card, "init_s": time.perf_counter() - t_phase}
+    log(f"[qwen] Qwen2-VL-7B width: {lc.num_hidden_layers} layers, hidden "
+        f"{lc.hidden_size}, GQA {lc.num_attention_heads}/"
+        f"{lc.num_key_value_heads}, vocab {lc.vocab_size}, q/k/v biases; "
+        f"tower {vcfg.depth} x {vcfg.embed_dim}; target "
+        f"{_weight_bytes(tp) / 1e9:.2f} GB, tower "
+        f"{_weight_bytes(vision) / 1e9:.2f} GB, initialised on {device} in "
+        f"{out['init_s']:.1f}s on {card}")
+
+    # the image through the tower: its rows feed every image request
+    m = vcfg.spatial_merge_size
+    grid = image_size // vcfg.patch_size
+    merged = (grid // m, grid // m)
+    n_img = merged[0] * merged[1]
+    rng = np.random.default_rng(15)
+    image = rng.integers(0, 256, size=(image_size, image_size, 3),
+                         dtype=np.uint8)
+    px = torch.from_numpy(process_image(image, image_size)).to(device)
+    feats = qwen_vision_encode(vision, vcfg, px)
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        feats = qwen_vision_encode(vision, vcfg, px)
+    sync()
+    out["tower_ms"] = (time.perf_counter() - t1) * 1e3 / 3
+    v32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+               else v.float()) for k, v in vision.items()}
+    ref = qwen_vision_encode(v32, vcfg, px)
+    del v32
+    out["tower_rel"] = float((feats.float() - ref).norm() / ref.norm())
+    if tuple(feats.shape) != (n_img, lc.hidden_size) \
+            or not torch.isfinite(feats).all():
+        raise AssertionError(f"[qwen] tower output {tuple(feats.shape)}, "
+                             f"finite {bool(torch.isfinite(feats).all())}")
+    log(f"[qwen] tower: {image_size}x{image_size} image, {grid}x{grid} "
+        f"patches merged to {n_img} rows, {out['tower_ms']:.2f} ms per image "
+        f"({dtype}), relative error against its fp32 evaluation "
+        f"{out['tower_rel']:.3e} on {card}")
+
+    vocab_hi = min(151000, lc.vocab_size - 1)
+    prompts = [(qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, True),
+                feats, merged),
+               (qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, True),
+                feats, merged),
+               (qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, False),
+                None, None)]
+    tree = TreeConfig(top_k=widths[0], max_depth=len(widths),
+                      num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
+    eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
+                       tree=tree)
+
+    def generator(cuda_graphs):
+        return MSDGenerator(tp, drafts["msd"], lc, dcfg, eng, n_img=n_img,
+                            eos_id=-1,
+                            sp=SamplingParams(greedy_round_bits=ROUND_BITS),
+                            image_mode="inline",
+                            mrope_section=qcfg.mrope_section, device=device,
+                            cuda_graphs=cuda_graphs)
+
+    gens = {"graph": generator(True), "eager": generator(False),
+            "oracle": generator(True)}
+
+    def captures(gen):
+        return 0 if gen.graphs is None else len(gen.graphs.steps)
+
+    # warm-up outside the timed window: one capture per step and draft
+    ids0, f0, g0 = prompts[0]
+    gen = gens["graph"]
+    gen.naive_generate(ids0, f0, max_new_warm, img_grid=g0)
+    for name in ("null", "msd"):
+        gen.params["draft"] = drafts[name]
+        gen.generate(ids0, f0, max_new_warm, img_grid=g0)
+    gens["eager"].generate(ids0, f0, max_new_warm, img_grid=g0)
+    sync()
+    n_cap = captures(gen)
+    runs, secs, launches = {}, {}, {}
+    for pi, (ids, f, grid_i) in enumerate(prompts):
+        for name in ("ar", "msd", "null", "eager"):
+            gen = gens["eager" if name == "eager" else "graph"]
+            gen.params["draft"] = drafts["null" if name == "null" else "msd"]
+            # the counts of this path: zeroed just before, read just after
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            r = gen.naive_generate(ids, f, max_new, img_grid=grid_i) \
+                if name == "ar" else gen.generate(ids, f, max_new,
+                                                  img_grid=grid_i)
+            sync()
+            secs.setdefault(name, []).append(time.perf_counter() - t1)
+            launches[name] = launches.get(name, 0) + \
+                K1.decode_attention.launches
+            runs.setdefault(name, []).append(r)
+            if gen.graphs is not None and not gen.graphs.reads(r.graph,
+                                                               gen.params):
+                raise AssertionError(f"[qwen] {name}: replayed a graph "
+                                     f"captured for other weights")
+    gen = gens["graph"]
+    gen.params["draft"] = drafts["msd"]
+    if captures(gen) != n_cap or captures(gens["eager"]):
+        raise AssertionError("[qwen] a capture inside the timed runs")
+    layers = lc.num_hidden_layers
+    ar_decoded = sum(len(r.tokens) - 1 for r in runs["ar"])
+    k1_want = layers * ar_decoded if on_card else 0
+    out.update(launches=launches["ar"], ar_decoded=ar_decoded)
+    bad = []
+    if launches["ar"] != k1_want or any(launches[n] for n in
+                                        ("msd", "null", "eager")):
+        bad.append(f"K1 launches {launches}, want ar {k1_want} (= {layers} "
+                   f"x {ar_decoded} AR tokens decoded), 0 in MSD")
+    tie = QWEN_TIE if on_card else 0.0
+    checks, splits = [], []
+    for pi, (ids, f, grid_i) in enumerate(prompts):
+        toks = {n: runs[n][pi].tokens for n in runs}
+        for n, t in toks.items():
+            if t.shape != (max_new,) or t.min() < 0 \
+                    or t.max() >= lc.vocab_size:
+                bad.append(f"prompt {pi} {n}: bad tokens {t.shape}")
+        if not (np.array_equal(toks["msd"], toks["null"])
+                and np.array_equal(toks["msd"], toks["eager"])):
+            bad.append(f"prompt {pi}: MSD, eager MSD and null-draft tokens "
+                       f"differ")
+        chk = qwen_token_check(gen, ids, f, grid_i, toks["msd"], toks["ar"],
+                               tie)
+        checks.append(chk)
+        if chk["bad"]:
+            bad.append(f"prompt {pi}: committed tokens off the mrope "
+                       f"recompute's argmax (token, ulps, rank): "
+                       f"{chk['bad']}")
+        if chk["split"] is not None:
+            splits.append(chk["split"])
+        if not qwen_split_ok(chk["split"], tie):
+            bad.append(f"prompt {pi}: AR departs from MSD at a split "
+                       f"that is no rounding tie: {chk['split']}")
+    if bad:
+        raise AssertionError(f"[qwen] {bad}")
+    out["recompute_worst"] = max(c["worst"] for c in checks)
+    out["recompute_noise"] = max(c["noise"] for c in checks)
+    log(f"[qwen] on 2 image prompts ({len(ids0)} rows) and 1 text prompt "
+        f"({prompt_tokens}) x {max_new} tokens: graph MSD == eager MSD == "
+        f"null draft: True; committed MSD tokens off the mrope recompute's "
+        f"canonical argmax: {sum(c['off'] for c in checks)} of "
+        f"{len(prompts) * max_new}, worst {out['recompute_worst']:.2f} bf16 "
+        f"ulps below its top (allowed {tie:g}); the "
+        f"recompute's own noise (16 more rows) up to "
+        f"{out['recompute_noise']:.2f} ulps; AR == MSD up to the first "
+        f"split on {len(prompts) - len(splits)} of {len(prompts)}"
+        + "".join(f"; split at token {s['at']}: {s['ulps']:.1f} ulps at "
+                  f"|logit| {s['logit']:.4f}, ranks {s['ranks']}"
+                  for s in splits)
+        + f"; K1 launches {launches} (ar = {layers} x {ar_decoded} AR "
+        f"tokens decoded) on {card}")
+
+    # deep acceptance after an image: the oracle tree, on a generator that
+    # captures inside the block; the image prompts share one length
+    gen_o = gens["oracle"]
+    e0 = len(ids0)
+    steps_want, hist_want = oracle_schedule(len(widths), max_new)
+    full = min(len(widths) + 1, 15)
+    ref = torch.zeros(max_new, dtype=torch.int32, device=device)
+    with oracle_draft(ref, e0):
+        ref.copy_(torch.from_numpy(runs["null"][0].tokens))
+        gen_o.generate(ids0, f0, max_new_warm, img_grid=g0)
+        n_cap_o = captures(gen_o)
+        for pi in (0, 1):
+            ids, f, grid_i = prompts[pi]
+            want = runs["null"][pi].tokens
+            ref.copy_(torch.from_numpy(want))
+            r = gen_o.generate(ids, f, max_new, img_grid=grid_i)
+            if not (np.array_equal(r.tokens, want)
+                    and r.accept_steps == steps_want
+                    and r.alpha_hist[full] == hist_want[full]):
+                raise AssertionError(
+                    f"[qwen] prompt {pi}: the oracle draft was not accepted "
+                    f"to full depth or changed the tokens: "
+                    f"{r.accept_steps} steps (want {steps_want}), "
+                    f"{int(r.alpha_hist[full])} of depth {len(widths)}")
+    if captures(gen_o) != n_cap_o:
+        raise AssertionError("[qwen] oracle: a capture inside the timed runs")
+    log(f"[qwen] oracle draft on the image prompts: accepted to depth "
+        f"{len(widths)} at every step ({steps_want} steps), tokens == the "
+        f"null draft's")
+
+    # batched lanes: B = 2 over the image prompts, one shared grid
+    gen.generate_batch([p[0] for p in prompts[:2]], [f0, f0], max_new_warm,
+                       img_grid=g0)
+    sync()
+    t1 = time.perf_counter()
+    batch = gen.generate_batch([p[0] for p in prompts[:2]], [f0, f0],
+                               max_new, img_grid=g0)
+    sync()
+    out["batch_s"] = time.perf_counter() - t1
+    solo = [np.array_equal(r.tokens, runs["msd"][b].tokens)
+            for b, r in enumerate(batch)]
+    if not all(solo):
+        raise AssertionError(f"[qwen] generate_batch B=2 lanes != solo "
+                             f"runs: {solo}")
+
+    def per(name, unit):
+        s = sum(secs[name])
+        n = sum(len(r.tokens) if unit == "token" else r.accept_steps
+                for r in runs[name])
+        return s * 1e3 / max(n, 1)
+
+    out.update(ar_ms=per("ar", "token"), msd_ms_step=per("msd", "step"),
+               eager_ms_step=per("eager", "step"),
+               null_ms_step=per("null", "step"),
+               alpha=np.mean([r.avg_accept_len for r in runs["msd"]]))
+    if on_card:
+        out["ar_replay_ms"] = _replay_ms(gen, runs["ar"][0].graph)
+        out["step_replay_ms"] = _replay_ms(gen, runs["msd"][0].graph)
+    else:
+        out["ar_replay_ms"] = out["step_replay_ms"] = float("nan")
+    log(f"[qwen] generate_batch B=2 (image prompts) == solo runs: True, "
+        f"{out['batch_s'] * 1e3 / (2 * max_new):.2f} ms per lane token; "
+        f"AR {out['ar_ms']:.2f} ms/token wall incl. prefill, "
+        f"{out['ar_replay_ms']:.3f} ms per replayed AR token; MSD "
+        f"{out['msd_ms_step']:.2f} ms/step graph, {out['eager_ms_step']:.2f} "
+        f"eager, null draft {out['null_ms_step']:.2f} (wall incl. "
+        f"prefill), {out['step_replay_ms']:.3f} ms per replayed step, alpha "
+        f"{out['alpha']:.3f} on {card}")
+
+    # the checkpoint: written, read back bitwise
+    ckpt, ddir, ndir = f"{root}/qwen2vl", f"{root}/draft", f"{root}/null"
+    t1 = time.perf_counter()
+    written = W.save_qwen2_vl(tp, vision, qcfg, vcfg, ckpt, dtype)
+    written += os.path.getsize(W.save_draft(drafts["msd"], ddir))
+    out["write_s"] = time.perf_counter() - t1
+    W.save_draft(drafts["null"], ndir)
+    t1 = time.perf_counter()
+    lm2, vis2, qcfg2, vcfg2 = W.load_qwen2_vl(ckpt, dtype, device)
+    dr2, _ = W.load_draft(ddir, qcfg2.as_llama(),
+                          base_embed=lm2["embed_tokens"], dtype=dtype,
+                          device=device)
+    sync()
+    out["load_s"] = time.perf_counter() - t1
+    diff = _bitwise_diff("target", _flat_tensors(lm2), _flat_tensors(tp)) \
+        + _bitwise_diff("tower", _flat_tensors(vis2),
+                        _flat_tensors(vision)) \
+        + _bitwise_diff("draft", _flat_tensors(dr2),
+                        _flat_tensors(drafts["msd"]))
+    if diff or (qcfg2, vcfg2) != (qcfg, vcfg):
+        raise AssertionError(f"[qwen] the checkpoint does not load back "
+                             f"bitwise: {diff[:8]}")
+    del lm2, vis2, dr2
+    log(f"[qwen] checkpoint (save_qwen2_vl, bf16 HF layout) + draft "
+        f"(save_draft, fp32): {written / 1e9:.3f} GB written in "
+        f"{out['write_s']:.1f}s, loaded back bitwise in "
+        f"{out['load_s']:.1f}s on {card}")
+
+    # the harness: A (MSD), B (AR), D (null draft) through the CLI's main
+    gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
+    run = [None]
+    reqs, scores, ar_steps = [], [], [0]
+    orig = {"generate": MSDGenerator.generate,
+            "naive_generate": MSDGenerator.naive_generate,
+            "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
+
+    def wrap_gen(kind):
+        def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
+            before = captures(self)
+            t1 = time.perf_counter()
+            r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
+            sync()
+            mine = [q for q in reqs if q["run"] == run[0]]
+            rec = {"run": run[0], "task": gen_tasks[len(mine) // limit],
+                   "t": (t1, time.perf_counter()), "n": len(r.tokens),
+                   "tokens": r.tokens.tolist(),
+                   "captured": captures(self) - before,
+                   "key": (kind, max_new_tokens, kw.get("sp"))}
+            if run[0] == "A":
+                rec["check"] = qwen_token_check(self, ids, img_feats,
+                                                kw.get("img_grid"), r.tokens,
+                                                tie=tie)
+            if run[0] == "B":
+                a = [q for q in reqs if q["run"] == "A"][len(mine)]
+                rec["split"] = qwen_token_check(
+                    self, ids, img_feats, kw.get("img_grid"), a["tokens"],
+                    r.tokens, tie)["split"]
+            reqs.append(rec)
+            return r
+        return wrapped
+
+    def score(self, ids, cont_start, img_feats=None, img_grid=None):
+        t1 = time.perf_counter()
+        got = orig["score"](self, ids, cont_start, img_feats, img_grid)
+        sync()
+        rec = {"run": run[0], "task": "ai2d_ppl", "out": got,
+               "t": (t1, time.perf_counter())}
+        if run[0] == "A":
+            rec["again"] = orig["score"](self, ids, cont_start, img_feats,
+                                         img_grid)
+            rec["plain"] = qwen_plain_score(self, ids, cont_start, img_feats,
+                                            img_grid)
+        scores.append(rec)
+        return got
+
+    def ar_decode(*a, **kw):
+        n = orig["ar_decode"](*a, **kw)
+        ar_steps[0] += n - 1
+        return n
+
+    margs = f"pretrained={ckpt},max_seq_len={max_seq}"
+    common = ["--model", "qwen2_vl_msd", "--model_args", margs,
+              "--device", str(device), "--limit", str(limit),
+              "--gen_kwargs", f"max_new_tokens={harness_new}",
+              "--log_samples"]
+    hruns = {"A": ["--use_msd", "--msd_model_path", ddir,
+                   "--tasks", ",".join(tasks)],
+             "B": ["--msd_model_path", ddir, "--tasks", ",".join(tasks)],
+             "D": ["--use_msd", "--msd_model_path", ndir,
+                   "--tasks", ",".join(gen_tasks)]}
+    MSDGenerator.generate = wrap_gen("generate")
+    MSDGenerator.naive_generate = wrap_gen("naive_generate")
+    MSDGenerator.score = score
+    SE.ar_decode = ar_decode
+    try:
+        for name, argv in hruns.items():
+            run[0] = name
+            steps0 = ar_steps[0]
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                payload = HM.main(argv + common)
+            sync()
+            out[name] = {"payload": payload, "s": time.perf_counter() - t1,
+                         "launches": K1.decode_attention.launches,
+                         "ar_steps": ar_steps[0] - steps0}
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        MSDGenerator.generate = orig["generate"]
+        MSDGenerator.naive_generate = orig["naive_generate"]
+        MSDGenerator.score = orig["score"]
+        SE.ar_decode = orig["ar_decode"]
+
+    def of(name, task=None):
+        return [r for r in reqs if r["run"] == name
+                and task in (None, r["task"])]
+
+    def responses(name, task):
+        return [s["response"] for s in
+                out[name]["payload"]["details"][task]["samples"]]
+
+    bad = [f"{n} ran {len(of(n))} generate requests" for n in hruns
+           if len(of(n)) != limit * len(gen_tasks)]
+    if bad:
+        raise AssertionError(f"[qwen] {bad}")
+    for t in gen_tasks:
+        if responses("A", t) != responses("D", t) or \
+                [r["tokens"] for r in of("A", t)] != \
+                [r["tokens"] for r in of("D", t)]:
+            bad.append(f"A != D (null draft) on {t}")
+    hbad = [(r["task"], r["check"]["bad"]) for r in of("A")
+            if r["check"]["bad"]]
+    if hbad:
+        bad.append(f"A's tokens off the mrope recompute: {hbad}")
+    hsplits = [r["split"] for r in of("B") if r["split"] is not None]
+    if not all(qwen_split_ok(sp, tie) for sp in hsplits):
+        bad.append(f"B departs from A at a split that is no rounding tie: "
+                   f"{hsplits}")
+    if "ai2d_ppl" in tasks and responses("B", "ai2d_ppl") != \
+            responses("A", "ai2d_ppl"):
+        bad.append("B's loglikelihoods != A's (bitwise)")
+    a_scores = [r for r in scores if r["run"] == "A"]
+    if any(r["again"] != r["out"] for r in a_scores):
+        bad.append("score is not bitwise repeatable")
+    worst = max((abs(r["out"][0] - r["plain"][0])
+                 / max(1.0, abs(r["plain"][0])) for r in a_scores),
+                default=0.0)
+    if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in a_scores):
+        bad.append(f"score != its mrope recompute (worst relative "
+                   f"{worst:.3e} against 1e-4, or a greedy flag)")
+    b_caps = sum(r["captured"] for r in of("B"))
+    hk1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
+        if on_card else 0
+    if out["B"]["launches"] != hk1_want or out["A"]["launches"] \
+            or out["D"]["launches"]:
+        bad.append(f"K1 launches A {out['A']['launches']}, B "
+                   f"{out['B']['launches']} (want {hk1_want}), D "
+                   f"{out['D']['launches']}")
+    seen, late = set(), []
+    for r in reqs:
+        k = (r["run"],) + r["key"]
+        if k in seen and r["captured"]:
+            late.append((r["run"], r["task"]))
+        seen.add(k)
+    if late:
+        bad.append(f"graphs captured inside later requests: {late}")
+    if bad:
+        raise AssertionError(f"[qwen] {bad}")
+
+    def ms_per_token(name):
+        rs = of(name)
+        return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
+            / max(1, sum(r["n"] for r in rs))
+
+    spans = {}
+    for r in reqs + scores:
+        lo, hi = spans.get((r["run"], r["task"]), r["t"])
+        spans[(r["run"], r["task"])] = (min(lo, r["t"][0]),
+                                        max(hi, r["t"][1]))
+    out.update(harness_launches=out["B"]["launches"],
+               harness_ar_steps=out["B"]["ar_steps"], harness_caps=b_caps,
+               worst_score_rel=worst, harness_splits=hsplits,
+               ms_token={n: ms_per_token(n) for n in hruns},
+               task_s={k: hi - lo for k, (lo, hi) in spans.items()},
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[qwen] harness (--model qwen2_vl_msd, {limit} synthetic docs per "
+        f"task, {harness_new} new tokens): A (MSD) {out['A']['s']:.1f}s, B "
+        f"(AR) {out['B']['s']:.1f}s, D (null draft) {out['D']['s']:.1f}s; "
+        f"seconds per task: " + "; ".join(
+            f"{r}/{t} {s:.2f}" for (r, t), s in out["task_s"].items())
+        + f" on {card}")
+    log(f"[qwen] harness: A == D responses and token ids on {gen_tasks}: "
+        f"True; A's tokens off the mrope recompute's canonical argmax: "
+        f"{sum(r['check']['off'] for r in of('A'))}, worst "
+        f"{max(r['check']['worst'] for r in of('A')):.2f} ulps (allowed "
+        f"{tie:g}); B == A up to each first split ("
+        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps, ranks "
+                     f"{s['ranks']}" for s in hsplits) or "no split")
+        + f"); ai2d_ppl A == B bitwise, repeat bitwise, recompute worst "
+        f"relative {worst:.3e}; ms per generated token (prefill included) "
+        f"A {out['ms_token']['A']:.2f}, B {out['ms_token']['B']:.2f}, D "
+        f"{out['ms_token']['D']:.2f}; K1 in B {out['B']['launches']} = "
+        f"{layers} x ({out['B']['ar_steps']} AR tokens decoded + "
+        f"{WARMUP_STEPS} warm-up steps x {b_caps} capture), 0 in A, D on "
+        f"{card}")
+    log(f"[qwen] peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
+        f"{out['seconds']:.1f}s on {card}")
+    del gens, gen, gen_o
     return out
 
 
@@ -3649,6 +4396,30 @@ def main():
         f" K1 {k1['ms'] * 1e3:.2f} us at 32 heads, {big['k1_us']:.2f} us "
         f"at 40; checkpoint write {weights['write_s']:.1f}s, load "
         f"{weights['load_s']:.1f}s")
+    # the 13B model goes before Qwen2-VL comes
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[qwen] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"after the 13B phase is released")
+    root = tempfile.mkdtemp(prefix="msd_qwen_")
+    try:
+        qwen = run_qwen(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    k1["qwen_ar"]["launches"] = qwen["launches"]
+    k1["qwen_ar"]["harness_launches"] = qwen["harness_launches"]
+    log(f"[qwen] on {card}: AR token {qwen['ar_replay_ms']:.3f} ms "
+        f"replayed ({qwen['ar_ms']:.2f} ms/token wall), verify step "
+        f"{qwen['step_replay_ms']:.3f} ms replayed ({qwen['msd_ms_step']:.2f}"
+        f" ms/step wall, eager {qwen['eager_ms_step']:.2f}); tower "
+        f"{qwen['tower_ms']:.2f} ms per image; checkpoint write "
+        f"{qwen['write_s']:.1f}s, load {qwen['load_s']:.1f}s; harness ms "
+        f"per token A {qwen['ms_token']['A']:.2f}, B "
+        f"{qwen['ms_token']['B']:.2f}, D {qwen['ms_token']['D']:.2f}; K1 "
+        f"at G*T = 7 {k1['qwen_ar']['ms'] * 1e3:.2f} us (bound "
+        f"{k1['qwen_ar']['bound_ms'] * 1e3:.2f}); peak "
+        f"{qwen['peak'] / 2**30:.2f} GiB; phase {qwen['seconds']:.1f}s")
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

@@ -7,7 +7,10 @@ port reads are here. Left out: ``attn_impl`` and ``pallas_min_s`` (the
 port routes every row group of at most 4 grouped query rows to its
 decode-attention kernel), ``canonical_attn=False`` and ``canonical_ar``
 (the port always verifies with window-canonical attention, the JAX
-default), and the Qwen fields. The draft's fc always has a bias
+default). The Qwen2-VL configs live with their models
+(``models/qwen2vl.Qwen2VLTextConfig``, whose ``as_llama`` gives the
+decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``),
+as in the JAX package. The draft's fc always has a bias
 (``fc_bias=True``). Quantized weights are a property of the param dicts
 (``models.llama.quantize_llama_params``), not of these configs.
 """

@@ -1,8 +1,10 @@
 """Host-side wrapper around the engine: prompt bucketing, result extraction
 and per-request stats.
 
-The port of the JAX package's ``engine/generator.py`` for expand-mode
-prompts with at most one image: ``generate`` (MSD in every drafting mode,
+The port of the JAX package's ``engine/generator.py`` for prompts with at
+most one image, expanded from a placeholder (LLaVA) or inline (Qwen2-VL:
+``image_mode="inline"``, the prompt holds the image-pad span and the
+caller passes the merged grid ``img_grid`` for mrope): ``generate`` (MSD in every drafting mode,
 greedy or sampled, with the calibrated rerank after ``set_calibrator``,
 the collection of its features and of the trajectory's hidden states for
 distillation), ``generate_stream`` (the same tokens in segments),
@@ -31,6 +33,8 @@ from msd_tpu_torch.engine import spec_engine as SE
 from msd_tpu_torch.engine.graphs import StepGraphs, leaves
 from msd_tpu_torch.calib.device import CalibTables
 from msd_tpu_torch.models import llama as L
+from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, VIDEO_PAD_ID,
+                                          mrope_positions)
 from msd_tpu_torch.ops.sampling import SamplingParams
 
 
@@ -71,10 +75,19 @@ class MSDGenerator:
                  tcfg: LlamaConfig, dcfg: DraftConfig,
                  eng: EngineConfig = EngineConfig(), *, n_img: int = 0,
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
-                 attn_feature_mode: str = "reference", device="cuda",
+                 image_mode: str = "expand", mrope_section=None,
+                 attn_feature_mode: str = "reference",
+                 inline_pad_ids=None, device="cuda",
                  cuda_graphs: bool = True):
         self.tcfg, self.dcfg = tcfg, dcfg
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
+        self.image_mode = image_mode
+        self.mrope_section = None if mrope_section is None \
+            else tuple(mrope_section)
+        # inline-mode image-span marker ids (Qwen2-VL's image and video
+        # pads by default)
+        self.inline_pad_ids = tuple(inline_pad_ids) if inline_pad_ids \
+            else None
         self.attn_feature_mode = attn_feature_mode
         self.device = torch.device(device)
         self.rng = torch.Generator(device=self.device)
@@ -151,6 +164,8 @@ class MSDGenerator:
         return SE.Statics(tcfg=self.tcfg, dcfg=self.dcfg, tree=self.eng.tree,
                           eng=self.eng, sp=sp or self.sp, n_img=self.n_img,
                           eos_id=self.eos_id, max_new=max_new,
+                          image_mode=self.image_mode,
+                          mrope_section=self.mrope_section,
                           attn_feature_mode=self.attn_feature_mode,
                           use_calibration=use_calibration,
                           collect_calibration=collect_calibration,
@@ -200,8 +215,15 @@ class MSDGenerator:
         """Longest raw (before image expansion) prompt that ``generate``
         and ``naive_generate`` accept under the engine budget: ``_pad``'s
         limit less the image rows' expansion. The harness adapters
-        truncate longer eval prompts to it."""
-        return self._statics(0).step_limit - 1 - max(self.n_img - 1, 0)
+        truncate longer eval prompts to it. An inline prompt already holds
+        its image rows."""
+        return self._statics(0).step_limit - 1 - self._expansion()
+
+    def _expansion(self, has_image: bool = True) -> int:
+        """Rows an image prompt gains by expansion (0 inline)."""
+        if self.image_mode == "inline" or not has_image:
+            return 0
+        return max(self.n_img - 1, 0)
 
     def _pad(self, ids: np.ndarray) -> np.ndarray:
         """Pad to the next multiple of prompt_pad_multiple (128-token
@@ -209,7 +231,7 @@ class MSDGenerator:
         hold."""
         m = self.eng.prompt_pad_multiple
         p = ((len(ids) + m - 1) // m) * m
-        n_exp = len(ids) + max(self.n_img - 1, 0)
+        n_exp = len(ids) + self._expansion()
         limit = self._statics(0).step_limit
         if n_exp >= limit:
             raise ValueError(
@@ -221,8 +243,47 @@ class MSDGenerator:
         return out
 
     def _img_pos(self, ids: np.ndarray) -> int:
-        pos = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0]
+        """The image span's first row: the placeholder (expand) or the
+        first image-pad id (inline); len(ids) without one."""
+        if self.image_mode == "inline":
+            hit = np.isin(ids, self.inline_pad_ids
+                          or (IMAGE_PAD_ID, VIDEO_PAD_ID))
+        else:
+            hit = ids == IMAGE_TOKEN_INDEX
+        pos = np.nonzero(hit)[0]
         return int(pos[0]) if len(pos) else len(ids)
+
+    def _qwen_pos(self, rows: int, img_start: int, img_grid):
+        """(pos3 [3, rows] on the device or None, pos_delta) of an inline
+        prompt padded to ``rows`` with its image span at ``img_start``.
+        img_grid: (grid_h, grid_w) of an image or (grid_t, grid_h, grid_w)
+        of a video, LLM-space merged grids; None (text-only, or a 1-D rope
+        model) gives 1-D positions."""
+        if not self.n_img or img_grid is None:
+            return None, 0
+        gt, (gh, gw) = (1, img_grid) if len(img_grid) == 2 \
+            else (img_grid[0], img_grid[1:])
+        pos3, delta = mrope_positions(rows, img_start, self.n_img, gh, gw,
+                                      grid_t=gt)
+        return torch.from_numpy(pos3).to(self.device), delta
+
+    def _prefill(self, st: SE.Statics, state: SE.EngineState, ids, padded,
+                 img_pos: int, img_feats, img_grid, rng, ar: bool = False,
+                 first_token: Optional[int] = None):
+        """The MSD prefill (or with ``ar`` the target-only one) of one
+        request into ``state``, by the image mode; ``first_token`` pins an
+        expand-mode MSD prefill's first token."""
+        if self.image_mode == "inline":
+            pos3, delta = self._qwen_pos(padded.shape[0], img_pos, img_grid)
+            fn = SE.qwen_ar_prefill if ar else SE.qwen_prefill
+            fn(st, self.params, state, padded, len(ids), img_feats, img_pos,
+               pos3, delta, rng)
+        elif ar:
+            SE.ar_prefill(st, self.params, state, padded, len(ids),
+                          img_feats, img_pos, rng)
+        else:
+            SE.prefill(st, self.params, state, padded, len(ids), img_feats,
+                       img_pos, first_token, rng)
 
     def _prompt(self, ids):
         ids = np.asarray(ids, np.int32)
@@ -230,8 +291,7 @@ class MSDGenerator:
         return ids, padded, self._img_pos(ids)
 
     def _e0(self, ids: np.ndarray, img_feats) -> int:
-        return len(ids) + (max(self.n_img - 1, 0)
-                           if img_feats is not None else 0)
+        return len(ids) + self._expansion(img_feats is not None)
 
     def _tokens(self, e0: int, max_new: int) -> np.ndarray:
         cur = int(self.state.cur_len)
@@ -240,7 +300,11 @@ class MSDGenerator:
     def first_token(self, ids, img_feats: Optional[torch.Tensor] = None,
                     max_new_tokens: Optional[int] = None,
                     seed: int = 0) -> int:
-        """First new token from the target-only AR prefill."""
+        """First new token from the target-only AR prefill (expand-mode
+        prompts: an inline prompt's first token is not pinned)."""
+        if self.image_mode == "inline":
+            raise ValueError("first_token is not supported for inline-mode "
+                             "prompts")
         ids, padded, img_pos = self._prompt(ids)
         st = self._statics(max_new_tokens or self.eng.max_new_tokens)
         SE.ar_prefill(st, self.params, self.state, padded, len(ids),
@@ -254,7 +318,8 @@ class MSDGenerator:
                  collect_calibration: bool = False,
                  first_token: Optional[int] = None,
                  collect_hiddens: bool = False,
-                 fetch_hiddens: Optional[bool] = None) -> GenResult:
+                 fetch_hiddens: Optional[bool] = None,
+                 img_grid=None) -> GenResult:
         """Speculative (MSD) generation; lossless wrt the target model.
 
         seed: seeds the request's random draws (sampling); sp: sampling
@@ -267,17 +332,22 @@ class MSDGenerator:
         ``exp_ids``): on-policy distillation data with decode-time
         numerics. fetch_hiddens: copy them to the host (default:
         collect_hiddens); False runs the collecting step without the
-        copy."""
+        copy. img_grid: an inline prompt's merged image grid (mrope)."""
         if use_calibration and "calib" not in self.params:
             raise ValueError("set_calibrator() before use_calibration=True")
+        if first_token is not None and self.image_mode == "inline":
+            # only the expand-mode prefill takes a pinned first token;
+            # dropping it silently would void the alignment asked for
+            raise ValueError("first_token is not supported for inline-mode "
+                             "prompts")
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp, use_calibration, collect_calibration,
                            collect_hiddens)
         rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
-            SE.prefill(st, self.params, self.state, padded, len(ids),
-                       img_feats, img_pos, first_token, rng)
+            self._prefill(st, self.state, ids, padded, img_pos, img_feats,
+                          img_grid, rng, first_token=first_token)
         step = self.step_fn(SE.decode_step, st, self.bstate)
         with record_function("decode"):
             SE.decode(st, self.params, self.bstate, step, rng)
@@ -302,7 +372,7 @@ class MSDGenerator:
                         max_new_tokens: Optional[int] = None, seed: int = 0,
                         sp: Optional[SamplingParams] = None,
                         segment: int = 16,
-                        use_calibration: bool = False
+                        use_calibration: bool = False, img_grid=None
                         ) -> Iterator[np.ndarray]:
         """Streaming MSD generation: yields np.int32 arrays of the newly
         committed tokens every ~``segment`` tokens.
@@ -320,8 +390,8 @@ class MSDGenerator:
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp, use_calibration)
         rng = self.rng.manual_seed(seed)
-        SE.prefill(st, self.params, self.state, padded, len(ids), img_feats,
-                   img_pos, rng=rng)
+        self._prefill(st, self.state, ids, padded, img_pos, img_feats,
+                      img_grid, rng)
         e0 = self._e0(ids, img_feats)
         step = self.step_fn(SE.decode_step, st, self.bstate)
         s = self.state
@@ -350,8 +420,8 @@ class MSDGenerator:
                        img_feats_list: Optional[Sequence] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,
                        sp: Optional[SamplingParams] = None,
-                       seeds: Optional[Sequence[int]] = None
-                       ) -> List[GenResult]:
+                       seeds: Optional[Sequence[int]] = None,
+                       img_grid=None) -> List[GenResult]:
         """Batched speculative generation: the B prompts decode together as
         the lanes of one batched state (the JAX package's ``vmap`` of its
         generate program). Every step, one replayed graph on the card,
@@ -362,7 +432,9 @@ class MSDGenerator:
         are those of its request run alone: the verify products that the
         device rounds otherwise over B lanes' rows than over one lane's
         run one lane at a time (``Statics.per_lane``).
-        ``img_feats_list``: one [n_img, H] tensor or None per prompt.
+        ``img_feats_list``: one [n_img, H] tensor or None per prompt;
+        inline engines take one shared ``img_grid`` per batch, as the JAX
+        package does (lanes without image rows take 1-D positions).
 
         B is run on a state of the next power of two of lanes, the pad
         lanes kept out of every step (``stop_at`` 0; a step computes them
@@ -392,8 +464,9 @@ class MSDGenerator:
                 for b, s in enumerate(seeds)]
         with record_function("prefill"):
             for b, (ids, padded, img_pos) in enumerate(prompts):
-                SE.prefill(st, self.params, SE.lane(state, b), padded,
-                           len(ids), feats[b], img_pos, rng=rngs[b])
+                self._prefill(st, SE.lane(state, b), ids, padded, img_pos,
+                              feats[b], None if feats[b] is None
+                              else img_grid, rngs[b])
         step = self.step_fn(SE.decode_step, st, state)
         with record_function("decode"):
             SE.decode_until(st, self.params, state,
@@ -413,11 +486,13 @@ class MSDGenerator:
         return out
 
     def score(self, ids, cont_start: int,
-              img_feats: Optional[torch.Tensor] = None) -> tuple:
+              img_feats: Optional[torch.Tensor] = None,
+              img_grid=None) -> tuple:
         """Teacher-forced loglikelihood of ids[cont_start:] given
         ids[:cont_start] (the lmms ``loglikelihood`` request): one eager
         forward (``engine/scoring.py``) over the request padded to the
-        prompt bucket. Returns (logprob_sum: float, is_greedy: bool)."""
+        prompt bucket; inline prompts with mrope positions from
+        ``img_grid``. Returns (logprob_sum: float, is_greedy: bool)."""
         from msd_tpu_torch.engine import scoring as SC
 
         ids = np.asarray(ids, np.int32)
@@ -427,24 +502,38 @@ class MSDGenerator:
         m = self.eng.prompt_pad_multiple
         padded = np.zeros((((len(ids) + m - 1) // m) * m,), np.int32)
         padded[:len(ids)] = ids
-        lp, n_match, n_cont = SC.score_program(
-            self.tcfg, self.n_img, self.params,
-            torch.from_numpy(padded).to(self.device), len(ids),
-            int(cont_start), img_feats, self._img_pos(ids))
+        dev_ids = torch.from_numpy(padded).to(self.device)
+        if self.image_mode == "inline":
+            pos3, _ = self._qwen_pos(len(padded), self._img_pos(ids),
+                                     img_grid)
+            lp, n_match, n_cont = SC.qwen_score_program(
+                self.tcfg, self.n_img if img_feats is not None else 0,
+                self.mrope_section, self.params, dev_ids, len(ids),
+                int(cont_start), img_feats, self._img_pos(ids), pos3)
+        else:
+            lp, n_match, n_cont = SC.score_program(
+                self.tcfg, self.n_img, self.params, dev_ids, len(ids),
+                int(cont_start), img_feats, self._img_pos(ids))
         return float(lp), bool(int(n_match) == int(n_cont))
 
     def naive_generate(self, ids, img_feats: Optional[torch.Tensor] = None,
                        max_new_tokens: Optional[int] = None, seed: int = 0,
                        sp: Optional[SamplingParams] = None,
                        share_prefill: bool = False,
-                       collect_hiddens: bool = False) -> GenResult:
+                       collect_hiddens: bool = False,
+                       img_grid=None) -> GenResult:
         """Plain AR baseline over the same weights and KV layout.
 
         share_prefill: start from the MSD ``prefill`` (target and draft),
         so the AR loop decodes over exactly the KV cache and first token
         every MSD run starts from; otherwise a target-only prefill.
         collect_hiddens: run that prefill as a collecting ``generate`` runs
-        it (the AR token itself reads and writes no hiddens)."""
+        it (the AR token itself reads and writes no hiddens). Inline
+        prompts (``img_grid`` as in ``generate``) take the target-only
+        prefill; share_prefill is for expand-mode prompts."""
+        if share_prefill and self.image_mode != "expand":
+            raise ValueError("share_prefill supports expand-mode prompts "
+                             "only")
         ids, padded, img_pos = self._prompt(ids)
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp)
@@ -455,8 +544,8 @@ class MSDGenerator:
                 SE.prefill(pst, self.params, self.state, padded, len(ids),
                            img_feats, img_pos, rng=rng)
             else:
-                SE.ar_prefill(st, self.params, self.state, padded, len(ids),
-                              img_feats, img_pos, rng)
+                self._prefill(st, self.state, ids, padded, img_pos,
+                              img_feats, img_grid, rng, ar=True)
         step = self.step_fn(SE.ar_step, st, self.state)
         with record_function("decode"):
             SE.ar_decode(st, self.params, self.state, step, rng)

@@ -12,8 +12,9 @@ prefill bias, so every layer takes the plain ``masked_attention`` path
 log-probability is ``logit[next] - logsumexp(logits)`` over the [T, V]
 fp32 logits. The request is padded to the engine's prompt bucket, as the
 JAX program is, so every (context, continuation) pair of one padded
-length runs the same shapes. Nothing here is captured in a graph; the
-Qwen program (``qwen_score_program``) comes with the Qwen models.
+length runs the same shapes. Nothing here is captured in a graph.
+``qwen_score_program`` scores inline-image (Qwen2-VL) requests with mrope
+positions.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from msd_tpu_torch.configs import LlamaConfig
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
+from msd_tpu_torch.models.qwen2vl import fuse_qwen_embeddings, mrope_gather
 from msd_tpu_torch.ops.attention import causal_prefill_bias
 
 
@@ -40,7 +42,10 @@ def _score_rows(tp: Dict, exp_ids: torch.Tensor, hidden: torch.Tensor,
     next_ids = torch.cat([exp_ids[1:].long(),
                           exp_ids.new_zeros(1, dtype=torch.long)])
     lse = torch.logsumexp(logits, dim=-1)
-    tok_lp = logits.gather(-1, next_ids[:, None])[:, 0] - lse
+    # masked rows may hold ids past the vocabulary (a tiny model's Qwen
+    # markers): gather them clamped, JAX's gather fills them
+    tok_lp = logits.gather(-1, torch.clamp(
+        next_ids, max=logits.shape[-1] - 1)[:, None])[:, 0] - lse
     greedy = logits.argmax(dim=-1) == next_ids
     rows = torch.arange(exp_ids.shape[0], device=exp_ids.device)
     mask = (rows >= cont_first - 1) & (rows < cont_end - 1)
@@ -83,3 +88,33 @@ def score_program(tcfg: LlamaConfig, n_img: int, params: Dict,
                                 params["cos_t"], params["sin_t"])
     return _score_rows(tp, exp_ids, hidden, cont_start + off,
                        total_len + off)
+
+
+def qwen_score_program(tcfg: LlamaConfig, n_img: int, mrope_section,
+                       params: Dict, ids: torch.Tensor, total_len: int,
+                       cont_start: int, img_feats: Optional[torch.Tensor],
+                       img_start: int, pos3: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Qwen2-VL (inline image span + mrope) scoring forward.
+
+    ids: [P_pad] prompt + continuation, the image-pad span already in it;
+    n_img: the span's rows (0 without an image); pos3: [3, P_pad] mrope
+    position ids or None for 1-D rope (text-only). Returns (logprob_sum,
+    n_greedy_match, n_cont) as 0-dim tensors."""
+    tp = params["target"]
+    cos_t, sin_t = params["cos_t"], params["sin_t"]
+    p_pad = ids.shape[0]
+    if n_img > 0 and img_feats is not None:
+        fused = fuse_qwen_embeddings(tp["embed_tokens"], ids, img_feats,
+                                     img_start, n_img)
+    else:
+        fused = L.embed_tokens(tp, ids)
+    if pos3 is not None:
+        cos_t, sin_t = mrope_gather(cos_t, sin_t, pos3, mrope_section)
+    device = ids.device
+    positions = torch.arange(p_pad, dtype=torch.int32, device=device)
+    bias = causal_prefill_bias(p_pad, p_pad, device=device)
+    kv = L.init_kv_cache(tcfg, p_pad, fused.dtype, device)
+    hidden, _ = L.llama_forward(tp, tcfg, fused, positions, kv, 0, bias,
+                                cos_t, sin_t)
+    return _score_rows(tp, ids, hidden, cont_start, total_len)

@@ -25,6 +25,16 @@ The port of the JAX package's ``engine/spec_engine.py``:
             (``engine/graphs.py``).
   ar      : the AR baseline, one token per target forward (``ar_step``),
             whose single query row goes to the CUDA decode-attention kernel.
+  qwen    : inline-image prompts (Qwen2-VL, ``Statics.image_mode ==
+            "inline"``): ``qwen_prefill`` and ``qwen_ar_prefill`` fuse the
+            vision rows over the prompt's <|image_pad|> span and rope the
+            prompt with mrope (per-token 3-D positions gathered into cos/sin
+            tables). Past the prompt mrope is 1-D rope at the cache index
+            plus the state's ``pos_delta``: every later rope position (the
+            draft suffix and frontier rows, the verify nodes, the AR token)
+            adds it, while cache rows, attention biases and the verify
+            windows keep the cache index. One captured step serves every
+            image grid and text-only prompt: the delta rides in the state.
 
 With ``collect_hiddens`` the prefill and every commit also write the target
 hidden of each committed position into ``traj_hidden``: the distillation
@@ -85,6 +95,7 @@ from msd_tpu_torch.engine.tree import top_k as _top_k
 from msd_tpu_torch.models import draft as draft_mod
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
+from msd_tpu_torch.models.qwen2vl import fuse_qwen_embeddings, mrope_gather
 from msd_tpu_torch.ops.attention import (NEG_INF, causal_prefill_bias,
                                          put_rows, take_rows)
 from msd_tpu_torch.ops.sampling import (SamplingParams,
@@ -109,6 +120,12 @@ class Statics:
     # ``max_new`` scalar, which the steps read (as the JAX ``decode_until``
     # takes ``stop_at`` traced), so a step does not depend on it
     max_new: int
+    # "expand": LLaVA's placeholder expands to n_img rows;
+    # "inline": Qwen2-VL: the prompt holds the image-pad span; positions
+    #           follow mrope with a post-image delta
+    image_mode: str = "expand"
+    # mrope frequency sections (Qwen2-VL); None = 1-D rope
+    mrope_section: Optional[tuple] = None
     # visual-attention calibration feature:
     #   "reference": row[child_idx] of the latest draft prefix forward, 0
     #                beyond the valid rows (faithful to cnets.py:516-575);
@@ -178,6 +195,9 @@ class EngineState(NamedTuple):
     alpha_hist: torch.Tensor     # [16] histogram of tokens per step
     done: torch.Tensor           # MSD: stop; AR: the last token stopped
     img_pos: torch.Tensor        # placeholder index (= image span start)
+    pos_delta: torch.Tensor      # rope position minus cache index (Qwen
+    #                              mrope after an image: max(grid_h,
+    #                              grid_w) - n_img; 0 otherwise)
     attn_feat: torch.Tensor      # [TOP_K] visual-attention intensity per
     #                              child slot from the latest draft forward
     calib_log: Dict              # {field: [LOG_ROWS, N]} per-step features
@@ -236,7 +256,7 @@ def alloc_state(st: Statics, dtype: torch.dtype, device,
         draft_kv=kv(st.dcfg.text, st.s_draft, st.dcfg.num_layers),
         draft_len=zeros(), max_new=zeros(), new_tokens=zeros(),
         steps=zeros(), acc_sum=zeros(), alpha_hist=zeros(16),
-        done=zeros(dt=torch.bool), img_pos=zeros(),
+        done=zeros(dt=torch.bool), img_pos=zeros(), pos_delta=zeros(),
         attn_feat=zeros(st.tree.top_k, dt=torch.float32),
         calib_log={k: zeros(st.step_limit, N, dt=dt)
                    for k, dt in CALIB_FIELDS.items()},
@@ -557,7 +577,8 @@ def _frontier_bias(s_d: int, write: torch.Tensor, rows: int) -> torch.Tensor:
 def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
                         last_hidden: torch.Tensor, root_token: torch.Tensor,
                         attn_feat: torch.Tensor,
-                        features: Optional[Dict] = None) -> Tree:
+                        features: Optional[Dict] = None,
+                        pos_delta=0) -> Tree:
     """EAGLE recursion with the OPT-Tree frontier (cnets.py:1066-1427):
     layer 0 = top-k of head(last_hidden); each further layer forwards the
     K-node frontier at scratch rows E + d*K of the draft cache ``kv``
@@ -568,7 +589,8 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     layer is dropped (cnets.py:1401-1437). ``finalize_tree`` packs the
     tree. Lanes: kv [B, L_d, S_d, Hkv, D], E and root_token [B],
     last_hidden [B, H], attn_feat [B, TOP_K]; each lane has its own
-    frontier, stop and depth.
+    frontier, stop and depth. A frontier row's rope position is its scratch
+    depth past E plus ``pos_delta`` [B] (or 0).
 
     The JAX ``lax.while_loop`` ends on the data; a captured step has a
     fixed kernel list and may not read ``stop`` on the host, so the loop
@@ -614,7 +636,7 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
         write = E + d * K
         hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][f_tok.long()],
                                    f_hid)
-        pos = (E + d).to(torch.int32)[:, None].expand(B, K)
+        pos = (E + pos_delta + d).to(torch.int32)[:, None].expand(B, K)
         out, _ = draft_mod.draft_forward(
             dp, st.dcfg, hin, pos, kv, write,
             _frontier_bias(st.s_draft, write, K), cos_t, sin_t)
@@ -657,7 +679,7 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
 
 def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
                          E: torch.Tensor, last_hidden: torch.Tensor,
-                         root_token: torch.Tensor) -> Tree:
+                         root_token: torch.Tensor, pos_delta=0) -> Tree:
     """Static-tree drafting (utils.py:115-233 + choices.py): the tree's
     shape is ``st.tree.static_choices``; the node at path [..., s] takes
     its parent distribution's rank-s token. One draft forward per level
@@ -665,8 +687,8 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
     and is skipped; its output was unused in the JAX version as well):
     the level's rows attend to the stable prefix plus their static
     ancestors, self included, node i's K/V at scratch row E + i - 1.
-    Padded to num_nodes (``static_tree.static_plan``). Lanes as in
-    ``_draft_expand_eagle``."""
+    Padded to num_nodes (``static_tree.static_plan``). Lanes and
+    ``pos_delta`` as in ``_draft_expand_eagle``."""
     t = st.tree
     dev = last_hidden.device
     B = last_hidden.shape[0]
@@ -689,7 +711,8 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
             break
         hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][toks],
                                    hid[:, lv.parent_row])
-        pos = (E + lv.depth - 1).to(torch.int32)[:, None].expand(B, lv.width)
+        pos = (E + pos_delta + lv.depth - 1).to(torch.int32)[:, None] \
+            .expand(B, lv.width)
         anc = torch.gather(lv.anc.expand(B, -1, -1), 2,
                            relc[:, None].expand(B, lv.width, -1))
         bias = torch.where(prefix | (in_tree & anc), 0.0,
@@ -708,21 +731,23 @@ def _draft_expand(st: Statics, params: Dict, last_hidden: torch.Tensor,
                   attn_feat: Optional[torch.Tensor] = None,
                   features: Optional[Dict] = None,
                   kv: Optional[Dict] = None,
-                  E: Optional[torch.Tensor] = None) -> Tree:
+                  E: Optional[torch.Tensor] = None, pos_delta=0) -> Tree:
     """The step's draft tree for each lane (last_hidden [B, H], root_token
     and E [B]), by the JAX package's precedence: a static choices tree
     when ``static_choices`` is set, else medusa heads when the draft has
-    them, else EAGLE recursion. ``kv`` (the draft cache) and ``E`` (its
-    stable length) are what the modes that run the draft layer (static,
-    EAGLE) read and write."""
+    them, else EAGLE recursion. ``kv`` (the draft cache), ``E`` (its
+    stable length) and ``pos_delta`` (the lanes' rope offsets, [B] or 0)
+    are what the modes that run the draft layer (static, EAGLE) read; the
+    medusa heads run no draft forward, and their tree's depths reach the
+    verify's rope positions."""
     if st.tree.static_choices is not None:
         return _draft_expand_static(st, params, kv, E, last_hidden,
-                                    root_token)
+                                    root_token, pos_delta)
     if st.dcfg.medusa_heads > 0:
         return _draft_expand_medusa(st, params, last_hidden, root_token,
                                     attn_feat, features)
     return _draft_expand_eagle(st, params, kv, E, last_hidden, root_token,
-                               attn_feat, features)
+                               attn_feat, features, pos_delta)
 
 
 def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
@@ -733,18 +758,20 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
     one when no row is valid: [B, H]; the visual-attention feature
     [B, TOP_K], with calibration or collection refreshed from the rows'
     layer-0 attention when any row is valid). Writes only draft KV rows at
-    or past ``draft_len``."""
+    or past ``draft_len``. Row i's rope position is draft_len + i +
+    ``pos_delta``; its cache slot, and the causal bias, draft_len + i."""
     dp = params["draft"]
     P = st.tree.max_path_len
     dev = s.suffix_tokens.device
     B = s.suffix_tokens.shape[0]
     emb = dp["embed_tokens"][torch.clamp(s.suffix_tokens, min=0).long()]
     hin = draft_mod.draft_fuse(dp, emb, s.suffix_hidden)
-    pos = s.draft_len[:, None] + torch.arange(P, device=dev,
-                                              dtype=torch.int32)
+    slot = s.draft_len[:, None] + torch.arange(P, device=dev,
+                                               dtype=torch.int32)
+    pos = slot + s.pos_delta[:, None]
     # causal over the growing prefix: row i sees cache slots [0, draft_len+i]
     kpos = torch.arange(st.s_draft, device=dev)
-    bias = torch.where(kpos <= pos[..., None], 0.0,
+    bias = torch.where(kpos <= slot[..., None], 0.0,
                        NEG_INF).to(torch.float32)
     attn_feat = s.attn_feat
     if st.need_attn:
@@ -769,8 +796,8 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
 # ---------------------------------------------------------------------------
 
 def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
-                   tr: Tree, cos_t, sin_t, per_lane=frozenset()
-                   ) -> torch.Tensor:
+                   tr: Tree, cos_t, sin_t, per_lane=frozenset(),
+                   pos_delta=None) -> torch.Tensor:
     """The verify step's target forward over every node of ``tr`` (their
     K/V rows written at E into ``kv`` in place), with window-canonical
     attention: node i's last W = MAX_PATH logical positions (committed
@@ -781,14 +808,17 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
     hidden [N, H]. With lanes (E [B], the tree's fields [B, ...], kv
     [B, L, S, Hkv, D]) it is one forward over B x N rows, each lane over
     its own cache: [B, N, H]; the products in ``per_lane`` are computed one
-    lane at a time."""
+    lane at a time. Node i's rope position is E + depth_i + ``pos_delta``
+    (shaped as E; None = 0); its cache row and window are E + depth_i."""
     dev = tr.tokens.device
     s_target = kv["k"].shape[-3]
     emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
     e1 = E[..., None]
-    pos = e1 + tr.positions
+    cache_pos = e1 + tr.positions
+    pos = cache_pos if pos_delta is None else \
+        cache_pos + pos_delta[..., None]
     W = tr.retrieve.shape[-1]
-    win_start = pos - (W - 1)                                     # [.., N]
+    win_start = cache_pos - (W - 1)                               # [.., N]
     l = win_start[..., None] + torch.arange(W, device=dev)        # [.., N, W]
     rel = l - e1[..., None]
     anc = torch.gather(tr.retrieve.long(), -1, torch.clamp(rel, 0, W - 1))
@@ -816,7 +846,7 @@ def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
     tp = params["target"]
     E = s.cur_len
     hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t,
-                            st.per_lane)
+                            st.per_lane, s.pos_delta)
     logits = L.lm_head(tp, hidden, st.per_lane)                   # [B, N, V]
     if st.sp.greedy:
         best, acc_len, next_tok = tree_mod.evaluate_greedy(
@@ -977,20 +1007,22 @@ def _fuse_prompt(st: Statics, params: Dict, ids: torch.Tensor,
 
 def _target_prefill(st: Statics, params: Dict, state: EngineState,
                     fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
-                    rng: Optional[torch.Generator]):
+                    rng: Optional[torch.Generator], tables=None):
     """Reset the state, run the target over the prompt (its KV rows into
     ``target_kv``), commit the prompt ids and E0, and sample the first new
     token into ``bonus`` (with Gumbel noise drawn from ``rng`` when
-    sampling). Returns the target hidden [P_exp, H]."""
+    sampling). ``tables``: the prompt's (cos, sin) rows, one per prompt
+    row (mrope), instead of the position tables. Returns the target
+    hidden [P_exp, H]."""
     _reset(st, state)
     tp = params["target"]
     dev = fused.device
     P_exp = fused.shape[0]
+    cos_t, sin_t = tables or (params["cos_t"], params["sin_t"])
     positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
     bias = causal_prefill_bias(P_exp, st.s_target, device=dev)
     hidden, _ = L.llama_forward(tp, st.tcfg, fused, positions,
-                                state.target_kv, 0, bias, params["cos_t"],
-                                params["sin_t"])
+                                state.target_kv, 0, bias, cos_t, sin_t)
     gumbel = None if st.sp.greedy else gumbel_noise(torch.rand(
         st.tcfg.vocab_size, generator=rng, device=dev))
     state.bonus.copy_(sample_token(L.lm_head(tp, hidden[E0 - 1][None])[0],
@@ -1023,11 +1055,13 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
                   fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
                   img_rows: torch.Tensor, img_pos: int,
                   bonus_override: Optional[int] = None,
-                  rng: Optional[torch.Generator] = None):
+                  rng: Optional[torch.Generator] = None, tables=None):
     dev = fused.device
     P_exp = fused.shape[0]
     dp = params["draft"]
-    hidden = _target_prefill(st, params, state, fused, exp_ids, E0, rng)
+    cos_t, sin_t = tables or (params["cos_t"], params["sin_t"])
+    hidden = _target_prefill(st, params, state, fused, exp_ids, E0, rng,
+                             tables)
     if st.collect_hiddens:
         _write(state.traj_hidden, hidden, 0)
     if bonus_override is not None and bonus_override >= 0:
@@ -1040,7 +1074,7 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
     j = torch.arange(P_exp, device=dev)
     zero_id = torch.zeros(1, dtype=exp_ids.dtype, device=dev)
     exp_shift = torch.cat([exp_ids[1:], zero_id])
-    se = dp["embed_tokens"][torch.clamp(exp_shift, min=0).long()]
+    se = L.embed_tokens(dp, exp_shift)
     img_next = torch.cat([img_rows[1:],
                           torch.zeros(1, dtype=torch.bool, device=dev)])
     fused_shift = torch.cat([fused[1:], torch.zeros_like(fused[:1])])
@@ -1057,16 +1091,64 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
         valid_rows = torch.full((), P_exp, dtype=torch.int32, device=dev)
         d_out, _, attn_p = draft_mod.draft_forward(
             dp, st.dcfg, dh_in, positions, state.draft_kv, 0, d_bias,
-            params["cos_t"], params["sin_t"], return_attn=True,
+            cos_t, sin_t, return_attn=True,
             attn_rows=_attn_rows(st, P_exp, valid_rows))
         state.attn_feat.copy_(_attn_feature_vec(st, attn_p, state.img_pos,
                                                 valid_rows, P_exp))
     else:
         d_out, _ = draft_mod.draft_forward(dp, st.dcfg, dh_in, positions,
                                            state.draft_kv, 0, d_bias,
-                                           params["cos_t"], params["sin_t"])
+                                           cos_t, sin_t)
     state.last_draft_hidden.copy_(d_out[E0 - 1])
     state.draft_len.fill_(E0)
+
+
+def _fuse_inline(st: Statics, params: Dict, ids: torch.Tensor,
+                 img_feats: Optional[torch.Tensor], img_start: int,
+                 pos3: Optional[torch.Tensor]):
+    """An inline (Qwen2-VL) prompt's (fused [P_pad, H], image-row mask
+    [P_pad], prefill tables or None): the vision rows over the
+    <|image_pad|> span at ``img_start``, and with ``pos3`` [3, P_pad] the
+    mrope cos/sin rows of every prompt row (``mrope_gather``)."""
+    if st.image_mode != "inline":
+        raise ValueError("qwen prefills need Statics.image_mode 'inline'")
+    tp = params["target"]
+    P = ids.shape[0]
+    j = torch.arange(P, device=ids.device)
+    if st.n_img > 0 and img_feats is not None:
+        fused = fuse_qwen_embeddings(tp["embed_tokens"], ids, img_feats,
+                                     img_start, st.n_img)
+        img_rows = (j >= img_start) & (j < img_start + st.n_img)
+    else:
+        fused = L.embed_tokens(tp, ids)
+        img_rows = torch.zeros(P, dtype=torch.bool, device=ids.device)
+    tables = None
+    if pos3 is not None:
+        tables = mrope_gather(params["cos_t"], params["sin_t"], pos3,
+                              st.mrope_section)
+    return fused, img_rows, tables
+
+
+def qwen_prefill(st: Statics, params: Dict, state: EngineState,
+                 ids: torch.Tensor, prompt_len: int,
+                 img_feats: Optional[torch.Tensor], img_start: int,
+                 pos3: Optional[torch.Tensor], pos_delta: int,
+                 rng: Optional[torch.Generator] = None):
+    """Qwen2-VL prefill, into ``state``: the inline image span and mrope
+    positions (``Statics.image_mode`` must be "inline").
+
+    ids: [P_pad] prompt that already holds the <|image_pad|> span at
+    img_start; pos3: [3, P_pad] mrope position ids
+    (``models/qwen2vl.mrope_positions``) or None for 1-D rope (text-only);
+    pos_delta: max(grid_h, grid_w) - n_img (0 without an image), kept in
+    the state for every later rope position. The draft prefill is the
+    expand path's: image-successor rows take the next fused row and
+    bypass the fc (cnets.py:245-252, 315-323)."""
+    fused, img_rows, tables = _fuse_inline(st, params, ids, img_feats,
+                                           img_start, pos3)
+    _prefill_core(st, params, state, fused, ids, prompt_len, img_rows,
+                  img_start, None, rng, tables)
+    state.pos_delta.fill_(pos_delta)
 
 
 def decode_step(st: Statics, params: Dict, s: EngineState):
@@ -1086,7 +1168,7 @@ def decode_step(st: Statics, params: Dict, s: EngineState):
     draft_len = s.draft_len + s.suffix_len
     features = {} if st.collect_calibration else None
     tr = _draft_expand(st, params, last_hidden, s.bonus, attn_feat,
-                       features, s.draft_kv, draft_len)
+                       features, s.draft_kv, draft_len, s.pos_delta)
     hidden, logits, best, acc_len, next_tok = _verify(st, params, s, tr,
                                                       cos_t, sin_t)
     if st.collect_calibration:
@@ -1155,10 +1237,23 @@ def ar_prefill(st: Statics, params: Dict, state: EngineState,
     _target_prefill(st, params, state, fused, exp_ids, E0, rng)
 
 
+def qwen_ar_prefill(st: Statics, params: Dict, state: EngineState,
+                    ids: torch.Tensor, prompt_len: int,
+                    img_feats: Optional[torch.Tensor], img_start: int,
+                    pos3: Optional[torch.Tensor], pos_delta: int,
+                    rng: Optional[torch.Generator] = None):
+    """Target-only prefill of an inline (Qwen2-VL) prompt with mrope, into
+    ``state``; the arguments as ``qwen_prefill``'s."""
+    fused, _, tables = _fuse_inline(st, params, ids, img_feats, img_start,
+                                    pos3)
+    _target_prefill(st, params, state, fused, ids, prompt_len, rng, tables)
+    state.pos_delta.fill_(pos_delta)
+
+
 def ar_step(st: Statics, params: Dict, s: EngineState):
-    """One AR token, in place: the target forward of ``bonus`` at E (its
-    one query row through the decode-attention kernel, kv_len = E + 1 on
-    the device), the next token (greedy, or sampled with the repetition
+    """One AR token, in place: the target forward of ``bonus`` at E (rope
+    position E + pos_delta; its one query row through the decode-attention
+    kernel, kv_len = E + 1 on the device), the next token (greedy, or sampled with the repetition
     penalty over ids[:E + 1] and the Gumbel noise of ``s.rand``) into
     ``bonus`` and ids[E + 1], E advanced, ``done`` set on EOS or the cache
     limit. No host sync."""
@@ -1167,9 +1262,9 @@ def ar_step(st: Statics, params: Dict, s: EngineState):
     kpos = torch.arange(st.s_target, device=cur.device)
     emb = tp["embed_tokens"][s.bonus.long().reshape(1)]
     bias = torch.where(kpos <= cur, 0.0, NEG_INF).to(torch.float32)[None]
-    hidden, _ = L.llama_forward(tp, st.tcfg, emb, cur[None], s.target_kv,
-                                cur, bias, params["cos_t"], params["sin_t"],
-                                kv_len=cur + 1)
+    hidden, _ = L.llama_forward(tp, st.tcfg, emb, (cur + s.pos_delta)[None],
+                                s.target_kv, cur, bias, params["cos_t"],
+                                params["sin_t"], kv_len=cur + 1)
     logits = L.lm_head(tp, hidden)[0]
     gumbel = None
     if not st.sp.greedy:

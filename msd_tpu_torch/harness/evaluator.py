@@ -203,6 +203,7 @@ def simple_evaluate(*, model, model_args: Optional[Dict] = None,
         check_integrity(tasks)
     # model classes register themselves at import time
     import msd_tpu_torch.harness.models.llava_msd  # noqa: F401
+    import msd_tpu_torch.harness.models.qwen2_vl_msd  # noqa: F401
     if isinstance(model, str):
         cls = get_model(model)
         margs = dict(model_args or {})

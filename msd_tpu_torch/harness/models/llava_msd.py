@@ -87,6 +87,28 @@ def run_multi_round(generate_one, requests: List[Instance],
     return results
 
 
+def checkpoint_engine(dcfg, kw: Dict):
+    """The engine budgets of an adapter built from checkpoints: the
+    defaults, with ``max_seq_len`` and ``max_new_tokens`` popped from the
+    model args ``kw``; for a medusa draft, a tapered static tree over its
+    heads (widths max(1, 10 // (1 + i)))."""
+    from msd_tpu_torch.configs import EngineConfig, TreeConfig
+
+    eng = EngineConfig()
+    over = {k: int(kw.pop(k)) for k in ("max_seq_len", "max_new_tokens")
+            if k in kw}
+    if over:
+        eng = dataclasses.replace(eng, **over)
+    if dcfg.medusa_heads:
+        d = dcfg.medusa_heads + 1
+        widths = tuple(max(1, 10 // (1 + i)) for i in range(d))
+        eng = dataclasses.replace(
+            eng, tree=TreeConfig(top_k=widths[0], max_depth=d,
+                                 num_nodes=1 + sum(widths),
+                                 medusa_widths=widths))
+    return eng
+
+
 class SimpleTokenizer:
     """Byte-level fallback tokenizer for offline/synthetic runs."""
 
@@ -186,16 +208,15 @@ class LlavaMSD:
         the steps of the JAX ``from_pretrained``: the checkpoint's
         tokenizer if ``transformers`` can read it locally, else the byte
         tokenizer; ``load_llava`` and ``load_draft`` (the draft sharing
-        the target's embedding when it has none); the engine budgets,
-        with ``max_seq_len`` and ``max_new_tokens`` taken from ``kw``; for
-        a medusa draft, a tapered static tree over its heads (widths
-        max(1, 10 // (1 + i))); the image rows of the tower; the
+        the target's embedding when it has none); the engine budgets
+        (``checkpoint_engine``: ``max_seq_len`` and ``max_new_tokens``
+        taken from ``kw``, a medusa draft's tapered tree); the image rows
+        of the tower; the
         tokenizer's EOS; the vocabulary's token classes. ``kw`` also takes
         the adapter's fields. The weights load in ``dtype``: by default
         bf16 on a CUDA device and fp32 elsewhere. Images are processed at
         the tower's size (the JAX adapter keeps its 336 default)."""
         from msd_tpu_torch.calib.token_class import classify_vocab
-        from msd_tpu_torch.configs import EngineConfig, TreeConfig
         from msd_tpu_torch.engine.generator import MSDGenerator
         from msd_tpu_torch.utils.weights import load_draft, load_llava
 
@@ -216,19 +237,7 @@ class LlavaMSD:
                                  base_embed=params["target"]["embed_tokens"],
                                  dtype=dtype, device=device)
         if eng is None:
-            eng = EngineConfig()
-            over = {k: int(kw.pop(k)) for k in ("max_seq_len",
-                                                "max_new_tokens")
-                    if k in kw}
-            if over:
-                eng = dataclasses.replace(eng, **over)
-            if dcfg.medusa_heads:
-                d = dcfg.medusa_heads + 1
-                widths = tuple(max(1, 10 // (1 + i)) for i in range(d))
-                eng = dataclasses.replace(
-                    eng, tree=TreeConfig(top_k=widths[0], max_depth=d,
-                                         num_nodes=1 + sum(widths),
-                                         medusa_widths=widths))
+            eng = checkpoint_engine(dcfg, kw)
         gen = MSDGenerator(params["target"], draft, lcfg.text, dcfg, eng,
                            n_img=lcfg.num_image_tokens,
                            eos_id=tokenizer.eos_token_id, device=device)

@@ -19,6 +19,10 @@ B x T rows.
   under the weight's name, the fp32 scales under ``<name>_qs`` (int8) or
   ``<name>_qs4`` (int4, packed along the last axis); every weight read
   goes through ``_w``, which dequantizes.
+- Qwen2 layers carry q/k/v biases ``q_bias`` [L, Hq*D], ``k_bias`` and
+  ``v_bias`` [L, Hkv*D] (``models/qwen2vl``), added after the projections
+  and before the head split and the rope; they are never quantized and
+  never computed per lane (no product).
 
 Unlike JAX, the KV cache is updated IN PLACE: ``llama_forward`` writes the
 new rows at ``write_pos`` into the caller's cache tensors and returns the
@@ -189,9 +193,16 @@ def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                                            cfg.rms_norm_eps)
     # matmuls in the param dtype even when the residual rides in fp32
     h = h.to(lp["input_layernorm"].dtype)
-    q = _proj(lp, "q_proj", h, per_lane).unflatten(-1, (hq, d))
-    k = _proj(lp, "k_proj", h, per_lane).unflatten(-1, (hkv, d))
-    v = _proj(lp, "v_proj", h, per_lane).unflatten(-1, (hkv, d))
+    q = _proj(lp, "q_proj", h, per_lane)
+    k = _proj(lp, "k_proj", h, per_lane)
+    v = _proj(lp, "v_proj", h, per_lane)
+    if "q_bias" in lp:  # Qwen2 attention carries qkv biases
+        q = q + lp["q_bias"]
+        k = k + lp["k_bias"]
+        v = v + lp["v_bias"]
+    q = q.unflatten(-1, (hq, d))
+    k = k.unflatten(-1, (hkv, d))
+    v = v.unflatten(-1, (hkv, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     return q, k, v
 
@@ -212,18 +223,22 @@ def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
 
     - ``win`` given (tree verification): window-canonical attention, so the
       committed trajectory is draft-invariant.
-    - ``kv_len`` given and at most KERNEL_MAX_GT grouped query rows
-      (G * T; the AR decode row): the decode-attention kernel K1 (its
-      plain twin for CPU tensors). On the card a call the kernel does not
-      take (head_dim other than 128, another dtype) raises there; nothing
-      falls back. This is the JAX "auto" rule without its TPU
-      cache-length threshold. With lanes, one call per lane.
+    - ``kv_len`` given and either at most KERNEL_MAX_GT grouped query
+      rows (G * T) or one query row (T = 1: the AR decode row, whatever
+      the GQA group G, e.g. Qwen2-VL-7B's 7): the decode-attention kernel
+      K1 (its plain twin for CPU tensors). On the card a call the kernel
+      does not take (head_dim other than 128, another dtype) raises
+      there; nothing falls back. This is the JAX "auto" rule without its
+      TPU cache-length threshold, plus the row JAX's ``attn_impl=
+      "pallas"`` sends to the kernel's MXU regime. With lanes, one call
+      per lane.
     - otherwise (prefill, draft): masked attention.
     """
     if win is not None:
         return windowed_attention(q, kv_k, kv_v, bias, *win, compact=True)
-    gt = q.shape[-3] * (cfg.num_attention_heads // cfg.num_key_value_heads)
-    if kv_len is not None and gt <= KERNEL_MAX_GT:
+    t = q.shape[-3]
+    gt = t * (cfg.num_attention_heads // cfg.num_key_value_heads)
+    if kv_len is not None and (gt <= KERNEL_MAX_GT or t == 1):
         if q.dim() == 3:
             return decode_attention(q, kv_k, kv_v, bias, kv_len)
         return torch.stack([
@@ -293,7 +308,11 @@ def lm_head(params: Params, hidden: torch.Tensor,
 
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][ids.long()]
+    """Rows ``ids`` of the embedding, each id clamped into the table as a
+    JAX gather clamps it (a tiny test vocabulary does not hold Qwen's
+    151652+ marker ids; a real one does)."""
+    table = params["embed_tokens"]
+    return table[torch.clamp(ids.long(), 0, table.shape[0] - 1)]
 
 
 def make_rope(cfg: LlamaConfig, max_seq_len: int, device="cuda"):
@@ -371,6 +390,11 @@ _HF_LAYER_MAP = {
     "up_proj": ("mlp.up_proj.weight", True),
     "down_proj": ("mlp.down_proj.weight", True),
 }
+_HF_BIAS_MAP = {
+    "q_bias": ("self_attn.q_proj.bias", False),
+    "k_bias": ("self_attn.k_proj.bias", False),
+    "v_bias": ("self_attn.v_proj.bias", False),
+}
 
 
 def upload(t: torch.Tensor, device, dtype, transpose: bool = False
@@ -393,10 +417,13 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
     Per weight, the L layers are stacked into one host tensor in the
     SOURCE dtype (plain copies), uploaded with one copy, then cast and
     transposed on the device, as the JAX version does (its 7B load took 23
-    minutes converting tensor by tensor, one minute this way)."""
+    minutes converting tensor by tensor, one minute this way). A state
+    with q/k/v projection biases (Qwen2) gets them stacked too."""
     L = cfg.num_hidden_layers
     stacked = {}
-    for ours, (theirs, transpose) in _HF_LAYER_MAP.items():
+    biases = f"{prefix}layers.0.self_attn.q_proj.bias" in state
+    layer_map = dict(_HF_LAYER_MAP, **(_HF_BIAS_MAP if biases else {}))
+    for ours, (theirs, transpose) in layer_map.items():
         first = state[f"{prefix}layers.0.{theirs}"]
         buf = torch.empty((L,) + tuple(first.shape), dtype=first.dtype)
         for i in range(L):

@@ -12,8 +12,9 @@ JAX scheduler's stacked state pytree):
   ``jax.vmap`` masks a finished lane of its ``while_loop``. On the card the
   step is one CUDA graph captured for (configuration, slot count) at the
   first segment and replayed for every later one.
-- Slot join = the single-request prefill (``spec_engine.prefill``, the
-  same code as ``generate``) written straight into the slot's lane: the
+- Slot join = the single-request prefill (``spec_engine.prefill``, or
+  ``qwen_prefill`` with the request's ``img_grid`` on an inline engine:
+  the same code as ``generate``) written straight into the slot's lane: the
   lane is a view of the batched buffers, so nothing is copied in. A
   request joins a RUNNING batch at the next segment boundary without
   stopping anyone else.
@@ -56,6 +57,7 @@ class Request:
 
     ids: np.ndarray                      # prompt token ids (unpadded)
     img_feats: Optional[torch.Tensor] = None
+    img_grid: Optional[tuple] = None     # inline (Qwen) engines only
     max_new: int = 256
     seed: int = 0
     # called with each np.int32 array of newly committed tokens (streaming)
@@ -184,9 +186,9 @@ class ContinuousScheduler:
         """The single-request prefill, into slot i's lane. Returns e0."""
         gen = self.gen
         ids, padded, img_pos = gen._prompt(req.ids)
-        SE.prefill(self.st, gen.params, SE.lane(self.state, i), padded,
-                   len(ids), req.img_feats, img_pos,
-                   rng=self.rngs[i].manual_seed(req.seed))
+        gen._prefill(self.st, SE.lane(self.state, i), ids, padded, img_pos,
+                     req.img_feats, req.img_grid,
+                     self.rngs[i].manual_seed(req.seed))
         return gen._e0(ids, req.img_feats)
 
     def _admit(self) -> List[Request]:

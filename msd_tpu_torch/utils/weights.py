@@ -8,7 +8,10 @@ are read with the port's own reader (``utils/safetensors_io``: mapped,
 any dtype, bf16 included), ``pytorch_model*.bin`` with
 ``torch.load(weights_only=True)``; tensors stay in their source dtype on
 the host until the importers upload them and cast on the device.
-``save_llava`` and ``save_draft`` write the layouts the loaders read.
+``save_llava``, ``save_qwen2_vl`` and ``save_draft`` write the layouts
+the loaders read. ``load_qwen2_vl`` reads a HF Qwen2-VL checkpoint (the
+qkv-bias decoder under ``model.*``, ``lm_head.weight``, the vision tower
+under ``visual.*``).
 """
 
 from __future__ import annotations
@@ -288,15 +291,12 @@ def hf_llava_state(params: Dict) -> Dict[str, torch.Tensor]:
 SHARD_BYTES = 5 * 10 ** 9      # the HF hub's default shard size
 
 
-def save_llava(params: Dict, lcfg: LlavaConfig, path: str,
-               dtype=torch.bfloat16) -> int:
-    """Write a LLaVA param dict as the HF checkpoint ``load_llava`` reads:
-    ``model-0000i-of-0000n.safetensors`` shards of at most SHARD_BYTES
-    each (a tensor is never split), ``model.safetensors.index.json`` and
-    ``config.json``, every tensor in ``dtype``. Tensors are cast and copied
-    to the host one shard at a time. Returns the bytes written."""
+def _save_shards(st: Dict[str, torch.Tensor], path: str, dtype) -> int:
+    """Write a HF state dict as ``model-0000i-of-0000n.safetensors``
+    shards of at most SHARD_BYTES each (a tensor is never split) and
+    ``model.safetensors.index.json``, every tensor in ``dtype``, cast and
+    copied to the host one shard at a time. Returns the bytes written."""
     os.makedirs(path, exist_ok=True)
-    st = hf_llava_state(params)
     shards, cur, size = [], [], 0
     for name, t in st.items():
         n = t.numel() * dtype.itemsize
@@ -317,6 +317,15 @@ def save_llava(params: Dict, lcfg: LlavaConfig, path: str,
     with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
         json.dump({"metadata": {"total_size": total},
                    "weight_map": weight_map}, f)
+    return written
+
+
+def save_llava(params: Dict, lcfg: LlavaConfig, path: str,
+               dtype=torch.bfloat16) -> int:
+    """Write a LLaVA param dict as the HF checkpoint ``load_llava`` reads:
+    safetensors shards (``_save_shards``) and ``config.json``, every
+    tensor in ``dtype``. Returns the bytes written."""
+    written = _save_shards(hf_llava_state(params), path, dtype)
     t, v = lcfg.text, lcfg.vision
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({
@@ -332,5 +341,100 @@ def save_llava(params: Dict, lcfg: LlavaConfig, path: str,
             "mm_projector_type": lcfg.mm_projector_type,
             "mm_hidden_size": v.hidden_size,
             "mm_vision_select_layer": v.select_layer,
+            "torch_dtype": str(dtype).split(".")[-1]}, f, indent=1)
+    return written
+
+
+def load_qwen2_vl(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local Qwen2-VL checkpoint dir -> (lm_params, vision_params,
+    text_cfg, vision_cfg) on ``device`` in ``dtype`` (the JAX
+    ``load_qwen2_vl``): the text config from config.json's top level
+    (``rope_scaling.mrope_section``), the tower's from its
+    ``vision_config``, the merger's output width from the LM's hidden."""
+    from msd_tpu_torch.models.qwen2vl import (Qwen2VLTextConfig,
+                                              params_from_hf_qwen2)
+    from msd_tpu_torch.models.qwen2vl_vision import (
+        Qwen2VisionConfig, params_from_hf_qwen_vision)
+
+    state = _load_state(path)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    tcfg = Qwen2VLTextConfig(
+        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_hidden_layers=cfg["num_hidden_layers"],
+        num_attention_heads=cfg["num_attention_heads"],
+        num_key_value_heads=cfg.get("num_key_value_heads",
+                                    cfg["num_attention_heads"]),
+        max_position_embeddings=cfg.get("max_position_embeddings", 32768),
+        rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+        rope_theta=cfg.get("rope_theta", 1e6),
+        mrope_section=tuple(cfg.get("rope_scaling", {}).get(
+            "mrope_section", (16, 24, 24))))
+    vc = cfg.get("vision_config", {})
+    vcfg = Qwen2VisionConfig(
+        embed_dim=vc.get("embed_dim", 1280), depth=vc.get("depth", 32),
+        num_heads=vc.get("num_heads", 16),
+        mlp_ratio=vc.get("mlp_ratio", 4.0),
+        patch_size=vc.get("patch_size", 14),
+        temporal_patch_size=vc.get("temporal_patch_size", 2),
+        spatial_merge_size=vc.get("spatial_merge_size", 2),
+        hidden_size=cfg["hidden_size"])
+    lm = params_from_hf_qwen2(state, tcfg, "model.", dtype, device)
+    vision = params_from_hf_qwen_vision(state, vcfg, "visual.", dtype,
+                                        device)
+    return lm, vision, tcfg, vcfg
+
+
+def hf_qwen2_vl_state(lm: Dict, vision: Dict, vcfg
+                      ) -> Dict[str, torch.Tensor]:
+    """The HF-layout state dict of a Qwen2-VL LM and tower (the inverse of
+    ``load_qwen2_vl``'s importers), as views and transposes of their
+    tensors: the LM layer by layer, ``lm_head``, the tower."""
+    from msd_tpu_torch.models.llama import _HF_BIAS_MAP, _HF_LAYER_MAP
+    from msd_tpu_torch.models.qwen2vl_vision import hf_qwen_vision_state
+
+    st = {"model.embed_tokens.weight": lm["embed_tokens"]}
+    layer_map = dict(_HF_LAYER_MAP, **_HF_BIAS_MAP)
+    for i in range(lm["layers"]["q_proj"].shape[0]):
+        for ours, (theirs, transpose) in layer_map.items():
+            w = lm["layers"][ours][i]
+            st[f"model.layers.{i}.{theirs}"] = w.T if transpose else w
+    st["model.norm.weight"] = lm["norm"]
+    st["lm_head.weight"] = lm["lm_head"].T
+    st.update(hf_qwen_vision_state(vision, vcfg))
+    return st
+
+
+def save_qwen2_vl(lm: Dict, vision: Dict, tcfg, vcfg, path: str,
+                  dtype=torch.bfloat16) -> int:
+    """Write a Qwen2-VL LM and tower as the HF checkpoint
+    ``load_qwen2_vl`` reads: safetensors shards (``_save_shards``) and a
+    ``config.json`` with ``rope_scaling.mrope_section`` and
+    ``vision_config``, every tensor in ``dtype``. Returns the bytes
+    written."""
+    written = _save_shards(hf_qwen2_vl_state(lm, vision, vcfg), path, dtype)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["Qwen2VLForConditionalGeneration"],
+            "model_type": "qwen2_vl", "vocab_size": tcfg.vocab_size,
+            "hidden_size": tcfg.hidden_size,
+            "intermediate_size": tcfg.intermediate_size,
+            "num_hidden_layers": tcfg.num_hidden_layers,
+            "num_attention_heads": tcfg.num_attention_heads,
+            "num_key_value_heads": tcfg.num_key_value_heads,
+            "max_position_embeddings": tcfg.max_position_embeddings,
+            "rms_norm_eps": tcfg.rms_norm_eps, "rope_theta": tcfg.rope_theta,
+            "rope_scaling": {"type": "mrope",
+                             "mrope_section": list(tcfg.mrope_section)},
+            "tie_word_embeddings": False,
+            "vision_config": {
+                "embed_dim": vcfg.embed_dim, "depth": vcfg.depth,
+                "num_heads": vcfg.num_heads, "mlp_ratio": vcfg.mlp_ratio,
+                "patch_size": vcfg.patch_size,
+                "temporal_patch_size": vcfg.temporal_patch_size,
+                "spatial_merge_size": vcfg.spatial_merge_size,
+                "in_chans": vcfg.in_channels,
+                "hidden_size": vcfg.hidden_size},
             "torch_dtype": str(dtype).split(".")[-1]}, f, indent=1)
     return written

@@ -66,6 +66,7 @@ CASES = [
     (1, 4, 4, 256, 256),    # kv_len = S
     (1, 8, 2, 256, 256),    # GQA AR, G*T = 4 in one block, kv_len = S
     (2, 4, 2, 128, 1),      # G*T = 4 from T = 2, one live key
+    (1, 28, 4, 256, 130),   # Qwen2-VL-7B's AR row: G*T = 7, two groups
 ]
 
 
@@ -141,6 +142,7 @@ def test_cpu_wrapper_uses_plain_twin_and_counts_no_launch():
     (1, 32, 8, (4, 1, 8)),     # GQA AR: one block holds G*T = 4 rows
     (48, 32, 32, (4, 12, 1)),  # verify-shaped: 384 row groups, no split
     (5, 32, 32, (4, 2, 4)),
+    (1, 28, 4, (4, 2, 8)),     # Qwen2-VL-7B AR row: G*T = 7, 2 groups of 4
 ])
 def test_launch_shape_fills_the_card_and_ignores_s(t, hq, hkv, want):
     """The grid (splits, Hkv * row groups) puts about BLOCKS_PER_SM blocks
@@ -208,6 +210,25 @@ def test_kernel_matches_plain_twin_on_card(cuda_device, t, hq, hkv, s,
             + kv_len[1]
     q, k, v, bias, n = _card_inputs(cuda_device, t, hq, hkv, s, kv_len,
                                     dtype)
+    before = K1.decode_attention.launches
+    out = K1.decode_attention(q, k, v, bias, n)
+    torch.cuda.synchronize()
+    assert K1.decode_attention.launches == before + 1
+    _assert_matches_twin(out, q, k, v, bias, kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 272, 1279, ("split", 1), 1280])
+def test_kernel_matches_plain_twin_at_the_qwen_ar_row(cuda_device, kv_len):
+    """Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4, bf16, S=1280): G*T = 7
+    grouped rows, run as two row groups of 4 per kv head, against the plain
+    twin, one launch per call."""
+    if isinstance(kv_len, tuple):
+        kv_len = K1.launch_shape(1, 28, 4,
+                                 K1.sm_count(cuda_device.index or 0))[2] \
+            + kv_len[1]
+    q, k, v, bias, n = _card_inputs(cuda_device, 1, 28, 4, 1280, kv_len,
+                                    torch.bfloat16, seed=kv_len)
     before = K1.decode_attention.launches
     out = K1.decode_attention(q, k, v, bias, n)
     torch.cuda.synchronize()

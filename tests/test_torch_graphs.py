@@ -540,7 +540,8 @@ def test_collecting_and_swapped_draft_graphs_on_card(cuda_device):
 @pytest.mark.cuda
 def test_batched_lanes_graphs_on_card(cuda_device):
     """Tiny bf16 model: generate_batch at B = 3 replays one graph of its
-    own (keyed on B and its state), its lanes equal the eager lanes and
+    own (keyed on its state: B = 3 runs on the next power of two, 4
+    lanes), its lanes equal the eager lanes and
     the null-draft lanes of the same B; a greedy and a sampled continuous
     schedule replay a graph over the scheduler's slots and equal eager
     schedules; a closed scheduler's graphs are released."""
@@ -558,7 +559,7 @@ def test_batched_lanes_graphs_on_card(cuda_device):
             gen.params["draft"] = drafts[name]
             out[mode, name] = gen.generate_batch(ids, feats, MAX_NEW)
     index = out["graph", "msd"][0].graph
-    assert graph.graphs.steps[index].key[4][0] == 3
+    assert graph.graphs.steps[index].key[4][0] == 4
     for lane in range(3):
         _same(out["graph", "msd"][lane], out["eager", "msd"][lane])
         np.testing.assert_array_equal(out["graph", "msd"][lane].tokens,
