@@ -19,7 +19,8 @@ prints no result):
    layer-sized caches (each launch finds its cache out of L2, as in a
    decode step) at four kv_len and at kv_len 0 (K1's fixed cost), and at
    Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4: G*T = 7, the kernel's wide
-   regime) over 28 caches at kv_len 272 beside SDPA with enable_gqa; and,
+   regime) over 384 caches at kv_len 272 (cold in L2 as well) beside
+   SDPA with enable_gqa; and,
    last, profiles 32 K1 calls, which must show one kernel launched 32
    times.
 4. main path at LLaVA-1.5-7B width (random weights from seeded generators
@@ -162,8 +163,10 @@ prints no result):
    back bitwise, and the harness CLI runs ``qwen2_vl_msd`` on it (MSD, AR,
    the null draft). Fails unless MSD == eager == null draft, every
    committed token is the canonical argmax of an independent mrope
-   recompute or within ``QWEN_TIE`` bf16 ulps of its top, AR departs from
-   MSD only at such ties, the oracle is accepted to full depth, the
+   recompute at the verify's row shapes, exactly, and of an unpadded one
+   or within 2 bf16 ulps of its top plus that row's gap between the two
+   recomputes, AR departs from MSD only at such ties, the same gate rejects MSD with a
+   planted fault (a verify without pos_delta), the oracle is accepted to full depth, the
    batch equals the solo runs, K1 launches 28 per AR token decoded (0 in
    MSD) and the scores are bitwise repeatable and equal their recompute
    within 1e-4.
@@ -237,15 +240,12 @@ QWEN_LIMIT, QWEN_BIAS_STD = 4, 0.1
 # how far (bf16 ulps of the top logit) a committed Qwen token may lie below
 # the independent recompute's top logit when it is not the recompute's
 # canonical argmax, on the card, and how far apart the two tokens of an
-# AR-vs-MSD split may lie. Two recomputes of one sequence that differ only
-# in row count (so in cuBLAS's kernels) gave logits up to 7 ulps apart on
-# an H100 (a text prompt; 0 on the image prompts), committed tokens lay up
-# to 4 ulps below the top (8 of 192, some the third choice of a three-way
-# near tie) and splits up to 3 ulps apart; the top-1 minus top-2 margin's
-# median is 6-8 ulps over Qwen's 152064-token vocabulary. 2 ulps (one step
-# of the 6-bit canonical grid) is below that noise. Off the card (fp32)
-# every token must be the canonical argmax and no split is allowed.
-QWEN_TIE = 8
+# AR-vs-MSD split may lie: HARNESS_TIE's 2 (one step of the 6-bit
+# canonical grid), plus that row's bf16 noise as measured against a
+# recompute at the verify's row shapes (for a split, the AR row's too;
+# ``qwen_token_check``); 0 off the card (fp32), where every token must be
+# the canonical argmax
+QWEN_TIE = HARNESS_TIE
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -3518,11 +3518,15 @@ def time_k1(hq: int, layers: int, kv_len: int = 672, s: int = 1280):
 
 
 def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
-                 s: int = 1280, layers: int = 28) -> dict:
-    """K1 at Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4, bf16) over 28 layer
-    caches at kv_len 272, in CUDA graphs: kernel (twice), its plain twin
-    and SDPA with ``enable_gqa``, and the byte bound. Returns the kernels
-    line's fields for this shape (``launches`` set by ``[qwen]``)."""
+                 s: int = 1280, layers: int = 384) -> dict:
+    """K1 at Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4, bf16) at kv_len 272,
+    in CUDA graphs over ``layers`` distinct caches, cold in L2: kernel
+    (twice), its plain twin and SDPA with ``enable_gqa``, and the byte
+    bound. 28 layer caches would hold 15.6 MB of live K/V, inside the
+    H100's 50 MB L2, where on the AR path ~500 MB of layer weights pass
+    between two attention calls; 384 hold 214 MB, so each launch finds its
+    cache out of L2 as there. Returns the kernels line's fields for this
+    shape (``launches`` set by ``[qwen]``)."""
     import torch
     import torch.nn.functional as F
     from msd_tpu_torch.ops import decode_attention as K1
@@ -3531,8 +3535,10 @@ def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
     hq, hkv = 28, 4
     g = torch.Generator(device="cuda").manual_seed(28)
     q = torch.randn(1, hq, 128, generator=g, device="cuda").to(bf16)
-    ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
-    vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda").to(bf16)
+    ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda",
+                     dtype=bf16)
+    vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda",
+                     dtype=bf16)
     bias = torch.zeros(1, s, device="cuda")
     n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     mask = bias[:, :kv_len].to(bf16)[None, None]
@@ -3563,7 +3569,9 @@ def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
     bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
     log(f"[K1] Qwen2-VL AR row T=1 Hq={hq} Hkv={hkv} (G*T = 7: "
         f"{-(-7 // 4)} row groups of 4 per kv head, {n_split} splits) "
-        f"S={s} kv_len={kv_len} bf16 over {layers} layer caches on {card}: "
+        f"S={s} kv_len={kv_len} bf16 over {layers} caches ("
+        f"{2 * layers * kv_len * hkv * 128 * 2 / 1e6:.0f} MB live, cold in "
+        f"L2) on {card}: "
         f"kernel {timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
         f"us, plain {timed['plain'] * 1e3:.2f}/{timed['plain2'] * 1e3:.2f} "
         f"us, sdpa (enable_gqa) {timed['library'] * 1e3:.2f} us, bound "
@@ -3663,23 +3671,18 @@ def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
     return out
 
 
-def qwen_plain_logits(gen, ids, feats, grid):
-    """The target's fp32 logits over the unpadded inline sequence ``ids``
-    (a Qwen2-VL prompt, its image-pad span replaced by ``feats`` when
-    given), built apart from ``qwen_prefill``, the decode steps and
-    ``qwen_score_program``: the embeddings by concatenation, the 3-D
-    positions of the whole sequence from ``mrope_positions`` gathered by
-    ``mrope_gather`` (1-D positions without an image), the causal mask by
-    ``triu``, no bucket padding, no KV cache reuse. Only ``llama_forward``
-    and ``lm_head`` are shared with the engine."""
+def _qwen_inputs(gen, ids, feats, grid):
+    """The fused embeddings [rows, H] of the inline sequence ``ids`` (its
+    image-pad span replaced by ``feats`` when given) and the mrope cos/sin
+    rows of all its rows (``mrope_positions`` over the whole length,
+    gathered by ``mrope_gather``; 1-D positions without an image), built
+    by concatenation, apart from the engine's fusion."""
     import torch
-    from msd_tpu_torch.models import llama as L
     from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, mrope_gather,
                                               mrope_positions)
 
     ids = np.asarray(ids, np.int64)
-    tp, dev = gen.params["target"], gen.device
-    table = tp["embed_tokens"]
+    table, dev = gen.params["target"]["embed_tokens"], gen.device
 
     def embed(x):
         return table[torch.from_numpy(
@@ -3697,6 +3700,22 @@ def qwen_plain_logits(gen, ids, feats, grid):
     cos, sin = mrope_gather(gen.params["cos_t"], gen.params["sin_t"],
                             torch.from_numpy(pos3).to(dev),
                             gen.mrope_section)
+    return emb, cos, sin
+
+
+def qwen_plain_logits(gen, ids, feats, grid):
+    """The target's fp32 logits over the unpadded inline sequence ``ids``
+    (a Qwen2-VL prompt, its image-pad span replaced by ``feats`` when
+    given), built apart from ``qwen_prefill``, the decode steps and
+    ``qwen_score_program``: ``_qwen_inputs``, the causal mask by ``triu``,
+    no bucket padding, no KV cache reuse. Only ``llama_forward`` and
+    ``lm_head`` are shared with the engine."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+
+    tp, dev = gen.params["target"], gen.device
+    emb, cos, sin = _qwen_inputs(gen, ids, feats, grid)
+    rows = emb.shape[0]
     mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
     hidden, _ = L.llama_forward(
         tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
@@ -3704,45 +3723,131 @@ def qwen_plain_logits(gen, ids, feats, grid):
     return L.lm_head(tp, hidden)
 
 
+def qwen_shaped_logits(gen, ids, feats, grid, toks, chunk: int,
+                       window: bool = False):
+    """The logits that predict each of ``toks`` after the prompt ``ids``,
+    and the token after them ([len(toks) + 1, V] fp32), recomputed at the engine's row shapes but apart
+    from its code: the prompt padded to the generator's prompt bucket in
+    one forward into a cache of the engine's target capacity (the last
+    prompt row through ``lm_head`` alone, as the prefill's bonus row),
+    then ``toks`` ``chunk`` rows at a time (the last chunk padded), each
+    chunk written after the rows before it and attending over the cache
+    by a causal bias, its rows through ``lm_head`` together. ``chunk``
+    48 is a verify's row count, 1 the AR row's. With ``window`` a chunk
+    row reduces its last ``max_path_len`` positions through window slots
+    and the cache below them through the bias, as a verify row of a chain
+    does (``windowed_attention``; window rows and bias built here from
+    the row's cache position); else the attention is plain (no K1).
+    Inputs and mrope tables from ``_qwen_inputs``."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops.attention import NEG_INF
+
+    ids = np.asarray(ids, np.int64)
+    toks = np.asarray(toks, np.int64)
+    tp, dev, cfg = gen.params["target"], gen.device, gen.tcfg
+    n_p, n_t = len(ids), len(toks)
+    m = gen.eng.prompt_pad_multiple
+    pad = -m * (-n_p // m)
+    fed = -chunk * (-n_t // chunk)
+    s = -128 * (-(gen.eng.max_seq_len + gen.eng.tree.num_nodes) // 128)
+    rows = max(pad, n_p + fed)
+    seq = np.zeros(rows, np.int64)
+    seq[:n_p], seq[n_p:n_p + n_t] = ids, toks
+    emb, cos, sin = _qwen_inputs(gen, seq, feats, grid)
+    pre = emb[:pad].clone()
+    pre[n_p:] = gen.params["target"]["embed_tokens"][0]
+    kv = L.init_kv_cache(cfg, s, emb.dtype, dev)
+    cols = torch.arange(s, device=dev)
+
+    w = gen.eng.tree.max_path_len
+
+    def forward(x, first, win=False):
+        r = torch.arange(first, first + x.shape[0], device=dev)
+        if not win:
+            bias = torch.where(cols[None] <= r[:, None], 0.0, NEG_INF)
+            return L.llama_forward(tp, cfg, x, r.to(torch.int32), kv, first,
+                                   bias, cos, sin)[0]
+        start = r - (w - 1)
+        slots = start[:, None] + torch.arange(w, device=dev)
+        bias = torch.where(cols[None] < start[:, None], 0.0, NEG_INF)
+        win_bias = torch.where(slots >= 0, 0.0, NEG_INF)
+        return L.llama_forward(
+            tp, cfg, x, r.to(torch.int32), kv, first, bias, cos, sin,
+            win=(slots.clamp(0, s - 1), win_bias, start))[0]
+
+    out = [L.lm_head(tp, forward(pre, 0)[n_p - 1:n_p])]
+    for c in range(0, fed, chunk):
+        out.append(L.lm_head(tp, forward(emb[n_p + c:n_p + c + chunk],
+                                         n_p + c, window)))
+    return torch.cat(out)[:n_t + 1]
+
+
 def qwen_token_check(gen, ids, feats, grid, toks, other=None,
                      tie: float = 0.0) -> dict:
-    """Every committed token ``toks`` of one inline request held to
-    ``qwen_plain_logits`` over the prompt and those tokens: each must be
-    the recompute's argmax after the engine's canonical rounding of the
-    logits or lie within ``tie`` bf16 ulps of the top logit. With ``other`` (the AR run's tokens of the same request):
-    where they first depart from ``toks``, the two tokens' logits, in bf16
-    ulps of the larger, and their ranks (a sequence that ended first picks
-    EOS there). The recompute's own bf16 noise is measured as the largest
-    difference, in ulps, of the committed rows' logits from a second
-    recompute over 16 more rows (another row count, so other GEMM
-    kernels). Returns {"worst", "noise", "bad": [(k, ulps, rank)],
-    "off": tokens off the canonical argmax, "split": {...} or None}."""
+    """Every committed token ``toks`` of one inline request held to two
+    recomputes over the prompt and those tokens, each built apart from the
+    engine's code with mrope positions over the whole sequence. B
+    (``qwen_shaped_logits`` at the verify's shapes: the prompt bucket,
+    chunks of the tree's node count through window slots) must have each
+    token as its argmax after the engine's canonical rounding, exactly.
+    A, the unpadded ``qwen_plain_logits``, must have each token as its
+    canonical argmax or, on the card (``tie`` > 0), lie below A's top by
+    at most ``tie`` bf16 ulps plus that row's noise: |A - B| at A's top
+    token plus |A - B| at the committed token, in bf16 ulps of A's top
+    (0 where A and B agree bitwise). Off the card both must be exact.
+    With ``other`` (the AR run's tokens of the same request): where they
+    first depart from ``toks``, the two tokens' logits in A, their gap in
+    bf16 ulps of the larger, that row's noise over the two tokens, the
+    largest of B's and of C's (``qwen_shaped_logits`` one row at a time,
+    the AR row's shape), and their ranks (a sequence that ended first
+    picks EOS there). Returns {"worst", "noise", "off": tokens off A's
+    canonical argmax, "off_b": off B's, "bad_a": tokens A's gate
+    rejects, "bad": [(k, ulps below A's top,
+    allowed, ulps below B's top, rank in A)], "rows": [(k, ulps below A's top, noise, ulps below B's top,
+    rank in A)] for every token off A's canonical argmax, "split": {...}
+    or None}."""
     import torch
     from msd_tpu_torch.ops.sampling import canon_logits
 
     toks = [int(t) for t in toks]
-    seq = np.concatenate([ids, toks])
-    logits = qwen_plain_logits(gen, seq, feats, grid)
-    longer = qwen_plain_logits(gen, np.concatenate([seq, seq[-16:]]), feats,
-                               grid)
+    out = {"worst": 0.0, "noise": 0.0, "off": 0, "off_b": 0, "bad_a": 0,
+           "bad": [], "rows": [], "split": None}
+    if not toks:
+        return out
     first = len(ids) - 1
+    logits = qwen_plain_logits(gen, np.concatenate([ids, toks]), feats, grid)
     rows = logits[first:first + len(toks)]
-    top = rows.max(dim=-1).values
-    noise = ((rows - longer[first:first + len(toks)]).abs().max(dim=-1)
-             .values / bf16_ulp(top))
-    canon = canon_logits(rows, ROUND_BITS)
+    shaped = qwen_shaped_logits(gen, ids, feats, grid, toks,
+                                gen.eng.tree.num_nodes, window=True)
+    b_rows = shaped[:len(toks)]
+    top, arg = rows.max(dim=-1)
+    ulp = bf16_ulp(top)
     idx = torch.tensor(toks, device=rows.device)[:, None]
-    picked = rows.gather(1, idx)[:, 0]
-    ulps = (top - picked) / bf16_ulp(top)
-    rank = (rows > picked[:, None]).sum(dim=-1)
-    is_max = canon.gather(1, idx)[:, 0] >= canon.max(dim=-1).values
-    ok = is_max | (ulps <= tie)
-    off = torch.where(is_max, 0.0, ulps)
-    out = {"worst": float(off.max()) if len(toks) else 0.0,
-           "noise": float(noise.max()) if len(toks) else 0.0,
-           "off": int((~is_max).sum()),
-           "bad": [(int(k), float(ulps[k]), int(rank[k])) for k in
-                   np.flatnonzero(~ok.cpu().numpy())], "split": None}
+
+    def canon_max(r):
+        c = canon_logits(r, ROUND_BITS)
+        return c.gather(1, idx)[:, 0] >= c.max(dim=-1).values
+
+    gap = (rows - b_rows).abs()
+    noise = (gap.gather(1, arg[:, None])[:, 0] + gap.gather(1, idx)[:, 0]) \
+        / ulp
+    ulps = (top - rows.gather(1, idx)[:, 0]) / ulp
+    d_b = (b_rows.max(dim=-1).values - b_rows.gather(1, idx)[:, 0]) / ulp
+    rank = (rows > rows.gather(1, idx)).sum(dim=-1)
+    is_max, b_max = canon_max(rows), canon_max(b_rows)
+    allowed = tie + noise if tie > 0 else torch.zeros_like(noise)
+    ok = b_max & (is_max | (ulps <= allowed))
+    out.update(worst=float(torch.where(is_max, 0.0, ulps).max()),
+               noise=float(noise.max()), off=int((~is_max).sum()),
+               off_b=int((~b_max).sum()),
+               bad_a=int((~(is_max | (ulps <= allowed))).sum()),
+               bad=[(int(k), float(ulps[k]), float(allowed[k]),
+                     float(d_b[k]), int(rank[k]))
+                    for k in np.flatnonzero(~ok.cpu().numpy())],
+               rows=[(int(k), float(ulps[k]), float(noise[k]),
+                      float(d_b[k]), int(rank[k]))
+                     for k in np.flatnonzero(~is_max.cpu().numpy())])
     if other is not None:
         other = [int(t) for t in other]
         k = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y),
@@ -3753,8 +3858,13 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
                       for s in (toks, other))
             la, lb = float(row[ta]), float(row[tb])
             big = max(abs(la), abs(lb))
+            one_row = qwen_shaped_logits(gen, ids, feats, grid, toks, 1)
+            gap_noise = max(float((row[ta] - r[k, ta]).abs()
+                                  + (row[tb] - r[k, tb]).abs())
+                            for r in (shaped, one_row)) / float(bf16_ulp(big))
             out["split"] = {"at": k, "gap": abs(la - lb), "logit": big,
                             "ulps": abs(la - lb) / float(bf16_ulp(big)),
+                            "noise": gap_noise,
                             "ranks": (int((row > row[ta]).sum()),
                                       int((row > row[tb]).sum()))}
     return out
@@ -3762,9 +3872,11 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
 
 def qwen_split_ok(split, tie: float) -> bool:
     """An AR-vs-MSD split is a rounding tie of the recompute: the two
-    tokens' logits within ``tie`` bf16 ulps (no split at all off the card,
+    tokens' logits within ``tie`` bf16 ulps plus that row's measured
+    recompute noise over the two tokens (no split at all off the card,
     ``tie`` 0)."""
-    return split is None or (tie > 0 and split["ulps"] <= tie)
+    return split is None or (tie > 0
+                             and split["ulps"] <= tie + split["noise"])
 
 
 def qwen_plain_score(gen, ids, cont_start: int, feats, grid) -> tuple:
@@ -3796,6 +3908,58 @@ def qwen_prompt(rng, n_tokens: int, n_img: int, vocab_hi: int,
     return ids.astype(np.int32)
 
 
+def qwen_fault_check(make_gen, prompts, good, max_new: int, tie: float,
+                     card: str) -> dict:
+    """The recompute gate's power at full width: MSD runs again on the
+    image ``prompts`` on a fresh generator (``make_gen``) whose verify
+    drops ``pos_delta`` from its rope positions (cache rows unchanged),
+    the fault a lost image offset makes; ``qwen_token_check`` at the
+    phase's allowance must reject some of its tokens, by A's gate and by
+    B's, or this raises. ``good``: the true runs' results. Returns {"bad":
+    tokens rejected, "by_a", "by_b": rejected by each gate, "worst": (ulps, allowed) of the farthest, "differ": first
+    token index that differs from the true run per prompt}."""
+    from msd_tpu_torch.engine import spec_engine as SE
+
+    orig = SE.verify_forward
+
+    def no_delta(tp, tcfg, kv, E, tr, cos_t, sin_t, per_lane=frozenset(),
+                 pos_delta=None):
+        return orig(tp, tcfg, kv, E, tr, cos_t, sin_t, per_lane)
+
+    SE.verify_forward = no_delta
+    try:
+        gen = make_gen()
+        runs = [gen.generate(ids, f, max_new, img_grid=grid)
+                for ids, f, grid in prompts]
+    finally:
+        SE.verify_forward = orig
+    bad, differ, by_a, by_b = [], [], 0, 0
+    for (ids, f, grid), r, ok in zip(prompts, runs, good):
+        chk = qwen_token_check(gen, ids, f, grid, r.tokens, tie=tie)
+        bad += chk["bad"]
+        by_a, by_b = by_a + chk["bad_a"], by_b + chk["off_b"]
+        d = np.flatnonzero(r.tokens != ok.tokens)
+        differ.append(int(d[0]) if len(d) else None)
+    del gen
+    if not (by_a and by_b):
+        raise AssertionError(f"[qwen] a verify without pos_delta passes the "
+                             f"recompute gate: A's rejects {by_a} tokens, "
+                             f"B's {by_b} (tokens first differ from the true "
+                             f"run at {differ})")
+    worst = max(bad, key=lambda b: b[1] - b[2])
+    log(f"[qwen] planted fault (the verify's rope positions without "
+        f"pos_delta), {len(prompts)} image prompts x {max_new} tokens: the "
+        f"tokens first differ from the true run at {differ}; the recompute "
+        f"gate rejects {len(bad)} of them, {by_a} by A's allowance and "
+        f"{by_b} off the shaped recompute's argmax (token, ulps below A's top, "
+        f"allowed, below B's, rank: "
+        + ", ".join(f"({k}, {u:g}, {a:g}, {b:g}, {rk})"
+                    for k, u, a, b, rk in bad)
+        + f"), so [qwen] fails it, as it must, on {card}")
+    return {"bad": len(bad), "by_a": by_a, "by_b": by_b,
+            "worst": worst[1:3], "differ": differ}
+
+
 def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
              max_seq: int = MAX_SEQ, max_new: int = MAX_NEW,
              prompt_tokens: int = PROMPT_TOKENS, image_size: int = 336,
@@ -3821,9 +3985,12 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
 
     Fails unless: graph MSD == eager MSD == the null draft, bitwise, on
     every prompt, and A == D; every committed MSD (and A) token is the
-    canonical argmax of an independent mrope recompute
-    (``qwen_token_check``) or, on the card, within ``QWEN_TIE`` bf16
-    ulps of its top logit; AR (and B) equals MSD (and A) up
+    canonical argmax of an independent mrope recompute at the verify's
+    row shapes and of an unpadded one (``qwen_token_check``) or, on the
+    card, within ``QWEN_TIE`` bf16 ulps of the unpadded one's top logit
+    plus that row's gap between the two recomputes, and
+    that gate rejects the tokens of a verify without ``pos_delta``
+    (``qwen_fault_check``); AR (and B) equals MSD (and A) up
     to each request's first split, each split such a tie (none off the
     card); the oracle
     draft is accepted to full depth; each batched lane equals its solo
@@ -3984,6 +4151,15 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         bad.append(f"K1 launches {launches}, want ar {k1_want} (= {layers} "
                    f"x {ar_decoded} AR tokens decoded), 0 in MSD")
     tie = QWEN_TIE if on_card else 0.0
+    check_s = [0.0]
+
+    def check(*a, **kw):
+        # the recomputes' seconds, reported apart from the timed runs
+        t1 = time.perf_counter()
+        r = qwen_token_check(*a, **kw)
+        check_s[0] += time.perf_counter() - t1
+        return r
+
     checks, splits = [], []
     for pi, (ids, f, grid_i) in enumerate(prompts):
         toks = {n: runs[n][pi].tokens for n in runs}
@@ -3995,36 +4171,47 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
                 and np.array_equal(toks["msd"], toks["eager"])):
             bad.append(f"prompt {pi}: MSD, eager MSD and null-draft tokens "
                        f"differ")
-        chk = qwen_token_check(gen, ids, f, grid_i, toks["msd"], toks["ar"],
-                               tie)
+        chk = check(gen, ids, f, grid_i, toks["msd"], toks["ar"], tie)
         checks.append(chk)
         if chk["bad"]:
             bad.append(f"prompt {pi}: committed tokens off the mrope "
-                       f"recompute's argmax (token, ulps, rank): "
+                       f"recompute's argmax (token, ulps below A's top, "
+                       f"allowed, below B's, rank): "
                        f"{chk['bad']}")
         if chk["split"] is not None:
             splits.append(chk["split"])
         if not qwen_split_ok(chk["split"], tie):
             bad.append(f"prompt {pi}: AR departs from MSD at a split "
                        f"that is no rounding tie: {chk['split']}")
-    if bad:
-        raise AssertionError(f"[qwen] {bad}")
     out["recompute_worst"] = max(c["worst"] for c in checks)
     out["recompute_noise"] = max(c["noise"] for c in checks)
     log(f"[qwen] on 2 image prompts ({len(ids0)} rows) and 1 text prompt "
         f"({prompt_tokens}) x {max_new} tokens: graph MSD == eager MSD == "
         f"null draft: True; committed MSD tokens off the mrope recompute's "
         f"canonical argmax: {sum(c['off'] for c in checks)} of "
-        f"{len(prompts) * max_new}, worst {out['recompute_worst']:.2f} bf16 "
-        f"ulps below its top (allowed {tie:g}); the "
-        f"recompute's own noise (16 more rows) up to "
-        f"{out['recompute_noise']:.2f} ulps; AR == MSD up to the first "
+        f"{len(prompts) * max_new} (off the shaped recompute's: "
+        f"{sum(c['off_b'] for c in checks)}, allowed 0), worst {out['recompute_worst']:.2f} bf16 "
+        f"ulps below its top (allowed {tie:g} + the row's noise); the "
+        f"noise against the shaped recompute up to "
+        f"{out['recompute_noise']:.2f} ulps; tokens off A's argmax (prompt,"
+        f" token, ulps below A's top, noise, below B's, rank): "
+        + (", ".join(f"({pi}, {r[0]}, {r[1]:g}, {r[2]:g}, {r[3]:g}, "
+                     f"{r[4]})" for pi, c in enumerate(checks)
+                     for r in c["rows"]) or "none")
+        + f"; AR == MSD up to the first "
         f"split on {len(prompts) - len(splits)} of {len(prompts)}"
-        + "".join(f"; split at token {s['at']}: {s['ulps']:.1f} ulps at "
-                  f"|logit| {s['logit']:.4f}, ranks {s['ranks']}"
-                  for s in splits)
+        + "".join(f"; split at token {s['at']}: {s['ulps']:.1f} ulps "
+                  f"(noise {s['noise']:g}) at |logit| {s['logit']:.4f}, "
+                  f"ranks {s['ranks']}" for s in splits)
         + f"; K1 launches {launches} (ar = {layers} x {ar_decoded} AR "
         f"tokens decoded) on {card}")
+    if bad:
+        raise AssertionError(f"[qwen] {bad}")
+
+    t1 = time.perf_counter()
+    out["fault"] = qwen_fault_check(lambda: generator(True), prompts[:2],
+                                    runs["msd"][:2], max_new, tie, card)
+    out["fault_s"] = time.perf_counter() - t1
 
     # deep acceptance after an image: the oracle tree, on a generator that
     # captures inside the block; the image prompts share one length
@@ -4144,12 +4331,11 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
                    "captured": captures(self) - before,
                    "key": (kind, max_new_tokens, kw.get("sp"))}
             if run[0] == "A":
-                rec["check"] = qwen_token_check(self, ids, img_feats,
-                                                kw.get("img_grid"), r.tokens,
-                                                tie=tie)
+                rec["check"] = check(self, ids, img_feats,
+                                     kw.get("img_grid"), r.tokens, tie=tie)
             if run[0] == "B":
                 a = [q for q in reqs if q["run"] == "A"][len(mine)]
-                rec["split"] = qwen_token_check(
+                rec["split"] = check(
                     self, ids, img_feats, kw.get("img_grid"), a["tokens"],
                     r.tokens, tie)["split"]
             reqs.append(rec)
@@ -4263,8 +4449,6 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         seen.add(k)
     if late:
         bad.append(f"graphs captured inside later requests: {late}")
-    if bad:
-        raise AssertionError(f"[qwen] {bad}")
 
     def ms_per_token(name):
         rs = of(name)
@@ -4293,9 +4477,18 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"True; A's tokens off the mrope recompute's canonical argmax: "
         f"{sum(r['check']['off'] for r in of('A'))}, worst "
         f"{max(r['check']['worst'] for r in of('A')):.2f} ulps (allowed "
-        f"{tie:g}); B == A up to each first split ("
-        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps, ranks "
-                     f"{s['ranks']}" for s in hsplits) or "no split")
+        f"{tie:g} + the row's noise, up to "
+        f"{max(r['check']['noise'] for r in of('A')):.2f}), off the shaped "
+        f"recompute's: {sum(r['check']['off_b'] for r in of('A'))} "
+        f"(allowed 0); off A's argmax (request, token, ulps below A's top, "
+        f"noise, below B's, rank): " + (", ".join(
+            f"({i}, {r[0]}, {r[1]:g}, {r[2]:g}, {r[3]:g}, {r[4]})"
+            for i, q in enumerate(of("A")) for r in q["check"]["rows"])
+            or "none")
+        + "; B == A up to each first split ("
+        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps (noise "
+                     f"{s['noise']:g}), ranks {s['ranks']}"
+                     for s in hsplits) or "no split")
         + f"); ai2d_ppl A == B bitwise, repeat bitwise, recompute worst "
         f"relative {worst:.3e}; ms per generated token (prefill included) "
         f"A {out['ms_token']['A']:.2f}, B {out['ms_token']['B']:.2f}, D "
@@ -4303,8 +4496,12 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"{layers} x ({out['B']['ar_steps']} AR tokens decoded + "
         f"{WARMUP_STEPS} warm-up steps x {b_caps} capture), 0 in A, D on "
         f"{card}")
+    if bad:
+        raise AssertionError(f"[qwen] {bad}")
     log(f"[qwen] peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
-        f"{out['seconds']:.1f}s on {card}")
+        f"{out['seconds']:.1f}s, of which the recompute checks "
+        f"{check_s[0]:.1f}s and the planted fault {out['fault_s']:.1f}s on "
+        f"{card}")
     del gens, gen, gen_o
     return out
 

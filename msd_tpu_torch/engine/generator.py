@@ -76,18 +76,13 @@ class MSDGenerator:
                  eng: EngineConfig = EngineConfig(), *, n_img: int = 0,
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
                  image_mode: str = "expand", mrope_section=None,
-                 attn_feature_mode: str = "reference",
-                 inline_pad_ids=None, device="cuda",
+                 attn_feature_mode: str = "reference", device="cuda",
                  cuda_graphs: bool = True):
         self.tcfg, self.dcfg = tcfg, dcfg
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
         self.image_mode = image_mode
         self.mrope_section = None if mrope_section is None \
             else tuple(mrope_section)
-        # inline-mode image-span marker ids (Qwen2-VL's image and video
-        # pads by default)
-        self.inline_pad_ids = tuple(inline_pad_ids) if inline_pad_ids \
-            else None
         self.attn_feature_mode = attn_feature_mode
         self.device = torch.device(device)
         self.rng = torch.Generator(device=self.device)
@@ -246,8 +241,7 @@ class MSDGenerator:
         """The image span's first row: the placeholder (expand) or the
         first image-pad id (inline); len(ids) without one."""
         if self.image_mode == "inline":
-            hit = np.isin(ids, self.inline_pad_ids
-                          or (IMAGE_PAD_ID, VIDEO_PAD_ID))
+            hit = np.isin(ids, (IMAGE_PAD_ID, VIDEO_PAD_ID))
         else:
             hit = ids == IMAGE_TOKEN_INDEX
         pos = np.nonzero(hit)[0]

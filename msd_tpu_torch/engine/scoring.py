@@ -26,7 +26,8 @@ import torch
 from msd_tpu_torch.configs import LlamaConfig
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
-from msd_tpu_torch.models.qwen2vl import fuse_qwen_embeddings, mrope_gather
+from msd_tpu_torch.models.qwen2vl import (embed_ids, fuse_qwen_embeddings,
+                                          mrope_gather)
 from msd_tpu_torch.ops.attention import causal_prefill_bias
 
 
@@ -42,10 +43,7 @@ def _score_rows(tp: Dict, exp_ids: torch.Tensor, hidden: torch.Tensor,
     next_ids = torch.cat([exp_ids[1:].long(),
                           exp_ids.new_zeros(1, dtype=torch.long)])
     lse = torch.logsumexp(logits, dim=-1)
-    # masked rows may hold ids past the vocabulary (a tiny model's Qwen
-    # markers): gather them clamped, JAX's gather fills them
-    tok_lp = logits.gather(-1, torch.clamp(
-        next_ids, max=logits.shape[-1] - 1)[:, None])[:, 0] - lse
+    tok_lp = logits.gather(-1, next_ids[:, None])[:, 0] - lse
     greedy = logits.argmax(dim=-1) == next_ids
     rows = torch.arange(exp_ids.shape[0], device=exp_ids.device)
     mask = (rows >= cont_first - 1) & (rows < cont_end - 1)
@@ -108,7 +106,7 @@ def qwen_score_program(tcfg: LlamaConfig, n_img: int, mrope_section,
         fused = fuse_qwen_embeddings(tp["embed_tokens"], ids, img_feats,
                                      img_start, n_img)
     else:
-        fused = L.embed_tokens(tp, ids)
+        fused = embed_ids(tp["embed_tokens"], ids)
     if pos3 is not None:
         cos_t, sin_t = mrope_gather(cos_t, sin_t, pos3, mrope_section)
     device = ids.device
@@ -117,4 +115,7 @@ def qwen_score_program(tcfg: LlamaConfig, n_img: int, mrope_section,
     kv = L.init_kv_cache(tcfg, p_pad, fused.dtype, device)
     hidden, _ = L.llama_forward(tp, tcfg, fused, positions, kv, 0, bias,
                                 cos_t, sin_t)
-    return _score_rows(tp, ids, hidden, cont_start, total_len)
+    # the prompt rows (masked) may hold special ids past a tiny test
+    # vocabulary: they are gathered clamped, as JAX's gather takes them
+    return _score_rows(tp, torch.clamp(ids, max=tcfg.vocab_size - 1), hidden,
+                       cont_start, total_len)

@@ -95,7 +95,8 @@ from msd_tpu_torch.engine.tree import top_k as _top_k
 from msd_tpu_torch.models import draft as draft_mod
 from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
-from msd_tpu_torch.models.qwen2vl import fuse_qwen_embeddings, mrope_gather
+from msd_tpu_torch.models.qwen2vl import (embed_ids, fuse_qwen_embeddings,
+                                          mrope_gather)
 from msd_tpu_torch.ops.attention import (NEG_INF, causal_prefill_bias,
                                          put_rows, take_rows)
 from msd_tpu_torch.ops.sampling import (SamplingParams,
@@ -1074,7 +1075,8 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
     j = torch.arange(P_exp, device=dev)
     zero_id = torch.zeros(1, dtype=exp_ids.dtype, device=dev)
     exp_shift = torch.cat([exp_ids[1:], zero_id])
-    se = L.embed_tokens(dp, exp_shift)
+    se = embed_ids(dp["embed_tokens"], exp_shift) \
+        if st.image_mode == "inline" else L.embed_tokens(dp, exp_shift)
     img_next = torch.cat([img_rows[1:],
                           torch.zeros(1, dtype=torch.bool, device=dev)])
     fused_shift = torch.cat([fused[1:], torch.zeros_like(fused[:1])])
@@ -1120,7 +1122,7 @@ def _fuse_inline(st: Statics, params: Dict, ids: torch.Tensor,
                                      img_start, st.n_img)
         img_rows = (j >= img_start) & (j < img_start + st.n_img)
     else:
-        fused = L.embed_tokens(tp, ids)
+        fused = embed_ids(tp["embed_tokens"], ids)
         img_rows = torch.zeros(P, dtype=torch.bool, device=ids.device)
     tables = None
     if pos3 is not None:

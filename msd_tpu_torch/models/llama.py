@@ -308,11 +308,7 @@ def lm_head(params: Params, hidden: torch.Tensor,
 
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of the embedding, each id clamped into the table as a
-    JAX gather clamps it (a tiny test vocabulary does not hold Qwen's
-    151652+ marker ids; a real one does)."""
-    table = params["embed_tokens"]
-    return table[torch.clamp(ids.long(), 0, table.shape[0] - 1)]
+    return params["embed_tokens"][ids.long()]
 
 
 def make_rope(cfg: LlamaConfig, max_seq_len: int, device="cuda"):

@@ -153,6 +153,13 @@ def mrope_gather(cos_t: torch.Tensor, sin_t: torch.Tensor,
     return cos_t[p, cols], sin_t[p, cols]
 
 
+def embed_ids(embed_table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of a Qwen2-VL embedding, each id clamped into the table
+    as JAX's gather clamps it: a tiny test vocabulary does not hold the
+    151643+ special ids of a Qwen prompt; Qwen2-VL's 152064 rows do."""
+    return embed_table[torch.clamp(ids.long(), 0, embed_table.shape[0] - 1)]
+
+
 def fuse_qwen_embeddings(embed_table: torch.Tensor, ids: torch.Tensor,
                          img_feats: torch.Tensor, img_start,
                          n_img: int) -> torch.Tensor:
@@ -161,7 +168,7 @@ def fuse_qwen_embeddings(embed_table: torch.Tensor, ids: torch.Tensor,
     placeholder to expand), so this is get_input_embeds_qwen2vl
     (utils.py:609-630) as a masked select."""
     P = ids.shape[0]
-    emb = L.embed_tokens({"embed_tokens": embed_table}, ids)
+    emb = embed_ids(embed_table, ids)
     j = torch.arange(P, device=ids.device)
     in_img = (j >= img_start) & (j < img_start + n_img)
     idx = torch.clamp(j - img_start, 0, n_img - 1)

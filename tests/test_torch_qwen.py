@@ -278,5 +278,10 @@ def test_smoke_qwen_phase_at_tiny_size(tmp_path):
     assert out["launches"] == out["harness_launches"] == 0   # CPU: twin
     assert out["harness_splits"] == []
     assert out["recompute_worst"] == 0.0
+    # the recomputes at the engine's row shapes agree with the unpadded one
+    # far inside one bf16 ulp in fp32, so the card's noise allowance
+    # measures rounding, not a wrong position or mask
+    assert out["recompute_noise"] < 0.01
+    assert out["fault"]["bad"] > 0
     assert out["worst_score_rel"] <= 1e-4
     assert out["A"]["payload"]["msd_stats"]["accept_steps"] > 0

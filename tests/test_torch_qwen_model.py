@@ -228,6 +228,19 @@ def test_fuse_qwen_embeddings_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_only_qwen_lookups_clamp_ids():
+    """``qwen2vl.embed_ids`` clamps ids past the table as JAX's gather
+    does; the shared ``llama.embed_tokens`` (every LLaVA lookup) still
+    refuses an id past its vocabulary."""
+    table = np.random.default_rng(1).normal(size=(10, 4)).astype(np.float32)
+    ids = np.asarray([0, 9, 151655], np.int32)
+    want = np.asarray(jnp.asarray(table)[jnp.asarray(ids)])
+    np.testing.assert_array_equal(TQ.embed_ids(_t(table), _t(ids)).numpy(),
+                                  want)
+    with pytest.raises(IndexError):
+        TL.embed_tokens({"embed_tokens": _t(table)}, _t(ids))
+
+
 def test_quantized_qwen_layers_keep_their_biases(decoder):
     """Weight-only int8/int4: the biases pass through unquantized, and the
     quantized layers hold them in layer order."""
