@@ -88,7 +88,7 @@ prints no result):
    the CLIP ViT-L/14-336 tower and mlp2x_gelu projector (bf16, seeded)
    encode a seeded 336x336 image (ms per image; its rows against the
    same weights in fp32), whose rows feed every image request;
-   ``generate_batch`` of 64 tokens at B = 1, 2, 3, 4, 8 over image
+   ``generate_batch`` of 32 tokens at B = 1, 2, 3, 4, 8 over image
    prompts and at B = 2, 3, 4, 8 over text prompts (every lane must
    commit the null-draft tokens of the same B and its solo run's, graph
    == eager; for the first lane that departs
@@ -116,7 +116,7 @@ prints no result):
    over the weights in memory; K1 launches 32 per AR token decoded.
    Write and load seconds.
 11. harness (``run_harness``), on the checkpoint ``run_weights`` leaves
-   to ``main``, which removes it after: the eval CLI
+   to ``main``, which removes it after ``[train]``: the eval CLI
    ``msd_tpu_torch.harness.__main__.main`` called in process, 8
    synthetic docs of synthetic_vqa, pope and ai2d_ppl, 32 new tokens:
    calibrated MSD with online calibration (train_ratio 0.5, the
@@ -132,8 +132,9 @@ prints no result):
    combination's first request. Seconds per task, ms per generated
    token, alpha, the splits and the target's usual top-1 margin, the AR
    run's greedy share, peak memory.
-12. quant (``run_quant``): on prompt 0, an int8 target, an int4 target and
-   the bf16 target with an int8 draft: MSD == null-draft tokens, graph ==
+12. quant (``run_quant``): on prompt 0 x 32 tokens, an int8 target, an
+   int4 target and the bf16 target with an int8 draft: MSD == null-draft
+   tokens, graph ==
    eager, the oracle draft accepted to full depth, K1 32 per AR token;
    the int8 draft's tokens == the bf16 draft's. Replayed AR token and
    verify step beside the bf16 main path's, peak memory.
@@ -146,18 +147,37 @@ prints no result):
    fp32 operations (counted from the shapes) against the card's fp32
    peak; the EAGLE expansion alone against the medusa expansion; the
    continuous schedule's device time and idle share.
-14. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
+14. train (``run_train``), after every 7B tensor of the earlier phases is
+   released, on the ``[weights]`` checkpoint (LLaVA-1.5-7B width, read
+   back by each command): ``python -m msd_tpu_torch.train``'s
+   ``gen-data`` (``main`` in process, 8 text conversations) and
+   ``generate_dataset`` (4 seeded images through the tower and
+   projector), every record in the JAX layout; ``fit`` over both
+   record directories (19 steps), its epoch-1 loss below its epoch-0
+   loss on the same text records, its export bitwise the trainer's bf16
+   cast and, through ``set_draft``, committing the null-draft tokens;
+   ``LlavaFinetuner`` stage 1 (the LM bitwise its host snapshot, the
+   projector moved, the first loss within 1e-3 of an eager recompute;
+   a planted stage-1 optimizer that also updates the LM must fail that
+   gate) and stage 2 over all 7B parameters in bf16 (update 0 at lr 0
+   leaves the LM, update 1 moves it, unused embedding rows stay
+   bitwise); ``pipeline`` over the checkpoint and fit's export, its
+   distilled draft committing the null-draft tokens. K1 never launches.
+   ms per step of fit and both stages (one fit step and one stage-2
+   step profiled), records/s, the pipeline's seconds, alpha before and
+   after, peak memory per stage.
+15. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
    int8 target (40 layers, hidden 5120, 40 heads) and two bf16 medusa
    drafts initialised on the card from seeded generators, the target
-   quantized layer by layer; one image prompt x 32 tokens, MSD, null-draft
+   quantized layer by layer; one image prompt x 16 tokens, MSD, null-draft
    MSD and AR, graph-replayed: MSD == the null-draft tokens, K1 40 per AR
    token decoded; K1 against its plain twin at 40 heads and timed there.
-15. qwen (``run_qwen``), after the 13B model is released: Qwen2-VL-7B at
+16. qwen (``run_qwen``), after the 13B model is released: Qwen2-VL-7B at
    full width from seeded generators (the GQA 28/4 decoder with q/k/v
    biases, bf16 weights, fp32 residual; the 32-layer tower on a seeded
    336px image, 144 merged rows; 13-head medusa and null drafts at its
    width): two 64-token prompts with the inline image span and a text
-   prompt x 64 tokens, graph, eager and null-draft MSD and the AR
+   prompt, 32 new tokens each, graph, eager and null-draft MSD and the AR
    baseline, the oracle draft after the image, ``generate_batch`` at
    B = 2; ``save_qwen2_vl`` and ``save_draft`` write the checkpoint, read
    back bitwise, and the harness CLI runs ``qwen2_vl_msd`` on it (MSD, AR,
@@ -169,7 +189,10 @@ prints no result):
    planted fault (a verify without pos_delta), the oracle is accepted to full depth, the
    batch equals the solo runs, K1 launches 28 per AR token decoded (0 in
    MSD) and the scores are bitwise repeatable and equal their recompute
-   within 1e-4.
+   within 1e-4. One Qwen2-VL training record (``make_qwen_record_from_
+   ids`` over image prompt 0) must have the JAX layout and hidden rows
+   bitwise those of an independent mrope recompute at its row shape and
+   within 2^-3 (row-relative L2) of an unpadded one.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -225,6 +248,15 @@ AUTOTUNE_NODES = (40, 48, 50, 56, 60, 96, 128)   # bench --tree-nodes -1
 # batcher's slots and segment, new tokens per HTTP request
 SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
+# new tokens of each generate_batch run of [serve] (graph, null draft,
+# eager and the solo runs alike), cut from the main path's 64 when [train]
+# joined the smoke, to keep it inside its time limit
+SERVE_BATCH_NEW = 32
+# new tokens of [quant]'s runs (a prefix of the main path's 64: greedy
+# tokens do not depend on the budget), of [13b]'s and of [qwen]'s
+# generator runs, cut from 64, 32 and 64 when [train] joined the smoke, to
+# keep it inside its time limit
+QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 32
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
@@ -246,6 +278,19 @@ QWEN_LIMIT, QWEN_BIAS_STD = 4, 0.1
 # ``qwen_token_check``); 0 off the card (fp32), where every token must be
 # the canonical argmax
 QWEN_TIE = HARNESS_TIE
+# [train]'s fit --lr: TrainConfig's 2000-step warmup scales the rate of
+# update k by k / 2000 (the CLI has no warmup flag), so 0.01 runs the 19
+# updates at 0 to 9.5e-5 (epoch 0: up to 1.5e-5). The CLI's default 2e-4
+# stays below 2e-6, where the input noise outweighs the learning; on the
+# card 0.2 (up to 4e-4 by update 4) sent the loss from 4 to 478
+FIT_LR = 0.01
+# a Qwen2-VL training record's hidden rows against the unpadded mrope
+# recompute, per row relative L2 error on the card: the record runs 256
+# rows with a bf16 residual, the recompute 210, whose products round
+# otherwise over 28 layers (my chip run 5, PR 14: worst row 2.994e-02);
+# a misplaced image row or position is O(1). Against a recompute at the
+# record's own row shape the rows must be bitwise equal.
+QWEN_RECORD_TOL = 2 ** -3
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -2357,6 +2402,8 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
         return [s for s in gen.graphs.steps if s is not None] \
             if gen.graphs is not None else []
 
+    # generate_batch runs decode a prefix of the main path's tokens
+    batch_new = min(max_new, SERVE_BATCH_NEW)
     # 2. generate_batch at each B: warm-ups capture one graph per (draft,
     # B) outside the timed window
     for B in batches:
@@ -2378,7 +2425,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
         for name in ("msd", "null"):
             gen.params["draft"] = drafts[name]
             t1 = time.perf_counter()
-            rs = gen.generate_batch(ps, fs, max_new)
+            rs = gen.generate_batch(ps, fs, batch_new)
             sync()
             runs[name] = (rs, time.perf_counter() - t1)
             if gen.graphs is not None and not gen.graphs.reads(
@@ -2386,11 +2433,11 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
                 raise AssertionError(f"[serve] B={B} {name}: replayed a "
                                      f"graph captured for other weights")
         gen.params["draft"] = drafts["msd"]
-        ers = eager.generate_batch(ps, fs, max_new)
+        ers = eager.generate_batch(ps, fs, batch_new)
         rs, secs = runs["msd"]
         for b in range(B):
             tok = rs[b].tokens
-            if tok.shape != (max_new,) or tok.min() < 0 \
+            if tok.shape != (batch_new,) or tok.min() < 0 \
                     or tok.max() >= tcfg.vocab_size:
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: bad "
                                      f"tokens {tok.shape} {tok[:8]}")
@@ -2401,12 +2448,13 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
             if not np.array_equal(tok, ers[b].tokens):
                 raise AssertionError(f"[serve] B={B} {kind} lane {b}: graph "
                                      f"and eager tokens differ")
-        solo = [np.array_equal(gen.generate(ps[b], fs[b], max_new).tokens,
-                               rs[b].tokens) for b in range(B)]
+        solo = [np.array_equal(
+            gen.generate(ps[b], fs[b], batch_new).tokens, rs[b].tokens)
+            for b in range(B)]
         if differing is None and not all(solo):
             differing = (kind, ps, fs, solo.index(False))
         lanes = 1 << (B - 1).bit_length()
-        per_lane = sorted(gen._statics(max_new, lanes=lanes).per_lane)
+        per_lane = sorted(gen._statics(batch_new, lanes=lanes).per_lane)
         if kind == "text":
             out["text_batch"][B] = solo
             log(f"[serve] generate_batch B={B}, text prompts: every lane "
@@ -2444,7 +2492,7 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     # differ, then the phase fails
     if differing is not None:
         kind, ps, fs, b = differing
-        report = lane_divergence(eager, ps, fs, max_new, b)
+        report = lane_divergence(eager, ps, fs, batch_new, b)
         log(f"[serve] batched != solo, {kind} B={len(ps)} lane {b}: "
             f"{report}")
         raise AssertionError(f"[serve] {kind} B={len(ps)} lane {b}: "
@@ -2452,12 +2500,12 @@ def run_serve(res, vision=None, batches=SERVE_BATCHES, n_slots=SERVE_SLOTS,
     # the price of the padded lanes and of the per-lane products
     if on_card:
         out["unpadded_3_ms"] = lane_step_ms(gen, img_prompts[:3],
-                                            [feats] * 3, max_new, 3)
+                                            [feats] * 3, batch_new, 3)
         out["route"] = {}
         for n in (4, 8):
             if n > max(batches):
                 continue
-            args = (gen, img_prompts[:n], [feats] * n, max_new, n)
+            args = (gen, img_prompts[:n], [feats] * n, batch_new, n)
             ms = [lane_step_ms(*args), lane_step_ms(*args, frozenset()),
                   lane_step_ms(*args, frozenset()), lane_step_ms(*args)]
             out["route"][n] = {"per_lane": min(ms[0], ms[3]),
@@ -3473,6 +3521,7 @@ def run_quant(res) -> dict:
             f"weights {(_weight_bytes(tp) + _weight_bytes(drafts['msd'])) / 1e9:.2f} GB")
     combos = (("int8 target", 8, None), ("int4 target", 4, None),
               ("int8 draft", None, 8))
+    new = min(QUANT_NEW, ctx["max_new"])
     for label, tbits, dbits in combos:
         t1 = time.perf_counter()
         tq = L.quantize_llama_params(tp, True, tbits) if tbits else tp
@@ -3485,9 +3534,10 @@ def run_quant(res) -> dict:
             log(f"[quant] {label}: " + dequant_cost(tq))
         out[label] = _quant_runs(
             label, tq, dq, ctx["tcfg"], gen.dcfg, gen.eng, gen.sp, ids,
-            feats, ctx["max_new"], ctx["max_new_warm"], ctx["widths"],
+            feats, new, ctx["max_new_warm"], ctx["widths"],
             ctx["device"], on_card, sync, ctx["e0"],
-            want_tokens=res["graph", "msd"][0].tokens if dbits else None)
+            want_tokens=res["graph", "msd"][0].tokens[:new]
+            if dbits else None)
         del tq, dq
         gc.collect()
         if on_card:
@@ -3586,7 +3636,7 @@ def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
             "library_ms": timed["library"]}
 
 
-def run_13b(max_new: int = 32, bits: int = 8, device="cuda",
+def run_13b(max_new: int = NEW_13B, bits: int = 8, device="cuda",
             prompt_tokens: int = PROMPT_TOKENS, n_img: int = N_IMG,
             widths=WIDTHS, max_seq: int = MAX_SEQ, cfg=None) -> dict:
     """LLaVA-13B with an int8 target (``bench.py --model 13b --quant
@@ -3703,24 +3753,88 @@ def _qwen_inputs(gen, ids, feats, grid):
     return emb, cos, sin
 
 
-def qwen_plain_logits(gen, ids, feats, grid):
-    """The target's fp32 logits over the unpadded inline sequence ``ids``
-    (a Qwen2-VL prompt, its image-pad span replaced by ``feats`` when
-    given), built apart from ``qwen_prefill``, the decode steps and
-    ``qwen_score_program``: ``_qwen_inputs``, the causal mask by ``triu``,
-    no bucket padding, no KV cache reuse. Only ``llama_forward`` and
-    ``lm_head`` are shared with the engine."""
+def qwen_plain_hidden(gen, ids, feats, grid, cfg=None):
+    """The target's final-normed hidden rows over the unpadded inline
+    sequence ``ids`` (a Qwen2-VL prompt, its image-pad span replaced by
+    ``feats`` when given), built apart from ``qwen_prefill``, the decode
+    steps, ``qwen_score_program`` and the training records:
+    ``_qwen_inputs``, the causal mask by ``triu``, no bucket padding, no
+    KV cache reuse; under ``cfg`` (default the generator's). Only
+    ``llama_forward`` is shared with the engine."""
     import torch
     from msd_tpu_torch.models import llama as L
 
     tp, dev = gen.params["target"], gen.device
+    cfg = cfg or gen.tcfg
     emb, cos, sin = _qwen_inputs(gen, ids, feats, grid)
     rows = emb.shape[0]
     mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
     hidden, _ = L.llama_forward(
-        tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
-        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask, cos, sin)
-    return L.lm_head(tp, hidden)
+        tp, cfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
+        L.init_kv_cache(cfg, rows, emb.dtype, dev), 0, mask, cos, sin)
+    return hidden
+
+
+def qwen_plain_logits(gen, ids, feats, grid):
+    """The target's fp32 logits over the unpadded inline sequence ``ids``
+    (``qwen_plain_hidden``, then ``lm_head``)."""
+    from msd_tpu_torch.models import llama as L
+
+    return L.lm_head(gen.params["target"],
+                     qwen_plain_hidden(gen, ids, feats, grid))
+
+
+def qwen_record_check(gen, qcfg, ids, feats, grid, tol: float) -> dict:
+    """One Qwen2-VL training record (``make_qwen_record_from_ids``, the
+    ids padded to the next multiple of 128, loss on every row after the
+    image span) over the generator's target: the layout of the JAX
+    package's record (keys, shapes, dtypes, the image rows of
+    ``img_mask``, ``attn_len``, a non-zero ``loss_mask``); its hidden rows
+    bitwise those of ``qwen_plain_hidden`` over the same padded ids (the
+    record's row shape, built apart from the record's code) and, against
+    the unpadded recompute, within ``tol`` row-relative L2 (the two
+    differ by the rounding of other product shapes), both under the
+    record's own config (``qcfg.as_llama()``). Raises otherwise; returns
+    the unpadded recompute's worst row error and the seconds."""
+    import torch
+    from msd_tpu_torch.models.qwen2vl import IMAGE_PAD_ID
+    from msd_tpu_torch.train.data_gen import make_qwen_record_from_ids
+
+    t0 = time.perf_counter()
+    ids = np.asarray(ids, np.int32)
+    n = len(ids)
+    span = np.nonzero(ids == IMAGE_PAD_ID)[0]
+    pad = (n + 127) // 128 * 128
+    mask = np.zeros(n, np.float32)
+    mask[span[-1] + 1:] = 1.0
+    rec = make_qwen_record_from_ids(gen.params["target"], qcfg, ids, mask,
+                                    pad, img_feats=feats, grid_hw=grid)
+    bad = record_fields_check(rec, pad, qcfg.hidden_size)
+    j = np.arange(pad)
+    want_img = (j + 1 >= span[0]) & (j + 1 < span[0] + len(span))
+    if not np.array_equal(rec["img_mask"], want_img):
+        bad.append("img_mask rows")
+    if int(rec["attn_len"]) != n or rec["loss_mask"].sum() == 0:
+        bad.append(f"attn_len {int(rec['attn_len'])} (want {n}), loss_mask "
+                   f"sum {rec['loss_mask'].sum()}")
+    cfg = qcfg.as_llama()
+    padded = np.zeros(pad, np.int32)
+    padded[:n] = ids
+    shaped = qwen_plain_hidden(gen, padded, feats, grid, cfg).float()
+    got = torch.from_numpy(rec["hidden"]).to(shaped.device)
+    if not torch.equal(got, shaped):
+        bad.append(f"hidden rows off the recompute at the record's "
+                   f"{pad}-row shape: max |diff| "
+                   f"{(got - shaped).abs().max().item():.3e}")
+    ref = qwen_plain_hidden(gen, ids, feats, grid, cfg).float()
+    err = ((got[:n] - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    if not err <= tol:
+        bad.append(f"hidden rows off the unpadded recompute: worst "
+                   f"relative row error {err:.3e} > {tol:g}")
+    if bad:
+        raise AssertionError(f"[qwen] training record: {bad}")
+    return {"err": err, "rows": n, "pad": pad,
+            "seconds": time.perf_counter() - t0}
 
 
 def qwen_shaped_logits(gen, ids, feats, grid, toks, chunk: int,
@@ -3961,7 +4075,7 @@ def qwen_fault_check(make_gen, prompts, good, max_new: int, tie: float,
 
 
 def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
-             max_seq: int = MAX_SEQ, max_new: int = MAX_NEW,
+             max_seq: int = MAX_SEQ, max_new: int = QWEN_NEW,
              prompt_tokens: int = PROMPT_TOKENS, image_size: int = 336,
              limit: int = QWEN_LIMIT, harness_new: int = HARNESS_NEW,
              tasks=HARNESS_TASKS, max_new_warm: int = 4) -> dict:
@@ -4212,6 +4326,18 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     out["fault"] = qwen_fault_check(lambda: generator(True), prompts[:2],
                                     runs["msd"][:2], max_new, tie, card)
     out["fault_s"] = time.perf_counter() - t1
+
+    # a training record over the first image prompt (train/data_gen)
+    rec = qwen_record_check(gen, qcfg, ids0, f0, g0,
+                            QWEN_RECORD_TOL if on_card else 1e-5)
+    out["record"] = rec
+    log(f"[qwen] training record (make_qwen_record_from_ids) over image "
+        f"prompt 0: {rec['rows']} rows padded to {rec['pad']}, JAX's layout,"
+        f" hidden rows bitwise a recompute at the record's shape; against "
+        f"the unpadded mrope recompute: worst relative row error "
+        f"{rec['err']:.3e} (allowed "
+        f"{QWEN_RECORD_TOL if on_card else 1e-5:g}); {rec['seconds']:.1f}s "
+        f"on {card}")
 
     # deep acceptance after an image: the oracle tree, on a generator that
     # captures inside the block; the image prompts share one length
@@ -4506,6 +4632,625 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     return out
 
 
+def seeded_checkpoint(path: str, lcfg, seed: int = 14, device="cuda",
+                      dtype=None) -> int:
+    """Write an HF-layout LLaVA checkpoint (``save_llava``) of target,
+    tower and projector weights drawn from a seeded ``torch.Generator`` on
+    ``device`` (bf16 on the card, fp32 elsewhere); returns the bytes. For
+    running ``[train]`` without the phases before it (the tiny CPU test,
+    a card run of the phase alone)."""
+    import torch
+    from msd_tpu_torch.models import clip_vit as CV
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models import llava as LV
+    from msd_tpu_torch.utils import weights as W
+
+    if dtype is None:
+        dtype = torch.bfloat16 if str(device).startswith("cuda") \
+            else torch.float32
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = {"target": L.init_llama_params(lcfg.text, g, device, dtype),
+              "vision": CV.init_clip_params(lcfg.vision, g, device, dtype),
+              "projector": LV.init_projector_params(lcfg, g, device, dtype)}
+    params["target"]["lm_head"].mul_(HEAD_SHARPEN)
+    return W.save_llava(params, lcfg, path, dtype)
+
+
+def train_conversations(rng, n: int, image: bool) -> list:
+    """``n`` LLaVA-instruct samples of two seeded two-turn conversations
+    (the first human turn tagged ``<image>\\n`` when ``image``)."""
+    words = ("red", "blue", "square", "circle", "left", "right", "top",
+             "small", "large", "two", "three", "chart", "line", "bar")
+
+    def phrase(k):
+        return " ".join(words[i] for i in rng.integers(0, len(words), k))
+
+    out = []
+    for i in range(n):
+        q1 = f"what is shown {i}? {phrase(3)}"
+        out.append({"conversations": [
+            {"from": "human", "value": ("<image>\n" if image else "") + q1},
+            {"from": "gpt", "value": f"a {phrase(4)} {i}"},
+            {"from": "human", "value": f"and then {phrase(2)}?"},
+            {"from": "gpt", "value": phrase(3)}]})
+    return out
+
+
+def record_fields_check(rec: dict, rows: int, hidden: int) -> list:
+    """What differs from the keys, shapes and dtypes of the JAX package's
+    training record of ``rows`` rows (``train/data_gen``)."""
+    want = {"emb_next": ((rows, hidden), np.float32),
+            "hidden": ((rows, hidden), np.float32),
+            "target": ((rows, hidden), np.float32),
+            "loss_mask": ((rows,), np.float32), "attn_len": ((), np.int32),
+            "img_mask": ((rows,), np.bool_), "exp_ids": ((rows,), np.int32)}
+    bad = [k for k in set(want) | set(rec) if k not in rec or k not in want
+           or rec[k].shape != want[k][0] or rec[k].dtype != want[k][1]]
+    return [f"keys, shapes or dtypes of {sorted(bad)}"] if bad else []
+
+
+def record_layout_check(rec: dict, tokenizer, turns, image: bool,
+                        pad_to: int, n_img: int, hidden: int) -> list:
+    """What differs from the JAX package's record layout: the keys,
+    shapes and dtypes, the image rows of ``img_mask`` (row j where token
+    j+1 is an image row), ``attn_len`` (the expanded length of the
+    conversation cut to ``pad_to``) and a non-zero ``loss_mask`` that is 0
+    on the image rows. The expected positions come from
+    ``build_conversation_ids``."""
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
+    from msd_tpu_torch.train.data_gen import build_conversation_ids
+
+    ids, _ = build_conversation_ids(tokenizer, turns, image)
+    ids = ids[:pad_to]
+    rows = pad_to + (n_img - 1 if image else 0)
+    bad = record_fields_check(rec, rows, hidden)
+    if bad:
+        return bad
+    j = np.arange(rows)
+    if image:
+        p = int(np.argmax(ids == IMAGE_TOKEN_INDEX))
+        img = (j + 1 >= p) & (j + 1 < p + n_img)
+    else:
+        img = np.zeros(rows, bool)
+    e_len = len(ids) + (n_img - 1 if image else 0)
+    if not np.array_equal(rec["img_mask"], img):
+        bad.append("img_mask rows")
+    if int(rec["attn_len"]) != e_len:
+        bad.append(f"attn_len {int(rec['attn_len'])} != {e_len}")
+    if rec["loss_mask"].sum() == 0 or rec["loss_mask"][img].any():
+        bad.append("loss_mask empty or set on image rows")
+    return bad
+
+
+def host_snapshot(tree) -> dict:
+    """Host copies of the tensors of ``tree`` by ``_flat_tensors`` name,
+    in page-locked memory when they lie on the card (a 7B LM's 13.5 GB
+    move at the copy engine's rate, not the pageable path's)."""
+    import torch
+    out = {}
+    for k, t in _flat_tensors(tree).items():
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        h.copy_(t.detach())
+        out[k] = h
+    return out
+
+
+def frozen_lm_check(tp, snapshot: dict) -> list:
+    """Names of the LM tensors that are not bitwise their host
+    ``snapshot`` (each compared on its device, one at a time)."""
+    import torch
+    return [k for k, t in _flat_tensors(tp).items()
+            if not torch.equal(t.detach(), snapshot[k].to(t.device))]
+
+
+def finetune_recompute_loss(params, cfg, batch, n_img: int) -> float:
+    """The masked mean next-token cross entropy of a finetune batch,
+    recomputed eagerly apart from ``finetune_loss``: per sequence, the
+    projector in fp32 over its CLIP features, the fused rows built by
+    concatenation (text before the placeholder, the image rows, the text
+    after, zero rows up to P_exp), ``llama_forward`` over a P_exp-row
+    cache with the causal and length mask, ``lm_head`` and an fp32
+    log-softmax, the label of row j the expanded token j+1."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models.llava import projector_apply
+    from msd_tpu_torch.ops.attention import NEG_INF
+
+    tp = params["target"]
+    emb = tp["embed_tokens"]
+    dev = emb.device
+    B, Tp = batch.ids.shape
+    P = Tp + n_img - 1
+    cos, sin = L.make_rope(cfg, P + 8, dev)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        for b in range(B):
+            ids = batch.ids[b].long().clamp(min=0)
+            n, p = int(batch.attn_len[b]), int(batch.img_pos[b])
+            if p < n:
+                proj = {k: v.float() for k, v in params["projector"].items()}
+                feats = projector_apply(proj, batch.clip_feats[b].float())
+                rows = torch.cat([emb[ids[:p]], feats.to(emb.dtype),
+                                  emb[ids[p + 1:]]])
+                labels = torch.cat([ids[:p], ids.new_zeros(n_img),
+                                    ids[p + 1:]])
+                e_len = n + n_img - 1
+            else:
+                rows = torch.cat([emb[ids], emb.new_zeros(P - Tp,
+                                                          emb.shape[1])])
+                labels = torch.cat([ids, ids.new_zeros(P - Tp)])
+                e_len = n
+            q = torch.arange(P, device=dev)
+            keep = (q[None, :] <= q[:, None]) & (q[None, :] < e_len)
+            bias = torch.where(keep, 0.0, NEG_INF).float()
+            hidden, _ = L.llama_forward(
+                tp, cfg, rows, q.int(), L.init_kv_cache(cfg, P, rows.dtype,
+                                                        dev), 0, bias, cos,
+                sin)
+            logp = torch.log_softmax(L.lm_head(tp, hidden).float(), dim=-1)
+            nll = -logp[q[:-1], labels[1:]]
+            total += (nll.double() * batch.tgt_mask[b][:-1].double()).sum()
+    return float(total / (batch.tgt_mask.sum().double() + 1e-5))
+
+
+def run_train(ckpt: str, root: str, device="cuda", pad_to: int = 256,
+              ft2_pad: int = 128, fit_epochs: int = 4, ft1_steps: int = 4,
+              ft2_steps: int = 3, pipe_docs: int = 4, pipe_steps: int = 20,
+              pipe_limit: int = 4, max_new: int = HARNESS_NEW,
+              fit_max_len: int = 832, fit_lr: float = FIT_LR) -> dict:
+    """The training entry point at the checkpoint ``ckpt``'s width (the
+    LLaVA-1.5-7B checkpoint ``[weights]`` wrote, on the card), all through
+    ``msd_tpu_torch.train``; scratch files under ``root``:
+
+    1. ``gen-data`` (``train.__main__.main`` in process, ``--no-image``)
+       over a synthetic LLaVA-instruct JSON of 8 two-turn conversations,
+       and ``generate_dataset`` in process over 4 seeded images through
+       the tower and projector, ``pad_to`` 256 (831 expanded rows at 576
+       image rows): every record in the JAX package's layout.
+    2. ``fit`` over both record directories (the text -> visual curriculum,
+       ``fit_epochs`` epochs at batch 2: 19 steps at ``--lr`` ``fit_lr``
+       under TrainConfig's 2000-step warmup), each step timed; epoch 1's mean
+       loss below epoch 0's (the same 8 text records); the export
+       (``load_draft``) bitwise the trainer's bf16 cast; served through
+       ``set_draft`` on a generator over the target, it commits the
+       null-draft tokens on the synthetic_vqa prompts (alpha before
+       distillation). One more step profiled.
+    3. ``LlavaFinetuner`` stage 1 (``tune_mm_mlp_adapter``): batch 2,
+       ``pad_to`` 256, ``ft1_steps`` steps over the image records; the LM
+       bitwise its host snapshot, the projector moved, the first step's
+       loss within 1e-3 (relative) of ``finetune_recompute_loss``. The
+       planted fault: a stage-1 finetuner whose optimizer also updates the
+       LM (its ``set_to_zero`` dropped), two steps, must fail the same
+       frozen-LM gate.
+    4. Stage 2 (the full finetune): batch 1, ``ft2_pad`` 128 (703 rows),
+       ``ft2_steps`` steps with ``warmup_steps=1``: update 0 (lr 0) leaves
+       the LM bitwise, update 1 moves every layer-0 projection; rows of
+       ``embed_tokens`` whose ids no batch holds stay bitwise; the loss
+       finite. One more step profiled; peak memory.
+    5. ``pipeline`` (``main`` in process) over the checkpoint and fit's
+       export: synthetic_vqa, 4 docs distilled for 20 steps, 4 evaluated;
+       the distilled draft, installed by ``set_draft``, commits the
+       null-draft tokens on the same prompts (alpha after).
+
+    K1 launches 0 times in the phase (no training row goes to it). Raises
+    on any failed gate; returns the numbers."""
+    import torch
+    from msd_tpu_torch.configs import DraftConfig
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.harness.models.llava_msd import (LlavaMSD,
+                                                         SimpleTokenizer,
+                                                         checkpoint_engine)
+    from msd_tpu_torch.harness.registry import TASK_REGISTRY, get_task
+    from msd_tpu_torch.harness.tasks import register_builtin_tasks
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.models.clip_vit import clip_encode
+    from msd_tpu_torch.models.llava import encode_image
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.train import __main__ as TM
+    from msd_tpu_torch.train import data_gen as TG
+    from msd_tpu_torch.train import finetune as FT
+    from msd_tpu_torch.train import trainer as TTR
+    from msd_tpu_torch.train.draft_train import train_step
+    from msd_tpu_torch.utils import weights as W
+    from msd_tpu_torch.utils.mm_utils import process_image
+    from msd_tpu_torch.utils.profiling import Timer
+
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = smi_name_and_limit() if on_card else "cpu"
+    dtype = torch.bfloat16 if on_card else torch.float32
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    K1.decode_attention.launches = 0
+    K1.decode_attention.captured = 0
+    bad = []
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    # 1. records: text through the CLI, images in process
+    rng = np.random.default_rng(14)
+    text = train_conversations(rng, 8, image=False)
+    vis = train_conversations(rng, 4, image=True)
+    data = os.path.join(root, "instruct.json")
+    with open(data, "w") as f:
+        json.dump(text, f)
+    dirs = {k: os.path.join(root, k) for k in ("text", "visual", "fit")}
+    gd_s = []
+    gen_dataset = TG.generate_dataset
+
+    def timed_dataset(*a, **kw):
+        sync()
+        t1 = time.perf_counter()
+        n = gen_dataset(*a, **kw)
+        sync()
+        gd_s.append((n, time.perf_counter() - t1))
+        return n
+
+    TG.generate_dataset = timed_dataset
+    try:
+        t1 = time.perf_counter()
+        n_text = TM.main(["gen-data", "--basepath", ckpt, "--data", data,
+                          "--outdir", dirs["text"], "--no-image",
+                          "--pad-to", str(pad_to), "--device", str(device)])
+        out["gen_data_cli_s"] = time.perf_counter() - t1
+        gc.collect()
+        t1 = time.perf_counter()
+        params, lcfg = W.load_llava(ckpt, dtype, device)
+        sync()
+        out["load_s"] = time.perf_counter() - t1
+        tcfg, n_img = lcfg.text, lcfg.num_image_tokens
+        tok = SimpleTokenizer(vocab_size=tcfg.vocab_size)
+        lp = {"vision": params["vision"], "projector": params["projector"]}
+        images = [rng.integers(0, 256, size=(280 + 40 * i, 336, 3),
+                               dtype=np.uint8) for i in range(len(vis))]
+        samples = [{"turns": TM._turns(r), "image": im}
+                   for r, im in zip(vis, images)]
+
+        def enc(px):
+            with torch.no_grad():
+                return encode_image(lp, lcfg, px)
+
+        n_vis = TG.generate_dataset(params["target"], tcfg, tok, samples,
+                                    dirs["visual"], encode_image_fn=enc,
+                                    n_img=n_img, pad_to=pad_to)
+    finally:
+        TG.generate_dataset = gen_dataset
+    out["records_per_s"] = {"text (gen-data)": gd_s[0][0] / gd_s[0][1],
+                            "image (generate_dataset)": gd_s[1][0]
+                            / gd_s[1][1]}
+    if (n_text, n_vis) != (len(text), len(vis)):
+        bad.append(f"records written: {n_text} text, {n_vis} image")
+    for kind, convs in (("text", text), ("visual", vis)):
+        for i, r in enumerate(convs):
+            rec = dict(np.load(os.path.join(dirs[kind], f"rec_{i:06d}.npz")))
+            for b in record_layout_check(rec, tok, TM._turns(r),
+                                         kind == "visual", pad_to, n_img,
+                                         tcfg.hidden_size):
+                bad.append(f"{kind} record {i}: {b}")
+    if bad:
+        raise AssertionError(f"[train] records: {bad}")
+    log(f"[train] records: {n_text} text through gen-data (CLI call "
+        f"{out['gen_data_cli_s']:.1f}s with its checkpoint load; the "
+        f"phase's own load {out['load_s']:.1f}s; "
+        f"{out['records_per_s']['text (gen-data)']:.1f} records/s in "
+        f"generate_dataset), {n_vis} image records in process "
+        f"({out['records_per_s']['image (generate_dataset)']:.1f} "
+        f"records/s, tower and projector included) at pad_to {pad_to} "
+        f"({pad_to + n_img - 1} expanded rows): the JAX layout (keys, "
+        f"shapes, dtypes, image rows, attn_len, loss mask) on {card}")
+
+    # 2. fit over both directories, every step timed
+    steps = []
+
+    def timed_step(*a, **kw):
+        with Timer("fit step") as tm:
+            m = train_step(*a, **kw)
+            loss = float(m["loss"])
+        steps.append((loss, tm.elapsed))
+        return m
+
+    peak_reset()
+    TTR.train_step = timed_step
+    try:
+        t1 = time.perf_counter()
+        trainer = TM.main(["fit", "--basepath", ckpt, "--tmpdir_v",
+                           dirs["visual"], "--tmpdir_t", dirs["text"],
+                           "--cpdir", dirs["fit"], "--epochs",
+                           str(fit_epochs), "--bs", "2", "--max-len",
+                           str(fit_max_len), "--lr", str(fit_lr),
+                           "--device", str(device)])
+        out["fit_s"] = time.perf_counter() - t1
+    finally:
+        TTR.train_step = train_step
+    out["fit_peak"] = peak()
+    losses = [s[0] for s in steps]
+    out["fit_steps"] = len(steps)
+    out["fit_ms"] = 1e3 * float(np.mean([s[1] for s in steps[1:]]))
+    # like for like: epochs 0 and 1 each take the same text records (the
+    # curriculum adds the visual records, whose loss runs higher, from
+    # the middle epoch on, so the last steps and the first see other data)
+    per = len(text) // 2
+    first = float(np.mean(losses[:per]))
+    second = float(np.mean(losses[per:2 * per]))
+    out["fit_loss"] = (first, second)
+    out["fit_losses"] = losses
+    if not (fit_epochs >= 4 and second < first
+            and np.isfinite(losses).all()):
+        bad.append(f"fit: mean loss of epoch 1 {second:.4f} not below "
+                   f"epoch 0's {first:.4f} over the same {len(text)} text "
+                   f"records; step losses {losses}")
+    dcfg = DraftConfig(text=tcfg)
+    export = os.path.join(dirs["fit"], "export")
+    fit_draft, _ = W.load_draft(export, tcfg,
+                                base_embed=params["target"]["embed_tokens"],
+                                dtype=dtype, device=device)
+    cast = {k: TTR.tree_map(lambda t: t.detach().to(dtype), v)
+            for k, v in trainer.params.items() if k != "embed_tokens"}
+    diff = _bitwise_diff("export", {k: v for k, v in fit_draft.items()
+                                    if k != "embed_tokens"}, cast)
+    if diff:
+        bad.append(f"fit: the loaded export differs from the trainer's "
+                   f"{dtype} cast: {diff}")
+    if bad:
+        raise AssertionError(f"[train] {bad}")
+
+    # fit's draft served through set_draft on the phase's prompts
+    if not TASK_REGISTRY:
+        register_builtin_tasks()
+    task = get_task("synthetic_vqa")
+    eng = checkpoint_engine(dcfg, {})
+    gen = MSDGenerator(params["target"], fit_draft, tcfg, dcfg, eng,
+                       n_img=n_img, eos_id=tok.eos_token_id, device=device)
+    lm = LlavaMSD.from_llava(gen, tok, lp, lcfg)
+    docs = task.load_docs(limit=pipe_limit)
+    prompts = [lm._prepare(task.doc_to_text(d), task.doc_to_visual(d))
+               for d in docs]
+    g = torch.Generator(device=device).manual_seed(1234)
+    null = D.init_draft_params(dcfg, g, device, dtype)
+    null["embed_tokens"] = params["target"]["embed_tokens"]
+
+    def timed_steps(ft, batches, label, after=None):
+        """(loss, seconds) of one ``ft.step`` per batch (``float`` of the
+        loss waits for the device); ``after()`` runs after each step,
+        outside the timed span."""
+        rows = []
+        for b in batches:
+            with Timer(label) as tm:
+                loss = float(ft.step(b)["loss"])
+            rows.append((loss, tm.elapsed))
+            if after is not None:
+                after()
+        return rows
+
+    def served(gen, draft, prompts, label):
+        """Each prompt's tokens under ``draft`` and under the null draft
+        (the canonical greedy AR of this verify shape), both installed by
+        ``set_draft``; the draft's alpha. Fails unless equal."""
+        runs = {}
+        for name, d in (("draft", draft), ("null", null)):
+            gen.set_draft(d)
+            runs[name] = [gen.generate(ids, feats, max_new)
+                          for ids, feats in prompts]
+        same = [np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(runs["draft"], runs["null"])]
+        if not all(same):
+            raise AssertionError(f"[train] {label}: MSD tokens differ from "
+                                 f"the null-draft tokens: {same}")
+        rs = runs["draft"]
+        return sum(r.accept_len_sum for r in rs) / max(
+            sum(r.accept_steps for r in rs), 1)
+
+    out["alpha_fit"] = served(gen, fit_draft, prompts, "fit's draft")
+    log(f"[train] fit: {len(steps)} steps at batch 2 over {n_text} text + "
+        f"{n_vis} image records ({fit_epochs} epochs of the curriculum), "
+        f"{out['fit_ms']:.1f} ms/step (Timer, first step excluded), mean "
+        f"loss over the {len(text)} text records {first:.4f} (epoch 0) -> "
+        f"{second:.4f} (epoch 1); step losses "
+        f"{', '.join(f'{x:.3f}' for x in losses)}; CLI call "
+        f"{out['fit_s']:.1f}s, peak {out['fit_peak'] / 2**30:.2f} GiB; the "
+        f"export loads bitwise the trainer's {dtype} cast; served through "
+        f"set_draft on {len(prompts)} synthetic_vqa prompts x {max_new} "
+        f"tokens: == null-draft tokens, alpha {out['alpha_fit']:.3f} on "
+        f"{card}")
+    # one more fit step, profiled
+    if on_card:
+        recs = [dict(np.load(os.path.join(dirs[k], n)))
+                for k in ("visual", "text")
+                for n in sorted(os.listdir(dirs[k]))]
+        batch = next(TTR.batches_from_records(
+            trainer._prepadded(recs), 2, np.random.default_rng(0)))
+        out["fit_profile"] = device_profile(
+            lambda: train_step(trainer.params, trainer.opt, dcfg,
+                               trainer.tc.train, trainer.head_w, batch,
+                               trainer.rng, trainer.cos_t, trainer.sin_t),
+            "[train] one fit step (batch 2)")
+    del trainer, gen, lm, fit_draft, cast
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 3. stage 1: the projector alone
+    ft_recs = {}
+    for pad in sorted({pad_to, ft2_pad}):
+        rs = []
+        for r, im in zip(vis, images):
+            px = torch.from_numpy(process_image(im)).to(device)
+            with torch.no_grad():
+                cf = clip_encode(params["vision"], lcfg.vision,
+                                 px).float().cpu().numpy()
+            rs.append(FT.make_finetune_record(tok, TM._turns(r), cf, n_img,
+                                              pad, system=""))
+        ft_recs[pad] = rs
+    if any(float(r["tgt_mask"].sum()) == 0 for rs in ft_recs.values()
+           for r in rs):
+        raise AssertionError("[train] a finetune record has no target row")
+    bundle = {"target": params["target"], "projector": params["projector"]}
+    t1 = time.perf_counter()
+    snap = host_snapshot(bundle["target"])
+    out["snapshot_s"] = time.perf_counter() - t1
+    proj0 = {k: t.clone() for k, t in bundle["projector"].items()}
+    fc1 = FT.FinetuneConfig(lr=1e-3, warmup_steps=1, total_steps=ft1_steps,
+                            tune_mm_mlp_adapter=True)
+    brng = np.random.default_rng(1)
+    batches = []
+    while len(batches) < ft1_steps:
+        batches += list(FT.batches_from_finetune_records(
+            ft_recs[pad_to], 2, brng, n_img, lcfg.mm_hidden_size,
+            device=device))
+    batches = batches[:ft1_steps]
+    recompute = finetune_recompute_loss(bundle, tcfg, batches[0], n_img)
+    peak_reset()
+    ft = FT.LlavaFinetuner(tcfg, bundle, n_img, fc1,
+                           max_exp_len=pad_to + n_img - 1)
+    st1 = timed_steps(ft, batches, "stage 1")
+    out["ft1_peak"] = peak()
+    out["ft1_loss"] = [s[0] for s in st1]
+    out["ft1_ms"] = 1e3 * float(np.mean([s[1] for s in st1[1:]]))
+    t1 = time.perf_counter()
+    moved_lm = frozen_lm_check(bundle["target"], snap)
+    out["frozen_check_s"] = time.perf_counter() - t1
+    proj_moved = [k for k, t in bundle["projector"].items()
+                  if not torch.equal(t, proj0[k])]
+    rel = abs(out["ft1_loss"][0] - recompute) / abs(recompute)
+    out["ft1_recompute"] = (out["ft1_loss"][0], recompute, rel)
+    if moved_lm or len(proj_moved) != len(proj0) or not rel <= 1e-3 \
+            or not np.isfinite(out["ft1_loss"]).all():
+        raise AssertionError(
+            f"[train] stage 1: LM tensors moved {moved_lm}; projector "
+            f"tensors moved {proj_moved} of {sorted(proj0)}; first-step loss "
+            f"{out['ft1_loss'][0]:.6f} against the recompute {recompute:.6f}"
+            f" (relative {rel:.2e}, allowed 1e-3); losses {out['ft1_loss']}")
+    log(f"[train] stage 1 (tune_mm_mlp_adapter): {len(batches)} steps at "
+        f"batch 2 x {pad_to + n_img - 1} rows, {out['ft1_ms']:.1f} ms/step "
+        f"(Timer, first step excluded), losses "
+        f"{', '.join(f'{x:.4f}' for x in out['ft1_loss'])}; every LM tensor "
+        f"bitwise its host snapshot (snapshot {out['snapshot_s']:.1f}s, "
+        f"check {out['frozen_check_s']:.1f}s), all {len(proj0)} projector "
+        f"tensors moved; first-step loss {out['ft1_loss'][0]:.6f} against "
+        f"the eager recompute {recompute:.6f} (relative {rel:.2e}, allowed "
+        f"1e-3); peak {out['ft1_peak'] / 2**30:.2f} GiB on {card}")
+    del ft
+
+    # the planted fault: stage 1 with the LM's set_to_zero dropped
+    ft = FT.LlavaFinetuner(tcfg, bundle, n_img, fc1,
+                           max_exp_len=ft2_pad + n_img - 1)
+    ft.opt = FT.make_finetune_optimizer(
+        dataclasses.replace(fc1, tune_mm_mlp_adapter=False), bundle)
+    fb = list(FT.batches_from_finetune_records(
+        ft_recs[ft2_pad], 1, np.random.default_rng(2), n_img,
+        lcfg.mm_hidden_size, device=device))[:2]
+    for b in fb:
+        ft.step(b)
+    planted = frozen_lm_check(bundle["target"], snap)
+    del ft
+    gc.collect()
+    out["planted_moved"] = len(planted)
+    if not planted:
+        raise AssertionError("[train] the planted fault (a stage-1 "
+                             "optimizer that also updates the LM) passed "
+                             "the frozen-LM gate")
+    log(f"[train] planted fault (stage 1, set_to_zero dropped, 2 steps): "
+        f"the frozen-LM gate rejects it ({len(planted)} of {len(snap)} LM "
+        f"tensors moved) on {card}")
+    del snap
+    for t in _flat_tensors(bundle).values():
+        t.requires_grad_(False)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 4. stage 2: the full finetune, bf16 parameters, gradients and moments
+    fc2 = FT.FinetuneConfig(warmup_steps=1, total_steps=ft2_steps)
+    batches = list(FT.batches_from_finetune_records(
+        ft_recs[ft2_pad], 1, np.random.default_rng(3), n_img,
+        lcfg.mm_hidden_size, device=device))[:ft2_steps]
+    layers = bundle["target"]["layers"]
+    watch = {k: w[0].clone() for k, w in layers.items() if w.dim() == 3}
+    emb0 = bundle["target"]["embed_tokens"].clone()
+    used = torch.unique(torch.cat([b.ids.flatten() for b in batches])
+                        .clamp(min=0).long())
+    peak_reset()
+    ft = FT.LlavaFinetuner(tcfg, bundle, n_img, fc2,
+                           max_exp_len=ft2_pad + n_img - 1)
+    moved = []
+    st2 = timed_steps(ft, batches, "stage 2", after=lambda: moved.append(
+        {k: float((layers[k][0] != w).float().mean())
+         for k, w in watch.items()}))
+    out["ft2_peak"] = peak()
+    out["ft2_loss"] = [s[0] for s in st2]
+    out["ft2_ms"] = 1e3 * float(np.mean([s[1] for s in st2[1:]]))
+    out["ft2_moved"] = moved[1] if len(moved) > 1 else {}
+    keep = torch.ones(emb0.shape[0], dtype=torch.bool, device=emb0.device)
+    keep[used.to(emb0.device)] = False
+    emb_same = torch.equal(bundle["target"]["embed_tokens"][keep], emb0[keep])
+    if any(moved[0].values()) or len(moved) < 2 \
+            or not all(moved[1].values()) or not emb_same \
+            or not np.isfinite(out["ft2_loss"]).all():
+        raise AssertionError(
+            f"[train] stage 2: share of layer-0 elements moved by update 0 "
+            f"(lr 0) {moved[0]}, by update 1 {moved[1:2]}; embed rows of "
+            f"unused ids unchanged {emb_same}; losses {out['ft2_loss']}")
+    if on_card:
+        out["ft2_profile"] = device_profile(
+            lambda: ft.step(batches[-1]),
+            f"[train] one stage-2 step (batch 1 x {ft2_pad + n_img - 1} rows)")
+    log(f"[train] stage 2 (full finetune, {dtype} parameters, gradients "
+        f"and AdamW moments, no master copy): {len(batches)} steps at "
+        f"batch 1 x {ft2_pad + n_img - 1} rows, {out['ft2_ms']:.1f} ms/step (Timer, "
+        f"first step excluded), losses "
+        f"{', '.join(f'{x:.4f}' for x in out['ft2_loss'])}; update 0 (lr 0) "
+        f"left the LM bitwise, update 1 moved every layer-0 projection "
+        f"(share of elements moved: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in out['ft2_moved'].items())}"
+        f"); the {int(keep.sum())} embed rows of ids no batch holds bitwise "
+        f"unchanged; peak {out['ft2_peak'] / 2**30:.2f} GiB on {card}")
+    del ft, bundle, params, lp, watch, emb0, batches
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 5. the pipeline over the checkpoint and fit's export
+    t1 = time.perf_counter()
+    lm, res = TM.main(["pipeline", "--basepath", ckpt, "--msd-model-path",
+                       export, "--tasks", "synthetic_vqa", "--distill-docs",
+                       str(pipe_docs), "--distill-steps", str(pipe_steps),
+                       "--limit", str(pipe_limit), "--device", str(device)])
+    out["pipeline_s"] = time.perf_counter() - t1
+    out["alpha_pipeline"] = res["msd_stats"]["avg_accept_len"]
+    distilled = lm.gen.params["draft"]
+    null["embed_tokens"] = lm.gen.params["target"]["embed_tokens"]
+    prompts = [lm._prepare(task.doc_to_text(d), task.doc_to_visual(d))
+               for d in docs]
+    out["alpha_distilled"] = served(lm.gen, distilled, prompts,
+                                    "the pipeline's distilled draft")
+    log(f"[train] pipeline (distill {pipe_docs} synthetic_vqa docs, "
+        f"{pipe_steps} steps, evaluate {pipe_limit}): {out['pipeline_s']:.1f}"
+        f"s with the checkpoint load; its msd_stats alpha "
+        f"{out['alpha_pipeline']:.3f}; the distilled draft through set_draft"
+        f" on the {len(prompts)} prompts x {max_new} tokens: == null-draft "
+        f"tokens, alpha {out['alpha_fit']:.3f} (fit's draft) -> "
+        f"{out['alpha_distilled']:.3f} (distilled) on {card}")
+    del lm, res, distilled, null
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    out["launches"] = K1.decode_attention.launches
+    out["captured"] = K1.decode_attention.captured
+    if out["launches"] or out["captured"]:
+        raise AssertionError(f"[train] K1 ran in the phase: "
+                             f"{out['launches']} launches, "
+                             f"{out['captured']} captured")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] K1 launches 0; phase {out['seconds']:.1f}s on {card}")
+    return out
+
+
 def _same_request(label, a, b):
     if not (np.array_equal(a.tokens, b.tokens)
             and (a.accept_steps, a.accept_len_sum)
@@ -4517,6 +5262,15 @@ def _same_request(label, a, b):
 
 
 def main():
+    # the checkpoint [weights] writes lives until [train] has run on it
+    root = tempfile.mkdtemp(prefix="msd_ckpt_")
+    try:
+        run_all(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_all(root: str):
     t_start = time.perf_counter()
     card = phase_device()
     import torch
@@ -4537,12 +5291,8 @@ def main():
     eagle = run_eagle(res)
     serve = run_serve(res)
     k1["serve_launches"] = serve["serve_launches"]
-    root = tempfile.mkdtemp(prefix="msd_ckpt_")
-    try:
-        weights = run_weights(res, serve, root=root)
-        harness = run_harness(res, weights["ckpt"], weights["draft"], root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    weights = run_weights(res, serve, root=root)
+    harness = run_harness(res, weights["ckpt"], weights["draft"], root)
     k1["weights_launches"] = weights["launches"]
     k1["harness_launches"] = harness["launches"]
     quant = run_quant(res)
@@ -4575,8 +5325,15 @@ def main():
     del res, sampling, distill, eagle, serve
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[13b] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+    log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"after the 7B phases are released")
+    train = run_train(weights["ckpt"], root)
+    shutil.rmtree(root, ignore_errors=True)
+    k1["train_launches"] = train["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[13b] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"after the training phase")
     big = run_13b()
     k1["launches_13b"] = big["launches"]
     k1["ms_40_heads"] = big["k1_us"] / 1e3
@@ -4617,6 +5374,17 @@ def main():
         f"at G*T = 7 {k1['qwen_ar']['ms'] * 1e3:.2f} us (bound "
         f"{k1['qwen_ar']['bound_ms'] * 1e3:.2f}); peak "
         f"{qwen['peak'] / 2**30:.2f} GiB; phase {qwen['seconds']:.1f}s")
+    log(f"[train] on {card}: fit {train['fit_ms']:.1f} ms/step, stage 1 "
+        f"{train['ft1_ms']:.1f} ms/step, stage 2 {train['ft2_ms']:.1f} "
+        f"ms/step; records/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in train['records_per_s'].items())
+        + f"; pipeline {train['pipeline_s']:.1f}s, alpha "
+        f"{train['alpha_fit']:.3f} (fit's draft) -> "
+        f"{train['alpha_distilled']:.3f} (distilled; its msd_stats "
+        f"{train['alpha_pipeline']:.3f}); peak GiB fit "
+        f"{train['fit_peak'] / 2**30:.2f}, stage 1 "
+        f"{train['ft1_peak'] / 2**30:.2f}, stage 2 "
+        f"{train['ft2_peak'] / 2**30:.2f}; phase {train['seconds']:.1f}s")
     log(f"[done] total wall {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(smi_name_and_limit(), flush=True)

@@ -12,7 +12,11 @@ default). The Qwen2-VL configs live with their models
 decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``),
 as in the JAX package. The draft's fc always has a bias
 (``fc_bias=True``). Quantized weights are a property of the param dicts
-(``models.llama.quantize_llama_params``), not of these configs.
+(``models.llama.quantize_llama_params``), not of these configs. Training
+(``train/``) runs on one device: the JAX ``DraftTrainer``'s and
+``LlavaFinetuner``'s ``mesh`` argument (megatron parameter specs, ZeRO
+optimizer-state sharding) is left out until the port has its parallel
+modules over ``torch.distributed``.
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ B x T rows.
 
 Unlike JAX, the KV cache is updated IN PLACE: ``llama_forward`` writes the
 new rows at ``write_pos`` into the caller's cache tensors and returns the
-same dict. Matmuls run in the parameter dtype (bf16 at 7B); with
-``cfg.residual_dtype="float32"`` the residual stream rides in fp32.
+same dict. Training runs ``llama_forward_nocache`` instead, which leaves
+autograd fresh tensors and computes the same bits. Matmuls run in the
+parameter dtype (bf16 at 7B); with ``cfg.residual_dtype="float32"`` the
+residual stream rides in fp32.
 """
 
 from __future__ import annotations
@@ -299,6 +301,34 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
                            per_lane=per_lane)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
     return x, kv
+
+
+def llama_forward_nocache(params: Params, cfg: LlamaConfig,
+                          embeds: torch.Tensor, positions: torch.Tensor,
+                          bias: torch.Tensor, cos_t: torch.Tensor,
+                          sin_t: torch.Tensor) -> torch.Tensor:
+    """All decoder layers over embeds [T, H] with no KV cache, for
+    training: each layer attends over its own T rows of K/V (a prefill
+    written at row 0), so autograd holds fresh tensors. ``llama_forward``
+    writes every layer's K/V in place into views of one [L, S, Hkv, D]
+    buffer, whose shared version counter invalidates what the earlier
+    layers saved for the backward. The stacked layer weights are unbound
+    once, so the backward stacks each weight's L layer gradients once
+    (a per-layer ``select`` would materialise a gradient of the whole
+    stack per layer). bias [T, T]. Equals ``llama_forward`` over a T-row
+    cache written at 0, bitwise. Returns the final-normed hidden [T, H]
+    in embeds.dtype."""
+    out_dtype = embeds.dtype
+    x = embeds
+    if cfg.residual_dtype is not None:
+        x = x.to(getattr(torch, cfg.residual_dtype))
+    layers = params["layers"]
+    names = list(layers)
+    for ws in zip(*(torch.unbind(layers[n]) for n in names)):
+        lp = dict(zip(names, ws))
+        q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t, False)
+        x = _layer_post_attn(lp, cfg, x, masked_attention(q, k, v, bias))
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
 
 
 def lm_head(params: Params, hidden: torch.Tensor,

@@ -6,7 +6,10 @@ with the text -> visual curriculum, in-step input noise, AdamW with warmup
 and a global-norm clip over fp32 master weights, and per-epoch torch
 checkpoints with full optimizer state. The batch order of epoch e comes
 from ``np.random.default_rng(e)``, the JAX trainer's numpy stream, so both
-trainers see the same batches.
+trainers see the same batches. With ``TrainerConfig.wandb_project`` the
+step metrics go to W&B as ``train/*`` every ``log_every`` steps and the
+epoch means as ``epoch/*`` (``harness.loggers.WandbLogger``, which does
+nothing without the ``wandb`` package).
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ class TrainerConfig:
     num_epochs: int = 40
     ckpt_dir: str = "checkpoints/draft"
     log_every: int = 50
+    # W&B experiment logging (main_deepspeed.py:141-143 wandb.init); None
+    # disables. The logger does nothing when wandb is unavailable/offline.
+    wandb_project: Optional[str] = None
 
 
 def _load_records(paths: List[str]) -> List[Dict[str, np.ndarray]]:
@@ -89,7 +95,8 @@ class DraftTrainer:
     target's ``head_w``; the caller's tensors are not modified.
 
     The JAX trainer's ``mesh`` (ZeRO-style sharding over a device mesh)
-    and W&B logging are not ported: this trainer runs on one device."""
+    is not taken: this trainer runs on one device, and sharding comes with
+    the port's parallel modules (``torch.distributed``)."""
 
     def __init__(self, dcfg: DraftConfig, dparams: Dict,
                  head_w: torch.Tensor, tc: TrainerConfig = TrainerConfig(),
@@ -112,6 +119,13 @@ class DraftTrainer:
         self.step_count = 0
         self.epoch = 0
         self._data = (None, None)   # (key of a record list, its prepad)
+        self.wandb = None
+        if tc.wandb_project:
+            from msd_tpu_torch.harness.loggers import WandbLogger
+            self.wandb = WandbLogger(project=tc.wandb_project,
+                                     config={"train": vars(tc.train),
+                                             "batch_size": tc.batch_size,
+                                             "max_len": tc.max_len})
 
     def _prepadded(self, records: List[Dict]) -> Dict[str, torch.Tensor]:
         """``prepad_records`` of ``records``, kept while the same record
@@ -147,10 +161,17 @@ class DraftTrainer:
             if count % self.tc.log_every == 0:
                 log(f"epoch {self.epoch} step {count}: " + " ".join(
                     f"{k}={metrics_acc[k]/count:.4f}" for k in metrics_acc))
+                if self.wandb:
+                    self.wandb.log({f"train/{k}": float(v)
+                                    for k, v in metrics.items()},
+                                   step=self.step_count)
         out = {k: v / max(count, 1) for k, v in metrics_acc.items()}
         out["steps"] = count
         out["visual_ratio"] = ratio
         out["seconds"] = time.time() - t0
+        if self.wandb:
+            self.wandb.log({f"epoch/{k}": float(v) for k, v in out.items()},
+                           step=self.step_count)
         self.epoch += 1
         return out
 
