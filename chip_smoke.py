@@ -287,7 +287,7 @@ FIT_LR = 0.01
 # a Qwen2-VL training record's hidden rows against the unpadded mrope
 # recompute, per row relative L2 error on the card: the record runs 256
 # rows with a bf16 residual, the recompute 210, whose products round
-# otherwise over 28 layers (my chip run 5, PR 14: worst row 2.994e-02);
+# otherwise over 28 layers (measured on one H100: worst row 2.994e-02);
 # a misplaced image row or position is O(1). Against a recompute at the
 # record's own row shape the rows must be bitwise equal.
 QWEN_RECORD_TOL = 2 ** -3
