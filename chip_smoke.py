@@ -20,7 +20,10 @@ prints no result):
    decode step) at four kv_len and at kv_len 0 (K1's fixed cost), and at
    Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4: G*T = 7, the kernel's wide
    regime) over 384 caches at kv_len 272 (cold in L2 as well) beside
-   SDPA with enable_gqa; and,
+   SDPA with enable_gqa; at the multi-visual prompts' AR rows
+   (``time_k1_row``: LLaVA's at kv_len 1220 and 2200 over a 2688-row
+   cache, Qwen2-VL's video row at 2340 over a 3072-row cache, each cold
+   in L2, beside its plain twin, SDPA and its bound); and,
    last, profiles 32 K1 calls, which must show one kernel launched 32
    times.
 4. main path at LLaVA-1.5-7B width (random weights from seeded generators
@@ -138,6 +141,19 @@ prints no result):
    eager, the oracle draft accepted to full depth, K1 32 per AR token;
    the int8 draft's tokens == the bf16 draft's. Replayed AR token and
    verify step beside the bf16 main path's, peak memory.
+12b. multi (``run_multi``), on the main path's target and drafts and
+   ``[serve]``'s tower and projector, on generators of their own
+   (max_seq_len 2560, 64-row prompt buckets) released after the phase:
+   seeded images through the native prep (timed against PIL), then (a)
+   two 336px images at two placeholders, (b) a 1008x672 image through
+   anyres ('spatial_unpad', a seeded newline: 2144 rows), (c) S2 at (336,
+   672, 1008) with a seeded 3072 -> 4096 projector, (d) one image through
+   the prefused and the standard prefill; graph, eager and null-draft MSD
+   and AR. Fails unless MSD == eager == null draft, every committed
+   token passes the recompute gate (``token_check``), AR (and (d)'s
+   standard path) departs only at a near-tie, K1 launches 32 per AR
+   token, and a planted fusion fault is rejected. Prefill ms, replayed
+   ms per step, the towers' ms.
 13. profiles: one AR and one MSD request (prefill + 16 tokens), graph and
    eager: wall, device time, idle share of the request and of its decode
    range, top kernels; in the graph AR request the profiler must count as
@@ -192,7 +208,14 @@ prints no result):
    within 1e-4. One Qwen2-VL training record (``make_qwen_record_from_
    ids`` over image prompt 0) must have the JAX layout and hidden rows
    bitwise those of an independent mrope recompute at its row shape and
-   within 2^-3 (row-relative L2) of an unpadded one.
+   within 2^-3 (row-relative L2) of an unpadded one. Its ``[video]`` part
+   (``run_video``): 32 seeded 336px frames through the tower's video path
+   (16 temporal blocks, 2304 rows; ms per video, peak memory), held to
+   its plain block-per-block evaluation, which a planted cross-block
+   attention must fail; then the ``qwen2_vl_msd`` adapter's
+   ``video_gen`` over the same tensors: MSD == null draft, the mrope
+   recompute gate at grid_t 16, AR against MSD by ``QWEN_TIE``, K1 28
+   per AR token.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -226,8 +249,11 @@ FP32_OPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
 # bench.py defaults: 64-token image prompts, KV allocation 1152, medusa
 # widths 10,8,...,1 (48-node tree, depth 14), 6 canonical rounding bits,
-# lm_head sharpened x6; this run decodes 64 new tokens per prompt
-MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 64, 576, 64
+# lm_head sharpened x6; this run decodes 48 new tokens per prompt (64
+# until [multi] and [video] joined the smoke: cut to keep it inside its
+# time limit; the main path's, [calib]'s, [sampling]'s, [distill]'s
+# collection and [eagle]'s runs read it)
+MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 48, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
 # bench.py's distill (1700 steps over 5 record -> train rounds) cut to two
@@ -250,8 +276,9 @@ SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
 # new tokens of each generate_batch run of [serve] (graph, null draft,
 # eager and the solo runs alike), cut from the main path's 64 when [train]
-# joined the smoke, to keep it inside its time limit
-SERVE_BATCH_NEW = 32
+# joined the smoke and from 32 when [multi] and [video] did, to keep it
+# inside its time limit
+SERVE_BATCH_NEW = 24
 # new tokens of [quant]'s runs (a prefix of the main path's 64: greedy
 # tokens do not depend on the budget), of [13b]'s and of [qwen]'s
 # generator runs, cut from 64, 32 and 64 when [train] joined the smoke, to
@@ -260,7 +287,8 @@ QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 32
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
-HARNESS_LIMIT, HARNESS_NEW = 8, 32
+# (32 new tokens until [multi] and [video] joined the smoke)
+HARNESS_LIMIT, HARNESS_NEW = 8, 16
 # where the AR adapter's tokens first depart from MSD's, the target's
 # logits of the two tokens must lie within this many bf16 ulps of the
 # larger (a tie that bf16 rounding decides; see run_harness)
@@ -291,6 +319,17 @@ FIT_LR = 0.01
 # a misplaced image row or position is O(1). Against a recompute at the
 # record's own row shape the rows must be bitwise equal.
 QWEN_RECORD_TOL = 2 ** -3
+# [multi]: the multi-visual generators' cache (the anyres prompt's 2207
+# rows, a tree and its path fit below it) and new tokens per request
+MULTI_SEQ, MULTI_NEW = 2560, 32
+# [video]: frames per video (32 frames of 336px: 16 temporal blocks, 2304
+# merged rows) and the tower's rows against its plain block-per-block
+# evaluation (relative L2 over all rows) on the card, bf16 both: the two
+# run the same per-block attention, but their products over 9216 and 576
+# rows may round otherwise; a video attending across its temporal blocks
+# is far off (measured on one H100: 0, the two bitwise equal, and 0.127
+# with the planted cross-block attention). Off the card (fp32) 1e-5.
+VIDEO_FRAMES, VIDEO_TOWER_TOL = 32, 2 ** -6
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -652,7 +691,23 @@ def phase_kernels(card: str) -> dict:
                      "library_ms": timed["library"]}
             profiled = kernel
     entry["ms_by_kv_len"] = by_len
-    entry["qwen_ar"] = time_qwen_ar(card, q_split)
+    # Qwen2-VL-7B's AR row at kv_len 272: 28 layer caches would hold 15.6
+    # MB of live K/V, inside the 50 MB L2, where on the AR path ~500 MB of
+    # layer weights pass between two attention calls; 384 hold 214 MB
+    entry["qwen_ar"] = time_k1_row(
+        card, f"Qwen2-VL AR row (G*T = 7: 2 row groups of 4 per kv head, "
+        f"{q_split} splits)", 28, 4, 272, 1280, 384)
+    # the multi-visual prompts' AR rows: [multi]'s LLaVA generators (S =
+    # 2688 for max_seq_len 2560 + a 48-node tree) after the two-image
+    # (e0 1214) and the anyres (e0 2207) prompts, and [video]'s Qwen2-VL
+    # video_gen (S = 3072 for max_seq_len 2944) after its ~2340-row prompt
+    s_multi = -128 * (-(MULTI_SEQ + 1 + sum(WIDTHS)) // 128)
+    entry["multi_ar"] = {
+        name: time_k1_row(card, f"LLaVA AR row, {name} prompt", 32, 32,
+                          kv_len, s_multi, 32)
+        for name, kv_len in (("two-image", 1220), ("anyres", 2200))}
+    entry["video_ar"] = time_k1_row(card, "Qwen2-VL AR row, video prompt",
+                                    28, 4, 2340, 3072, 64)
 
     def profile():
         # one kernel per call: 32 calls show one kernel name, 32 launches
@@ -2916,39 +2971,59 @@ def run_weights(res, serve, http_new=SERVE_HTTP_NEW, root=None) -> dict:
     return out
 
 
-def plain_logits(gen, ids, feats):
-    """The target's fp32 logits over the unpadded sequence ``ids`` with
-    the image rows (``feats``) spliced in at its ``<image>`` token, built
-    apart from ``MSDGenerator.score``'s program: the embeddings and the
-    expanded ids by concatenation, the causal mask by ``triu``, no bucket
-    padding. Only ``llama_forward`` and ``lm_head`` are shared with it.
-    Returns (logits [rows, V], expanded ids [rows] with -1 on image
-    rows)."""
+def _llava_inputs(gen, ids, feats):
+    """The embeddings [rows, H] of the unpadded sequence ``ids`` with the
+    image rows spliced in by concatenation, apart from the engine's
+    fusion: ``feats`` one block [n_img, H] at the first ``<image>`` token,
+    or a list of blocks, one per ``<image>`` token in order; and the
+    expanded ids [rows] with -1 on image rows."""
     import torch
     from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
-    from msd_tpu_torch.models import llama as L
 
     ids = np.asarray(ids, np.int64)
+    table, dev = gen.params["target"]["embed_tokens"], gen.device
+    blocks = [] if feats is None else \
+        list(feats) if isinstance(feats, (list, tuple)) else [feats]
+    spots = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0][:len(blocks)]
+    embs, exp, prev = [], [], 0
+    for p, f in zip(list(spots) + [len(ids)], blocks + [None]):
+        embs.append(table[torch.from_numpy(ids[prev:p]).to(dev)])
+        exp.append(ids[prev:p])
+        if f is not None:
+            embs.append(f.to(table.dtype))
+            exp.append(np.full(len(f), -1))
+        prev = p + 1
+    return torch.cat(embs), np.concatenate(exp)
+
+
+def plain_rows_logits(gen, emb, cos, sin):
+    """The target's logits over the rows ``emb`` [rows, H] from position
+    0, the causal mask by ``triu``, no bucket padding, a cache of exactly
+    those rows; ``cos``/``sin`` index by position (the rope tables, or an
+    inline prompt's mrope rows). Only ``llama_forward`` and ``lm_head``
+    are shared with the engine."""
+    import torch
+    from msd_tpu_torch.models import llama as L
+
     tp, dev = gen.params["target"], gen.device
-    table = tp["embed_tokens"]
-
-    def embed(x):
-        return table[torch.from_numpy(x).to(dev)]
-
-    if feats is None:
-        emb, exp = embed(ids), ids
-    else:
-        p = int(np.nonzero(ids == IMAGE_TOKEN_INDEX)[0][0])
-        emb = torch.cat([embed(ids[:p]), feats.to(table.dtype),
-                         embed(ids[p + 1:])])
-        exp = np.concatenate([ids[:p], np.full(len(feats), -1), ids[p + 1:]])
     rows = emb.shape[0]
     mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
     hidden, _ = L.llama_forward(
         tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
-        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask,
-        gen.params["cos_t"], gen.params["sin_t"])
-    return L.lm_head(tp, hidden), exp
+        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask, cos, sin)
+    return L.lm_head(tp, hidden)
+
+
+def plain_logits(gen, ids, feats):
+    """The target's fp32 logits over the unpadded sequence ``ids`` with
+    the image rows (``feats``: one block, or a list of blocks, one per
+    ``<image>`` token) spliced in, built apart from
+    ``MSDGenerator.score``'s program and the engine's fusion
+    (``_llava_inputs``, ``plain_rows_logits``). Returns (logits [rows, V],
+    expanded ids [rows] with -1 on image rows)."""
+    emb, exp = _llava_inputs(gen, ids, feats)
+    return plain_rows_logits(gen, emb, gen.params["cos_t"],
+                             gen.params["sin_t"]), exp
 
 
 def plain_score(gen, ids, cont_start: int, feats) -> tuple:
@@ -3567,23 +3642,22 @@ def time_k1(hq: int, layers: int, kv_len: int = 672, s: int = 1280):
     return err, us, nbytes / HBM_BYTES_PER_S * 1e6
 
 
-def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
-                 s: int = 1280, layers: int = 384) -> dict:
-    """K1 at Qwen2-VL-7B's AR row (T=1, Hq=28, Hkv=4, bf16) at kv_len 272,
-    in CUDA graphs over ``layers`` distinct caches, cold in L2: kernel
-    (twice), its plain twin and SDPA with ``enable_gqa``, and the byte
-    bound. 28 layer caches would hold 15.6 MB of live K/V, inside the
-    H100's 50 MB L2, where on the AR path ~500 MB of layer weights pass
-    between two attention calls; 384 hold 214 MB, so each launch finds its
-    cache out of L2 as there. Returns the kernels line's fields for this
-    shape (``launches`` set by ``[qwen]``)."""
+def time_k1_row(card: str, label: str, hq: int, hkv: int, kv_len: int,
+                s: int, layers: int) -> dict:
+    """K1 at an AR row (T=1, ``hq`` query and ``hkv`` kv heads, bf16) at
+    ``kv_len`` against its plain twin (the stated tolerance, the first
+    and last cache), then in CUDA graphs over ``layers`` distinct caches
+    of ``s`` rows, sized to hold more live K/V than the 50 MB L2 (each
+    launch finds its cache cold, as on the AR path): kernel (twice), its
+    plain twin (twice) and SDPA (``enable_gqa`` for GQA), and the bound.
+    Returns the kernels line's fields for this shape (``launches`` set by
+    the phase that runs it)."""
     import torch
     import torch.nn.functional as F
     from msd_tpu_torch.ops import decode_attention as K1
 
     bf16 = torch.bfloat16
-    hq, hkv = 28, 4
-    g = torch.Generator(device="cuda").manual_seed(28)
+    g = torch.Generator(device="cuda").manual_seed(hq + kv_len)
     q = torch.randn(1, hq, 128, generator=g, device="cuda").to(bf16)
     ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda",
                      dtype=bf16)
@@ -3607,7 +3681,7 @@ def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
         kk = ks[i % layers, :kv_len].permute(1, 0, 2)[None]
         vv = vs[i % layers, :kv_len].permute(1, 0, 2)[None]
         F.scaled_dot_product_attention(q.permute(1, 0, 2)[None], kk, vv,
-                                       attn_mask=mask, enable_gqa=True)
+                                       attn_mask=mask, enable_gqa=hq != hkv)
 
     timed = {name: graph_ms(fn, layers) for name, fn in (
         ("plain", plain), ("kernel", kernel), ("library", library),
@@ -3617,14 +3691,14 @@ def time_qwen_ar(card: str, n_split: int, kv_len: int = 272,
     ops = 4 * hq * kv_len * 128
     by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
     bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
-    log(f"[K1] Qwen2-VL AR row T=1 Hq={hq} Hkv={hkv} (G*T = 7: "
-        f"{-(-7 // 4)} row groups of 4 per kv head, {n_split} splits) "
-        f"S={s} kv_len={kv_len} bf16 over {layers} caches ("
+    log(f"[K1] {label}: T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} bf16 "
+        f"over {layers} caches ("
         f"{2 * layers * kv_len * hkv * 128 * 2 / 1e6:.0f} MB live, cold in "
         f"L2) on {card}: "
         f"kernel {timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
         f"us, plain {timed['plain'] * 1e3:.2f}/{timed['plain2'] * 1e3:.2f} "
-        f"us, sdpa (enable_gqa) {timed['library'] * 1e3:.2f} us, bound "
+        f"us, sdpa{' (enable_gqa)' if hq != hkv else ''} "
+        f"{timed['library'] * 1e3:.2f} us, bound "
         f"{bound_s * 1e6:.2f} us ({nbytes / 1e6:.3f} MB by "
         f"{'bytes' if by_bytes else 'operations'}), share of bound "
         f"{bound_s * 1e3 / ms:.3f}")
@@ -3723,13 +3797,14 @@ def run_13b(max_new: int = NEW_13B, bits: int = 8, device="cuda",
 
 def _qwen_inputs(gen, ids, feats, grid):
     """The fused embeddings [rows, H] of the inline sequence ``ids`` (its
-    image-pad span replaced by ``feats`` when given) and the mrope cos/sin
-    rows of all its rows (``mrope_positions`` over the whole length,
-    gathered by ``mrope_gather``; 1-D positions without an image), built
-    by concatenation, apart from the engine's fusion."""
+    image- or video-pad span replaced by ``feats`` when given) and the
+    mrope cos/sin rows of all its rows (``mrope_positions`` over the whole
+    length for ``grid`` (gh, gw) or (grid_t, gh, gw), gathered by
+    ``mrope_gather``; 1-D positions without a visual), built by
+    concatenation, apart from the engine's fusion."""
     import torch
-    from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, mrope_gather,
-                                              mrope_positions)
+    from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, VIDEO_PAD_ID,
+                                              mrope_gather, mrope_positions)
 
     ids = np.asarray(ids, np.int64)
     table, dev = gen.params["target"]["embed_tokens"], gen.device
@@ -3740,13 +3815,13 @@ def _qwen_inputs(gen, ids, feats, grid):
 
     rows = len(ids)
     if feats is None:
-        emb, start, n, (gh, gw) = embed(ids), rows, 0, (1, 1)
+        emb, start, n, (gt, gh, gw) = embed(ids), rows, 0, (1, 1, 1)
     else:
-        start, n, (gh, gw) = int(np.argmax(ids == IMAGE_PAD_ID)), len(feats), \
-            grid
+        start = int(np.argmax(np.isin(ids, (IMAGE_PAD_ID, VIDEO_PAD_ID))))
+        n, (gt, gh, gw) = len(feats), (1,) * (3 - len(grid)) + tuple(grid)
         emb = torch.cat([embed(ids[:start]), feats.to(table.dtype),
                          embed(ids[start + n:])])
-    pos3, _ = mrope_positions(rows, start, n, gh, gw)
+    pos3, _ = mrope_positions(rows, start, n, gh, gw, grid_t=gt)
     cos, sin = mrope_gather(gen.params["cos_t"], gen.params["sin_t"],
                             torch.from_numpy(pos3).to(dev),
                             gen.mrope_section)
@@ -3837,38 +3912,39 @@ def qwen_record_check(gen, qcfg, ids, feats, grid, tol: float) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def qwen_shaped_logits(gen, ids, feats, grid, toks, chunk: int,
-                       window: bool = False):
-    """The logits that predict each of ``toks`` after the prompt ``ids``,
-    and the token after them ([len(toks) + 1, V] fp32), recomputed at the engine's row shapes but apart
-    from its code: the prompt padded to the generator's prompt bucket in
-    one forward into a cache of the engine's target capacity (the last
-    prompt row through ``lm_head`` alone, as the prefill's bonus row),
-    then ``toks`` ``chunk`` rows at a time (the last chunk padded), each
-    chunk written after the rows before it and attending over the cache
-    by a causal bias, its rows through ``lm_head`` together. ``chunk``
-    48 is a verify's row count, 1 the AR row's. With ``window`` a chunk
-    row reduces its last ``max_path_len`` positions through window slots
-    and the cache below them through the bias, as a verify row of a chain
-    does (``windowed_attention``; window rows and bias built here from
-    the row's cache position); else the attention is plain (no K1).
-    Inputs and mrope tables from ``_qwen_inputs``."""
+def _shaped_rows(gen, n_p: int, n_t: int, chunk: int) -> tuple:
+    """(the prompt's bucket rows, the token rows fed in ``chunk``-row
+    chunks, the rows of both) of ``shaped_logits``."""
+    m = gen.eng.prompt_pad_multiple
+    pad, fed = -m * (-n_p // m), -chunk * (-n_t // chunk)
+    return pad, fed, max(pad, n_p + fed)
+
+
+def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
+                  window: bool = False):
+    """The logits that predict each of ``n_t`` tokens after an ``n_p``-row
+    prompt, and the token after them ([n_t + 1, V] fp32), recomputed at
+    the engine's row shapes but apart from its code. ``emb`` [rows, H]
+    (``_shaped_rows``): the prompt's rows, the tokens' embeddings, then
+    token 0's; ``cos``/``sin`` index by position. The prompt padded to the
+    generator's prompt bucket in one forward into a cache of the engine's
+    target capacity (the last prompt row through ``lm_head`` alone, as the
+    prefill's bonus row), then the tokens ``chunk`` rows at a time (the
+    last chunk padded), each chunk written after the rows before it and
+    attending over the cache by a causal bias, its rows through
+    ``lm_head`` together. ``chunk`` 48 is a verify's row count, 1 the AR
+    row's. With ``window`` a chunk row reduces its last ``max_path_len``
+    positions through window slots and the cache below them through the
+    bias, as a verify row of a chain does (``windowed_attention``; window
+    rows and bias built here from the row's cache position); else the
+    attention is plain (no K1)."""
     import torch
     from msd_tpu_torch.models import llama as L
     from msd_tpu_torch.ops.attention import NEG_INF
 
-    ids = np.asarray(ids, np.int64)
-    toks = np.asarray(toks, np.int64)
     tp, dev, cfg = gen.params["target"], gen.device, gen.tcfg
-    n_p, n_t = len(ids), len(toks)
-    m = gen.eng.prompt_pad_multiple
-    pad = -m * (-n_p // m)
-    fed = -chunk * (-n_t // chunk)
+    pad, fed, _ = _shaped_rows(gen, n_p, n_t, chunk)
     s = -128 * (-(gen.eng.max_seq_len + gen.eng.tree.num_nodes) // 128)
-    rows = max(pad, n_p + fed)
-    seq = np.zeros(rows, np.int64)
-    seq[:n_p], seq[n_p:n_p + n_t] = ids, toks
-    emb, cos, sin = _qwen_inputs(gen, seq, feats, grid)
     pre = emb[:pad].clone()
     pre[n_p:] = gen.params["target"]["embed_tokens"][0]
     kv = L.init_kv_cache(cfg, s, emb.dtype, dev)
@@ -3897,15 +3973,79 @@ def qwen_shaped_logits(gen, ids, feats, grid, toks, chunk: int,
     return torch.cat(out)[:n_t + 1]
 
 
+def qwen_shaped_logits(gen, ids, feats, grid, toks, chunk: int,
+                       window: bool = False):
+    """``shaped_logits`` of the tokens ``toks`` after the inline prompt
+    ``ids``, inputs and mrope tables from ``_qwen_inputs``."""
+    ids = np.asarray(ids, np.int64)
+    toks = np.asarray(toks, np.int64)
+    n_p, n_t = len(ids), len(toks)
+    seq = np.zeros(_shaped_rows(gen, n_p, n_t, chunk)[2], np.int64)
+    seq[:n_p], seq[n_p:n_p + n_t] = ids, toks
+    emb, cos, sin = _qwen_inputs(gen, seq, feats, grid)
+    return shaped_logits(gen, emb, cos, sin, n_p, n_t, chunk, window)
+
+
+def qwen_logits_fn(gen, ids, feats, grid):
+    """``logits(toks, chunk=None)`` of ``token_check`` for an inline
+    (Qwen2-VL) prompt: the rows predicting each of ``toks`` and the token
+    after them, unpadded (``qwen_plain_logits``) or at the engine's row
+    shapes in ``chunk``-row chunks (``qwen_shaped_logits``, through window
+    slots when ``chunk`` > 1)."""
+    def logits(toks, chunk=None):
+        if chunk is None:
+            return qwen_plain_logits(gen, np.concatenate([ids, toks]), feats,
+                                     grid)[len(ids) - 1:]
+        return qwen_shaped_logits(gen, ids, feats, grid, toks, chunk,
+                                  window=chunk > 1)
+    return logits
+
+
+def llava_logits_fn(gen, ids, feats):
+    """``logits(toks, chunk=None)`` of ``token_check`` for an expand-mode
+    (LLaVA) prompt whose image rows (one block, or a list of blocks) are
+    spliced in by concatenation (``_llava_inputs``): unpadded
+    (``plain_rows_logits``) or at the engine's row shapes
+    (``shaped_logits``, the fused prompt padded to the bucket), over the
+    rope tables."""
+    import torch
+
+    prompt, _ = _llava_inputs(gen, ids, feats)
+    table = gen.params["target"]["embed_tokens"]
+    cos, sin = gen.params["cos_t"], gen.params["sin_t"]
+    n_p = prompt.shape[0]
+
+    def logits(toks, chunk=None):
+        toks = np.asarray(toks, np.int64)
+        n_t = len(toks)
+        rows = n_p + n_t if chunk is None else \
+            _shaped_rows(gen, n_p, n_t, chunk)[2]
+        seq = np.zeros(rows - n_p, np.int64)
+        seq[:n_t] = toks
+        emb = torch.cat([prompt, table[torch.from_numpy(seq).to(gen.device)]])
+        if chunk is None:
+            return plain_rows_logits(gen, emb, cos, sin)[n_p - 1:]
+        return shaped_logits(gen, emb, cos, sin, n_p, n_t, chunk,
+                             window=chunk > 1)
+    return logits
+
+
 def qwen_token_check(gen, ids, feats, grid, toks, other=None,
                      tie: float = 0.0) -> dict:
-    """Every committed token ``toks`` of one inline request held to two
+    """``token_check`` of an inline (Qwen2-VL) request's committed tokens
+    ``toks`` after the prompt ``ids`` (``qwen_logits_fn``)."""
+    return token_check(gen, qwen_logits_fn(gen, ids, feats, grid), toks,
+                       other, tie)
+
+
+def token_check(gen, logits, toks, other=None, tie: float = 0.0) -> dict:
+    """Every committed token ``toks`` of one request held to two
     recomputes over the prompt and those tokens, each built apart from the
-    engine's code with mrope positions over the whole sequence. B
-    (``qwen_shaped_logits`` at the verify's shapes: the prompt bucket,
-    chunks of the tree's node count through window slots) must have each
-    token as its argmax after the engine's canonical rounding, exactly.
-    A, the unpadded ``qwen_plain_logits``, must have each token as its
+    engine's code (``logits``: ``qwen_logits_fn``, ``llava_logits_fn``). B
+    (``logits(toks, num_nodes)``, at the verify's shapes: the prompt
+    bucket, chunks of the tree's node count through window slots) must
+    have each token as its argmax after the engine's canonical rounding,
+    exactly. A, the unpadded ``logits(toks)``, must have each token as its
     canonical argmax or, on the card (``tie`` > 0), lie below A's top by
     at most ``tie`` bf16 ulps plus that row's noise: |A - B| at A's top
     token plus |A - B| at the committed token, in bf16 ulps of A's top
@@ -3913,9 +4053,9 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
     With ``other`` (the AR run's tokens of the same request): where they
     first depart from ``toks``, the two tokens' logits in A, their gap in
     bf16 ulps of the larger, that row's noise over the two tokens, the
-    largest of B's and of C's (``qwen_shaped_logits`` one row at a time,
-    the AR row's shape), and their ranks (a sequence that ended first
-    picks EOS there). Returns {"worst", "noise", "off": tokens off A's
+    largest of B's and of C's (``logits(toks, 1)``, the AR row's shape),
+    and their ranks (a sequence that ended first picks EOS there).
+    Returns {"worst", "noise", "off": tokens off A's
     canonical argmax, "off_b": off B's, "bad_a": tokens A's gate
     rejects, "bad": [(k, ulps below A's top,
     allowed, ulps below B's top, rank in A)], "rows": [(k, ulps below A's top, noise, ulps below B's top,
@@ -3929,11 +4069,9 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
            "bad": [], "rows": [], "split": None}
     if not toks:
         return out
-    first = len(ids) - 1
-    logits = qwen_plain_logits(gen, np.concatenate([ids, toks]), feats, grid)
-    rows = logits[first:first + len(toks)]
-    shaped = qwen_shaped_logits(gen, ids, feats, grid, toks,
-                                gen.eng.tree.num_nodes, window=True)
+    a_rows = logits(toks)
+    rows = a_rows[:len(toks)]
+    shaped = logits(toks, gen.eng.tree.num_nodes)
     b_rows = shaped[:len(toks)]
     top, arg = rows.max(dim=-1)
     ulp = bf16_ulp(top)
@@ -3967,12 +4105,12 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
         k = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y),
                  min(len(toks), len(other)))
         if k < max(len(toks), len(other)):
-            row = logits[first + k]
+            row = a_rows[k]
             ta, tb = (s[k] if k < len(s) else gen.eos_id
                       for s in (toks, other))
             la, lb = float(row[ta]), float(row[tb])
             big = max(abs(la), abs(lb))
-            one_row = qwen_shaped_logits(gen, ids, feats, grid, toks, 1)
+            one_row = logits(toks, 1)
             gap_noise = max(float((row[ta] - r[k, ta]).abs()
                                   + (row[tb] - r[k, tb]).abs())
                             for r in (shaped, one_row)) / float(bf16_ulp(big))
@@ -3984,7 +4122,7 @@ def qwen_token_check(gen, ids, feats, grid, toks, other=None,
     return out
 
 
-def qwen_split_ok(split, tie: float) -> bool:
+def split_ok(split, tie: float) -> bool:
     """An AR-vs-MSD split is a rounding tie of the recompute: the two
     tokens' logits within ``tie`` bf16 ulps plus that row's measured
     recompute noise over the two tokens (no split at all off the card,
@@ -4074,11 +4212,225 @@ def qwen_fault_check(make_gen, prompts, good, max_new: int, tie: float,
             "worst": worst[1:3], "differ": differ}
 
 
+def video_full_attention(vision, vcfg, x, gt: int, gh: int, gw: int):
+    """The planted fault of ``[video]``: the tower over a video's patch
+    embeddings ``x`` with every row attending across all ``gt`` temporal
+    blocks (the same blocks, rotary rows and merger otherwise)."""
+    from msd_tpu_torch.models import qwen2vl_vision as QV
+
+    cos, sin = QV.vision_rotary(vcfg, gh, gw, grid_t=gt, device=x.device)
+    blocks = vision["blocks"]
+    for i in range(blocks["qkv_w"].shape[0]):
+        x = QV._block({k: w[i] for k, w in blocks.items()}, vcfg, x,
+                      cos[:, None], sin[:, None], 1)
+    return QV.merge(vision, vcfg, x)
+
+
+def run_video(gen, drafts, vision, vcfg, lc, image_size: int, max_new: int,
+              tie: float, card: str, n_frames: int = VIDEO_FRAMES,
+              max_new_warm: int = 4) -> dict:
+    """Qwen2-VL video on ``[qwen]``'s weights: ``n_frames`` seeded
+    ``image_size`` frames through the native prep and the tower's video
+    path (attention per temporal block), held to its plain
+    block-per-block evaluation (each temporal block through the tower
+    alone); a planted fault, full attention across the blocks, must fail
+    that gate. Then the ``qwen2_vl_msd`` adapter over ``gen``
+    (``from_qwen``: its prompt with the <|video_pad|> span,
+    ``_encode_video``, ``video_gen``, which holds ``gen``'s tensors) runs
+    graph MSD, null-draft MSD and the AR baseline (K1). Fails unless MSD ==
+    the null draft, bitwise; every committed MSD token passes
+    ``token_check`` against the mrope recompute at grid_t (``tie``); AR
+    equals MSD up to the first split, each split such a tie; K1 launches
+    layers x AR tokens decoded, 0 in MSD; no capture in a timed run.
+    Prints the tower's ms per video and peak memory, the prefill ms and
+    the replayed step."""
+    import torch
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.harness.models.llava_msd import SimpleTokenizer
+    from msd_tpu_torch.harness.models.qwen2_vl_msd import Qwen2VLMSD
+    from msd_tpu_torch.models import qwen2vl_vision as QV
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.utils.mm_utils import process_image
+
+    device = gen.device
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(16)
+    frames = rng.integers(0, 256, size=(n_frames, image_size, image_size,
+                                        3), dtype=np.uint8)
+    px = torch.from_numpy(np.stack([process_image(f, image_size)
+                                    for f in frames])).to(device)
+    p, tp = vcfg.patch_size, vcfg.temporal_patch_size
+    gt, gh, gw = -(-n_frames // tp), image_size // p, image_size // p
+    feats = QV.qwen_vision_encode_video(vision, vcfg, px)   # warm-up
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t1 = time.perf_counter()
+    for _ in range(2):
+        feats = QV.qwen_vision_encode_video(vision, vcfg, px)
+    sync()
+    out["tower_ms"] = (time.perf_counter() - t1) * 1e3 / 2
+    out["tower_peak"] = (torch.cuda.max_memory_allocated() - base) \
+        if on_card else 0
+    x = QV.window_major_patches_video(px.to(vision["patch_embed"].dtype),
+                                      vcfg) @ vision["patch_embed"]
+    m = gh * gw
+    plain = torch.cat([QV._encode_core(vision, vcfg, x[t * m:(t + 1) * m], 1,
+                                       gh, gw) for t in range(gt)])
+
+    def rel(a):
+        return float((a.float() - plain.float()).norm()
+                     / plain.float().norm())
+
+    tol = VIDEO_TOWER_TOL if on_card else 1e-5
+    n_rows = gt * m // vcfg.spatial_merge_size ** 2
+    out["tower_rel"] = rel(feats)
+    if tuple(feats.shape) != (n_rows, lc.hidden_size) \
+            or not bool(torch.isfinite(feats).all()) \
+            or not out["tower_rel"] <= tol:
+        raise AssertionError(f"[video] tower rows {tuple(feats.shape)} "
+                             f"(want {n_rows}), relative error against the "
+                             f"block-per-block evaluation "
+                             f"{out['tower_rel']:.3e} (allowed {tol:g})")
+    out["fault_rel"] = rel(video_full_attention(vision, vcfg, x, gt, gh, gw))
+    if not out["fault_rel"] > tol:
+        raise AssertionError(f"[video] a tower attending across temporal "
+                             f"blocks passes the gate: {out['fault_rel']:.3e}"
+                             f" <= {tol:g}")
+    del x, plain
+    log(f"[video] tower: {n_frames} frames of {image_size}px, {gt} temporal "
+        f"blocks x {gh}x{gw} patches ({gt * m} rows) merged to {n_rows}; "
+        f"{out['tower_ms']:.2f} ms per video, peak "
+        f"{out['tower_peak'] / 2**30:.2f} GiB above the weights; relative "
+        f"error against the block-per-block evaluation "
+        f"{out['tower_rel']:.3e} (allowed {tol:g}); planted full attention "
+        f"across blocks {out['fault_rel']:.3e}, rejected, on {card}")
+
+    # the adapter's video path: prompt, frames, tower, video_gen
+    adapter = Qwen2VLMSD.from_qwen(gen, SimpleTokenizer(lc.vocab_size),
+                                   vision, vcfg, img_grid=(gh, gw),
+                                   max_num_frames=n_frames)
+    vgen, ids, vfeats, grid = adapter._prep_request(
+        "What happens in this video? Describe it step by step.", [frames])
+    if vgen is not adapter.video_gen or not torch.equal(vfeats, feats) \
+            or vgen.params["target"] is not gen.params["target"] \
+            or tuple(grid) != (gt, gh // 2, gw // 2):
+        raise AssertionError(f"[video] the adapter's video request: grid "
+                             f"{grid}, rows equal the tower's "
+                             f"{torch.equal(vfeats, feats)}, target shared "
+                             f"{vgen.params['target'] is gen.params['target']}")
+
+    def captures():
+        return 0 if vgen.graphs is None else len(vgen.graphs.steps)
+
+    vgen.naive_generate(ids, vfeats, max_new_warm, img_grid=grid)
+    for name in ("null", "msd"):
+        vgen.params["draft"] = drafts[name]
+        vgen.generate(ids, vfeats, max_new_warm, img_grid=grid)
+    sync()
+    n_cap = captures()
+    secs, restore = timed_calls(SE, ("qwen_prefill", "qwen_ar_prefill"))
+    runs, wall, launches = {}, {}, {}
+    try:
+        for name in ("ar", "msd", "null"):
+            vgen.params["draft"] = drafts["null" if name == "null" else "msd"]
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            r = vgen.naive_generate(ids, vfeats, max_new, img_grid=grid) \
+                if name == "ar" else vgen.generate(ids, vfeats, max_new,
+                                                   img_grid=grid)
+            sync()
+            wall[name] = time.perf_counter() - t1
+            launches[name] = K1.decode_attention.launches
+            runs[name] = r
+            if vgen.graphs is not None and not vgen.graphs.reads(
+                    r.graph, vgen.params):
+                raise AssertionError(f"[video] {name}: replayed a graph "
+                                     f"captured for other weights")
+    finally:
+        restore()
+    vgen.params["draft"] = drafts["msd"]
+    layers = lc.num_hidden_layers
+    decoded = len(runs["ar"].tokens) - 1
+    bad = []
+    if captures() != n_cap:
+        bad.append("a capture inside the timed runs")
+    if launches["ar"] != (layers * decoded if on_card else 0) \
+            or launches["msd"] or launches["null"]:
+        bad.append(f"K1 launches {launches}, want ar {layers} x {decoded} "
+                   f"AR tokens decoded, 0 in MSD")
+    toks = {n: r.tokens for n, r in runs.items()}
+    for n, t in toks.items():
+        if t.shape != (max_new,) or t.min() < 0 or t.max() >= lc.vocab_size:
+            bad.append(f"{n}: bad tokens {t.shape}")
+    if not np.array_equal(toks["msd"], toks["null"]):
+        bad.append("MSD and null-draft tokens differ")
+    t1 = time.perf_counter()
+    chk = token_check(vgen, qwen_logits_fn(vgen, ids, vfeats, grid),
+                      toks["msd"], toks["ar"], tie)
+    out["check_s"] = time.perf_counter() - t1
+    if chk["bad"]:
+        bad.append(f"committed tokens off the mrope recompute's argmax "
+                   f"(token, ulps below A's top, allowed, below B's, rank): "
+                   f"{chk['bad']}")
+    if not split_ok(chk["split"], tie):
+        bad.append(f"AR departs from MSD at a split that is no rounding "
+                   f"tie: {chk['split']}")
+    out.update(launches=launches["ar"], ar_decoded=decoded, check=chk,
+               prompt_rows=len(ids), n_vid=vgen.n_img,
+               max_seq=vgen.eng.max_seq_len,
+               prefill_ms=secs["qwen_prefill"][0] * 1e3,
+               ar_prefill_ms=secs["qwen_ar_prefill"][0] * 1e3,
+               msd_ms_step=wall["msd"] * 1e3 / max(runs["msd"].accept_steps,
+                                                    1),
+               ar_ms=wall["ar"] * 1e3 / len(toks["ar"]))
+    s = chk["split"]
+    log(f"[video] video_gen (n_img {vgen.n_img}, max_seq_len "
+        f"{vgen.eng.max_seq_len}, the image generator's target and drafts): "
+        f"a {len(ids)}-row prompt x {max_new} tokens, mrope grid {grid}: "
+        f"graph MSD == null draft: "
+        f"{np.array_equal(toks['msd'], toks['null'])}; committed tokens off "
+        f"the mrope recompute's canonical argmax {chk['off']} of {max_new} "
+        f"(off the shaped recompute's {chk['off_b']}, allowed 0), worst "
+        f"{chk['worst']:.2f} ulps, noise up to {chk['noise']:.2f}; AR == "
+        f"MSD up to the first split: "
+        + ("no split" if s is None else
+           f"split at token {s['at']}, {s['ulps']:.1f} ulps (noise "
+           f"{s['noise']:g}), ranks {s['ranks']}")
+        + f"; K1 launches {launches} (ar = {layers} x {decoded} AR tokens "
+        f"decoded) on {card}")
+    if bad:
+        raise AssertionError(f"[video] {bad}")
+    if on_card:
+        out["step_replay_ms"] = _replay_ms(vgen, runs["msd"].graph)
+        out["ar_replay_ms"] = _replay_ms(vgen, runs["ar"].graph)
+    else:
+        out["step_replay_ms"] = out["ar_replay_ms"] = float("nan")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[video] prefill {out['prefill_ms']:.2f} ms (MSD), "
+        f"{out['ar_prefill_ms']:.2f} ms (AR); replayed verify step "
+        f"{out['step_replay_ms']:.3f} ms, AR token {out['ar_replay_ms']:.3f}"
+        f" ms; wall {out['msd_ms_step']:.2f} ms/step MSD, {out['ar_ms']:.2f} "
+        f"ms/token AR (prefill included); recompute check "
+        f"{out['check_s']:.1f}s; phase {out['seconds']:.1f}s on {card}")
+    adapter._vgen = None
+    del adapter, vgen
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
              max_seq: int = MAX_SEQ, max_new: int = QWEN_NEW,
              prompt_tokens: int = PROMPT_TOKENS, image_size: int = 336,
              limit: int = QWEN_LIMIT, harness_new: int = HARNESS_NEW,
-             tasks=HARNESS_TASKS, max_new_warm: int = 4) -> dict:
+             tasks=HARNESS_TASKS, max_new_warm: int = 4,
+             video_frames: int = VIDEO_FRAMES) -> dict:
     """Qwen2-VL-7B at full width (``qcfg``/``vcfg`` cut it for the CPU):
     the qkv-bias GQA 28/4 decoder (bf16 weights, fp32 residual, q/k/v
     biases drawn at std ``QWEN_BIAS_STD``, ``lm_head`` x6), a 13-head
@@ -4294,7 +4646,7 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
                        f"{chk['bad']}")
         if chk["split"] is not None:
             splits.append(chk["split"])
-        if not qwen_split_ok(chk["split"], tie):
+        if not split_ok(chk["split"], tie):
             bad.append(f"prompt {pi}: AR departs from MSD at a split "
                        f"that is no rounding tie: {chk['split']}")
     out["recompute_worst"] = max(c["worst"] for c in checks)
@@ -4407,6 +4759,10 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"eager, null draft {out['null_ms_step']:.2f} (wall incl. "
         f"prefill), {out['step_replay_ms']:.3f} ms per replayed step, alpha "
         f"{out['alpha']:.3f} on {card}")
+
+    # [video]: 32 frames through the tower, then the adapter's video_gen
+    out["video"] = run_video(gen, drafts, vision, vcfg, lc, image_size,
+                             max_new, tie, card, n_frames=video_frames)
 
     # the checkpoint: written, read back bitwise
     ckpt, ddir, ndir = f"{root}/qwen2vl", f"{root}/draft", f"{root}/null"
@@ -4544,7 +4900,7 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     if hbad:
         bad.append(f"A's tokens off the mrope recompute: {hbad}")
     hsplits = [r["split"] for r in of("B") if r["split"] is not None]
-    if not all(qwen_split_ok(sp, tie) for sp in hsplits):
+    if not all(split_ok(sp, tie) for sp in hsplits):
         bad.append(f"B departs from A at a split that is no rounding tie: "
                    f"{hsplits}")
     if "ai2d_ppl" in tasks and responses("B", "ai2d_ppl") != \
@@ -4629,6 +4985,380 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"{check_s[0]:.1f}s and the planted fault {out['fault_s']:.1f}s on "
         f"{card}")
     del gens, gen, gen_o
+    return out
+
+
+def timed_calls(module, names):
+    """Patch ``module``'s functions ``names`` to record each call's host
+    seconds, the device synchronised on both sides (for prefills, which
+    no graph holds). Returns (seconds lists by name, restore)."""
+    import torch
+
+    on_card = torch.cuda.is_available()
+    orig = {n: getattr(module, n) for n in names}
+    secs = {n: [] for n in names}
+
+    def wrap(n):
+        def timed(*a, **kw):
+            if on_card:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = orig[n](*a, **kw)
+            if on_card:
+                torch.cuda.synchronize()
+            secs[n].append(time.perf_counter() - t1)
+            return r
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n))
+
+    def restore():
+        for n, f in orig.items():
+            setattr(module, n, f)
+    return secs, restore
+
+
+def _prep_ms(fn, img, reps: int = 5) -> float:
+    """Host ms per call of an image prep ``fn(img)`` (a first call
+    untimed: the native library builds there)."""
+    fn(img)
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn(img)
+    return (time.perf_counter() - t1) * 1e3 / reps
+
+
+def run_multi(res, serve, max_seq: int = MULTI_SEQ, max_new: int = MULTI_NEW,
+              pad_multiple: int = 64, max_new_warm: int = 4) -> dict:
+    """Multi-visual LLaVA prompts on the main path's target, medusa and
+    null drafts and ``[serve]``'s CLIP tower and projector, on generators
+    of their own (``max_seq`` cache, ``pad_multiple`` prompt buckets) that
+    share those tensors and are released at the end. Seeded uint8 images
+    through the native prep, four requests of 64 text tokens x
+    ``max_new`` new tokens:
+
+    (a) two base-size images at two placeholders (2 x 576 rows at 336px);
+    (b) one 3 x 2 base image (1008 x 672 at 336) through anyres
+        (``process_anyres_image``: a 2 x 2 grid plus the base view,
+        ``merge_anyres_features`` 'spatial_unpad' with a seeded
+        ``image_newline``: 576 + 32 x 49 = 2144 rows at 336);
+    (c) one image through S2 at (1, 2, 3) x base with a seeded projector
+        from 3 x the tower's width;
+    (d) one image as a one-block list (the prefused prefill, padded from
+        e0) and as a tensor (the standard path, padded, then expanded).
+
+    Each list request runs graph MSD, eager MSD, graph null-draft MSD and
+    the AR baseline (``naive_generate``, K1). Fails unless MSD == eager ==
+    null draft, bitwise; every committed MSD token passes ``token_check``
+    against the image rows spliced in by concatenation (exact at the
+    verify's row shapes, within ``HARNESS_TIE`` bf16 ulps plus the row's
+    noise unpadded; exact off the card); AR equals MSD up to the first
+    split, each split such a tie (none off the card); (d)'s two paths
+    likewise; K1 launches layers x AR tokens decoded, 0 in MSD; no
+    capture in a timed run; and the gate rejects MSD over a planted
+    ``fuse_embeddings_multi`` that gives (a)'s second placeholder the
+    first image's block.
+    Prints the prefill ms, the replayed ms per step, the towers' ms and
+    the native against the PIL prep ms per image."""
+    import torch
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX, EngineConfig
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.models import llava as LV
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.utils import mm_utils as MM
+
+    ctx = res["ctx"]
+    main, drafts, tcfg = ctx["gens"]["graph"], ctx["drafts"], ctx["tcfg"]
+    sync, on_card, device = ctx["sync"], ctx["on_card"], ctx["device"]
+    lp, lcfg = serve["llava"], serve["lcfg"]
+    vcfg = lcfg.vision
+    base = vcfg.image_size
+    card = smi_name_and_limit() if on_card else "cpu"
+    tie = HARNESS_TIE if on_card else 0.0
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=pad_multiple,
+                       tree=main.eng.tree)
+
+    def generator(cuda_graphs):
+        return MSDGenerator(main.params["target"], drafts["msd"], tcfg,
+                            main.dcfg, eng, n_img=main.n_img, eos_id=-1,
+                            sp=main.sp, device=device,
+                            cuda_graphs=cuda_graphs)
+
+    gens = {"graph": generator(True), "eager": generator(False)}
+    out = {"card": card}
+
+    # seeded images; the native prep against the PIL path
+    rng = np.random.default_rng(21)
+    g = torch.Generator(device=device).manual_seed(21)
+    # (a)'s two images: seeded noise and a seeded smooth gradient, so
+    # their rows differ in content as well as in place
+    ramp = np.linspace(0.0, 1.0, base)
+    imgs = [rng.integers(0, 256, size=(base, base, 3), dtype=np.uint8),
+            (255 * np.stack([np.outer(ramp, ramp), ramp[None].repeat(base, 0),
+                             ramp[:, None].repeat(base, 1)], -1)
+             * rng.uniform(0.5, 1.0, 3)).astype(np.uint8)]
+    aw, ah = 3 * base, 2 * base
+    wide = rng.integers(0, 256, size=(ah, aw, 3), dtype=np.uint8)
+    scales = (base, 2 * base, 3 * base)
+    big = rng.integers(0, 256, size=(scales[-1],) * 2 + (3,), dtype=np.uint8)
+    pins = tuple((w * base // 336, h * base // 336)
+                 for w, h in MM.DEFAULT_GRID_PINPOINTS)
+    out["prep_ms"] = {
+        "native": _prep_ms(lambda im: MM.process_image(im, base), imgs[0]),
+        "pil": _prep_ms(lambda im: MM.process_image(im, base,
+                                                    use_native=False),
+                        imgs[0]),
+        "native_s2": _prep_ms(lambda im: MM.process_image(im, scales[-1]),
+                              big, 2),
+        "pil_s2": _prep_ms(lambda im: MM.process_image(
+            im, scales[-1], use_native=False), big, 2),
+        "anyres": _prep_ms(lambda im: MM.process_anyres_image(im, base,
+                                                              pins), wide, 2)}
+
+    def encode(cfg, params, px, label):
+        x = torch.from_numpy(px).to(device)
+        LV.encode_image(params, cfg, x)            # warm-up
+        sync()
+        t1 = time.perf_counter()
+        f = LV.encode_image(params, cfg, x)
+        sync()
+        out.setdefault("tower_ms", {})[label] = \
+            (time.perf_counter() - t1) * 1e3
+        return f
+
+    fa = [encode(lcfg, lp, MM.process_image(im, base), "image")
+          for im in imgs[:2]]
+    views = MM.process_anyres_image(wide, base, pins)
+    grid_wh = MM.get_anyres_image_grid_shape((aw, ah), pins, base)
+    tiles = encode(lcfg, lp, views, "anyres views")
+    newline = torch.randn(tcfg.hidden_size, generator=g, device=device,
+                          dtype=tiles.dtype).mul_(0.02)
+    fb = LV.merge_anyres_features(tiles, grid_wh, (aw, ah),
+                                  base // vcfg.patch_size,
+                                  image_newline=newline,
+                                  mode="spatial_unpad")
+    s2cfg = dataclasses.replace(lcfg, s2_scales=scales)
+    s2 = {"vision": lp["vision"],
+          "projector": LV.init_projector_params(s2cfg, g, device,
+                                                fa[0].dtype)}
+    fc = encode(s2cfg, s2, MM.process_image(big, scales[-1]), "S2")
+    bad = [f"{k}: rows {tuple(f.shape)}, finite "
+           f"{bool(torch.isfinite(f).all())}"
+           for k, f in (("a0", fa[0]), ("a1", fa[1]), ("b", fb), ("c", fc))
+           if f.shape[-1] != tcfg.hidden_size
+           or not bool(torch.isfinite(f).all())]
+    if bad:
+        raise AssertionError(f"[multi] visual rows: {bad}")
+    log(f"[multi] prep per image: native {out['prep_ms']['native']:.2f} ms,"
+        f" PIL {out['prep_ms']['pil']:.2f} ms at {base}px; at "
+        f"{scales[-1]}px native {out['prep_ms']['native_s2']:.2f} ms, PIL "
+        f"{out['prep_ms']['pil_s2']:.2f} ms; anyres {aw}x{ah} (1 + "
+        f"{len(views) - 1} views) {out['prep_ms']['anyres']:.2f} ms. Towers:"
+        f" " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                          out["tower_ms"].items())
+        + f"; anyres grid {grid_wh}, {fb.shape[0]} merged rows; S2 "
+        f"{scales}: {fc.shape[0]} rows from {sum((s // base) ** 2 for s in scales)}"
+        f" tiles, projector {s2cfg.mm_hidden_size} -> {tcfg.hidden_size} on "
+        f"{card}")
+
+    vocab_hi = min(31000, tcfg.vocab_size - 1)
+
+    def prompt(*spots):
+        ids = rng.integers(3, vocab_hi, size=64).astype(np.int32)
+        ids[list(spots)] = IMAGE_TOKEN_INDEX
+        return ids
+
+    reqs = {"a": (prompt(1, 33), fa), "b": (prompt(1), [fb]),
+            "c": (prompt(1), [fc]), "d": (prompt(1), [fa[0]])}
+
+    def captures(gen):
+        return 0 if gen.graphs is None else len(gen.graphs.steps)
+
+    gen, eager = gens["graph"], gens["eager"]
+    ids_a, blocks_a = reqs["a"]
+    gen.naive_generate(ids_a, blocks_a, max_new_warm)
+    for name in ("null", "msd"):
+        gen.params["draft"] = drafts[name]
+        gen.generate(ids_a, blocks_a, max_new_warm)
+    eager.generate(ids_a, blocks_a, max_new_warm)
+    sync()
+    n_cap = captures(gen)
+    secs, restore = timed_calls(SE, ("prefill", "prefill_prefused",
+                                     "ar_prefill_prefused"))
+    runs, wall, launches = {}, {}, {}
+    try:
+        for key, (ids, blocks) in reqs.items():
+            for name in ("ar", "msd", "null", "eager"):
+                g_ = eager if name == "eager" else gen
+                g_.params["draft"] = drafts["null" if name == "null"
+                                            else "msd"]
+                # the counts of this path: zeroed just before, read after
+                K1.decode_attention.launches = 0
+                t1 = time.perf_counter()
+                r = g_.naive_generate(ids, blocks, max_new) if name == "ar" \
+                    else g_.generate(ids, blocks, max_new)
+                sync()
+                wall[key, name] = time.perf_counter() - t1
+                launches[key, name] = K1.decode_attention.launches
+                runs[key, name] = r
+                if g_.graphs is not None and not g_.graphs.reads(r.graph,
+                                                                 g_.params):
+                    raise AssertionError(f"[multi] {key} {name}: replayed a "
+                                         f"graph captured for other weights")
+        gen.params["draft"] = drafts["msd"]
+        ids_d, blocks_d = reqs["d"]
+        t1 = time.perf_counter()
+        runs["d", "standard"] = gen.generate(ids_d, blocks_d[0], max_new)
+        sync()
+        wall["d", "standard"] = time.perf_counter() - t1
+    finally:
+        restore()
+    if captures(gen) != n_cap or captures(eager):
+        raise AssertionError("[multi] a capture inside the timed runs")
+    layers = tcfg.num_hidden_layers
+    ar_decoded = sum(len(runs[k, "ar"].tokens) - 1 for k in reqs)
+    k1_ar = sum(launches[k, "ar"] for k in reqs)
+    k1_msd = sum(launches[k, n] for k in reqs
+                 for n in ("msd", "null", "eager"))
+    out.update(launches=k1_ar, ar_decoded=ar_decoded,
+               launches_by={k: launches[k, "ar"] for k in reqs})
+    bad = []
+    if k1_ar != (layers * ar_decoded if on_card else 0) or k1_msd:
+        bad.append(f"K1 launches {k1_ar} in AR (want {layers} x "
+                   f"{ar_decoded} AR tokens decoded), {k1_msd} in MSD")
+    checks, t_chk, same = {}, time.perf_counter(), True
+    for key, (ids, blocks) in reqs.items():
+        toks = {n: runs[key, n].tokens for n in ("ar", "msd", "null",
+                                                 "eager")}
+        for n, t in toks.items():
+            if t.shape != (max_new,) or t.min() < 0 \
+                    or t.max() >= tcfg.vocab_size:
+                bad.append(f"{key} {n}: bad tokens {t.shape}")
+        if not (np.array_equal(toks["msd"], toks["null"])
+                and np.array_equal(toks["msd"], toks["eager"])):
+            same = False
+            bad.append(f"{key}: MSD, eager MSD and null-draft tokens differ")
+        chk = token_check(gen, llava_logits_fn(gen, ids, blocks),
+                          toks["msd"], toks["ar"], tie)
+        checks[key] = chk
+        if chk["bad"]:
+            bad.append(f"{key}: committed tokens off the recompute's argmax "
+                       f"(token, ulps below A's top, allowed, below B's, "
+                       f"rank): {chk['bad']}")
+        if not split_ok(chk["split"], tie):
+            bad.append(f"{key}: AR departs from MSD at a split that is no "
+                       f"rounding tie: {chk['split']}")
+    ids_d, blocks_d = reqs["d"]
+    std = runs["d", "standard"].tokens
+    checks["d std"] = token_check(gen, llava_logits_fn(gen, ids_d, blocks_d),
+                                  runs["d", "msd"].tokens, std, tie)
+    if not split_ok(checks["d std"]["split"], tie):
+        bad.append(f"d: the standard path departs from the prefused one at "
+                   f"a split that is no rounding tie: "
+                   f"{checks['d std']['split']}")
+    out["check_s"] = time.perf_counter() - t_chk
+    m = gen.eng.prompt_pad_multiple
+    e0 = {k: len(ids) - len(bl) + sum(len(b) for b in bl)
+          for k, (ids, bl) in reqs.items()}
+    rows_std = -m * (-len(ids_d) // m) + gen.n_img - 1
+    rows_pre = -m * (-e0["d"] // m)
+    splits = {k: c["split"] for k, c in checks.items()
+              if c["split"] is not None}
+    log(f"[multi] {len(reqs)} requests x {max_new} tokens, expanded prompt "
+        f"rows {e0}: graph MSD == eager MSD == null draft: {same}; "
+        f"committed MSD tokens off "
+        f"the recompute's canonical argmax "
+        f"{sum(c['off'] for k, c in checks.items() if k != 'd std')} of "
+        f"{len(reqs) * max_new} (off the shaped recompute's "
+        f"{sum(c['off_b'] for k, c in checks.items() if k != 'd std')}, "
+        f"allowed 0), noise up to "
+        f"{max(c['noise'] for c in checks.values()):.2f} ulps; AR == MSD up "
+        f"to the first split, splits (request: token, ulps, noise, ranks): "
+        + ("; ".join(f"{k}: {s['at']}, {s['ulps']:.1f}, {s['noise']:g}, "
+                     f"{s['ranks']}" for k, s in splits.items()) or "none")
+        + f"; (d) prefill rows: standard {rows_std} ({m}-multiple padding "
+        f"then expansion), prefused {rows_pre} (padding of e0 "
+        f"{e0['d']}); K1 launches {k1_ar} = {layers} x {ar_decoded} AR "
+        f"tokens decoded, {k1_msd} in MSD on {card}")
+    if bad:
+        raise AssertionError(f"[multi] {bad}")
+
+    # the planted fault: every placeholder of (a) takes the first
+    # image's block in the fusion (a swap of the two blocks keeps every
+    # row and moves them by 33 positions, which random weights do not
+    # tell apart: no gate rejected it on an H100)
+    real = LV.fuse_embeddings_multi
+
+    def first_block(table, ids, feats_list):
+        return real(table, ids, [feats_list[0]] * len(feats_list))
+
+    LV.fuse_embeddings_multi = first_block
+    try:
+        faulty = gen.generate(ids_a, blocks_a, max_new)
+    finally:
+        LV.fuse_embeddings_multi = real
+    chk = token_check(gen, llava_logits_fn(gen, ids_a, blocks_a),
+                      faulty.tokens, tie=tie)
+    differ = np.flatnonzero(faulty.tokens != runs["a", "msd"].tokens)
+    if not (chk["bad_a"] and chk["off_b"]):
+        raise AssertionError(f"[multi] MSD over the first image's block "
+                             f"at both placeholders passes the recompute "
+                             f"gate: A rejects "
+                             f"{chk['bad_a']} tokens, B {chk['off_b']}")
+    out["fault"] = {"by_a": chk["bad_a"], "by_b": chk["off_b"],
+                    "differ": int(differ[0]) if len(differ) else None}
+    log(f"[multi] planted fault (fuse_embeddings_multi giving (a)'s "
+        f"second placeholder the first image's block): tokens first differ "
+        f"at "
+        f"{out['fault']['differ']}; the gate rejects {chk['bad_a']} of "
+        f"{max_new} by A's allowance and {chk['off_b']} off B's argmax, so "
+        f"[multi] fails it, as it must, on {card}")
+
+    def ms(key, name, unit):
+        r = runs[key, name]
+        n = len(r.tokens) if unit == "token" else max(r.accept_steps, 1)
+        return wall[key, name] * 1e3 / n
+
+    # per request: the MSD, null and eager prefills, then the standard one
+    out["prefill_ms"] = {k: v * 1e3 for k, v in zip(
+        list(reqs) + ["d standard"],
+        secs["prefill_prefused"][::3] + secs["prefill"])}
+    out["ar_prefill_ms"] = {k: v * 1e3 for k, v in zip(
+        reqs, secs["ar_prefill_prefused"])}
+    out["msd_ms_step"] = {k: ms(k, "msd", "step") for k in reqs}
+    out["eager_ms_step"] = {k: ms(k, "eager", "step") for k in reqs}
+    out["ar_ms"] = {k: ms(k, "ar", "token") for k in reqs}
+    if on_card:
+        out["step_replay_ms"] = _replay_ms(gen, runs["a", "msd"].graph)
+        out["ar_replay_ms"] = _replay_ms(gen, runs["a", "ar"].graph)
+    else:
+        out["step_replay_ms"] = out["ar_replay_ms"] = float("nan")
+    out["peak"] = torch.cuda.max_memory_allocated() if on_card else 0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[multi] prefill ms (MSD): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["prefill_ms"].items())
+        + "; AR prefill ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["ar_prefill_ms"].items())
+        + f"; replayed verify step {out['step_replay_ms']:.3f} ms, AR token "
+        f"{out['ar_replay_ms']:.3f} ms (request a); wall ms/step graph "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["msd_ms_step"].items())
+        + "; eager " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                 out["eager_ms_step"].items())
+        + "; AR ms/token " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       out["ar_ms"].items())
+        + f"; recompute checks {out['check_s']:.1f}s; peak "
+        f"{out['peak'] / 2**30:.2f} GiB; phase {out['seconds']:.1f}s on "
+        f"{card}")
+    # the phase's generators, states and graphs go
+    del gens, gen, eager
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5299,6 +6029,10 @@ def run_all(root: str):
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",
                                           "int8 draft")}
+    multi = run_multi(res, serve)
+    k1["multi_ar"]["two-image"]["launches"] = multi["launches_by"]["a"]
+    k1["multi_ar"]["anyres"]["launches"] = multi["launches_by"]["b"]
+    k1["multi_launches"] = multi["launches"]
     profile_k1()
     res["profile"]()
     sampling["profile"]()
@@ -5363,6 +6097,7 @@ def run_all(root: str):
         shutil.rmtree(root, ignore_errors=True)
     k1["qwen_ar"]["launches"] = qwen["launches"]
     k1["qwen_ar"]["harness_launches"] = qwen["harness_launches"]
+    k1["video_ar"]["launches"] = qwen["video"]["launches"]
     log(f"[qwen] on {card}: AR token {qwen['ar_replay_ms']:.3f} ms "
         f"replayed ({qwen['ar_ms']:.2f} ms/token wall), verify step "
         f"{qwen['step_replay_ms']:.3f} ms replayed ({qwen['msd_ms_step']:.2f}"
@@ -5374,6 +6109,24 @@ def run_all(root: str):
         f"at G*T = 7 {k1['qwen_ar']['ms'] * 1e3:.2f} us (bound "
         f"{k1['qwen_ar']['bound_ms'] * 1e3:.2f}); peak "
         f"{qwen['peak'] / 2**30:.2f} GiB; phase {qwen['seconds']:.1f}s")
+    v = qwen["video"]
+    log(f"[multi] on {card}: prefill ms " + ", ".join(
+        f"{k} {x:.2f}" for k, x in multi["prefill_ms"].items())
+        + f"; replayed verify step {multi['step_replay_ms']:.3f} ms, AR "
+        f"token {multi['ar_replay_ms']:.3f} ms; prep per 336px image native "
+        f"{multi['prep_ms']['native']:.2f} ms, PIL "
+        f"{multi['prep_ms']['pil']:.2f} ms; towers " + ", ".join(
+            f"{k} {x:.2f} ms" for k, x in multi["tower_ms"].items())
+        + f"; peak {multi['peak'] / 2**30:.2f} GiB; phase "
+        f"{multi['seconds']:.1f}s. [video]: tower {v['tower_ms']:.2f} ms "
+        f"per {VIDEO_FRAMES}-frame video (peak "
+        f"{v['tower_peak'] / 2**30:.2f} GiB above the weights), prefill "
+        f"{v['prefill_ms']:.2f} ms, replayed verify step "
+        f"{v['step_replay_ms']:.3f} ms, AR token {v['ar_replay_ms']:.3f} ms;"
+        f" K1 at the new rows (us, kernel / sdpa / bound): " + "; ".join(
+            f"{k} {e['ms'] * 1e3:.2f} / {e['library_ms'] * 1e3:.2f} / "
+            f"{e['bound_ms'] * 1e3:.2f}" for k, e in
+            list(k1["multi_ar"].items()) + [("video", k1["video_ar"])]))
     log(f"[train] on {card}: fit {train['fit_ms']:.1f} ms/step, stage 1 "
         f"{train['ft1_ms']:.1f} ms/step, stage 2 {train['ft2_ms']:.1f} "
         f"ms/step; records/s "

@@ -16,7 +16,12 @@ as in the JAX package. The draft's fc always has a bias
 (``train/``) runs on one device: the JAX ``DraftTrainer``'s and
 ``LlavaFinetuner``'s ``mesh`` argument (megatron parameter specs, ZeRO
 optimizer-state sharding) is left out until the port has its parallel
-modules over ``torch.distributed``.
+modules over ``torch.distributed``. ``LlavaConfig.s2_scales`` (S2
+multi-scale features) is here; LLaVA-1.6 anyres has no config, as in the
+JAX package: its grid pinpoints, merge mode and ``image_newline`` are
+arguments (``utils/mm_utils``, ``models/llava``). Qwen-VL v1's configs
+(the JAX ``models/qwen_vl_v1.py``) are left out until the port has that
+model (M15b).
 """
 
 from __future__ import annotations
@@ -112,13 +117,16 @@ class ClipVisionConfig:
 
 @dataclass(frozen=True)
 class LlavaConfig:
-    """LLaVA-1.5 VLM: vision tower + mlp2x_gelu projector + LM (the
-    single-image fields; S2 multi-scale features are not ported)."""
+    """LLaVA-1.5 VLM: vision tower + mlp2x_gelu projector + LM."""
 
     text: LlamaConfig = dataclasses.field(default_factory=LlamaConfig.llava_7b)
     vision: ClipVisionConfig = dataclasses.field(
         default_factory=ClipVisionConfig)
     mm_projector_type: str = "mlp2x_gelu"
+    # S2 multi-scale scales (clip_encoder.py:92-147), e.g. (336, 672, 1008);
+    # None = single-scale. The projector's input width scales with
+    # len(s2_scales).
+    s2_scales: Optional[tuple] = None
 
     @property
     def num_image_tokens(self) -> int:
@@ -126,7 +134,8 @@ class LlavaConfig:
 
     @property
     def mm_hidden_size(self) -> int:
-        return self.vision.hidden_size
+        n = len(self.s2_scales) if self.s2_scales else 1
+        return self.vision.hidden_size * n
 
     @staticmethod
     def tiny() -> "LlavaConfig":

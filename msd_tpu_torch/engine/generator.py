@@ -1,15 +1,18 @@
 """Host-side wrapper around the engine: prompt bucketing, result extraction
 and per-request stats.
 
-The port of the JAX package's ``engine/generator.py`` for prompts with at
-most one image, expanded from a placeholder (LLaVA) or inline (Qwen2-VL:
+The port of the JAX package's ``engine/generator.py`` for prompts whose
+images are expanded from placeholders (LLaVA) or inline (Qwen2-VL:
 ``image_mode="inline"``, the prompt holds the image-pad span and the
 caller passes the merged grid ``img_grid`` for mrope): ``generate`` (MSD in every drafting mode,
 greedy or sampled, with the calibrated rerank after ``set_calibrator``,
 the collection of its features and of the trajectory's hidden states for
 distillation), ``generate_stream`` (the same tokens in segments),
 ``generate_batch`` (B requests as the lanes of one batched step),
-``naive_generate`` (the AR baseline, optionally from the MSD prefill),
+``naive_generate`` (the AR baseline, optionally from the MSD prefill;
+``generate`` and ``naive_generate`` also take a list of image feature
+blocks, one per placeholder: several images, or anyres tiles merged into
+one block, fused beforehand and prefilled as they are),
 ``score`` (a teacher-forced loglikelihood), ``first_token``,
 ``set_draft`` and ``autotune_tree``. ``prefill`` and
 ``decode`` ranges mark each request's two phases for ``torch.profiler``.
@@ -279,6 +282,31 @@ class MSDGenerator:
             SE.prefill(st, self.params, state, padded, len(ids), img_feats,
                        img_pos, first_token, rng)
 
+    def _fuse_multi(self, ids, img_feats_list) -> tuple:
+        """A multi-image prompt's fused block on the device
+        (``models/llava.fuse_embeddings_multi``; llava_arch.py:229-324),
+        padded to the next multiple of prompt_pad_multiple: (fused
+        [P, H], exp_ids [P] int32, image-row mask [P], e0, img_pos), e0
+        the fused length and img_pos its first image row (e0 without one).
+        Refuses a block the engine budget cannot hold."""
+        from msd_tpu_torch.models.llava import fuse_embeddings_multi
+
+        fused, exp_ids, img_rows = fuse_embeddings_multi(
+            self.params["target"]["embed_tokens"], ids, img_feats_list)
+        e0 = fused.shape[0]
+        limit = self._statics(0).step_limit
+        if e0 >= limit:
+            raise ValueError(f"multi-image prompt too long: {e0} expanded "
+                             f"tokens, engine budget allows < {limit}")
+        m = self.eng.prompt_pad_multiple
+        pad = -(-e0 // m) * m - e0
+        fused = torch.cat([fused, fused.new_zeros(pad, fused.shape[1])])
+        exp_ids = torch.cat([exp_ids, exp_ids.new_zeros(pad)])
+        img_rows = torch.cat([img_rows, img_rows.new_zeros(pad)])
+        first = torch.nonzero(img_rows)
+        img_pos = int(first[0, 0]) if len(first) else e0
+        return fused, exp_ids, img_rows, e0, img_pos
+
     def _prompt(self, ids):
         ids = np.asarray(ids, np.int32)
         padded = torch.from_numpy(self._pad(ids)).to(self.device)
@@ -329,19 +357,30 @@ class MSDGenerator:
         copy. img_grid: an inline prompt's merged image grid (mrope)."""
         if use_calibration and "calib" not in self.params:
             raise ValueError("set_calibrator() before use_calibration=True")
-        if first_token is not None and self.image_mode == "inline":
-            # only the expand-mode prefill takes a pinned first token;
-            # dropping it silently would void the alignment asked for
+        multi = isinstance(img_feats, (list, tuple))
+        if first_token is not None and (self.image_mode == "inline"
+                                        or multi):
+            # only the expand-mode single-image prefill takes a pinned
+            # first token; dropping it silently would void the alignment
+            # asked for
             raise ValueError("first_token is not supported for inline-mode "
-                             "prompts")
-        ids, padded, img_pos = self._prompt(ids)
+                             "or multi-image prompts")
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp, use_calibration, collect_calibration,
                            collect_hiddens)
         rng = self.rng.manual_seed(seed)
         with record_function("prefill"):
-            self._prefill(st, self.state, ids, padded, img_pos, img_feats,
-                          img_grid, rng, first_token=first_token)
+            if multi:
+                fused, exp_ids, img_rows, e0, img_pos = self._fuse_multi(
+                    ids, img_feats)
+                SE.prefill_prefused(st, self.params, self.state, fused,
+                                    exp_ids, e0, img_rows, img_pos, rng)
+            else:
+                ids, padded, img_pos = self._prompt(ids)
+                self._prefill(st, self.state, ids, padded, img_pos,
+                              img_feats, img_grid, rng,
+                              first_token=first_token)
+                e0 = self._e0(ids, img_feats)
         step = self.step_fn(SE.decode_step, st, self.bstate)
         with record_function("decode"):
             SE.decode(st, self.params, self.bstate, step, rng)
@@ -356,7 +395,7 @@ class MSDGenerator:
             traj_hidden = _host(s.traj_hidden[:cur].float())
             exp_ids = _host(s.ids[:cur])
         return GenResult(
-            tokens=self._tokens(self._e0(ids, img_feats), max_new),
+            tokens=self._tokens(e0, max_new),
             accept_steps=steps, accept_len_sum=int(s.acc_sum),
             alpha_hist=_host(s.alpha_hist),
             graph=None if step is None else step.index,
@@ -525,15 +564,22 @@ class MSDGenerator:
         it (the AR token itself reads and writes no hiddens). Inline
         prompts (``img_grid`` as in ``generate``) take the target-only
         prefill; share_prefill is for expand-mode prompts."""
-        if share_prefill and self.image_mode != "expand":
-            raise ValueError("share_prefill supports expand-mode prompts "
-                             "only")
-        ids, padded, img_pos = self._prompt(ids)
+        multi = isinstance(img_feats, (list, tuple))
+        if share_prefill and (self.image_mode != "expand" or multi):
+            raise ValueError("share_prefill supports expand-mode "
+                             "single-image/text prompts only")
         max_new = max_new_tokens or self.eng.max_new_tokens
         st = self._statics(max_new, sp)
         rng = self.rng.manual_seed(seed)
+        if not multi:
+            ids, padded, img_pos = self._prompt(ids)
+            e0 = self._e0(ids, img_feats)
         with record_function("prefill"):
-            if share_prefill:
+            if multi:
+                fused, exp_ids, _, e0, _ = self._fuse_multi(ids, img_feats)
+                SE.ar_prefill_prefused(st, self.params, self.state, fused,
+                                       exp_ids, e0, rng)
+            elif share_prefill:
                 pst = dataclasses.replace(st, collect_hiddens=collect_hiddens)
                 SE.prefill(pst, self.params, self.state, padded, len(ids),
                            img_feats, img_pos, rng=rng)
@@ -543,8 +589,7 @@ class MSDGenerator:
         step = self.step_fn(SE.ar_step, st, self.state)
         with record_function("decode"):
             SE.ar_decode(st, self.params, self.state, step, rng)
-        return GenResult(tokens=self._tokens(self._e0(ids, img_feats),
-                                             max_new),
+        return GenResult(tokens=self._tokens(e0, max_new),
                          graph=None if step is None else step.index)
 
 

@@ -6,7 +6,9 @@ The port of the JAX package's ``engine/spec_engine.py``:
 
   prefill : fused multimodal embedding -> target prefill -> first token ->
             draft prefill (EAGLE shift-by-one pairing, image rows bypassing
-            the fusion fc).
+            the fusion fc). ``prefill_prefused`` and
+            ``ar_prefill_prefused`` take a fused block built beforehand
+            (several images, anyres tiles).
   decode  : a host loop over one verify step: extend the draft KV with the
             accepted rows, draft a tree, verify all nodes in one target
             forward with window-canonical attention, accept (greedily, or
@@ -1052,6 +1054,21 @@ def prefill(st: Statics, params: Dict, state: EngineState, ids: torch.Tensor,
                   bonus_override, rng)
 
 
+def prefill_prefused(st: Statics, params: Dict, state: EngineState,
+                     fused: torch.Tensor, exp_ids: torch.Tensor, e0: int,
+                     img_rows: torch.Tensor, img_pos: int,
+                     rng: Optional[torch.Generator] = None):
+    """Target + draft prefill, into ``state``, over prebuilt fused
+    embeddings (multi-image and anyres prompts,
+    ``models/llava.fuse_embeddings_multi``; llava_arch.py:229-324).
+    fused: [P_exp, H], already expanded and padded; exp_ids: [P_exp] int32
+    (0 at image rows); img_rows: [P_exp] bool image-row mask; e0: the
+    expanded prompt length; img_pos: the first image row (e0 without
+    one)."""
+    _prefill_core(st, params, state, fused, exp_ids, e0, img_rows, img_pos,
+                  None, rng)
+
+
 def _prefill_core(st: Statics, params: Dict, state: EngineState,
                   fused: torch.Tensor, exp_ids: torch.Tensor, E0: int,
                   img_rows: torch.Tensor, img_pos: int,
@@ -1237,6 +1254,15 @@ def ar_prefill(st: Statics, params: Dict, state: EngineState,
     n_img = st.n_img if img_feats is not None else 0
     E0 = prompt_len + max(n_img - 1, 0)
     _target_prefill(st, params, state, fused, exp_ids, E0, rng)
+
+
+def ar_prefill_prefused(st: Statics, params: Dict, state: EngineState,
+                        fused: torch.Tensor, exp_ids: torch.Tensor, e0: int,
+                        rng: Optional[torch.Generator] = None):
+    """Target-only prefill + first token, into ``state``, over prebuilt
+    fused embeddings (multi-image and anyres prompts); the arguments as
+    ``prefill_prefused``'s."""
+    _target_prefill(st, params, state, fused, exp_ids, e0, rng)
 
 
 def qwen_ar_prefill(st: Statics, params: Dict, state: EngineState,

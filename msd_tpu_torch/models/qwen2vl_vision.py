@@ -20,10 +20,20 @@ Layouts (``x @ W``; HF checkpoint compatible through
   and ``norm1``/``norm2`` LayerNorms; merger ``ln_q``, ``merge_fc1``
   [4E, 4E], ``merge_fc2`` [4E, hidden].
 
+- A video (``qwen_vision_encode_video``) groups temporal_patch_size
+  consecutive frames into one temporal block (an odd tail repeats the
+  last frame); its patch rows are the blocks' window-major rows in time
+  order, every block with the same 2-D rotary positions, and attention
+  runs within each block (HF's cu_seqlens; the JAX package's dense
+  block-diagonal bias). The port computes it as grid_t batches of
+  gh * gw rows: no [n, n] bias or score matrix (at 32 frames of 336px,
+  n = 9216, that would be 5.4 GB of fp32 scores per layer), and in exact
+  arithmetic the same result, the masked entries being 0 after the
+  softmax.
+
 The tower computes in its weights' dtype (the pixels are cast to it), as
 the CLIP tower does. Its attention is a plain softmax einsum (an XLA op in
-JAX, not a Pallas kernel). Videos (temporal blocks, block-diagonal
-attention) are not ported yet: M15b.
+JAX, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -118,11 +128,36 @@ def window_major_patches(pixels: torch.Tensor, cfg: Qwen2VisionConfig
     return x.reshape(gh * gw, c * cfg.temporal_patch_size * p * p)
 
 
+def window_major_patches_video(frames: torch.Tensor,
+                               cfg: Qwen2VisionConfig) -> torch.Tensor:
+    """[T, 3, H, W] frames -> [grid_t*gh*gw, C*Tp*P*P] patch rows.
+
+    temporal_patch_size consecutive frames make one temporal block
+    (grid_t = ceil(T / Tp); an odd tail repeats the last frame, as
+    Qwen2VLImageProcessor pads); within a block the rows are
+    merge-window-major, the blocks in time order; each row is
+    [C, Tp, P, P]."""
+    tp, p, m = cfg.temporal_patch_size, cfg.patch_size, \
+        cfg.spatial_merge_size
+    T, c, H, W = frames.shape
+    if T % tp:
+        frames = torch.cat([frames, frames[-1:].expand(
+            (tp - T % tp,) + tuple(frames.shape[1:]))])
+        T = frames.shape[0]
+    gt, gh, gw = T // tp, H // p, W // p
+    x = frames.reshape(gt, tp, c, gh // m, m, p, gw // m, m, p)
+    # -> [gt, R, C, r, c, ch, tp, ph, pw] (HF's per-patch [C, Tp, P, P])
+    x = x.permute(0, 3, 6, 4, 7, 2, 1, 5, 8)
+    return x.reshape(gt * gh * gw, c * tp * p * p)
+
+
 def vision_rotary(cfg: Qwen2VisionConfig, gh: int, gw: int,
-                  theta: float = 10000.0, device="cuda"
+                  theta: float = 10000.0, grid_t: int = 1, device="cuda"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [gh*gw, head_dim] fp32 for the window-major patch order,
-    computed in float64 on the host as the JAX version computes them."""
+    """cos/sin [grid_t*gh*gw, head_dim] fp32 for the window-major patch
+    order, the same 2-D positions repeated for every temporal block
+    (rot_pos_emb, modeling_qwen2vl_kv.py:997-1025), computed in float64
+    on the host as the JAX version computes them."""
     m = cfg.spatial_merge_size
     dim4 = cfg.head_dim // 4
     inv = 1.0 / (theta ** (np.arange(0, dim4 * 2, 2, dtype=np.float64)
@@ -137,7 +172,7 @@ def vision_rotary(cfg: Qwen2VisionConfig, gh: int, gw: int,
     hpos, wpos = window_major(hh), window_major(ww)
     freqs = np.concatenate([np.outer(hpos, inv), np.outer(wpos, inv)],
                            axis=1)
-    emb = np.concatenate([freqs, freqs], axis=1)
+    emb = np.tile(np.concatenate([freqs, freqs], axis=1), (grid_t, 1))
     return (torch.from_numpy(np.cos(emb).astype(np.float32)).to(device),
             torch.from_numpy(np.sin(emb).astype(np.float32)).to(device))
 
@@ -148,8 +183,10 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(bp: Params, cfg: Qwen2VisionConfig, x: torch.Tensor,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One pre-LN block over x [n, E] (full attention over the patches)."""
+           cos: torch.Tensor, sin: torch.Tensor,
+           gt: int = 1) -> torch.Tensor:
+    """One pre-LN block over x [n, E]; attention runs within each of the
+    ``gt`` temporal blocks of n / gt consecutive rows (gt batches)."""
     n = x.shape[0]
     e, nh, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     y = layer_norm(x, bp["norm1_w"], bp["norm1_b"], cfg.layer_norm_eps)
@@ -158,30 +195,41 @@ def _block(bp: Params, cfg: Qwen2VisionConfig, x: torch.Tensor,
     qf, kf = q.float(), k.float()
     q = (qf * cos + _rotate_half(qf) * sin).to(x.dtype)
     k = (kf * cos + _rotate_half(kf) * sin).to(x.dtype)
-    scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * d ** -0.5
+    blocks = (gt, n // gt, nh, d)
+    scores = torch.einsum("tqhd,tkhd->thqk", q.float().reshape(blocks),
+                          k.float().reshape(blocks)) * d ** -0.5
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    attn = torch.einsum("hqk,khd->qhd", probs.float(), v.float()).to(x.dtype)
+    attn = torch.einsum("thqk,tkhd->tqhd", probs.float(),
+                        v.float().reshape(blocks)).to(x.dtype)
     x = x + attn.reshape(n, e) @ bp["proj_w"] + bp["proj_b"]
     y = layer_norm(x, bp["norm2_w"], bp["norm2_b"], cfg.layer_norm_eps)
     y = quick_gelu(y @ bp["fc1_w"] + bp["fc1_b"])
     return x + y @ bp["fc2_w"] + bp["fc2_b"]
 
 
-def _encode_core(params: Params, cfg: Qwen2VisionConfig, x: torch.Tensor,
-                 gh: int, gw: int) -> torch.Tensor:
-    """The blocks and the merger over patch embeddings x [gh*gw, E] of one
-    image -> [gh*gw/4, hidden]."""
-    cos, sin = vision_rotary(cfg, gh, gw, device=x.device)
-    cos, sin = cos[:, None, :], sin[:, None, :]
-    blocks = params["blocks"]
-    for i in range(blocks["qkv_w"].shape[0]):
-        x = _block({k: w[i] for k, w in blocks.items()}, cfg, x, cos, sin)
+def merge(params: Params, cfg: Qwen2VisionConfig,
+          x: torch.Tensor) -> torch.Tensor:
+    """The PatchMerger over the blocks' output [n, E]: LayerNorm, each 4
+    consecutive (one merge window's) rows as one [4E] row, an exact-GELU
+    MLP -> [n/4, hidden]."""
     x = layer_norm(x, params["ln_q_w"], params["ln_q_b"], cfg.layer_norm_eps)
-    merge_in = cfg.embed_dim * cfg.spatial_merge_size ** 2
-    x = x.reshape(-1, merge_in)
+    x = x.reshape(-1, cfg.embed_dim * cfg.spatial_merge_size ** 2)
     x = x @ params["merge_fc1"] + params["merge_fc1_b"]
     x = F.gelu(x.float()).to(x.dtype)          # the merger's exact GELU
     return x @ params["merge_fc2"] + params["merge_fc2_b"]
+
+
+def _encode_core(params: Params, cfg: Qwen2VisionConfig, x: torch.Tensor,
+                 gt: int, gh: int, gw: int) -> torch.Tensor:
+    """The blocks and the merger over patch embeddings x [gt*gh*gw, E]
+    of gt temporal blocks -> [gt*gh*gw/4, hidden]."""
+    cos, sin = vision_rotary(cfg, gh, gw, grid_t=gt, device=x.device)
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    blocks = params["blocks"]
+    for i in range(blocks["qkv_w"].shape[0]):
+        x = _block({k: w[i] for k, w in blocks.items()}, cfg, x, cos, sin,
+                   gt)
+    return merge(params, cfg, x)
 
 
 def qwen_vision_encode(params: Params, cfg: Qwen2VisionConfig,
@@ -192,15 +240,20 @@ def qwen_vision_encode(params: Params, cfg: Qwen2VisionConfig,
     _, H, W = pixels.shape
     w = params["patch_embed"]
     x = window_major_patches(pixels.to(w.dtype), cfg) @ w
-    return _encode_core(params, cfg, x, H // p, W // p)
+    return _encode_core(params, cfg, x, 1, H // p, W // p)
 
 
 def qwen_vision_encode_video(params: Params, cfg: Qwen2VisionConfig,
                              frames: torch.Tensor) -> torch.Tensor:
-    """Video frames through the tower: not ported yet (M15b)."""
-    raise NotImplementedError(
-        "Qwen2-VL video encoding (qwen_vision_encode_video, "
-        "window_major_patches_video) is not ported yet: M15b")
+    """[T, 3, H, W] (normalized frames) -> merged video tokens
+    [grid_t*(H/P)*(W/P)/4, hidden] in the weights' dtype, grid_t =
+    ceil(T / temporal_patch_size); attention within each temporal block
+    (modeling_qwen2vl_kv.py:1032)."""
+    tp, p = cfg.temporal_patch_size, cfg.patch_size
+    T, _, H, W = frames.shape
+    w = params["patch_embed"]
+    x = window_major_patches_video(frames.to(w.dtype), cfg) @ w
+    return _encode_core(params, cfg, x, -(-T // tp), H // p, W // p)
 
 
 def params_from_hf_qwen_vision(state: Dict[str, torch.Tensor],

@@ -1,13 +1,22 @@
-"""Image preprocessing and multimodal tokenization (numpy; PIL for the
-resize and for decoding image files).
+"""Image preprocessing and multimodal tokenization (numpy; the native C++
+prep or PIL for the resize, PIL for decoding image files).
 
-The port's copy of the single-image part of the JAX package's
-``utils/mm_utils.py`` (reference: LLaVA/llava/mm_utils.py:166-247):
-``process_image`` with the 'pad' aspect mode (expand2square with the mean
-color) and CLIP preprocessing, and ``tokenizer_image_token``, which splits
-the prompt on <image> and inserts the -200 placeholder. The resize is
-PIL's bicubic, as CLIPImageProcessor's; the JAX package's optional native
-(C++) image prep is not part of the port.
+The port's copy of the JAX package's ``utils/mm_utils.py`` (reference:
+LLaVA/llava/mm_utils.py:166-247): ``process_image`` with the 'pad' aspect
+mode (expand2square with the mean color) and CLIP preprocessing,
+``tokenizer_image_token``, which splits the prompt on <image> and inserts
+the -200 placeholder, and LLaVA-1.6's anyres tiling
+(``select_best_resolution``, ``resize_and_pad_image``,
+``divide_to_patches``, ``get_anyres_image_grid_shape``,
+``process_anyres_image``).
+
+``process_image`` resizes a uint8 image through the native prep
+(``utils/native.py``, built with g++ at first use) by default, as the JAX
+package does, so both give the same pixels bitwise. Where the JAX package
+falls back to PIL when its library is missing, the port raises;
+``use_native=False`` is the explicit PIL path (bicubic, as
+CLIPImageProcessor's). A non-uint8 array takes the PIL path, as in JAX
+(the library reads uint8).
 """
 
 from __future__ import annotations
@@ -52,13 +61,22 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
     return np.asarray(pil, np.float32)
 
 
-def process_image(img, image_size: int = 336,
-                  pad_square: bool = True) -> np.ndarray:
-    """PIL image / HWC array -> CLIP-normalized CHW float32 [3, S, S]."""
+def process_image(img, image_size: int = 336, pad_square: bool = True,
+                  use_native: bool = True) -> np.ndarray:
+    """PIL image / HWC array -> CLIP-normalized CHW float32 [3, S, S].
+
+    use_native: resize a uint8 image through the native prep
+    (``utils/native.image_prep_native``), which raises if its library
+    cannot be built; False takes the PIL path."""
     if not isinstance(img, np.ndarray):
         img = np.asarray(img.convert("RGB"))
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
+    if use_native and img.dtype == np.uint8:
+        from msd_tpu_torch.utils.native import image_prep_native
+
+        return image_prep_native(img, image_size, CLIP_MEAN, CLIP_STD,
+                                 pad_square)
     if pad_square:
         img = expand2square(img)
     img = _resize_bilinear(img, image_size)
@@ -96,3 +114,88 @@ def tokenizer_image_token(prompt: str, tokenizer,
     for x in insert_separator(chunks, [image_token_index] * (offset + 1)):
         ids.extend(x[offset:])
     return np.asarray(ids, np.int32)
+
+
+# ---------------------------------------------------------------------------
+# anyres (LLaVA-1.6-style) tiling: llava_arch.py:153-200 and mm_utils
+# select_best_resolution / process_anyres_image. The merged features feed
+# the engine's prefused prefill (spec_engine.prefill_prefused).
+# ---------------------------------------------------------------------------
+
+def select_best_resolution(original_size, possible_resolutions):
+    """The grid resolution (w, h) that maximises the effective resolution,
+    then minimises the wasted area (mm_utils select_best_resolution);
+    original_size is (width, height)."""
+    ow, oh = original_size
+    best, best_fit = None, None
+    for (w, h) in possible_resolutions:
+        scale = min(w / ow, h / oh)
+        down_w, down_h = int(ow * scale), int(oh * scale)
+        effective = min(down_w * down_h, ow * oh)
+        wasted = w * h - effective
+        key = (-effective, wasted)
+        if best_fit is None or key < best_fit:
+            best_fit, best = key, (w, h)
+    return best
+
+
+def divide_to_patches(img: np.ndarray, patch_size: int) -> List[np.ndarray]:
+    """Split an HWC image into patch_size x patch_size tiles, row-major."""
+    h, w, _ = img.shape
+    return [img[i:i + patch_size, j:j + patch_size]
+            for i in range(0, h, patch_size)
+            for j in range(0, w, patch_size)]
+
+
+DEFAULT_GRID_PINPOINTS = ((336, 672), (672, 336), (672, 672),
+                          (1008, 336), (336, 1008))
+
+
+def resize_and_pad_image(img: np.ndarray, target_resolution) -> np.ndarray:
+    """Aspect-preserving PIL bicubic resize, then a centred black pad to
+    target_resolution (tw, th) (mm_utils.py:42-74); uint8 HWC out."""
+    import math
+
+    from PIL import Image
+
+    oh, ow = img.shape[:2]
+    tw, th = target_resolution
+    scale_w, scale_h = tw / ow, th / oh
+    if scale_w < scale_h:
+        nw, nh = tw, min(math.ceil(oh * scale_w), th)
+    else:
+        nh, nw = th, min(math.ceil(ow * scale_h), tw)
+    resized = np.asarray(Image.fromarray(img.astype(np.uint8))
+                         .resize((nw, nh), Image.BICUBIC))
+    out = np.zeros((th, tw, 3), np.uint8)
+    y, x = (th - nh) // 2, (tw - nw) // 2
+    out[y:y + nh, x:x + nw] = resized
+    return out
+
+
+def get_anyres_image_grid_shape(image_size, grid_pinpoints,
+                                patch_size: int):
+    """(n_patch_w, n_patch_h) of the selected anyres grid
+    (mm_utils.py:99-116; image_size is (width, height))."""
+    w, h = select_best_resolution(image_size, grid_pinpoints)
+    return w // patch_size, h // patch_size
+
+
+def process_anyres_image(img, image_size: int = 336,
+                         grid_pinpoints=DEFAULT_GRID_PINPOINTS) -> np.ndarray:
+    """Image -> [1 + n_tiles, 3, S, S]: the base view (the whole image
+    resized, unpadded) first, then the tiles of the aspect-preserving,
+    padded best grid, row-major (mm_utils.py:119-145). Every view goes
+    through the default (native) ``process_image``. Downstream:
+    ``models/llava.merge_anyres_features``."""
+    if not isinstance(img, np.ndarray):
+        img = np.asarray(img.convert("RGB"))
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    h, w, _ = img.shape
+    best = select_best_resolution((w, h), grid_pinpoints)
+    padded = resize_and_pad_image(img, best)
+    tiles = divide_to_patches(padded, image_size)
+    views = [process_image(v, image_size, pad_square=False)
+             for v in [img] + tiles]
+    return np.stack(views)

@@ -52,6 +52,7 @@ from msd_tpu_torch.harness import tasks as TT
 from msd_tpu_torch.harness.cache import CachingLM
 from msd_tpu_torch.harness.models.llava_msd import (LlavaAR, LlavaMSD,
                                                     SimpleTokenizer)
+from tests.test_torch_anyres_multi import jax_native
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_serve import MEDUSA, V, _lcfgs, _stack
 
@@ -360,17 +361,9 @@ def test_benchmark_calibrator_timing_reports_jax_keys():
 @pytest.fixture(scope="module")
 def stack():
     """make(port class, JAX class, **kw) -> the two adapters over one set
-    of tiny weights. The JAX adapter's images go through its numpy image
-    prep (``use_native=False``), the port's own: the JAX package's native
-    C++ resize rounds otherwise and is not ported yet (ROADMAP M14)."""
-    import functools
-
-    from msd_tpu.harness.models import llava_msd as JLM
-    from msd_tpu.utils import mm_utils as JMM
-
-    mp = pytest.MonkeyPatch()
-    mp.setattr(JLM, "process_image",
-               functools.partial(JMM.process_image, use_native=False))
+    of tiny weights. Both adapters' images go through their packages'
+    default (native C++) image prep."""
+    jax_native()
     jgen, tgen, jlp, tlp = _stack(MEDUSA, medusa_heads=4)
     jl, tl = _lcfgs()
     enc = jax.jit(lambda px: JV.encode_image(jlp, jl, px))
@@ -385,8 +378,7 @@ def stack():
                 jcls(jgen, JTok(V), enc, image_size=28, vocab_class=vc,
                      **kw))
 
-    yield make
-    mp.undo()
+    return make
 
 
 def _responses(out, task):

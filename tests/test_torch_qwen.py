@@ -264,7 +264,11 @@ def test_smoke_qwen_phase_at_tiny_size(tmp_path):
     depth after the image; B = 2 == solo; the checkpoint written by
     ``save_qwen2_vl`` loaded back bitwise; the harness CLI's A (MSD), B
     (AR) and D (null draft) runs with equal token ids, bitwise equal
-    scores within 1e-4 of their recompute. The phase raises otherwise."""
+    scores within 1e-4 of their recompute; its [video] part on 4 frames
+    (the tower against its block-per-block evaluation, the planted
+    cross-block attention rejected, the adapter's video_gen MSD == null
+    draft == AR, every token the recompute's argmax at grid_t 2). The
+    phase raises otherwise."""
     import chip_smoke
 
     from msd_tpu_torch.models.qwen2vl_vision import Qwen2VisionConfig
@@ -274,7 +278,11 @@ def test_smoke_qwen_phase_at_tiny_size(tmp_path):
         str(tmp_path), device="cpu", qcfg=q,
         vcfg=Qwen2VisionConfig.tiny(hidden=q.hidden_size),
         widths=(4, 3, 2, 2, 1), max_seq=512, max_new=12, prompt_tokens=20,
-        limit=2, harness_new=8)
+        limit=2, harness_new=8, video_frames=4)
+    video = out["video"]
+    assert video["n_vid"] == 2 * 144 and video["launches"] == 0
+    assert video["check"]["off"] == 0 and video["check"]["split"] is None
+    assert video["tower_rel"] <= 1e-5 < video["fault_rel"]
     assert out["launches"] == out["harness_launches"] == 0   # CPU: twin
     assert out["harness_splits"] == []
     assert out["recompute_worst"] == 0.0

@@ -6,13 +6,11 @@ GQA 4/2 decoder with q/k/v biases, an EAGLE draft, a tiny Qwen2-VL tower on
 a 4 x 4 patch grid): ``evaluate`` on ``synthetic_vqa``, ``pope`` and
 ``ai2d_ppl`` gives JAX's responses, loglikelihoods (1e-4 relative, equal
 greedy flags) and ``msd_stats``, built from the constructors and through
-``from_pretrained`` of a checkpoint both packages read. The JAX adapter's
-images go through its numpy prep (``use_native=False``): the native C++
-resize is not ported. The CLI runs the port's random tiny stack
-(``--model qwen2_vl_msd --model_args tiny=true --device cpu``).
+``from_pretrained`` of a checkpoint both packages read. Both adapters'
+images go through their packages' default (native C++) prep. The CLI runs
+the port's random tiny stack (``--model qwen2_vl_msd --model_args
+tiny=true --device cpu``).
 """
-
-import functools
 
 import numpy as np
 import pytest
@@ -43,6 +41,7 @@ from msd_tpu_torch.harness.models.llava_msd import SimpleTokenizer
 from msd_tpu_torch.models import qwen2vl as TQ
 from msd_tpu_torch.models import qwen2vl_vision as TV
 from msd_tpu_torch.utils import weights as TW
+from tests.test_torch_anyres_multi import jax_native
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_qwen_model import _host, jax_qwen_params
 from tests.test_torch_qwen_vision import jax_vision_params
@@ -69,18 +68,13 @@ def jax_weights():
 
 @pytest.fixture(scope="module")
 def jax_prep():
-    """The JAX adapter's image prep on its numpy path for the module."""
-    from msd_tpu.utils import mm_utils as JMM
-
-    mp = pytest.MonkeyPatch()
-    mp.setattr(JMM, "process_image",
-               functools.partial(JMM.process_image, use_native=False))
+    """The JAX package's native image prep loaded, and both task
+    registries filled, for the module."""
+    jax_native()
     if not JR.TASK_REGISTRY:
         JT.register_builtin_tasks()
     if not TR.TASK_REGISTRY:
         TTK.register_builtin_tasks()
-    yield
-    mp.undo()
 
 
 def _engs():
@@ -260,17 +254,20 @@ def test_cli_runs_the_tiny_qwen_stack(capsys):
 
 
 def test_video_and_qwen_vl_v1_raise_naming_m15b(adapters):
-    """A video visual and the Qwen-VL v1 adapter are not ported: each
-    raises an error that names M15b."""
+    """Videos are ported (tests/test_torch_qwen_video.py), but a video
+    visual (frames or a file) sent to an adapter built without a video
+    encoder raises, naming ``encode_video_fn``; the Qwen-VL v1 adapter is
+    not ported: it raises an error that names M15b."""
     mine, _ = adapters()
     frames = np.zeros((4, 56, 56, 3), np.uint8)
     req = Instance(request_type="generate_until", doc={},
                    arguments=("Describe.", dict(GEN_KW), lambda d: [frames],
                               0, "t", "test"), idx=0, task_name="t",
                    doc_id=0)
-    with pytest.raises(NotImplementedError, match="M15b"):
+    assert mine.encode_video_fn is None
+    with pytest.raises(ValueError, match="encode_video_fn"):
         mine.generate_until([req])
-    with pytest.raises(NotImplementedError, match="M15b"):
+    with pytest.raises(ValueError, match="encode_video_fn"):
         mine.generate_until([Instance(
             request_type="generate_until", doc={},
             arguments=("Describe.", dict(GEN_KW), lambda d: ["clip.mp4"], 0,

@@ -180,10 +180,19 @@ def test_vision_init_is_seeded_and_shaped():
         torch.all(fa["merge_fc2_b"] == 0)
 
 
-def test_video_encode_raises_naming_m15b():
-    cfg = TV.Qwen2VisionConfig.tiny()
-    with pytest.raises(NotImplementedError, match="M15b"):
-        TV.qwen_vision_encode_video({}, cfg, torch.zeros(4, 3, 28, 28))
+def test_qwen_vl_v1_still_raises_naming_m15b():
+    """Qwen-VL v1 (``qwen_vl_eagle``) is not ported: each of its entry
+    points raises, naming M15b (videos are ported:
+    tests/test_torch_qwen_video.py)."""
+    from msd_tpu_torch.harness.models import qwen2_vl_msd as TQA
+    from msd_tpu_torch.harness.registry import get_model
+
+    cls = get_model("qwen_vl_eagle")
+    assert cls is TQA.QwenVLEagle
+    for call in (lambda: cls(None, None), lambda: cls.from_tiny(),
+                 lambda: cls.from_pretrained("a", "b")):
+        with pytest.raises(NotImplementedError, match="M15b"):
+            call()
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from msd_tpu_torch.models import qwen2vl as TQ
 from msd_tpu_torch.train import data_gen as TG
 from msd_tpu_torch.train import trainer as TTR
 from msd_tpu_torch.utils import profiling as TP
+from tests.test_torch_anyres_multi import jax_native
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_train import _draft, _records, _train_cfg
 
@@ -116,18 +117,12 @@ def _pixels_encoder(w):
     return jenc, tenc
 
 
-def test_generate_dataset_writes_jax_records(target, tmp_path, monkeypatch):
+def test_generate_dataset_writes_jax_records(target, tmp_path):
     """Four samples (an image array, text, a second image, and one whose
     replies ``pad_to`` cuts away, which both skip) through the same
-    stand-in encoder: the same files, keys, dtypes and values. JAX's image
-    prep runs its numpy path (its native resize is not ported)."""
-    import functools
-
-    from msd_tpu.utils import mm_utils as JMM
-
-    monkeypatch.setattr(JMM, "process_image",
-                        functools.partial(JMM.process_image,
-                                          use_native=False))
+    stand-in encoder: the same files, keys, dtypes and values. Both
+    packages' image prep runs its default (native C++) path."""
+    jax_native()
     jcfg, tcfg, jtp, ttp = target
     rng = np.random.default_rng(9)
     img = [rng.integers(0, 256, size=(40 + 20 * i, 60, 3), dtype=np.uint8)

@@ -170,18 +170,19 @@ def test_llama_forward_matches_hf(kv_heads):
 
 @pytest.mark.parametrize("shape", [(28, 28), (20, 36), (41, 17), (9, 9)])
 def test_process_image_equals_jax(shape):
-    """Image prep (pad to square with the mean color, PIL bicubic, CLIP
-    normalization) equal to the JAX package's PIL path, exactly."""
+    """The explicit PIL path of the image prep (pad to square with the
+    mean color, PIL bicubic, CLIP normalization) equal to the JAX
+    package's PIL path, exactly."""
     img = np.random.default_rng(sum(shape)).integers(
         0, 256, size=shape + (3,), dtype=np.uint8)
     for size in (28, 14):
         ref = JMM.process_image(img, image_size=size, use_native=False)
-        got = TMM.process_image(img, image_size=size)
+        got = TMM.process_image(img, image_size=size, use_native=False)
         assert got.dtype == np.float32 and got.shape == (3, size, size)
         np.testing.assert_array_equal(got, ref)
     gray = img[..., 0]
     np.testing.assert_array_equal(
-        TMM.process_image(gray, 28),
+        TMM.process_image(gray, 28, use_native=False),
         JMM.process_image(gray, 28, use_native=False))
     np.testing.assert_array_equal(TMM.expand2square(img),
                                   JMM.expand2square(img))
