@@ -120,8 +120,9 @@ prints no result):
    Write and load seconds.
 11. harness (``run_harness``), on the checkpoint ``run_weights`` leaves
    to ``main``, which removes it after ``[train]``: the eval CLI
-   ``msd_tpu_torch.harness.__main__.main`` called in process, 8
-   synthetic docs of synthetic_vqa, pope and ai2d_ppl, 32 new tokens:
+   ``msd_tpu_torch.harness.__main__.main`` called in process,
+   ``HARNESS_LIMIT`` (6) synthetic docs of synthetic_vqa, pope and
+   ai2d_ppl, ``HARNESS_NEW`` (16) new tokens:
    calibrated MSD with online calibration (train_ratio 0.5, the
    calibrator fitted and pickled at the boundary), the AR adapter
    ``llava``, the calibrated run again from the pickle (skip_to_test)
@@ -187,13 +188,14 @@ prints no result):
    drafts initialised on the card from seeded generators, the target
    quantized layer by layer; one image prompt x 16 tokens, MSD, null-draft
    MSD and AR, graph-replayed: MSD == the null-draft tokens, K1 40 per AR
-   token decoded; K1 against its plain twin at 40 heads and timed there.
+   token decoded; K1 against its plain twin at 40 heads and timed there
+   beside the twin, SDPA and its bound.
 16. qwen (``run_qwen``), after the 13B model is released: Qwen2-VL-7B at
    full width from seeded generators (the GQA 28/4 decoder with q/k/v
    biases, bf16 weights, fp32 residual; the 32-layer tower on a seeded
    336px image, 144 merged rows; 13-head medusa and null drafts at its
    width): two 64-token prompts with the inline image span and a text
-   prompt, 32 new tokens each, graph, eager and null-draft MSD and the AR
+   prompt, ``QWEN_NEW`` (24) new tokens each, graph, eager and null-draft MSD and the AR
    baseline, the oracle draft after the image, ``generate_batch`` at
    B = 2; ``save_qwen2_vl`` and ``save_draft`` write the checkpoint, read
    back bitwise, and the harness CLI runs ``qwen2_vl_msd`` on it (MSD, AR,
@@ -216,6 +218,29 @@ prints no result):
    ``video_gen`` over the same tensors: MSD == null draft, the mrope
    recompute gate at grid_t 16, AR against MSD by ``QWEN_TIE``, K1 28
    per AR token.
+17. qwen_v1 (``run_qwen_v1``), after Qwen2-VL is released: Qwen-VL (v1)
+   at full width from seeded generators (the Qwen-1 decoder, 32 layers,
+   hidden 4096, 32 heads without GQA, vocab 151936, 1-D rope, q/k/v
+   biases, bf16 weights, fp32 residual; the 48 x 1664 ViT-bigG tower with
+   its 256-query resampler on a seeded 448px image; 13-head medusa and
+   null drafts): two 64-token prompts around the v1 span <img> <imgpad> x
+   256 </img> (ids 151857, 151859, 151858, found only through the
+   generator's ``inline_pad_ids``) and a text prompt, ``QWEN_NEW`` (24)
+   new tokens each,
+   graph, eager and null-draft MSD and the AR baseline; the checkpoint in
+   the public Qwen/Qwen-VL names read back by ``load_qwen_vl_v1``
+   bitwise; the harness CLI's ``qwen_vl_eagle`` on it, B its default
+   (AR) and A ``--use_msd``. Fails unless MSD == eager == null draft,
+   every committed token passes the recompute gate (the span spliced in
+   by concatenation at 1-D positions), AR departs from MSD only at ties,
+   K1 launches 32 per AR token (0 in MSD), A's and B's ai2d_ppl scores
+   are bitwise equal and within 1e-4 of their recompute, the bf16 tower
+   is within ``V1_TOWER_TOL`` of its fp32 evaluation, and two planted
+   faults are rejected on measured quantities: (a) a generator without
+   ``inline_pad_ids`` by its first decode row's logits against the
+   recompute, beyond the true generator's gap; (b) the resampler's keys
+   without their positions by the tower's error and by that row. K1 is
+   timed at the phase's AR row (32 heads, kv_len ~338, S = 1280).
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line
@@ -280,23 +305,26 @@ SERVE_HTTP_NEW = 32
 # inside its time limit
 SERVE_BATCH_NEW = 24
 # new tokens of [quant]'s runs (a prefix of the main path's 64: greedy
-# tokens do not depend on the budget), of [13b]'s and of [qwen]'s
-# generator runs, cut from 64, 32 and 64 when [train] joined the smoke, to
+# tokens do not depend on the budget), of [13b]'s and of [qwen]'s,
+# [video]'s and [qwen_v1]'s generator runs, cut from 64, 32 and 64 when
+# [train] joined the smoke, and [qwen]'s from 32 when [qwen_v1] did, to
 # keep it inside its time limit
-QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 32
+QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 24
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
-# (32 new tokens until [multi] and [video] joined the smoke)
-HARNESS_LIMIT, HARNESS_NEW = 8, 16
+# (32 new tokens until [multi] and [video] joined the smoke, 8 docs until
+# [qwen_v1] did)
+HARNESS_LIMIT, HARNESS_NEW = 6, 16
 # where the AR adapter's tokens first depart from MSD's, the target's
 # logits of the two tokens must lie within this many bf16 ulps of the
 # larger (a tie that bf16 rounding decides; see run_harness)
 HARNESS_TIE = 2
-# the Qwen2-VL phase: synthetic docs per harness task, and the std of the
-# q/k/v biases drawn into the seeded target (Qwen2's attention has them;
-# zeros would leave the bias add untested)
-QWEN_LIMIT, QWEN_BIAS_STD = 4, 0.1
+# the Qwen phases: synthetic docs per harness task (4 until [qwen_v1]
+# joined the smoke), and the std of the q/k/v biases drawn into the seeded
+# target (Qwen's attention has them; zeros would leave the bias add
+# untested)
+QWEN_LIMIT, QWEN_BIAS_STD = 2, 0.1
 # how far (bf16 ulps of the top logit) a committed Qwen token may lie below
 # the independent recompute's top logit when it is not the recompute's
 # canonical argmax, on the card, and how far apart the two tokens of an
@@ -330,6 +358,22 @@ MULTI_SEQ, MULTI_NEW = 2560, 32
 # is far off (measured on one H100: 0, the two bitwise equal, and 0.127
 # with the planted cross-block attention). Off the card (fp32) 1e-5.
 VIDEO_FRAMES, VIDEO_TOWER_TOL = 32, 2 ** -6
+# [qwen_v1]: the image span's ids of the public Qwen/Qwen-VL model
+# (config.json's visual.image_start_id 151857; </img> and <imgpad> follow
+# it), which differ from Qwen2-VL's, so the engine finds the span only
+# through inline_pad_ids; the harness tasks of its qwen_vl_eagle runs
+V1_IMG_START, V1_IMG_END, V1_IMG_PAD = 151857, 151858, 151859
+V1_HARNESS_TASKS = ("synthetic_vqa", "ai2d_ppl")
+# the v1 tower's bf16 rows against its fp32 evaluation on the card
+# (relative L2 over all 256 rows; measured on one H100: 5.3e-3); off the
+# card (fp32 both) 1e-5. And its fp32 evaluation against the remote
+# code's replica (``v1_tower_replica``), fp32 both, which the planted
+# fault of keys without their positions must exceed: at random weights
+# the 48 blocks pull the ViT's rows together, so that fault moves the
+# rows by about as much as bf16 rounding does (measured on one H100:
+# 7.2e-3 against the fp32 evaluation, where the true bf16 rows lie at
+# 5.3e-3), and only an fp32 comparison tells the two apart.
+V1_TOWER_TOL, V1_REPLICA_TOL = 2 ** -6, 1e-4
 ALPHA_PLANS = (WIDTHS, (10, 6, 4, 2, 1, 1), (6, 6, 6, 6, 6, 6, 6, 6))
 # a cross-product medusa_choices tree within the main draft's 13 heads:
 # the backbone of widths 10,6,4,3,2,1,...,1 (34 paths) plus 13 branches
@@ -2757,6 +2801,12 @@ def _flat_tensors(tree, prefix=""):
     return out
 
 
+def _map_tensors(tree, fn):
+    """The nested dict ``tree`` with ``fn`` applied to every tensor."""
+    return {k: _map_tensors(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def _bitwise_diff(label, mine, ref) -> list:
     """Names of the tensors of ``mine`` that are not bitwise those of
     ``ref`` (same keys, shapes and dtypes)."""
@@ -3622,26 +3672,6 @@ def run_quant(res) -> dict:
     return out
 
 
-def time_k1(hq: int, layers: int, kv_len: int = 672, s: int = 1280):
-    """K1 at the AR row of Hq = Hkv = ``hq`` heads against its plain twin
-    (the stated tolerance), then timed over ``layers`` layer caches in a
-    CUDA graph, with its byte bound. Returns (max_abs_err, us, bound us)."""
-    import torch
-    from msd_tpu_torch.ops import decode_attention as K1
-    bf16 = torch.bfloat16
-    q, k, v, bias, n = _attn_inputs(1, hq, hq, s, kv_len, bf16, hq)
-    err = check_k1(f"T=1 Hq=Hkv={hq} S={s} kv_len={kv_len} bfloat16",
-                   q, k, v, bias, n, kv_len)
-    g = torch.Generator(device="cuda").manual_seed(hq)
-    ks = torch.randn(layers, s, hq, 128, generator=g, device="cuda").to(bf16)
-    vs = torch.randn(layers, s, hq, 128, generator=g, device="cuda").to(bf16)
-    bias = torch.zeros(1, s, device="cuda")
-    us = 1e3 * min(graph_ms(lambda i: K1.decode_attention(
-        q, ks[i % layers], vs[i % layers], bias, n), layers) for _ in "ab")
-    nbytes = 2 * hq * 128 * 2 + 2 * kv_len * hq * 128 * 2 + kv_len * 4
-    return err, us, nbytes / HBM_BYTES_PER_S * 1e6
-
-
 def time_k1_row(card: str, label: str, hq: int, hkv: int, kv_len: int,
                 s: int, layers: int) -> dict:
     """K1 at an AR row (T=1, ``hq`` query and ``hkv`` kv heads, bf16) at
@@ -3720,7 +3750,7 @@ def run_13b(max_new: int = NEW_13B, bits: int = 8, device="cuda",
     64-token image prompt x ``max_new`` tokens through ``_quant_runs``
     (MSD, null-draft MSD, AR, eager MSD, the oracle draft; K1 40 per AR
     token decoded). K1 is held to its plain twin at 40 heads and timed
-    there."""
+    there beside the twin, SDPA and its bound (``time_k1_row``)."""
     import torch
     from msd_tpu_torch.configs import (IMAGE_TOKEN_INDEX, DraftConfig,
                                        EngineConfig, LlamaConfig, TreeConfig)
@@ -3784,12 +3814,10 @@ def run_13b(max_new: int = NEW_13B, bits: int = 8, device="cuda",
                       prompt_tokens + n_img - 1)
     out["init_s"] = init_s
     if on_card:
-        err, us, bound = time_k1(cfg.num_attention_heads, n)
-        out.update(k1_err=err, k1_us=us, k1_bound_us=bound)
-        log(f"[13b] K1 at the 13B AR row (T=1, Hq=Hkv="
-            f"{cfg.num_attention_heads}, S=1280, kv_len 672, bf16): "
-            f"{us:.2f} us over {n} layer caches, bound {bound:.2f} us "
-            f"(bytes), max_abs_err {err:.3e}")
+        # 40 layer caches at kv_len 672 hold 550 MB of live K/V: cold in L2
+        out["k1_row"] = time_k1_row(smi_name_and_limit(), "LLaVA-13B AR row",
+                                    cfg.num_attention_heads,
+                                    cfg.num_key_value_heads, 672, 1280, n)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[13b] phase took {out['seconds']:.1f}s")
     return out
@@ -4008,9 +4036,17 @@ def llava_logits_fn(gen, ids, feats):
     (``plain_rows_logits``) or at the engine's row shapes
     (``shaped_logits``, the fused prompt padded to the bucket), over the
     rope tables."""
+    return rows_logits_fn(gen, _llava_inputs(gen, ids, feats)[0])
+
+
+def rows_logits_fn(gen, prompt):
+    """``logits(toks, chunk=None)`` of ``token_check`` for a prompt given
+    as its embedded rows ``prompt`` [n_p, H] at 1-D positions 0..n_p-1:
+    the tokens' embeddings appended, unpadded (``plain_rows_logits``) or
+    at the engine's row shapes (``shaped_logits``), over the rope
+    tables."""
     import torch
 
-    prompt, _ = _llava_inputs(gen, ids, feats)
     table = gen.params["target"]["embed_tokens"]
     cos, sin = gen.params["cos_t"], gen.params["sin_t"]
     n_p = prompt.shape[0]
@@ -4146,16 +4182,17 @@ def qwen_plain_score(gen, ids, cont_start: int, feats, grid) -> tuple:
 
 
 def qwen_prompt(rng, n_tokens: int, n_img: int, vocab_hi: int,
-                with_image: bool) -> np.ndarray:
-    """A random ``n_tokens`` text prompt; with an image, the Qwen2-VL
-    span <|vision_start|> <|image_pad|> x n_img <|vision_end|> after its
-    first token."""
+                with_image: bool, span=None) -> np.ndarray:
+    """A random ``n_tokens`` text prompt; with an image, the span
+    ``span`` = (start, pad, end) ids, start, pad x n_img, end, after its
+    first token (by default Qwen2-VL's <|vision_start|> <|image_pad|>
+    <|vision_end|>)."""
     from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, VISION_END_ID,
                                               VISION_START_ID)
+    start, pad, end = span or (VISION_START_ID, IMAGE_PAD_ID, VISION_END_ID)
     ids = rng.integers(3, vocab_hi, size=n_tokens)
     if with_image:
-        ids = np.concatenate([ids[:1], [VISION_START_ID],
-                              np.full(n_img, IMAGE_PAD_ID), [VISION_END_ID],
+        ids = np.concatenate([ids[:1], [start], np.full(n_img, pad), [end],
                               ids[1:]])
     return ids.astype(np.int32)
 
@@ -4533,8 +4570,7 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         feats = qwen_vision_encode(vision, vcfg, px)
     sync()
     out["tower_ms"] = (time.perf_counter() - t1) * 1e3 / 3
-    v32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
-               else v.float()) for k, v in vision.items()}
+    v32 = _map_tensors(vision, lambda t: t.float())
     ref = qwen_vision_encode(v32, vcfg, px)
     del v32
     out["tower_rel"] = float((feats.float() - ref).norm() / ref.norm())
@@ -4985,6 +5021,750 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"{check_s[0]:.1f}s and the planted fault {out['fault_s']:.1f}s on "
         f"{card}")
     del gens, gen, gen_o
+    return out
+
+
+def v1_logits_fn(gen, ids, feats, pad_ids=None):
+    """``logits(toks, chunk=None)`` of ``token_check`` for a Qwen-VL (v1)
+    prompt: its inline span's rows (from the first id of ``pad_ids``,
+    default v1's ``<imgpad>``) replaced by ``feats`` by concatenation,
+    apart from the engine's fusion and its ``_img_pos``, at 1-D positions
+    (``rows_logits_fn``)."""
+    import torch
+
+    ids = np.asarray(ids, np.int64)
+    table, dev = gen.params["target"]["embed_tokens"], gen.device
+
+    def embed(x):
+        return table[torch.from_numpy(
+            np.clip(x, 0, table.shape[0] - 1)).to(dev)]
+
+    if feats is None:
+        prompt = embed(ids)
+    else:
+        start = int(np.argmax(np.isin(ids, pad_ids or (V1_IMG_PAD,))))
+        prompt = torch.cat([embed(ids[:start]), feats.to(table.dtype),
+                            embed(ids[start + len(feats):])])
+    return rows_logits_fn(gen, prompt)
+
+
+def v1_plain_score(gen, ids, cont_start: int, feats, pad_ids=None) -> tuple:
+    """The plain recompute of a v1 ``MSDGenerator.score``: the unpadded
+    ``v1_logits_fn`` rows of the continuation, ``log_softmax`` and a
+    gather. Returns (logprob_sum, is_greedy)."""
+    import torch
+
+    ids = np.asarray(ids, np.int64)
+    cont = ids[cont_start:]
+    rows = v1_logits_fn(gen, ids[:cont_start], feats, pad_ids)(cont)
+    logp = torch.log_softmax(rows[:len(cont)], dim=-1)
+    nxt = torch.from_numpy(cont).to(gen.device)
+    return (float(logp.gather(1, nxt[:, None]).sum()),
+            bool((logp.argmax(dim=-1) == nxt).all()))
+
+
+def prefill_row(gen, ids, feats):
+    """The engine's fp32 logits of a request's first new token, as its AR
+    prefill hands them to ``sample_token`` (a one-token
+    ``naive_generate``; a wrapper records the first call)."""
+    from msd_tpu_torch.engine import spec_engine as SE
+
+    rows, orig = [], SE.sample_token
+
+    def spy(logits, *a, **kw):
+        if not rows:
+            rows.append(logits.float().clone())
+        return orig(logits, *a, **kw)
+
+    SE.sample_token = spy
+    try:
+        gen.naive_generate(ids, feats, 1)
+    finally:
+        SE.sample_token = orig
+    return rows[0]
+
+
+def row_gap(row, ref) -> float:
+    """max |row - ref| over a logits row, in bf16 ulps of ref's largest
+    magnitude."""
+    return float((row - ref).abs().max() / bf16_ulp(ref.abs().max()))
+
+
+def v1_tower_without_key_positions(vision, vcfg, px):
+    """The planted fault (b) of ``[qwen_v1]``: the v1 tower whose
+    resampler's keys lack their interpolated positional table (the same
+    ViT, queries, values and projection otherwise)."""
+    from msd_tpu_torch.models import qwen_vl_v1 as QV1
+    from msd_tpu_torch.ops.norms import layer_norm
+
+    x = QV1.qwen_vl_vit(vision, vcfg, px)
+    r, eps = vision["resampler"], vcfg.layer_norm_eps
+    kv = layer_norm(x @ r["kv_proj_w"].T, r["ln_kv_w"], r["ln_kv_b"], eps)
+    q = layer_norm(r["query"], r["ln_q_w"], r["ln_q_b"], eps)
+    out = QV1._mha(q + r["pos_embed"], kv, kv, r["attn"],
+                   vcfg.resampler_heads)
+    out = layer_norm(out, vision["ln_post_w"], vision["ln_post_b"], eps)
+    return out @ vision["proj"]
+
+
+def v1_tower_replica(vision, vcfg, px):
+    """The v1 tower as the public remote code writes it, apart from
+    ``models/qwen_vl_v1``: ``conv2d`` patches, ``get_abs_pos`` by
+    ``F.interpolate`` (bicubic), ``F.layer_norm``, the blocks and the
+    resampler through ``F.multi_head_attention_forward`` (sequence-first,
+    one batch), ``F.gelu``. [3, H, W] -> [n_queries, output_dim]."""
+    import torch.nn.functional as F
+
+    p, eps = vcfg.patch_size, vcfg.layer_norm_eps
+    dt = vision["conv1"].dtype
+
+    def abs_pos(pos, n):
+        src, tgt = int(round(pos.shape[0] ** 0.5)), int(round(n ** 0.5))
+        if src == tgt:
+            return pos
+        grid = pos.float().reshape(1, src, src, -1).permute(0, 3, 1, 2)
+        return F.interpolate(grid, size=(tgt, tgt), mode="bicubic",
+                             align_corners=False).permute(0, 2, 3, 1) \
+            .flatten(0, 2).to(pos.dtype)
+
+    def ln(x, w, b):
+        return F.layer_norm(x, x.shape[-1:], w, b, eps)
+
+    def mha(q, k, v, a, heads):
+        e = q.shape[-1]
+        return F.multi_head_attention_forward(
+            q[:, None], k[:, None], v[:, None], e, heads, a["in_proj_w"],
+            a["in_proj_b"], None, None, False, 0.0, a["out_proj_w"],
+            a["out_proj_b"], training=False, need_weights=False)[0][:, 0]
+
+    x = F.conv2d(px.to(dt)[None], vision["conv1"].reshape(-1, 3, p, p),
+                 stride=p)
+    x = x.flatten(2).transpose(1, 2)[0]
+    x = ln(x + abs_pos(vision["pos_embed"], x.shape[0]),
+           vision["ln_pre_w"], vision["ln_pre_b"])
+    b = vision["blocks"]
+    for i in range(vcfg.layers):
+        y = ln(x, b["ln1_w"][i], b["ln1_b"][i])
+        x = x + mha(y, y, y, {k: t[i] for k, t in b.items()}, vcfg.heads)
+        y = ln(x, b["ln2_w"][i], b["ln2_b"][i])
+        y = F.gelu(F.linear(y, b["fc_w"][i], b["fc_b"][i]))
+        x = x + F.linear(y, b["proj_w"][i], b["proj_b"][i])
+    r = vision["resampler"]
+    kv = ln(F.linear(x, r["kv_proj_w"]), r["ln_kv_w"], r["ln_kv_b"])
+    q = ln(r["query"], r["ln_q_w"], r["ln_q_b"])
+    out = mha(q + r["pos_embed"], kv + abs_pos(r["pos_embed"], kv.shape[0]),
+              kv, r["attn"], vcfg.resampler_heads)
+    return ln(out, vision["ln_post_w"], vision["ln_post_b"]) @ vision["proj"]
+
+
+def hf_qwen_vl_v1_state(lm, vision, vcfg) -> dict:
+    """The public Qwen/Qwen-VL checkpoint names of a v1 LM and tower (the
+    inverse of ``load_qwen_vl_v1``'s importers): the fused ``c_attn`` of
+    each layer concatenated from q/k/v and their biases, the [in, out]
+    weights transposed back, the tower's blocks unstacked and ``conv1``
+    as [width, 3, P, P]."""
+    import torch
+
+    L_ = lm["layers"]
+    st = {"transformer.wte.weight": lm["embed_tokens"],
+          "transformer.ln_f.weight": lm["norm"],
+          "lm_head.weight": lm["lm_head"].T}
+    for i in range(L_["q_proj"].shape[0]):
+        pre = f"transformer.h.{i}."
+        st[pre + "attn.c_attn.weight"] = torch.cat(
+            [L_[f"{x}_proj"][i] for x in "qkv"])
+        st[pre + "attn.c_attn.bias"] = torch.cat(
+            [L_[f"{x}_bias"][i] for x in "qkv"])
+        st[pre + "attn.c_proj.weight"] = L_["o_proj"][i].T
+        st[pre + "ln_1.weight"] = L_["input_layernorm"][i]
+        st[pre + "ln_2.weight"] = L_["post_attention_layernorm"][i]
+        st[pre + "mlp.w2.weight"] = L_["gate_proj"][i].T
+        st[pre + "mlp.w1.weight"] = L_["up_proj"][i].T
+        st[pre + "mlp.c_proj.weight"] = L_["down_proj"][i].T
+    v = "transformer.visual."
+    p = vcfg.patch_size
+    st[v + "conv1.weight"] = vision["conv1"].reshape(vcfg.width, 3, p, p)
+    st[v + "positional_embedding"] = vision["pos_embed"]
+    st[v + "ln_pre.weight"] = vision["ln_pre_w"]
+    st[v + "ln_pre.bias"] = vision["ln_pre_b"]
+    names = {"ln1_w": "ln_1.weight", "ln1_b": "ln_1.bias",
+             "ln2_w": "ln_2.weight", "ln2_b": "ln_2.bias",
+             "in_proj_w": "attn.in_proj_weight",
+             "in_proj_b": "attn.in_proj_bias",
+             "out_proj_w": "attn.out_proj.weight",
+             "out_proj_b": "attn.out_proj.bias",
+             "fc_w": "mlp.c_fc.weight", "fc_b": "mlp.c_fc.bias",
+             "proj_w": "mlp.c_proj.weight", "proj_b": "mlp.c_proj.bias"}
+    for i in range(vcfg.layers):
+        for ours, theirs in names.items():
+            st[f"{v}transformer.resblocks.{i}.{theirs}"] = \
+                vision["blocks"][ours][i]
+    r, a = vision["resampler"], v + "attn_pool."
+    st.update({a + "pos_embed": r["pos_embed"], a + "query": r["query"],
+               a + "kv_proj.weight": r["kv_proj_w"],
+               a + "ln_q.weight": r["ln_q_w"], a + "ln_q.bias": r["ln_q_b"],
+               a + "ln_kv.weight": r["ln_kv_w"],
+               a + "ln_kv.bias": r["ln_kv_b"],
+               a + "attn.in_proj_weight": r["attn"]["in_proj_w"],
+               a + "attn.in_proj_bias": r["attn"]["in_proj_b"],
+               a + "attn.out_proj.weight": r["attn"]["out_proj_w"],
+               a + "attn.out_proj.bias": r["attn"]["out_proj_b"],
+               v + "ln_post.weight": vision["ln_post_w"],
+               v + "ln_post.bias": vision["ln_post_b"],
+               v + "proj": vision["proj"]})
+    return st
+
+
+def save_qwen_vl_v1(lm, vision, tcfg, vcfg, path: str, dtype) -> int:
+    """Write a v1 LM and tower as the checkpoint ``load_qwen_vl_v1``
+    reads: ``hf_qwen_vl_v1_state`` in safetensors shards (the port's
+    ``weights._save_shards`` over ``safetensors_io.save_file``) and a
+    ``config.json`` in the public model's names (``intermediate_size`` the
+    w1 + w2 width, ``layer_norm_epsilon``, ``rotary_emb_base``, the
+    ``visual`` block with its ``image_start_id``). Returns the bytes
+    written."""
+    from msd_tpu_torch.utils import weights as W
+
+    written = W._save_shards(hf_qwen_vl_v1_state(lm, vision, vcfg), path,
+                             dtype)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["QWenLMHeadModel"], "model_type": "qwen",
+            "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
+            "intermediate_size": 2 * tcfg.intermediate_size,
+            "num_hidden_layers": tcfg.num_hidden_layers,
+            "num_attention_heads": tcfg.num_attention_heads,
+            "max_position_embeddings": tcfg.max_position_embeddings,
+            "layer_norm_epsilon": tcfg.rms_norm_eps,
+            "rotary_emb_base": tcfg.rope_theta,
+            "visual": {"image_size": vcfg.image_size,
+                       "patch_size": vcfg.patch_size, "width": vcfg.width,
+                       "layers": vcfg.layers, "heads": vcfg.heads,
+                       "mlp_size": vcfg.mlp_size,
+                       "output_dim": vcfg.output_dim,
+                       "n_queries": vcfg.n_queries,
+                       "image_start_id": V1_IMG_START},
+            "torch_dtype": str(dtype).split(".")[-1]}, f, indent=1)
+    return written
+
+
+def run_qwen_v1(root: str, device="cuda", qcfg=None, vcfg=None,
+                widths=WIDTHS, max_seq: int = MAX_SEQ,
+                max_new: int = QWEN_NEW,
+                prompt_tokens: int = PROMPT_TOKENS, limit: int = QWEN_LIMIT,
+                harness_new: int = HARNESS_NEW, tasks=V1_HARNESS_TASKS,
+                max_new_warm: int = 4) -> dict:
+    """Qwen-VL (v1) at full width (``qcfg``/``vcfg`` cut it for the CPU):
+    the Qwen-1 decoder (32 layers, hidden 4096, 32 heads, no GQA, vocab
+    151936, 1-D rope, q/k/v biases drawn at std ``QWEN_BIAS_STD``, bf16
+    weights, fp32 residual, ``lm_head`` x6), the ViT-bigG tower with its
+    256-query resampler (48 x 1664), a 13-head medusa draft and a null
+    draft at the decoder's width, all from seeded generators on the
+    device; a seeded 448px image through the tower (256 rows); two image
+    prompts (``prompt_tokens`` text tokens around the v1 span <img>
+    <imgpad> x 256 </img>, ids 151857, 151859, 151858: found only through
+    ``inline_pad_ids``) and one text prompt, each x ``max_new`` tokens, 6
+    canonical rounding bits, the main path's tree.
+
+    Generator runs: graph MSD, eager MSD, graph null-draft MSD and graph
+    ``naive_generate`` (AR). Then the checkpoint in the public names
+    (``save_qwen_vl_v1``; ``save_draft``) under ``root``, read back by
+    ``load_qwen_vl_v1``, and ``harness.__main__.main`` in process with
+    ``--model qwen_vl_eagle``: B its default (AR), A ``--use_msd``.
+
+    Fails unless: graph MSD == eager MSD == the null draft, bitwise, on
+    every prompt; every committed MSD (and A) token passes ``token_check``
+    against the v1 recompute (``v1_logits_fn``: the span spliced in by
+    concatenation, 1-D positions), exactly at the verify's row shapes and,
+    unpadded, its canonical argmax or on the card within ``QWEN_TIE`` bf16
+    ulps plus the row's noise; AR (and B) equals MSD (and A) up to each
+    first split, each split such a tie; K1 launches layers x AR tokens
+    decoded in the AR runs and in B (a capture's warm-up steps included),
+    0 in every MSD run; the ai2d_ppl scores bitwise equal across A and B
+    and within 1e-4 (relative, floor 1) of their recompute; the loaded
+    checkpoint bitwise the weights in memory; the bf16 tower within
+    ``V1_TOWER_TOL`` (relative L2) of its fp32 evaluation on the device;
+    and both planted faults rejected on a measured quantity: (a) a
+    generator without ``inline_pad_ids`` (the span is not found, so no
+    image row is fused), by its first decode row's logits against the
+    recompute beyond the true generator's gap on the same row (plus
+    ``QWEN_TIE`` ulps on the card); (b) the resampler's keys without
+    their positional table, by the tower's error beyond ``V1_TOWER_TOL``
+    and by that row's gap with the faulty rows. On the card K1 is timed at
+    the phase's AR row (``time_k1_row``)."""
+    import io
+
+    import torch
+    from msd_tpu_torch.configs import DraftConfig, EngineConfig, TreeConfig
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.engine.graphs import WARMUP_STEPS
+    from msd_tpu_torch.harness import __main__ as HM
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models.qwen_vl_v1 import (
+        QwenVLV1TextConfig, QwenVLVisionConfig, init_qwen_vl_vision_params,
+        qwen_vl_vision_encode)
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.ops.sampling import SamplingParams
+    from msd_tpu_torch.utils import weights as W
+    from msd_tpu_torch.utils.mm_utils import process_image
+
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else torch.float32
+    card = smi_name_and_limit() if on_card else "cpu"
+    tie = QWEN_TIE if on_card else 0.0
+    tower_tol = V1_TOWER_TOL if on_card else 1e-5
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    qcfg = qcfg or QwenVLV1TextConfig()
+    vcfg = vcfg or QwenVLVisionConfig(output_dim=qcfg.hidden_size)
+    lc = dataclasses.replace(qcfg.as_llama(), residual_dtype="float32")
+    g = torch.Generator(device=device).manual_seed(16)
+    tp = L.init_llama_params(lc, g, device, dtype)
+    for name in ("q_bias", "k_bias", "v_bias"):   # no GQA: all of width H
+        tp["layers"][name] = torch.empty(
+            lc.num_hidden_layers, lc.hidden_size, dtype=dtype,
+            device=device).normal_(0.0, QWEN_BIAS_STD, generator=g)
+    tp["lm_head"].mul_(HEAD_SHARPEN)
+    dcfg = DraftConfig(text=lc, medusa_heads=len(widths) - 1)
+    drafts = {}
+    for name in ("msd", "null"):
+        dp = D.init_draft_params(dcfg, g, device, dtype)
+        dp["medusa"] = D.init_medusa_params(dcfg, g, device, dtype)
+        dp["embed_tokens"] = tp["embed_tokens"]
+        drafts[name] = dp
+    vision = init_qwen_vl_vision_params(vcfg, g, device, dtype)
+    sync()
+    out = {"card": card, "init_s": time.perf_counter() - t_phase}
+    n_tower = sum(t.numel() for t in _flat_tensors(vision).values())
+    log(f"[qwen_v1] Qwen-VL (v1) width: {lc.num_hidden_layers} layers, "
+        f"hidden {lc.hidden_size}, {lc.num_attention_heads} heads (no GQA), "
+        f"vocab {lc.vocab_size}, 1-D rope, q/k/v biases; target "
+        f"{_weight_bytes(tp) / 1e9:.2f} GB "
+        f"({sum(t.numel() for t in _flat_tensors(tp).values()) / 1e9:.3f}G "
+        f"parameters); tower {vcfg.layers} x {vcfg.width} with a "
+        f"{vcfg.n_queries}-query resampler, {_weight_bytes(vision) / 1e9:.2f}"
+        f" GB ({n_tower / 1e9:.3f}G parameters); initialised on {device} in "
+        f"{out['init_s']:.1f}s on {card}")
+
+    # the image through the tower: its rows feed every image request
+    n_img = vcfg.n_queries
+    rng = np.random.default_rng(16)
+    image = rng.integers(0, 256, size=(vcfg.image_size, vcfg.image_size, 3),
+                         dtype=np.uint8)
+    px = torch.from_numpy(process_image(image, vcfg.image_size)).to(device)
+    feats = qwen_vl_vision_encode(vision, vcfg, px)
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        feats = qwen_vl_vision_encode(vision, vcfg, px)
+    sync()
+    out["tower_ms"] = (time.perf_counter() - t1) * 1e3 / 3
+    # fp32 evaluations of the same weights: the port's tower, the
+    # independent replica and the planted fault (b)
+    v32 = _map_tensors(vision, lambda t: t.float())
+    ref = qwen_vl_vision_encode(v32, vcfg, px)
+    replica = v1_tower_replica(v32, vcfg, px)
+    bad32 = v1_tower_without_key_positions(v32, vcfg, px)
+    del v32
+    bad_feats = v1_tower_without_key_positions(vision, vcfg, px)
+
+    def rel(x, y):
+        return float((x.float() - y).norm() / y.norm())
+
+    out.update(tower_rel=rel(feats, ref), replica_rel=rel(ref, replica),
+               fault_b_rel=rel(bad32, replica),
+               fault_b_bf16_rel=rel(bad_feats, ref))
+    del bad32, replica
+    if tuple(feats.shape) != (n_img, lc.hidden_size) \
+            or not torch.isfinite(feats).all():
+        raise AssertionError(f"[qwen_v1] tower output {tuple(feats.shape)}, "
+                             f"finite {bool(torch.isfinite(feats).all())}")
+    if not (out["tower_rel"] <= tower_tol
+            and out["replica_rel"] <= V1_REPLICA_TOL < out["fault_b_rel"]):
+        raise AssertionError(
+            f"[qwen_v1] tower: {dtype} against its fp32 evaluation "
+            f"{out['tower_rel']:.3e} (allowed {tower_tol:g}); fp32 against "
+            f"the replica {out['replica_rel']:.3e} (allowed "
+            f"{V1_REPLICA_TOL:g}); the planted fault (b), keys without "
+            f"positions, {out['fault_b_rel']:.3e} off the replica (must "
+            f"exceed {V1_REPLICA_TOL:g})")
+    log(f"[qwen_v1] tower: {vcfg.image_size}x{vcfg.image_size} image, "
+        f"{vcfg.grid}x{vcfg.grid} patches resampled to {n_img} rows, "
+        f"{out['tower_ms']:.2f} ms per image ({dtype}); relative error "
+        f"against its fp32 evaluation {out['tower_rel']:.3e} (allowed "
+        f"{tower_tol:g}); the fp32 evaluation against the remote code's "
+        f"replica (F.conv2d, F.interpolate, F.multi_head_attention_forward) "
+        f"{out['replica_rel']:.3e} (allowed {V1_REPLICA_TOL:g}); planted "
+        f"fault (b), the resampler's keys without their positions: "
+        f"{out['fault_b_rel']:.3e} off the replica in fp32, rejected "
+        f"({out['fault_b_bf16_rel']:.3e} off the fp32 tower in {dtype}) on "
+        f"{card}")
+
+    vocab_hi = min(151000, lc.vocab_size - 1)
+    span = (V1_IMG_START, V1_IMG_PAD, V1_IMG_END)
+    prompts = [(qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, True, span),
+                feats),
+               (qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, True, span),
+                feats),
+               (qwen_prompt(rng, prompt_tokens, n_img, vocab_hi, False),
+                None)]
+    tree = TreeConfig(top_k=widths[0], max_depth=len(widths),
+                      num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
+    eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
+                       tree=tree)
+
+    def generator(cuda_graphs, pad_ids=(V1_IMG_PAD,)):
+        return MSDGenerator(tp, drafts["msd"], lc, dcfg, eng, n_img=n_img,
+                            eos_id=-1,
+                            sp=SamplingParams(greedy_round_bits=ROUND_BITS),
+                            image_mode="inline", mrope_section=None,
+                            device=device, cuda_graphs=cuda_graphs,
+                            inline_pad_ids=pad_ids)
+
+    gens = {"graph": generator(True), "eager": generator(False)}
+
+    def captures(gen):
+        return 0 if gen.graphs is None else len(gen.graphs.steps)
+
+    # warm-up outside the timed window: one capture per step and draft
+    ids0, f0 = prompts[0]
+    gen = gens["graph"]
+    gen.naive_generate(ids0, f0, max_new_warm)
+    for name in ("null", "msd"):
+        gen.params["draft"] = drafts[name]
+        gen.generate(ids0, f0, max_new_warm)
+    gens["eager"].generate(ids0, f0, max_new_warm)
+    sync()
+    n_cap = captures(gen)
+    runs, secs, launches = {}, {}, {}
+    for ids, f in prompts:
+        for name in ("ar", "msd", "null", "eager"):
+            gen = gens["eager" if name == "eager" else "graph"]
+            gen.params["draft"] = drafts["null" if name == "null" else "msd"]
+            # the counts of this path: zeroed just before, read just after
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            r = gen.naive_generate(ids, f, max_new) if name == "ar" \
+                else gen.generate(ids, f, max_new)
+            sync()
+            secs.setdefault(name, []).append(time.perf_counter() - t1)
+            launches[name] = launches.get(name, 0) + \
+                K1.decode_attention.launches
+            runs.setdefault(name, []).append(r)
+            if gen.graphs is not None and not gen.graphs.reads(r.graph,
+                                                               gen.params):
+                raise AssertionError(f"[qwen_v1] {name}: replayed a graph "
+                                     f"captured for other weights")
+    gen = gens["graph"]
+    gen.params["draft"] = drafts["msd"]
+    if captures(gen) != n_cap or captures(gens["eager"]):
+        raise AssertionError("[qwen_v1] a capture inside the timed runs")
+    layers = lc.num_hidden_layers
+    ar_decoded = sum(len(r.tokens) - 1 for r in runs["ar"])
+    k1_want = layers * ar_decoded if on_card else 0
+    out.update(launches=launches["ar"], ar_decoded=ar_decoded)
+    bad = []
+    if launches["ar"] != k1_want or any(launches[n] for n in
+                                        ("msd", "null", "eager")):
+        bad.append(f"K1 launches {launches}, want ar {k1_want} (= {layers} "
+                   f"x {ar_decoded} AR tokens decoded), 0 in MSD")
+    check_s = [0.0]
+
+    def check(gen_, ids, f, toks, other=None, pad_ids=None):
+        # the recomputes' seconds, reported apart from the timed runs
+        t1 = time.perf_counter()
+        r = token_check(gen_, v1_logits_fn(gen_, ids, f, pad_ids), toks,
+                        other, tie)
+        check_s[0] += time.perf_counter() - t1
+        return r
+
+    checks, splits = [], []
+    for pi, (ids, f) in enumerate(prompts):
+        toks = {n: runs[n][pi].tokens for n in runs}
+        for n, t in toks.items():
+            if t.shape != (max_new,) or t.min() < 0 \
+                    or t.max() >= lc.vocab_size:
+                bad.append(f"prompt {pi} {n}: bad tokens {t.shape}")
+        if not (np.array_equal(toks["msd"], toks["null"])
+                and np.array_equal(toks["msd"], toks["eager"])):
+            bad.append(f"prompt {pi}: MSD, eager MSD and null-draft tokens "
+                       f"differ")
+        chk = check(gen, ids, f, toks["msd"], toks["ar"])
+        checks.append(chk)
+        if chk["bad"]:
+            bad.append(f"prompt {pi}: committed tokens off the v1 "
+                       f"recompute (token, ulps below A's top, allowed, "
+                       f"below B's, rank): {chk['bad']}")
+        if chk["split"] is not None:
+            splits.append(chk["split"])
+        if not split_ok(chk["split"], tie):
+            bad.append(f"prompt {pi}: AR departs from MSD at a split that "
+                       f"is no rounding tie: {chk['split']}")
+    out["recompute_worst"] = max(c["worst"] for c in checks)
+    out["recompute_noise"] = max(c["noise"] for c in checks)
+    log(f"[qwen_v1] on 2 image prompts ({len(ids0)} rows, the span found "
+        f"by inline_pad_ids ({V1_IMG_PAD},)) and 1 text prompt "
+        f"({prompt_tokens}) x {max_new} tokens: graph MSD == eager MSD == "
+        f"null draft: {not any('differ' in b for b in bad)}; committed MSD "
+        f"tokens off the v1 recompute's canonical argmax: "
+        f"{sum(c['off'] for c in checks)} of {len(prompts) * max_new} (off "
+        f"the shaped recompute's: {sum(c['off_b'] for c in checks)}, "
+        f"allowed 0), worst {out['recompute_worst']:.2f} bf16 ulps below "
+        f"its top (allowed {tie:g} + the row's noise, up to "
+        f"{out['recompute_noise']:.2f}); AR == MSD up to the first split on "
+        f"{len(prompts) - len(splits)} of {len(prompts)}"
+        + "".join(f"; split at token {s['at']}: {s['ulps']:.1f} ulps "
+                  f"(noise {s['noise']:g}) at |logit| {s['logit']:.4f}, "
+                  f"ranks {s['ranks']}" for s in splits)
+        + f"; K1 launches {launches} (ar = {layers} x {ar_decoded} AR "
+        f"tokens decoded) on {card}")
+    if bad:
+        raise AssertionError(f"[qwen_v1] {bad}")
+
+    # the planted faults, judged on the first decode row's logits against
+    # the recompute, beyond the true generator's gap on the same row
+    t1 = time.perf_counter()
+    eager = gens["eager"]
+    no_ids = generator(False, pad_ids=None)
+    faults = []
+    for pi in (0, 1):
+        ids, f = prompts[pi]
+        ref_row = v1_logits_fn(eager, ids, f)(np.zeros(0, np.int64))[0]
+        noise = row_gap(prefill_row(eager, ids, f), ref_row)
+        gap_a = row_gap(prefill_row(no_ids, ids, f), ref_row)
+        gap_b = row_gap(prefill_row(eager, ids, bad_feats), ref_row)
+        faults.append((noise, gap_a, gap_b))
+        if not gap_a > noise + tie:
+            bad.append(f"prompt {pi}: first decode row against the "
+                       f"recompute, {noise:.3g} ulps; fault (a) {gap_a:.3g} "
+                       f"(must exceed {noise + tie:.3g})")
+    # and their tokens, through the same gate as the true runs
+    r_a = no_ids.generate(ids0, f0, max_new)
+    r_b = eager.generate(ids0, bad_feats, max_new)
+    chk_a = check(eager, ids0, f0, r_a.tokens)
+    chk_b = check(eager, ids0, f0, r_b.tokens)
+    del no_ids
+    out["faults"] = {"rows": faults, "tokens_a": len(chk_a["bad"]),
+                     "tokens_b": len(chk_b["bad"])}
+    out["fault_s"] = time.perf_counter() - t1
+    log(f"[qwen_v1] planted faults, first decode row's logits against the "
+        f"v1 recompute (max |diff| in bf16 ulps of its top; prompt: true, "
+        f"(a) no inline_pad_ids, judged here, (b) keys without positions, "
+        f"judged by the tower's replica above): "
+        + "; ".join(f"{pi}: {n:.3g}, {a:.3g}, {b:.3g}"
+                    for pi, (n, a, b) in enumerate(faults))
+        + f"; the token gate on prompt 0 rejects {len(chk_a['bad'])} (a) and "
+        f"{len(chk_b['bad'])} (b) of {max_new} tokens; "
+        f"{'rejected' if not bad else 'NOT rejected'} on {card}")
+    if bad:
+        raise AssertionError(f"[qwen_v1] planted faults pass: {bad}")
+
+    per_token = 1e3 / max(1, sum(len(r.tokens) for r in runs["ar"]))
+    per_step = 1e3 / max(1, sum(r.accept_steps for r in runs["msd"]))
+    out.update(ar_ms=sum(secs["ar"]) * per_token,
+               msd_ms_step=sum(secs["msd"]) * per_step,
+               eager_ms_step=sum(secs["eager"]) * 1e3 / max(1, sum(
+                   r.accept_steps for r in runs["eager"])),
+               alpha=np.mean([r.avg_accept_len for r in runs["msd"]]))
+    if on_card:
+        out["ar_replay_ms"] = _replay_ms(gen, runs["ar"][0].graph)
+        out["step_replay_ms"] = _replay_ms(gen, runs["msd"][0].graph)
+        # K1 at this phase's AR row: the image prompts' mid-request kv_len
+        kv_len = len(ids0) + max_new // 2
+        s_target = -128 * (-(max_seq + tree.num_nodes) // 128)
+        out["k1_row"] = time_k1_row(card, "Qwen-VL v1 AR row",
+                                    lc.num_attention_heads,
+                                    lc.num_key_value_heads, kv_len,
+                                    s_target, layers)
+    else:
+        out["ar_replay_ms"] = out["step_replay_ms"] = float("nan")
+    log(f"[qwen_v1] AR {out['ar_ms']:.2f} ms/token wall incl. prefill, "
+        f"{out['ar_replay_ms']:.3f} ms per replayed AR token; MSD "
+        f"{out['msd_ms_step']:.2f} ms/step graph, {out['eager_ms_step']:.2f}"
+        f" eager (wall incl. prefill), {out['step_replay_ms']:.3f} ms per "
+        f"replayed step, alpha {out['alpha']:.3f} on {card}")
+
+    # the checkpoint in the public names: written, read back bitwise
+    ckpt, ddir = f"{root}/qwen_vl_v1", f"{root}/draft_v1"
+    t1 = time.perf_counter()
+    written = save_qwen_vl_v1(tp, vision, qcfg, vcfg, ckpt, dtype)
+    written += os.path.getsize(W.save_draft(drafts["msd"], ddir))
+    out["write_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lm2, vis2, qcfg2, vcfg2 = W.load_qwen_vl_v1(ckpt, dtype, device)
+    dr2, _ = W.load_draft(ddir, qcfg2.as_llama(),
+                          base_embed=lm2["embed_tokens"], dtype=dtype,
+                          device=device)
+    sync()
+    out["load_s"] = time.perf_counter() - t1
+    diff = _bitwise_diff("target", lm2, tp) \
+        + _bitwise_diff("tower", vis2, vision) \
+        + _bitwise_diff("draft", dr2, drafts["msd"])
+    if diff or (qcfg2, vcfg2) != (qcfg, vcfg):
+        raise AssertionError(f"[qwen_v1] the checkpoint does not load back "
+                             f"bitwise: {diff[:8]}")
+    del lm2, vis2, dr2
+    log(f"[qwen_v1] checkpoint (the public Qwen/Qwen-VL names, bf16 "
+        f"safetensors) + draft (save_draft): {written / 1e9:.3f} GB written "
+        f"in {out['write_s']:.1f}s, loaded back bitwise by load_qwen_vl_v1 "
+        f"in {out['load_s']:.1f}s on {card}")
+
+    # the harness: B (the adapter's default, AR), A (--use_msd)
+    gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
+    run = [None]
+    reqs, scores, ar_steps = [], [], [0]
+    orig = {"generate": MSDGenerator.generate,
+            "naive_generate": MSDGenerator.naive_generate,
+            "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
+
+    def wrap_gen(kind):
+        def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
+            before = captures(self)
+            t1 = time.perf_counter()
+            r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
+            sync()
+            mine = [q for q in reqs if q["run"] == run[0]]
+            rec = {"run": run[0], "task": gen_tasks[len(mine) // limit],
+                   "t": (t1, time.perf_counter()), "n": len(r.tokens),
+                   "tokens": r.tokens.tolist(),
+                   "captured": captures(self) - before,
+                   "key": (kind, max_new_tokens, kw.get("sp"))}
+            if run[0] == "A":
+                rec["check"] = check(self, ids, img_feats, r.tokens,
+                                     pad_ids=self.inline_pad_ids)
+            else:
+                a = [q for q in reqs if q["run"] == "A"][len(mine)]
+                rec["split"] = check(self, ids, img_feats, a["tokens"],
+                                     r.tokens,
+                                     pad_ids=self.inline_pad_ids)["split"]
+            reqs.append(rec)
+            return r
+        return wrapped
+
+    def score(self, ids, cont_start, img_feats=None, img_grid=None):
+        got = orig["score"](self, ids, cont_start, img_feats, img_grid)
+        sync()
+        rec = {"run": run[0], "out": got}
+        if run[0] == "A":
+            rec["plain"] = v1_plain_score(self, ids, cont_start, img_feats,
+                                          self.inline_pad_ids)
+        scores.append(rec)
+        return got
+
+    def ar_decode(*a, **kw):
+        n = orig["ar_decode"](*a, **kw)
+        ar_steps[0] += n - 1
+        return n
+
+    common = ["--model", "qwen_vl_eagle", "--model_args",
+              f"pretrained={ckpt},max_seq_len={max_seq}",
+              "--msd_model_path", ddir, "--device", str(device),
+              "--limit", str(limit), "--tasks", ",".join(tasks),
+              "--gen_kwargs", f"max_new_tokens={harness_new}",
+              "--log_samples"]
+    hruns = {"A": ["--use_msd"], "B": []}
+    MSDGenerator.generate = wrap_gen("generate")
+    MSDGenerator.naive_generate = wrap_gen("naive_generate")
+    MSDGenerator.score = score
+    SE.ar_decode = ar_decode
+    try:
+        for name, argv in hruns.items():
+            run[0] = name
+            steps0 = ar_steps[0]
+            K1.decode_attention.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                payload = HM.main(argv + common)
+            sync()
+            out[name] = {"payload": payload, "s": time.perf_counter() - t1,
+                         "launches": K1.decode_attention.launches,
+                         "ar_steps": ar_steps[0] - steps0}
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        MSDGenerator.generate = orig["generate"]
+        MSDGenerator.naive_generate = orig["naive_generate"]
+        MSDGenerator.score = orig["score"]
+        SE.ar_decode = orig["ar_decode"]
+
+    def of(name):
+        return [r for r in reqs if r["run"] == name]
+
+    def responses(name, task):
+        return [s["response"] for s in
+                out[name]["payload"]["details"][task]["samples"]]
+
+    bad = [f"{n} ran {len(of(n))} generate requests" for n in hruns
+           if len(of(n)) != limit * len(gen_tasks)]
+    if out["B"]["payload"]["msd_stats"]["accept_steps"] or \
+            not out["A"]["payload"]["msd_stats"]["accept_steps"]:
+        bad.append(f"B (the default) is not AR or A not MSD: "
+                   f"{out['B']['payload']['msd_stats']}, "
+                   f"{out['A']['payload']['msd_stats']}")
+    hbad = [(r["task"], r["check"]["bad"]) for r in of("A")
+            if r["check"]["bad"]]
+    if hbad:
+        bad.append(f"A's tokens off the v1 recompute: {hbad}")
+    hsplits = [r["split"] for r in of("B") if r["split"] is not None]
+    if not all(split_ok(sp, tie) for sp in hsplits):
+        bad.append(f"B departs from A at a split that is no rounding tie: "
+                   f"{hsplits}")
+    if "ai2d_ppl" in tasks and responses("B", "ai2d_ppl") != \
+            responses("A", "ai2d_ppl"):
+        bad.append("B's loglikelihoods != A's (bitwise)")
+    a_scores = [r for r in scores if r["run"] == "A"]
+    worst = max((abs(r["out"][0] - r["plain"][0])
+                 / max(1.0, abs(r["plain"][0])) for r in a_scores),
+                default=0.0)
+    if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in a_scores):
+        bad.append(f"score != its v1 recompute (worst relative "
+                   f"{worst:.3e} against 1e-4, or a greedy flag)")
+    b_caps = sum(r["captured"] for r in of("B"))
+    hk1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
+        if on_card else 0
+    if out["B"]["launches"] != hk1_want or out["A"]["launches"]:
+        bad.append(f"K1 launches A {out['A']['launches']}, B "
+                   f"{out['B']['launches']} (want {hk1_want})")
+
+    def ms_per_token(name):
+        rs = of(name)
+        return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
+            / max(1, sum(r["n"] for r in rs))
+
+    out.update(harness_launches=out["B"]["launches"],
+               harness_ar_steps=out["B"]["ar_steps"], harness_caps=b_caps,
+               worst_score_rel=worst, harness_splits=hsplits,
+               ms_token={n: ms_per_token(n) for n in hruns},
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[qwen_v1] harness (--model qwen_vl_eagle, {limit} synthetic docs "
+        f"of {', '.join(tasks)}, {harness_new} new tokens): B (the default, "
+        f"AR) {out['B']['s']:.1f}s, A (--use_msd) {out['A']['s']:.1f}s; A's "
+        f"tokens off the v1 recompute's canonical argmax: "
+        f"{sum(r['check']['off'] for r in of('A'))} (allowed {tie:g} ulps + "
+        f"the row's noise), off the shaped recompute's: "
+        f"{sum(r['check']['off_b'] for r in of('A'))}; B == A up to each "
+        f"first split ("
+        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps (noise "
+                     f"{s['noise']:g})" for s in hsplits) or "no split")
+        + f"); ai2d_ppl A == B bitwise, recompute worst relative "
+        f"{worst:.3e}; ms per generated token (prefill included) A "
+        f"{out['ms_token']['A']:.2f}, B {out['ms_token']['B']:.2f}; K1 in B "
+        f"{out['B']['launches']} = {layers} x ({out['B']['ar_steps']} AR "
+        f"tokens decoded + {WARMUP_STEPS} warm-up steps x {b_caps} "
+        f"capture), 0 in A on {card}")
+    if bad:
+        raise AssertionError(f"[qwen_v1] {bad}")
+    log(f"[qwen_v1] peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
+        f"{out['seconds']:.1f}s, of which the recompute checks "
+        f"{check_s[0]:.1f}s and the planted faults {out['fault_s']:.1f}s on "
+        f"{card}")
+    del gens, gen, eager
     return out
 
 
@@ -6070,7 +6850,7 @@ def run_all(root: str):
         f"after the training phase")
     big = run_13b()
     k1["launches_13b"] = big["launches"]
-    k1["ms_40_heads"] = big["k1_us"] / 1e3
+    k1["ar_13b"] = dict(big["k1_row"], launches=big["launches"])
     log(f"[quant] on {card}: per replayed AR token / verify step (ms): "
         f"bf16 {quant['bf16']['ar_replay_ms']:.3f} / "
         f"{quant['bf16']['step_replay_ms']:.3f}; "
@@ -6081,8 +6861,10 @@ def run_all(root: str):
                                   "int8 draft"))
         + f"; 13B int8 {big['ar_replay_ms']:.3f} / "
         f"{big['step_replay_ms']:.3f} (peak {big['peak'] / 2**30:.2f} GiB);"
-        f" K1 {k1['ms'] * 1e3:.2f} us at 32 heads, {big['k1_us']:.2f} us "
-        f"at 40; checkpoint write {weights['write_s']:.1f}s, load "
+        f" K1 {k1['ms'] * 1e3:.2f} us at 32 heads, "
+        f"{k1['ar_13b']['ms'] * 1e3:.2f} us at 40 (sdpa "
+        f"{k1['ar_13b']['library_ms'] * 1e3:.2f}); checkpoint write "
+        f"{weights['write_s']:.1f}s, load "
         f"{weights['load_s']:.1f}s")
     # the 13B model goes before Qwen2-VL comes
     del big
@@ -6098,6 +6880,31 @@ def run_all(root: str):
     k1["qwen_ar"]["launches"] = qwen["launches"]
     k1["qwen_ar"]["harness_launches"] = qwen["harness_launches"]
     k1["video_ar"]["launches"] = qwen["video"]["launches"]
+    # Qwen2-VL's weights go before Qwen-VL v1 comes (run_qwen's locals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[qwen_v1] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated after the Qwen2-VL phase is released")
+    root = tempfile.mkdtemp(prefix="msd_qwen_v1_")
+    try:
+        v1 = run_qwen_v1(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    k1["qwen_v1_ar"] = dict(v1["k1_row"], launches=v1["launches"],
+                            harness_launches=v1["harness_launches"])
+    log(f"[qwen_v1] on {card}: AR token {v1['ar_replay_ms']:.3f} ms "
+        f"replayed ({v1['ar_ms']:.2f} ms/token wall), verify step "
+        f"{v1['step_replay_ms']:.3f} ms replayed ({v1['msd_ms_step']:.2f} "
+        f"ms/step wall, eager {v1['eager_ms_step']:.2f}); tower "
+        f"{v1['tower_ms']:.2f} ms per 448px image (relative error "
+        f"{v1['tower_rel']:.3e}, fault (b) {v1['fault_b_rel']:.3e}); "
+        f"checkpoint write {v1['write_s']:.1f}s, load {v1['load_s']:.1f}s;"
+        f" harness ms per token A {v1['ms_token']['A']:.2f}, B "
+        f"{v1['ms_token']['B']:.2f}; K1 at the v1 row "
+        f"{k1['qwen_v1_ar']['ms'] * 1e3:.2f} us (sdpa "
+        f"{k1['qwen_v1_ar']['library_ms'] * 1e3:.2f}, bound "
+        f"{k1['qwen_v1_ar']['bound_ms'] * 1e3:.2f}); peak "
+        f"{v1['peak'] / 2**30:.2f} GiB; phase {v1['seconds']:.1f}s")
     log(f"[qwen] on {card}: AR token {qwen['ar_replay_ms']:.3f} ms "
         f"replayed ({qwen['ar_ms']:.2f} ms/token wall), verify step "
         f"{qwen['step_replay_ms']:.3f} ms replayed ({qwen['msd_ms_step']:.2f}"

@@ -7,11 +7,12 @@ port reads are here. Left out: ``attn_impl`` and ``pallas_min_s`` (the
 port routes every row group of at most 4 grouped query rows to its
 decode-attention kernel), ``canonical_attn=False`` and ``canonical_ar``
 (the port always verifies with window-canonical attention, the JAX
-default). The Qwen2-VL configs live with their models
-(``models/qwen2vl.Qwen2VLTextConfig``, whose ``as_llama`` gives the
-decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``),
-as in the JAX package. The draft's fc always has a bias
-(``fc_bias=True``). Quantized weights are a property of the param dicts
+default). The Qwen configs live with their models
+(``models/qwen2vl.Qwen2VLTextConfig`` and
+``models/qwen_vl_v1.QwenVLV1TextConfig``, whose ``as_llama`` gives the
+decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``,
+``models/qwen_vl_v1.QwenVLVisionConfig``), as in the JAX package. The
+draft's fc always has a bias (``fc_bias=True``). Quantized weights are a property of the param dicts
 (``models.llama.quantize_llama_params``), not of these configs. Training
 (``train/``) runs on one device: the JAX ``DraftTrainer``'s and
 ``LlavaFinetuner``'s ``mesh`` argument (megatron parameter specs, ZeRO
@@ -19,9 +20,7 @@ optimizer-state sharding) is left out until the port has its parallel
 modules over ``torch.distributed``. ``LlavaConfig.s2_scales`` (S2
 multi-scale features) is here; LLaVA-1.6 anyres has no config, as in the
 JAX package: its grid pinpoints, merge mode and ``image_newline`` are
-arguments (``utils/mm_utils``, ``models/llava``). Qwen-VL v1's configs
-(the JAX ``models/qwen_vl_v1.py``) are left out until the port has that
-model (M15b).
+arguments (``utils/mm_utils``, ``models/llava``).
 """
 
 from __future__ import annotations

@@ -4,10 +4,11 @@ and per-request stats.
 The port of the JAX package's ``engine/generator.py`` for prompts whose
 images are expanded from placeholders (LLaVA) or inline (Qwen2-VL:
 ``image_mode="inline"``, the prompt holds the image-pad span and the
-caller passes the merged grid ``img_grid`` for mrope): ``generate`` (MSD in every drafting mode,
-greedy or sampled, with the calibrated rerank after ``set_calibrator``,
-the collection of its features and of the trajectory's hidden states for
-distillation), ``generate_stream`` (the same tokens in segments),
+caller passes the merged grid ``img_grid`` for mrope; Qwen-VL v1: 1-D
+rope, the span found by ``inline_pad_ids``): ``generate`` (MSD in every
+drafting mode, greedy or sampled, with the calibrated rerank after
+``set_calibrator``, the collection of its features and of the
+trajectory's hidden states for distillation), ``generate_stream`` (the same tokens in segments),
 ``generate_batch`` (B requests as the lanes of one batched step),
 ``naive_generate`` (the AR baseline, optionally from the MSD prefill;
 ``generate`` and ``naive_generate`` also take a list of image feature
@@ -80,12 +81,16 @@ class MSDGenerator:
                  eos_id: int = 2, sp: SamplingParams = SamplingParams(),
                  image_mode: str = "expand", mrope_section=None,
                  attn_feature_mode: str = "reference", device="cuda",
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, inline_pad_ids=None):
         self.tcfg, self.dcfg = tcfg, dcfg
         self.n_img, self.eos_id, self.sp = n_img, eos_id, sp
         self.image_mode = image_mode
         self.mrope_section = None if mrope_section is None \
             else tuple(mrope_section)
+        # an inline prompt's image-pad ids: Qwen2-VL's image and video pads
+        # by default, a Qwen-VL v1 adapter's <imgpad>
+        self.inline_pad_ids = tuple(inline_pad_ids) if inline_pad_ids \
+            else None
         self.attn_feature_mode = attn_feature_mode
         self.device = torch.device(device)
         self.rng = torch.Generator(device=self.device)
@@ -242,9 +247,11 @@ class MSDGenerator:
 
     def _img_pos(self, ids: np.ndarray) -> int:
         """The image span's first row: the placeholder (expand) or the
-        first image-pad id (inline); len(ids) without one."""
+        first image-pad id (inline: ``inline_pad_ids``, else Qwen2-VL's
+        image and video pads); len(ids) without one."""
         if self.image_mode == "inline":
-            hit = np.isin(ids, (IMAGE_PAD_ID, VIDEO_PAD_ID))
+            hit = np.isin(ids, self.inline_pad_ids
+                          or (IMAGE_PAD_ID, VIDEO_PAD_ID))
         else:
             hit = ids == IMAGE_TOKEN_INDEX
         pos = np.nonzero(hit)[0]

@@ -17,7 +17,11 @@ vision span is the video's grid_t x merged grid rows, inside a
 <|video_pad|> span. Files decode through decord, imageio or OpenCV, when
 one is installed.
 
-Qwen-VL v1 (``qwen_vl_eagle``) is not ported yet: it raises, naming M15b.
+Qwen-VL v1 (``QwenVLEagle``, registered ``qwen_vl_eagle``) is this
+adapter over the v1 tower (``models/qwen_vl_v1``: the ViT and its
+256-query resampler) and a 1-D-rope inline generator whose span is the v1
+tokenizer's ``<img>`` ``<imgpad>`` x 256 ``</img>`` (``inline_pad_ids``);
+it generates AR unless ``use_msd``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ from msd_tpu_torch.ops.sampling import SamplingParams
 from msd_tpu_torch.utils.mm_utils import process_image
 
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
-NOT_PORTED = "is not ported yet: M15b"  # Qwen-VL v1
 
 
 def qwen_chat_ids(tokenizer, question: str, n_img: int, with_image: bool,
@@ -309,7 +312,8 @@ class Qwen2VLMSD:
                 n_img=n_vid, eos_id=g.eos_id, sp=g.sp, image_mode="inline",
                 mrope_section=g.mrope_section,
                 attn_feature_mode=g.attn_feature_mode, device=g.device,
-                cuda_graphs=g.graphs is not None)
+                cuda_graphs=g.graphs is not None,
+                inline_pad_ids=g.inline_pad_ids)
         return self._vgen
 
     def _encode_video(self, visual):
@@ -402,7 +406,10 @@ class Qwen2VLMSD:
             feats = self._encode_visual(visuals)
             with_image = feats is not None
             ids_ctx, _ = qwen_chat_ids(self.tokenizer, context,
-                                       self.gen.n_img, with_image)
+                                       self.gen.n_img, with_image,
+                                       pad_id=self.image_pad_id,
+                                       start_id=self.vision_start_id,
+                                       end_id=self.vision_end_id)
             cont_ids = np.asarray(self.tokenizer.encode(continuation),
                                   np.int32)
             # HF Qwen tokenizers have no BOS; the byte-fallback one does
@@ -427,15 +434,134 @@ class Qwen2VLMSD:
 
 @register_model("qwen_vl_eagle")
 class QwenVLEagle(Qwen2VLMSD):
-    """The Qwen-VL (v1) adapter of the JAX package: not ported yet."""
+    """The Qwen-VL (v1) adapter (reference lmms-eval models/
+    qwen_vl_eagle.py:29-384; the JAX package's ``QwenVLEagle``).
+
+    v1 differs from Qwen2-VL in both halves: the tower is the OpenCLIP-style
+    ViT with a 256-query cross-attention resampler
+    (``models/qwen_vl_v1``), and the LM takes plain 1-D rotary positions,
+    no mrope, with the image rows inline in an ``<img>`` ... ``</img>``
+    span. The reference adapter generates autoregressively (:308): so does
+    this one unless ``use_msd=True``."""
 
     def __init__(self, *a, **kw):
-        raise NotImplementedError(f"qwen_vl_eagle (Qwen-VL v1) {NOT_PORTED}")
+        kw.setdefault("use_msd", False)
+        super().__init__(*a, **kw)
 
     @classmethod
-    def from_pretrained(cls, *a, **kw):
-        raise NotImplementedError(f"qwen_vl_eagle (Qwen-VL v1) {NOT_PORTED}")
+    def from_pretrained(cls, pretrained: str, msd_model_path: str,
+                        dtype=None, device="cuda", eng=None,
+                        **kw) -> "QwenVLEagle":
+        """An adapter over a Qwen-VL (v1) checkpoint dir and an MSD draft
+        dir (``load_qwen_vl_v1``, ``load_draft`` sharing the target's
+        embedding when the draft has none), by the steps of the JAX
+        ``from_pretrained``: the checkpoint's tokenizer if ``transformers``
+        can read it locally, else the byte tokenizer over the vocabulary;
+        ``<img>``, ``<imgpad>`` and ``</img>`` as the tokenizer resolves
+        each to one id, else Qwen2-VL's ids; the EOS ``im_end_id``, else
+        ``eos_token_id``, else 151643; ``n_queries`` image rows at the
+        tower's grid (448px images), found by the ``<imgpad>`` id. Beyond
+        JAX's, as ``Qwen2VLMSD.from_pretrained``: the weights load in
+        ``dtype``, by default bf16 on a CUDA device and fp32 elsewhere;
+        without ``eng``, ``checkpoint_engine``'s budgets."""
+        from msd_tpu_torch.engine.generator import MSDGenerator
+        from msd_tpu_torch.utils.weights import load_draft, load_qwen_vl_v1
+
+        if dtype is None:
+            dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
+                else torch.float32
+        lm, vision, tcfg, vcfg = load_qwen_vl_v1(pretrained, dtype, device)
+        lc = tcfg.as_llama()
+        draft, dcfg = load_draft(msd_model_path, lc,
+                                 base_embed=lm["embed_tokens"], dtype=dtype,
+                                 device=device)
+        try:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(
+                pretrained, trust_remote_code=True, local_files_only=True)
+        except Exception:
+            tokenizer = SimpleTokenizer(tcfg.vocab_size)
+
+        # v1's span is <img> <imgpad> x 256 </img>: the v1 tokenizer's
+        # ids (Qwen2-VL's 15165x ids are untrained <|extra_*|> tokens of
+        # the v1 vocabulary; reference qwen_vl_eagle.py:68 lets the
+        # tokenizer resolve "<img>{}</img>")
+        def _one(s: str, default: int) -> int:
+            try:
+                e = tokenizer.encode(s)
+                return int(e[0]) if len(e) == 1 else default
+            except Exception:
+                return default
+
+        start_id = _one("<img>", VISION_START_ID)
+        pad_id = _one("<imgpad>", IMAGE_PAD_ID)
+        end_id = _one("</img>", VISION_END_ID)
+        if eng is None:
+            eng = checkpoint_engine(dcfg, kw)
+        gen = MSDGenerator(lm, draft, lc, dcfg, eng, n_img=vcfg.n_queries,
+                           eos_id=getattr(tokenizer, "im_end_id",
+                                          getattr(tokenizer, "eos_token_id",
+                                                  151643)),
+                           image_mode="inline", mrope_section=None,
+                           inline_pad_ids=(pad_id,), device=device)
+        adapter = cls.from_v1(gen, tokenizer, vision, vcfg, **kw)
+        adapter.vision_start_id = start_id
+        adapter.image_pad_id = pad_id
+        adapter.vision_end_id = end_id
+        return adapter
 
     @classmethod
-    def from_tiny(cls, *a, **kw):
-        raise NotImplementedError(f"qwen_vl_eagle (Qwen-VL v1) {NOT_PORTED}")
+    def from_tiny(cls, device="cuda", **kw) -> "QwenVLEagle":
+        """A randomly initialised tiny v1 stack at the JAX ``from_tiny``
+        shapes (a 48-wide decoder of 2 layers and 4 heads, an EAGLE draft,
+        a 12-node tree; a real tiny tower: width 32, 2 layers, 4 queries
+        over a 4 x 4 patch grid of 56px images) with the port's seeded
+        torch weights in fp32, the image span at Qwen2-VL's ids, so the
+        harness CLI runs the v1 path without a checkpoint (``--model
+        qwen_vl_eagle --model_args tiny=true``)."""
+        from msd_tpu_torch.configs import (DraftConfig, EngineConfig,
+                                           TreeConfig)
+        from msd_tpu_torch.engine.generator import MSDGenerator
+        from msd_tpu_torch.models import draft as D
+        from msd_tpu_torch.models import llama as L
+        from msd_tpu_torch.models.qwen_vl_v1 import (
+            QwenVLV1TextConfig, QwenVLVisionConfig,
+            init_qwen_vl_vision_params)
+
+        qcfg = QwenVLV1TextConfig.tiny(vocab=512, hidden=48, layers=2,
+                                       heads=4, inter=96)
+        vcfg = QwenVLVisionConfig.tiny(width=32, layers=2, heads=4,
+                                       out=qcfg.hidden_size, queries=4,
+                                       image_size=56)
+        lc = qcfg.as_llama()
+        dcfg = DraftConfig(text=lc)
+        g = torch.Generator(device=device).manual_seed(0)
+        f32 = dict(device=device, dtype=torch.float32)
+        target = L.init_llama_params(lc, g, **f32)
+        draft = D.init_draft_params(dcfg, g, **f32)
+        vision = init_qwen_vl_vision_params(vcfg, g, **f32)
+        eng = EngineConfig(max_seq_len=512, prompt_pad_multiple=64,
+                           tree=TreeConfig(top_k=4, max_depth=4,
+                                           num_nodes=12))
+        gen = MSDGenerator(target, draft, lc, dcfg, eng,
+                           n_img=vcfg.n_queries, eos_id=2,
+                           image_mode="inline", mrope_section=None,
+                           device=device)
+        return cls.from_v1(gen, SimpleTokenizer(vocab_size=512), vision,
+                           vcfg, **kw)
+
+    @classmethod
+    def from_v1(cls, gen, tokenizer, vision: Dict, vcfg,
+                **kw) -> "QwenVLEagle":
+        """An adapter whose images go through ``qwen_vl_vision_encode``
+        with the tower weights ``vision`` on the generator's device, at
+        the tower's patch grid unless ``img_grid`` says otherwise."""
+        from msd_tpu_torch.models.qwen_vl_v1 import qwen_vl_vision_encode
+
+        def encode(pixels: np.ndarray) -> torch.Tensor:
+            return qwen_vl_vision_encode(vision, vcfg, torch.from_numpy(
+                np.ascontiguousarray(pixels)).to(gen.device))
+
+        kw.setdefault("img_grid", (vcfg.grid, vcfg.grid))
+        return cls(gen, tokenizer, encode, **kw)

@@ -11,7 +11,9 @@ the host until the importers upload them and cast on the device.
 ``save_llava``, ``save_qwen2_vl`` and ``save_draft`` write the layouts
 the loaders read. ``load_qwen2_vl`` reads a HF Qwen2-VL checkpoint (the
 qkv-bias decoder under ``model.*``, ``lm_head.weight``, the vision tower
-under ``visual.*``).
+under ``visual.*``), ``load_qwen_vl_v1`` a Qwen-VL (v1) one (the fused-qkv
+decoder under ``transformer.h.*``, the ViT and resampler under
+``transformer.visual.*``).
 """
 
 from __future__ import annotations
@@ -383,6 +385,44 @@ def load_qwen2_vl(path: str, dtype=torch.bfloat16, device="cuda"):
     lm = params_from_hf_qwen2(state, tcfg, "model.", dtype, device)
     vision = params_from_hf_qwen_vision(state, vcfg, "visual.", dtype,
                                         device)
+    return lm, vision, tcfg, vcfg
+
+
+def load_qwen_vl_v1(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local Qwen-VL (v1) checkpoint dir -> (lm_params, vision_params,
+    text_cfg, vision_cfg) on ``device`` in ``dtype`` (the JAX
+    ``load_qwen_vl_v1``): the public Qwen/Qwen-VL remote-code names
+    (``transformer.h.*`` with the fused ``c_attn``, ``transformer.visual.*``
+    the ViT and resampler); the text config from config.json's top level
+    (``intermediate_size // 2``: the w1/w2 halves, ``layer_norm_epsilon``,
+    ``rotary_emb_base``), the tower's from its ``visual`` block, each field
+    defaulting to the public model's."""
+    from msd_tpu_torch.models.qwen_vl_v1 import (
+        QwenVLV1TextConfig, QwenVLVisionConfig, params_from_hf_qwen_v1,
+        params_from_hf_qwen_vl_vision)
+
+    state = _load_state(path)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    tcfg = QwenVLV1TextConfig(
+        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"] // 2,
+        num_hidden_layers=cfg["num_hidden_layers"],
+        num_attention_heads=cfg["num_attention_heads"],
+        max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+        rms_norm_eps=cfg.get("layer_norm_epsilon", 1e-6),
+        rope_theta=cfg.get("rotary_emb_base", 10000.0))
+    vc = cfg.get("visual", {})
+    vcfg = QwenVLVisionConfig(
+        image_size=vc.get("image_size", 448),
+        patch_size=vc.get("patch_size", 14),
+        width=vc.get("width", 1664), layers=vc.get("layers", 48),
+        heads=vc.get("heads", 16), mlp_size=vc.get("mlp_size", 8192),
+        output_dim=vc.get("output_dim", cfg["hidden_size"]),
+        n_queries=vc.get("n_queries", 256))
+    lm = params_from_hf_qwen_v1(state, tcfg, dtype, device)
+    vision = params_from_hf_qwen_vl_vision(state, vcfg,
+                                           dtype=dtype, device=device)
     return lm, vision, tcfg, vcfg
 
 

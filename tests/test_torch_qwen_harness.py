@@ -253,11 +253,11 @@ def test_cli_runs_the_tiny_qwen_stack(capsys):
     capsys.readouterr()
 
 
-def test_video_and_qwen_vl_v1_raise_naming_m15b(adapters):
+def test_video_without_a_video_encoder_raises(adapters):
     """Videos are ported (tests/test_torch_qwen_video.py), but a video
     visual (frames or a file) sent to an adapter built without a video
-    encoder raises, naming ``encode_video_fn``; the Qwen-VL v1 adapter is
-    not ported: it raises an error that names M15b."""
+    encoder raises, naming ``encode_video_fn`` (Qwen-VL v1, which has no
+    video encoder: tests/test_torch_qwen_vl_v1.py)."""
     mine, _ = adapters()
     frames = np.zeros((4, 56, 56, 3), np.uint8)
     req = Instance(request_type="generate_until", doc={},
@@ -272,7 +272,3 @@ def test_video_and_qwen_vl_v1_raise_naming_m15b(adapters):
             request_type="generate_until", doc={},
             arguments=("Describe.", dict(GEN_KW), lambda d: ["clip.mp4"], 0,
                        "t", "test"), idx=0, task_name="t", doc_id=0)])
-    for make in (lambda: TR.get_model("qwen_vl_eagle").from_tiny(),
-                 lambda: TQA.QwenVLEagle(None, None)):
-        with pytest.raises(NotImplementedError, match="M15b"):
-            make()

@@ -180,21 +180,6 @@ def test_vision_init_is_seeded_and_shaped():
         torch.all(fa["merge_fc2_b"] == 0)
 
 
-def test_qwen_vl_v1_still_raises_naming_m15b():
-    """Qwen-VL v1 (``qwen_vl_eagle``) is not ported: each of its entry
-    points raises, naming M15b (videos are ported:
-    tests/test_torch_qwen_video.py)."""
-    from msd_tpu_torch.harness.models import qwen2_vl_msd as TQA
-    from msd_tpu_torch.harness.registry import get_model
-
-    cls = get_model("qwen_vl_eagle")
-    assert cls is TQA.QwenVLEagle
-    for call in (lambda: cls(None, None), lambda: cls.from_tiny(),
-                 lambda: cls.from_pretrained("a", "b")):
-        with pytest.raises(NotImplementedError, match="M15b"):
-            call()
-
-
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
