@@ -136,6 +136,21 @@ prints no result):
    combination's first request. Seconds per task, ms per generated
    token, alpha, the splits and the target's usual top-1 margin, the AR
    run's greedy share, peak memory.
+11b. harness_ext (``run_harness_ext``), on the same checkpoint: the
+   extended tier through the same CLI, ``HARNESS_EXT_LIMIT`` (2) docs of
+   mme_realworld_lite, mmlu (loglikelihood), llava_in_the_wild,
+   mmbench_en_dev, mmaad_base and a YAML task written to the temporary
+   directory and registered by ``--include_path``, ``--judge
+   endpoint:URL`` at a loopback stub (an ``http.server`` thread with
+   fixed replies): calibrated MSD from ``[harness]``'s pickle, the AR
+   adapter, the null draft, and the calibrated run on the judged tasks
+   with the judge at a dead loopback port. Calibrated == null-draft ==
+   dead-judge responses and token ids; AR against calibrated by
+   ``[harness]``'s tie rule; mmlu's loglikelihoods bitwise across runs
+   and repeats, within 1e-4 of the plain recompute; K1 only in the AR
+   run; the stub served exactly the calls the scorers make, every score
+   is the rule's for the stub's reply (the dead judge's: the offline
+   rule's, which must differ). Seconds per run, ms per token.
 12. quant (``run_quant``): on prompt 0 x 32 tokens, an int8 target, an
    int4 target and the bf16 target with an int8 draft: MSD == null-draft
    tokens, graph ==
@@ -320,6 +335,21 @@ HARNESS_LIMIT, HARNESS_NEW = 6, 16
 # logits of the two tokens must lie within this many bf16 ulps of the
 # larger (a tie that bf16 rounding decides; see run_harness)
 HARNESS_TIE = 2
+# the extended-tier harness phase: one task of each task module that came
+# with the judge (mmlu, scored by loglikelihood, and mme_realworld_lite
+# from tasks_ext), a YAML task registered through --include_path, and
+# synthetic docs per task; its judged tasks; the loopback judge's reply to
+# a prompt holding each marker (the llava pairwise review, the mmbench
+# option match, the mmvet rubric, the mathvista extraction)
+HARNESS_EXT_TASKS = ("mme_realworld_lite", "mmlu", "llava_in_the_wild",
+                     "mmbench_en_dev", "mmaad_base")
+HARNESS_EXT_YAML = "smoke_yaml_vqa"
+HARNESS_EXT_JUDGED = ("llava_in_the_wild", "mmbench_en_dev")
+HARNESS_EXT_LIMIT = 2
+JUDGE_REPLIES = (("[Context]", "8 6\nAssistant 2 was decent."),
+                 ("Your output:", "A"),
+                 ("Correctness", "0.5"),
+                 ("Extracted answer:", "B"))
 # the Qwen phases: synthetic docs per harness task (4 until [qwen_v1]
 # joined the smoke), and the std of the q/k/v biases drawn into the seeded
 # target (Qwen's attention has them; zeros would leave the bias add
@@ -3127,6 +3157,92 @@ def first_split(gen, ids, feats, a, b) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def record_harness(sync, run, task_of, ref_run: str, score_task: str,
+                   check_run: str = "C"):
+    """Wrappers, restored after the block, that record what the harness
+    CLI's output does not show: each request's committed token ids, mode
+    and graph captures (``MSDGenerator.generate``/``naive_generate``; an
+    AR request also its own greedy score and its ``first_split`` against
+    ``ref_run``'s request of the same index), each scoring request (one
+    of ``score_task``; in ``check_run`` also a repeat and the plain
+    recompute) and the AR steps run (``spec_engine.ar_decode``), tagged
+    with the run named ``run[0]`` and ``task_of(run, k)`` for its k-th
+    generate request. Yields (requests, scores, [AR steps])."""
+    from msd_tpu_torch.engine import spec_engine as SE
+    from msd_tpu_torch.engine.generator import MSDGenerator
+
+    reqs, scores, ar_steps = [], [], [0]
+    orig = {"generate": MSDGenerator.generate,
+            "naive_generate": MSDGenerator.naive_generate,
+            "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
+
+    def n_graphs(gen):
+        return 0 if gen.graphs is None else len(gen.graphs.steps)
+
+    def wrap_gen(kind):
+        def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
+            before = n_graphs(self)
+            t1 = time.perf_counter()
+            r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
+            sync()
+            t2 = time.perf_counter()
+            mode = "ar" if kind == "naive_generate" else \
+                "calibrated" if kw.get("use_calibration") else \
+                "collect" if kw.get("collect_calibration") else "msd"
+            k = sum(q["run"] == run[0] for q in reqs)
+            rec = {"run": run[0], "task": task_of(run[0], k),
+                   "mode": mode, "t": (t1, t2), "n": len(r.tokens),
+                   "tokens": r.tokens.tolist(),
+                   "captured": n_graphs(self) - before,
+                   "layers": self.tcfg.num_hidden_layers,
+                   "key": (mode, max_new_tokens, kw.get("sp"),
+                           id(self.params.get("calib"))
+                           if mode == "calibrated" else None)}
+            if mode == "collect":
+                rec["rows"] = int(np.asarray(r.calib_data["valid"]).sum())
+            if mode == "ar":
+                full = np.concatenate([np.asarray(ids, np.int32),
+                                       r.tokens]).astype(np.int32)
+                rec["greedy"] = orig["score"](self, full, len(ids),
+                                              img_feats)[1]
+                ref = [q for q in reqs if q["run"] == ref_run][k]
+                rec["split"] = first_split(self, ids, img_feats,
+                                           ref["tokens"], rec["tokens"])
+            reqs.append(rec)
+            return r
+        return wrapped
+
+    def score(self, ids, cont_start, img_feats=None):
+        t1 = time.perf_counter()
+        got = orig["score"](self, ids, cont_start, img_feats)
+        sync()
+        rec = {"run": run[0], "task": score_task, "out": got,
+               "t": (t1, time.perf_counter())}
+        if run[0] == check_run:
+            rec["again"] = orig["score"](self, ids, cont_start, img_feats)
+            rec["plain"] = plain_score(self, ids, cont_start, img_feats)
+        scores.append(rec)
+        return got
+
+    def ar_decode(*a, **kw):
+        n = orig["ar_decode"](*a, **kw)
+        ar_steps[0] += n - 1
+        return n
+
+    MSDGenerator.generate = wrap_gen("generate")
+    MSDGenerator.naive_generate = wrap_gen("naive_generate")
+    MSDGenerator.score = score
+    SE.ar_decode = ar_decode
+    try:
+        yield reqs, scores, ar_steps
+    finally:
+        MSDGenerator.generate = orig["generate"]
+        MSDGenerator.naive_generate = orig["naive_generate"]
+        MSDGenerator.score = orig["score"]
+        SE.ar_decode = orig["ar_decode"]
+
+
 def run_harness(res, ckpt: str, draft_dir: str, root: str,
                 limit: int = HARNESS_LIMIT, max_new: int = HARNESS_NEW,
                 tasks=HARNESS_TASKS) -> dict:
@@ -3149,12 +3265,9 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
        draft) on the generation tasks: the canonical greedy AR.
 
     What main() returns and writes gives the responses, ``msd_stats``,
-    the pickle and the log files. Wrappers, restored after, record only
-    what those do not show: each request's committed token ids, mode and
-    captures (``MSDGenerator.generate``/``naive_generate``), the scoring
-    requests (``MSDGenerator.score``) and the AR steps run
-    (``spec_engine.ar_decode``). A run's generate requests belong to its
-    generation tasks in order, ``limit`` each.
+    the pickle and the log files; ``record_harness`` records the rest. A
+    run's generate requests belong to its generation tasks in order,
+    ``limit`` each.
 
     Fails unless: A's responses and token ids == D's (the window-canonical
     verify makes the committed tokens draft-invariant) and C's == A's;
@@ -3180,8 +3293,6 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
     import io
 
     import torch
-    from msd_tpu_torch.engine import spec_engine as SE
-    from msd_tpu_torch.engine.generator import MSDGenerator
     from msd_tpu_torch.engine.graphs import WARMUP_STEPS
     from msd_tpu_torch.harness import __main__ as HM
     from msd_tpu_torch.ops import decode_attention as K1
@@ -3197,66 +3308,6 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
     W.save_draft(ctx["drafts"]["null"], null_dir)
     gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
     run = [None]
-    reqs, scores = [], []
-    ar_steps = [0]
-    orig = {"generate": MSDGenerator.generate,
-            "naive_generate": MSDGenerator.naive_generate,
-            "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
-
-    def n_graphs(gen):
-        return 0 if gen.graphs is None else len(gen.graphs.steps)
-
-    def wrap_gen(kind):
-        def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
-            before = n_graphs(self)
-            t1 = time.perf_counter()
-            r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
-            sync()
-            t2 = time.perf_counter()
-            mode = "ar" if kind == "naive_generate" else \
-                "calibrated" if kw.get("use_calibration") else \
-                "collect" if kw.get("collect_calibration") else "msd"
-            mine = [q for q in reqs if q["run"] == run[0]]
-            rec = {"run": run[0], "task": gen_tasks[len(mine) // limit],
-                   "mode": mode, "t": (t1, t2), "n": len(r.tokens),
-                   "tokens": r.tokens.tolist(),
-                   "captured": n_graphs(self) - before,
-                   "layers": self.tcfg.num_hidden_layers,
-                   "key": (mode, max_new_tokens, kw.get("sp"),
-                           id(self.params.get("calib"))
-                           if mode == "calibrated" else None)}
-            if mode == "collect":
-                rec["rows"] = int(np.asarray(r.calib_data["valid"]).sum())
-            if mode == "ar":
-                # B against A's request of the same doc
-                full = np.concatenate([np.asarray(ids, np.int32),
-                                       r.tokens]).astype(np.int32)
-                rec["greedy"] = orig["score"](self, full, len(ids),
-                                              img_feats)[1]
-                a = [q for q in reqs if q["run"] == "A"][len(mine)]
-                rec["split"] = first_split(self, ids, img_feats,
-                                           a["tokens"], rec["tokens"])
-            reqs.append(rec)
-            return r
-        return wrapped
-
-    def score(self, ids, cont_start, img_feats=None):
-        t1 = time.perf_counter()
-        got = orig["score"](self, ids, cont_start, img_feats)
-        sync()
-        rec = {"run": run[0], "task": "ai2d_ppl", "out": got,
-               "t": (t1, time.perf_counter())}
-        if run[0] == "C":
-            rec["again"] = orig["score"](self, ids, cont_start, img_feats)
-            rec["plain"] = plain_score(self, ids, cont_start, img_feats)
-        scores.append(rec)
-        return got
-
-    def ar_decode(*a, **kw):
-        n = orig["ar_decode"](*a, **kw)
-        ar_steps[0] += n - 1
-        return n
-
     hdir = os.path.join(root, "harness")
     os.makedirs(hdir, exist_ok=True)
     pkl, logdir = f"{hdir}/calibrator.pkl", f"{hdir}/logs"
@@ -3280,11 +3331,9 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
               "--msd_model_path", null_dir, "--tasks", ",".join(gen_tasks)],
     }
     out, digest = {"card": card}, {}
-    MSDGenerator.generate = wrap_gen("generate")
-    MSDGenerator.naive_generate = wrap_gen("naive_generate")
-    MSDGenerator.score = score
-    SE.ar_decode = ar_decode
-    try:
+    # B against A's request of the same doc
+    with record_harness(sync, run, lambda n, k: gen_tasks[k // limit], "A",
+                        "ai2d_ppl") as (reqs, scores, ar_steps):
         for name, argv in runs.items():
             run[0] = name
             steps0 = ar_steps[0]
@@ -3304,11 +3353,6 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
             gc.collect()
             if on_card:
                 torch.cuda.empty_cache()
-    finally:
-        MSDGenerator.generate = orig["generate"]
-        MSDGenerator.naive_generate = orig["naive_generate"]
-        MSDGenerator.score = orig["score"]
-        SE.ar_decode = orig["ar_decode"]
 
     def responses(name, task):
         return [s["response"] for s in
@@ -3473,6 +3517,408 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
         f" = {layers} x ({out['ar_steps']} AR tokens decoded + "
         f"{WARMUP_STEPS} warm-up steps x {b_caps} capture), 0 in A, C, D; "
         f"peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
+        f"{out['seconds']:.1f}s on {card}")
+    return out
+
+
+def judge_reply(prompt: str) -> str:
+    """The loopback judge's fixed reply to ``prompt`` (``JUDGE_REPLIES``
+    by marker; "ok" to anything else)."""
+    return next((r for m, r in JUDGE_REPLIES if m in prompt), "ok")
+
+
+@contextlib.contextmanager
+def judge_stub(reply=judge_reply):
+    """A judge endpoint on a free loopback port, served by a thread until
+    the block ends: each POST is answered with ``reply(prompt)`` of its
+    last message (a str goes out in the OpenAI chat contract, bytes as the
+    body itself). Yields (url, calls): each request's JSON body, in
+    order."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    calls = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(n).decode())
+            calls.append(body)
+            out = reply(body["messages"][-1]["content"])
+            if isinstance(out, str):
+                out = json.dumps({"choices": [
+                    {"message": {"content": out}}]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def log_message(self, *a):
+            pass
+
+    srv = HTTPServer(("127.0.0.1", 0), Handler)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_port}/v1/chat/completions", calls
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+
+
+def dead_judge_url() -> str:
+    """A judge URL on a loopback port that nothing listens on (bound,
+    read and released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return f"http://127.0.0.1:{port}/v1/chat/completions"
+
+
+YAML_UTILS = '''"""Hooks of the smoke's YAML task (the lmms-eval tasks/<name>/utils.py
+convention): a seeded 336px image per doc and the prompt's kwargs."""
+import numpy as np
+
+
+def doc_to_visual(doc):
+    rng = np.random.default_rng(doc["seed"])
+    return [rng.integers(0, 255, size=(336, 336, 3), dtype=np.uint8)]
+
+
+def doc_to_text(doc, lmms_eval_specific_kwargs):
+    kw = lmms_eval_specific_kwargs
+    return f"{kw['pre_prompt']}{doc['question']}{kw['post_prompt']}"
+'''
+
+YAML_TASK = '''task: "{name}"
+dataset_path: "{docs}"
+test_split: test
+output_type: generate_until
+doc_to_visual: !function smoke_utils.doc_to_visual
+doc_to_text: !function smoke_utils.doc_to_text
+doc_to_target: "answer"
+generation_kwargs:
+  max_new_tokens: 8
+  temperature: 0
+  do_sample: False
+metric_list:
+  - metric: exact_match
+    aggregation: mean
+lmms_eval_specific_kwargs:
+  default:
+    pre_prompt: ""
+    post_prompt: "\\nAnswer the question using a single word or phrase."
+'''
+
+
+def write_yaml_task(path: str, n: int) -> str:
+    """A YAML task directory (lmms-eval's file format: the YAML, its
+    ``!function`` hooks in ``smoke_utils.py`` beside it, ``n`` docs in a
+    JSON file) registering ``HARNESS_EXT_YAML``; returns the directory."""
+    os.makedirs(path, exist_ok=True)
+    docs = os.path.join(path, "docs.json")
+    with open(docs, "w") as f:
+        json.dump([{"question": f"What color is the patch in region {i}?",
+                    "answer": "red", "seed": 40 + i} for i in range(n)], f)
+    with open(os.path.join(path, "smoke_utils.py"), "w") as f:
+        f.write(YAML_UTILS)
+    with open(os.path.join(path, "smoke_vqa.yaml"), "w") as f:
+        f.write(YAML_TASK.format(name=HARNESS_EXT_YAML, docs=docs))
+    return path
+
+
+def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
+                    limit: int = HARNESS_EXT_LIMIT,
+                    max_new: int = HARNESS_NEW) -> dict:
+    """The extended eval tier through the harness CLI's
+    ``msd_tpu_torch.harness.__main__.main(argv)``, in process, after
+    ``run_harness`` on the same checkpoint (``ckpt``, the medusa draft in
+    ``draft_dir``, the null draft and the calibrator pickle it left under
+    ``root``): ``HARNESS_EXT_TASKS`` and a YAML task written to ``root``
+    and registered by ``--include_path``, ``limit`` docs each, ``max_new``
+    new tokens, ``--judge endpoint:URL`` at a loopback stub
+    (``judge_stub``) that answers each prompt with ``judge_reply``:
+
+    C. ``llava_msd_calibrated --use_msd --use_calibration`` reading
+       ``[harness]``'s pickle (skip_to_test);
+    B. ``llava``: the AR baseline;
+    D. ``llava_msd`` with the null draft on the generation tasks;
+    F. C on ``HARNESS_EXT_JUDGED`` with the judge at a dead loopback port
+       (the planted fault: a judge that never answers).
+
+    Requests are recorded by ``record_harness``. Fails unless:
+    C's responses and token ids == D's, and F's == C's on its tasks; C's
+    token ids == B's up to each request's first split, a rounding tie
+    within ``HARNESS_TIE`` bf16 ulps (none off the card); mmlu's
+    loglikelihoods are bitwise equal in C and B, repeat bitwise and lie
+    within 1e-4 x max(1, |lp|) of ``plain_score`` with its greedy flag;
+    every C and F request decodes calibrated and the pickle is left as
+    it was; K1 launches 0 in C, D and F and in B layers x (AR tokens
+    decoded + the warm-up steps of each AR-token capture); no capture
+    after a combination's first request; the YAML task loaded its JSON
+    docs (not synthetic ones) in C, B and D; the stub served each run of
+    C, B and D exactly the judge calls its scorers make and nothing
+    during F, and each score (per doc and aggregated) is what the
+    scorers give when an in-process judge answers as the stub does (for
+    F: with no judge), llava_in_the_wild at the reply's 6 / 8 = 75.0 and
+    each mmbench doc a hit iff its inferred option, else the reply's "A",
+    is its gold; F's judged scores differ from C's."""
+    import hashlib
+    import io
+
+    import torch
+    from msd_tpu_torch.engine.graphs import WARMUP_STEPS
+    from msd_tpu_torch.harness import __main__ as HM
+    from msd_tpu_torch.harness import judge as J
+    from msd_tpu_torch.harness.registry import get_task
+    from msd_tpu_torch.harness.tasks_mmbench import _options, can_infer
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    ctx = res["ctx"]
+    device, on_card, sync = ctx["device"], ctx["on_card"], ctx["sync"]
+    card = smi_name_and_limit() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    pkl, null_dir = f"{root}/harness/calibrator.pkl", f"{root}/null"
+
+    def digest():
+        with open(pkl, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    pkl_digest = digest()
+    ydir = write_yaml_task(os.path.join(root, "harness_ext"), limit)
+    every = list(HARNESS_EXT_TASKS) + [HARNESS_EXT_YAML]
+    gen_every = [t for t in every if t != "mmlu"]
+    margs = (f"pretrained={ckpt},"
+             f"max_seq_len={ctx['gens']['graph'].eng.max_seq_len}")
+    msd = ["--model", "llava_msd_calibrated", "--use_msd",
+           "--use_calibration", "--msd_model_path", draft_dir,
+           "--model_args", f"{margs},calibrator_path={pkl}"]
+    runs = {
+        "C": msd + ["--tasks", ",".join(every)],
+        "B": ["--model", "llava", "--model_args", margs, "--msd_model_path",
+              draft_dir, "--tasks", ",".join(every)],
+        "D": ["--model", "llava_msd", "--use_msd", "--model_args", margs,
+              "--msd_model_path", null_dir, "--tasks", ",".join(gen_every)],
+        "F": msd + ["--tasks", ",".join(HARNESS_EXT_JUDGED)],
+    }
+    gen_of = {n: [t for t in a[a.index("--tasks") + 1].split(",")
+                  if t != "mmlu"] for n, a in runs.items()}
+    common = ["--device", str(device), "--limit", str(limit),
+              "--gen_kwargs", f"max_new_tokens={max_new}", "--log_samples",
+              "--include_path", ydir]
+    run, out = [None], {"card": card}
+    # B against C's request of the same doc
+    try:
+        with record_harness(sync, run, lambda n, k: gen_of[n][k // limit],
+                            "C", "mmlu") as (reqs, scores, ar_steps), \
+                judge_stub() as (url, calls):
+            for name, argv in runs.items():
+                run[0] = name
+                steps0, calls0 = ar_steps[0], len(calls)
+                judge = dead_judge_url() if name == "F" else url
+                # K1's count over this run: zeroed just before, read just
+                # after
+                K1.decode_attention.launches = 0
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    payload = HM.main(argv + common
+                                      + ["--judge", f"endpoint:{judge}"])
+                sync()
+                out[name] = {"payload": payload,
+                             "s": time.perf_counter() - t1,
+                             "launches": K1.decode_attention.launches,
+                             "ar_steps": ar_steps[0] - steps0,
+                             "calls": calls[calls0:]}
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+    finally:
+        J.set_judge(None)
+
+    def samples(name, task):
+        return out[name]["payload"]["details"][task]["samples"]
+
+    def responses(name, task):
+        return [s["response"] for s in samples(name, task)]
+
+    def of(name, task=None):
+        return [r for r in reqs if r["run"] == name
+                and task in (None, r["task"])]
+
+    def tokens(name, task):
+        return [r["tokens"] for r in of(name, task)]
+
+    bad = [f"{n} ran {len(of(n))} generate requests" for n in runs
+           if len(of(n)) != limit * len(gen_of[n])]
+    if bad:
+        raise AssertionError(f"[harness_ext] {bad}")
+    for t in gen_of["D"]:
+        if responses("C", t) != responses("D", t) \
+                or tokens("C", t) != tokens("D", t):
+            bad.append(f"C != D (null draft) on {t}")
+    for t in gen_of["F"]:
+        if responses("F", t) != responses("C", t) \
+                or tokens("F", t) != tokens("C", t):
+            bad.append(f"F != C on {t}")
+    for t in gen_of["B"]:
+        for x, y, r in zip(responses("C", t), responses("B", t),
+                           of("B", t)):
+            if x != y and "at" not in r["split"]:
+                bad.append(f"C's response != B's, their tokens equal, {t}")
+    splits = [r["split"] for r in of("B")]
+    ties = [s for s in splits if "at" in s]
+    if (ties and not on_card) or not all(
+            s["ulps"] <= HARNESS_TIE for s in ties):
+        bad.append(f"C != B at a split that is no rounding tie: "
+                   f"{[dict(s, margins=None) for s in ties]}")
+    if responses("B", "mmlu") != responses("C", "mmlu"):
+        bad.append("mmlu's loglikelihoods: B != C (bitwise)")
+    c_scores = [r for r in scores if r["run"] == "C"]
+    if len(c_scores) != 4 * limit \
+            or any(r["again"] != r["out"] for r in c_scores):
+        bad.append(f"{len(c_scores)} mmlu scores in C, or one not bitwise "
+                   f"repeatable")
+    worst = max((abs(r["out"][0] - r["plain"][0])
+                 / max(1.0, abs(r["plain"][0])) for r in c_scores),
+                default=0.0)
+    if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in c_scores):
+        bad.append(f"mmlu score != its plain recompute (worst relative "
+                   f"{worst:.3e} against 1e-4, or a greedy flag)")
+    if any(r["mode"] != "calibrated" for r in of("C") + of("F")) \
+            or digest() != pkl_digest:
+        bad.append("C or F did not decode calibrated from [harness]'s "
+                   "pickle, or the pickle changed")
+    layers = reqs[0]["layers"]
+    b_caps = sum(r["captured"] for r in of("B"))
+    k1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
+        if on_card else 0
+    if out["B"]["launches"] != k1_want or any(
+            out[n]["launches"] for n in ("C", "D", "F")):
+        bad.append(f"K1 launches {[out[n]['launches'] for n in runs]}, "
+                   f"want [0, {k1_want}, 0, 0]")
+    seen, late = set(), []
+    for r in reqs:
+        k = (r["run"],) + r["key"]
+        if k in seen and r["captured"]:
+            late.append((r["run"], r["task"], r["mode"]))
+        seen.add(k)
+    if late:
+        bad.append(f"graphs captured inside later requests: {late}")
+    greedy = [r["greedy"] for r in of("B")]
+    if not on_card and not all(greedy):
+        bad.append("B's responses do not score as greedy (fp32)")
+    for n in ("C", "B", "D"):
+        pl = out[n]["payload"]
+        if HARNESS_EXT_YAML in pl.get("synthetic_tasks", ()) \
+                or len(samples(n, HARNESS_EXT_YAML)) != limit \
+                or "exact_match" not in pl["results"][HARNESS_EXT_YAML]:
+            bad.append(f"{n}: the YAML task's docs or metrics "
+                       f"{pl['results'].get(HARNESS_EXT_YAML)}")
+
+    # the judge: the calls and scores the same scorers give when an
+    # in-process judge answers as the stub does (F: with no judge)
+    class Replay:
+        def __init__(self):
+            self.calls = []
+
+        def complete(self, prompt, max_tokens=256, temperature=0.0,
+                     system=None):
+            self.calls.append((system, prompt, max_tokens, temperature))
+            return judge_reply(prompt)
+
+    def replay(name, judge):
+        J.set_judge(judge)
+        try:
+            got = {}
+            for t in HARNESS_EXT_JUDGED:
+                task = get_task(t)
+                rows = [task.process_results(d, [r]) for d, r in zip(
+                    task.load_docs(limit=limit), responses(name, t))]
+                got[t] = (rows, task.aggregate(rows))
+            return got
+        finally:
+            J.set_judge(None)
+
+    def served(body):
+        m = body["messages"]
+        return (m[0]["content"] if len(m) == 2 else None, m[-1]["content"],
+                body["max_tokens"], body["temperature"])
+
+    judged = {}
+    for n in runs:
+        rp = Replay() if n != "F" else None
+        want = replay(n, rp)
+        judged[n] = {t: [s["scores"] for s in samples(n, t)]
+                     for t in HARNESS_EXT_JUDGED}
+        if [served(b) for b in out[n]["calls"]] != (rp.calls if rp else []):
+            bad.append(f"{n}: the stub served {len(out[n]['calls'])} calls,"
+                       f" the scorers make {len(rp.calls) if rp else 0}")
+        for t, (rows, agg) in want.items():
+            if judged[n][t] != rows \
+                    or out[n]["payload"]["results"][t] != agg:
+                bad.append(f"{n}: {t}'s scores != the rule's for the "
+                           f"judge's replies")
+        if n == "F":
+            continue
+        if out[n]["payload"]["results"]["llava_in_the_wild"][
+                "gpt_eval_llava_all"] != 75.0:
+            bad.append(f"{n}: llava_in_the_wild's score != 6 / 8 = 75.0")
+        mm = get_task("mmbench_en_dev")
+        for d, r, row in zip(mm.load_docs(limit=limit),
+                             responses(n, "mmbench_en_dev"),
+                             judged[n]["mmbench_en_dev"]):
+            hit = (can_infer(r, _options(d)) or "A") == d["answer"]
+            if row["_hit"] != float(hit):
+                bad.append(f"{n}: an mmbench doc's hit != the rule's")
+    if judged["F"] == {t: judged["C"][t] for t in HARNESS_EXT_JUDGED}:
+        bad.append("F (dead judge) scored as C (judged)")
+    if bad:
+        raise AssertionError(f"[harness_ext] {bad}")
+
+    def ms_per_token(name):
+        rs = of(name)
+        return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
+            / max(1, sum(r["n"] for r in rs))
+
+    out.update(
+        launches=out["B"]["launches"], ar_steps=out["B"]["ar_steps"],
+        ar_captures=b_caps, worst_score_rel=worst,
+        agree={t: sum("at" not in r["split"] for r in of("B", t))
+               for t in gen_of["B"]},
+        ties=[dict(s, margins=None) for s in ties],
+        calls={n: len(out[n]["calls"]) for n in runs},
+        greedy_share=sum(greedy) / max(1, len(greedy)),
+        judged={n: {t: out[n]["payload"]["results"][t]
+                    for t in HARNESS_EXT_JUDGED} for n in ("C", "F")},
+        ms_token={n: ms_per_token(n) for n in runs},
+        peak=torch.cuda.max_memory_allocated() if on_card else 0,
+        seconds=time.perf_counter() - t_phase)
+    log(f"[harness_ext] runs C (calibrated MSD, skip_to_test), B (AR), D "
+        f"(null draft), F (C with a dead judge) through harness.__main__."
+        f"main, {limit} docs of {', '.join(every)}, {max_new} new tokens, "
+        f"the judge at a loopback stub: "
+        + "; ".join(f"{n} {out[n]['s']:.1f}s" for n in runs)
+        + "; ms per generated token (prefill included) "
+        + ", ".join(f"{n} {v:.2f}" for n, v in out["ms_token"].items())
+        + f" on {card}")
+    log(f"[harness_ext] C == D and F == C, responses and token ids: True; "
+        f"C == B token ids in {out['agree']} of {limit} requests per task, "
+        f"each other split a tie within {HARNESS_TIE} bf16 ulps: "
+        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps"
+                     for s in ties) or "none")
+        + f"; mmlu C == B bitwise, repeat bitwise, plain recompute worst "
+        f"relative {worst:.3e}; judge calls served {out['calls']}, each "
+        f"as the scorers make them; judged scores C {out['judged']['C']}, "
+        f"F (dead judge, offline rules) {out['judged']['F']}; K1 launches "
+        f"in B {out['launches']} = {layers} x ({out['ar_steps']} AR tokens "
+        f"+ {WARMUP_STEPS} warm-up steps x {b_caps} captures), 0 in C, D, "
+        f"F; peak {out['peak'] / 2**30:.2f} GiB; phase "
         f"{out['seconds']:.1f}s on {card}")
     return out
 
@@ -6803,8 +7249,11 @@ def run_all(root: str):
     k1["serve_launches"] = serve["serve_launches"]
     weights = run_weights(res, serve, root=root)
     harness = run_harness(res, weights["ckpt"], weights["draft"], root)
+    harness_ext = run_harness_ext(res, weights["ckpt"], weights["draft"],
+                                  root)
     k1["weights_launches"] = weights["launches"]
     k1["harness_launches"] = harness["launches"]
+    k1["harness_ext_launches"] = harness_ext["launches"]
     quant = run_quant(res)
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",

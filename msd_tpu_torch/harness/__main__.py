@@ -8,11 +8,9 @@ The port of the JAX package's ``harness/__main__.py``, with the same flags
 except:
 - ``--device`` is the torch device the model runs on (default ``cuda``;
   ``cpu`` off the card), passed to the adapter as a model arg;
-- ``--seed`` seeds ``random``, ``numpy`` and ``torch``;
-- ``--include_path``, ``$MSD_TPU_TASKS`` and a ``--judge`` other than
-  ``offline`` need the YAML tasks and the judge, which the port has not
-  taken yet (ROADMAP M17b): each raises rather than being ignored.
-``--config`` reads YAML with PyYAML, imported only then.
+- ``--seed`` seeds ``random``, ``numpy`` and ``torch``.
+``--config``, ``--include_path`` and ``$MSD_TPU_TASKS`` read YAML with
+PyYAML, imported only then.
 """
 
 from __future__ import annotations
@@ -128,10 +126,12 @@ def main(argv=None):
                     help="logging level: DEBUG|INFO|WARNING|ERROR "
                          "(:250-254)")
     ap.add_argument("--judge", default="offline",
-                    help="judge backend for GPT-scored tasks: only "
-                         "'offline' (deterministic rule analogs) in the "
-                         "port; 'endpoint:URL' raises until the judge is "
-                         "ported")
+                    help="judge backend for GPT-scored tasks (mathvista "
+                         "extraction, mmvet grading, llava-bench pairwise "
+                         "review): 'offline' (deterministic rule analogs) "
+                         "or 'endpoint:URL' (local OpenAI-style chat "
+                         "endpoint; reference-parity prompts, "
+                         "msd_tpu_torch/harness/judge.py)")
     ap.add_argument("--seed", default="0,1234,1234",
                     help="comma list: python,numpy,fewshot seeds; a single "
                          "int sets all (:280-293)")
@@ -150,11 +150,8 @@ def main(argv=None):
                     help="sets HF_DATASETS_TRUST_REMOTE_CODE (:295-300)")
     args = ap.parse_args(argv)
 
-    if args.judge != "offline":
-        raise NotImplementedError(
-            f"--judge {args.judge}: judge endpoints need harness/judge.py, "
-            "which the port has not taken yet (ROADMAP M17b); the port "
-            "scores offline")
+    from msd_tpu_torch.harness.judge import set_judge
+    set_judge(args.judge)
 
     def validate(a):
         # reference validations (lmms-eval/__main__.py:425-437); applied
@@ -196,8 +193,8 @@ def main(argv=None):
 
 
 def _apply_run_env(args):
-    """Process-level knobs: seeds (random, numpy, torch), verbosity, and
-    the refusal of extra task dirs."""
+    """Process-level knobs: seeds (random, numpy, torch), verbosity, extra
+    task dirs."""
     import logging
     import random
 
@@ -223,10 +220,12 @@ def _apply_run_env(args):
               "skipped (no network egress in this environment)",
               file=sys.stderr)
     if getattr(args, "include_path", None):
-        raise NotImplementedError(
-            f"--include_path {args.include_path}: YAML tasks need "
-            "harness/yaml_task.py, which the port has not taken yet "
-            "(ROADMAP M17b)")
+        from msd_tpu_torch.harness.tasks import register_builtin_tasks
+        from msd_tpu_torch.harness.yaml_task import register_yaml_dir
+        register_builtin_tasks()
+        for d in args.include_path.split(","):
+            if d:
+                register_yaml_dir(d)
 
 
 def _run_one(args):

@@ -10,8 +10,8 @@ The reference falls back to a GPT API call for free-form extraction; this
 rebuild substitutes a deterministic local extractor (answer-phrase regexes,
 then last-number / option-letter heuristics) — no network, reproducible.
 
-The port's own copy of the JAX package's ``harness/task_utils/mathvista.py``,
-which scores as the JAX copy does under its default offline judge.
+The port's own copy of the JAX package's ``harness/task_utils/mathvista.py``:
+the same rules, and the same judge call where they settle nothing.
 """
 
 from __future__ import annotations
@@ -67,9 +67,13 @@ def extract_answer(response: str, problem: Dict,
         if m:
             return m.group(1).strip().strip('"')
 
-    # the JAX copy consults a judge endpoint here when one is installed
-    # (harness --judge endpoint:URL); the port runs offline only (the
-    # judge comes with the task modules), where that call finds none
+    # judge-backed general extraction (mathvista_evals.py:262-280): only
+    # consulted when the rules above did not settle it and a judge is
+    # installed (harness --judge endpoint:URL); failure falls through
+    from msd_tpu_torch.harness.judge import mathvista_judge_extract
+    ext = mathvista_judge_extract(problem.get("query", ""), response)
+    if ext:
+        return ext
 
     if question_type == "multi_choice":
         m = _LETTER_RE.search(response)

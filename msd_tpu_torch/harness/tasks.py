@@ -13,11 +13,13 @@ synthetic fallback so the full pipeline is testable offline.
 
 The port's own copy of the JAX package's ``harness/tasks.py``: every
 ``make_*`` task it defines, registered by ``register_builtin_tasks`` as
-the JAX module registers them. The task modules it calls into (the
-``tasks_ext*``, ``tasks_judge*``, ``tasks_mmbench``, ``tasks_mmupd``,
-``tasks_audio`` and ``tasks_mmsearch`` families), the YAML tasks and the
-judge endpoint are not in the port yet; the port scores as the JAX
-package does under its default offline judge.
+the JAX module registers them, with the YAML tasks of ``$MSD_TPU_TASKS``
+(``yaml_task.py``) and the task modules ``tasks_ext``, ``tasks_judge``,
+``tasks_mmbench`` and ``tasks_mmupd``. The other task modules the JAX
+copy calls into (``tasks_ext2``, ``tasks_ext3``, ``tasks_ext4``,
+``tasks_judge2``, ``tasks_audio`` and ``tasks_mmsearch``) are not in the
+port yet. Judged scorers ask the judge of ``judge.py`` when one is
+installed and fall back to their offline rules, as the JAX copy's do.
 """
 
 from __future__ import annotations
@@ -819,8 +821,12 @@ def make_mmvet(dataset_path=None) -> TaskConfig:
 
     def _res(d, r):
         gt = str(d.get("answer", ""))
-        # the offline algebra (the JAX copy asks a judge endpoint first
-        # when one is installed; the port has none yet)
+        # judge-backed scoring when installed (mmvet/utils.py:74-108 row
+        # format against MM_VET_PROMPT); offline algebra otherwise
+        from msd_tpu_torch.harness.judge import mmvet_judge_score
+        js = mmvet_judge_score(d.get("question", ""), gt, r[0])
+        if js is not None:
+            return {"gpt_eval_score": js}
         parts = [p.strip() for p in gt.split("<AND>") if p.strip()]
         score = (sum(_part_hit(p, r[0]) for p in parts) / len(parts)
                  if parts else 0.0)
@@ -1087,14 +1093,13 @@ def register_builtin_tasks(dataset_root: Optional[str] = None) -> None:
         prompt=("Provide a one-sentence caption for the provided image. "
                 "For the following question, provide a detailed explanation "
                 "of your reasoning leading to the answer.")))
-    # user YAML tasks (the lmms-eval tasks/*.yaml layer) need the port of
-    # yaml_task.py: refuse a task directory rather than ignore it
+    # user YAML tasks (the lmms-eval tasks/*.yaml layer): every *.yaml under
+    # $MSD_TPU_TASKS (or <dataset_root>/tasks) registers one task
     yaml_dir = os.environ.get("MSD_TPU_TASKS",
                               os.path.join(root, "tasks") if root else "")
     if yaml_dir and os.path.isdir(yaml_dir):
-        raise NotImplementedError(
-            f"YAML tasks under {yaml_dir!r} need harness/yaml_task.py, "
-            "which the port has not taken yet (ROADMAP M17b)")
+        from msd_tpu_torch.harness.yaml_task import register_yaml_dir
+        register_yaml_dir(yaml_dir, dataset_root=root or None)
     register_task("refcoco_bbox_rec_val",
                   make_rec_task("refcoco_bbox_rec_val", p("RefCOCO")))
     register_task("refcoco+_bbox_rec_val",
@@ -1113,8 +1118,22 @@ def register_builtin_tasks(dataset_root: Optional[str] = None) -> None:
     register_task("perceptiontest_val_mc", make_video_mc_task(
         "perceptiontest_val_mc", p("PerceptionTest")))
     register_task("mvbench", make_video_mc_task("mvbench", p("MVBench")))
-    # the extended tiers (tasks_ext*.py, tasks_judge*.py, tasks_mmbench,
-    # tasks_mmupd, tasks_audio, tasks_mmsearch) come with ROADMAP M17b
+    # round-3b extended tier (tasks_ext.py): mme_realworld, muirbench,
+    # websrc, qbench, longvideobench, mlvu, mmlu, mmlu_pro, gpqa, synthdog,
+    # vatex, detailcaps, naturalbench
+    from msd_tpu_torch.harness.tasks_ext import register_ext_tasks
+    register_ext_tasks(p)
+    from msd_tpu_torch.harness.tasks_judge import register_judge_tasks
+    register_judge_tasks(p)
+    from msd_tpu_torch.harness.tasks_mmbench import register_mmbench_tasks
+    register_mmbench_tasks(p)
+    # tasks_ext2.py and tasks_ext3.py register here in the JAX copy; the
+    # port has not taken them yet (ROADMAP M17b)
+    from msd_tpu_torch.harness.tasks_mmupd import register_mmupd_tasks
+    register_mmupd_tasks(p)
+    # tasks_judge2.py, tasks_audio.py, tasks_ext4.py and tasks_mmsearch.py
+    # register here in the JAX copy; the port has not taken them yet
+    # (ROADMAP M17b)
     register_task("gsm8k", make_gsm8k(p("GSM8K")))
     register_task("arc_easy", make_text_ppl_choice("arc_easy", p("ARC-Easy")))
     register_task("arc_challenge",

@@ -148,13 +148,10 @@ def test_filter_matches_jax_on_drawn_text(name, text):
 # tasks
 # ---------------------------------------------------------------------------
 
+# the task modules the port has not taken yet (ROADMAP M17b)
 _JAX_EXTENSIONS = [
-    ("msd_tpu.harness.tasks_ext", "register_ext_tasks"),
-    ("msd_tpu.harness.tasks_judge", "register_judge_tasks"),
-    ("msd_tpu.harness.tasks_mmbench", "register_mmbench_tasks"),
     ("msd_tpu.harness.tasks_ext2", "register_ext2_tasks"),
     ("msd_tpu.harness.tasks_ext3", "register_ext3_tasks"),
-    ("msd_tpu.harness.tasks_mmupd", "register_mmupd_tasks"),
     ("msd_tpu.harness.tasks_judge2", "register_judge2_tasks"),
     ("msd_tpu.harness.tasks_audio", "register_audio_tasks"),
     ("msd_tpu.harness.tasks_ext4", "register_ext4_tasks"),
@@ -162,9 +159,10 @@ _JAX_EXTENSIONS = [
 ]
 
 
-def _registered(registry, register, patches=()):
+def _registered(registry, register, patches=(), env=None):
     """The tasks ``register()`` puts into ``registry`` (a fresh one; the
-    registry's entries are restored after)."""
+    registry's entries are restored after), under ``env`` alone of the
+    two task-directory variables."""
     import importlib
 
     saved = dict(registry)
@@ -172,6 +170,8 @@ def _registered(registry, register, patches=()):
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("MSD_TPU_DATASETS", raising=False)
         mp.delenv("MSD_TPU_TASKS", raising=False)
+        for k, v in (env or {}).items():
+            mp.setenv(k, v)
         for mod, fn in patches:
             mp.setattr(importlib.import_module(mod), fn, lambda p: None)
         register()
@@ -182,8 +182,9 @@ def _registered(registry, register, patches=()):
 
 
 def _builtin_pairs():
-    """(port task, JAX task) by name: the tasks JAX's tasks.py builds itself
-    (its calls into the extended task modules stubbed out)."""
+    """(port task, JAX task) by name: the tasks JAX's tasks.py registers
+    (its calls into the task modules the port has not taken stubbed
+    out)."""
     mine = _registered(TR.TASK_REGISTRY, TT.register_builtin_tasks)
     theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks,
                          _JAX_EXTENSIONS)
@@ -195,7 +196,9 @@ MINE, THEIRS = _builtin_pairs()
 
 def test_builtin_tasks_are_jax_tasks_py_tasks():
     assert sorted(MINE) == sorted(THEIRS)
-    assert {"synthetic_vqa", "pope", "ai2d_ppl", "gsm8k"} <= set(MINE)
+    assert {"synthetic_vqa", "pope", "ai2d_ppl", "gsm8k", "mmlu",
+            "mme_realworld_lite", "llava_in_the_wild", "mmbench_cn_cc",
+            "mmivqd_instruction"} <= set(MINE)
 
 
 def _same_value(a, b):
@@ -257,20 +260,43 @@ def test_builtin_task_matches_jax(name):
     _same_value(mine.aggregate(rows), theirs.aggregate(jrows))
 
 
+def assert_same_yaml_task(mine, theirs):
+    """A YAML task of the port against JAX's from the same file: fields,
+    docs, contexts, visuals, targets, scores and aggregate."""
+    for attr in ("name", "split", "gen_kwargs", "metric_names",
+                 "output_type", "dataset_path"):
+        assert getattr(mine, attr) == getattr(theirs, attr), attr
+    docs, jdocs = mine.load_docs(), theirs.load_docs()
+    assert not mine.used_synthetic_docs and not theirs.used_synthetic_docs
+    _same_value(docs, jdocs)
+    rows, jrows = [], []
+    for d, resp in zip(docs, ["red", "Red.", "blue", ""] * len(docs)):
+        assert mine.doc_to_text(d) == theirs.doc_to_text(d)
+        _same_value(mine.doc_to_visual(d), theirs.doc_to_visual(d))
+        assert mine.doc_to_target(d) == theirs.doc_to_target(d)
+        rows.append(mine.process_results(d, [resp]))
+        jrows.append(theirs.process_results(d, [resp]))
+    _same_value(rows, jrows)
+    _same_value(mine.aggregate(rows), theirs.aggregate(jrows))
+
+
 @pytest.mark.parametrize("var", ["MSD_TPU_TASKS", "MSD_TPU_DATASETS"])
-def test_task_dirs_of_the_later_slice_raise(monkeypatch, tmp_path, var):
+def test_task_dirs_of_the_later_slice_raise(tmp_path, var):
     """A YAML task directory ($MSD_TPU_TASKS, or tasks/ under the dataset
-    root) is refused, not ignored: the port has no yaml_task.py yet."""
-    os.makedirs(tmp_path / "tasks")
-    monkeypatch.setenv(var, str(tmp_path / "tasks" if var == "MSD_TPU_TASKS"
-                                else tmp_path))
-    saved = dict(TR.TASK_REGISTRY)
-    try:
-        with pytest.raises(NotImplementedError, match="M17b"):
-            TT.register_builtin_tasks()
-    finally:
-        TR.TASK_REGISTRY.clear()
-        TR.TASK_REGISTRY.update(saved)
+    root), which the port refused until it took yaml_task.py, now
+    registers its tasks in both packages alike (the name is kept from
+    then)."""
+    import chip_smoke
+
+    chip_smoke.write_yaml_task(str(tmp_path / "tasks"), 3)
+    env = {var: str(tmp_path / "tasks" if var == "MSD_TPU_TASKS"
+                    else tmp_path)}
+    name = chip_smoke.HARNESS_EXT_YAML
+    mine = _registered(TR.TASK_REGISTRY, TT.register_builtin_tasks, (), env)
+    theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks,
+                         _JAX_EXTENSIONS, env)
+    assert sorted(mine) == sorted(theirs) == sorted(set(MINE) | {name})
+    assert_same_yaml_task(mine[name], theirs[name])
 
 
 # ---------------------------------------------------------------------------
@@ -683,24 +709,58 @@ def test_cli_config_yaml_sweep(tmp_path, capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--include_path", "tasks_dir"], {}),
-    (["--judge", "endpoint:http://localhost:1"], {}),
-    ([], {"MSD_TPU_TASKS": "."}),
-], ids=["include_path", "judge", "tasks_env"])
-def test_cli_flags_of_the_later_slice_raise(argv, env, monkeypatch):
-    """--include_path, a judge endpoint and $MSD_TPU_TASKS need the YAML
-    tasks and the judge (ROADMAP M17b): each raises, none is ignored."""
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+@pytest.mark.parametrize("flag", ["include_path", "judge", "tasks_env"])
+def test_cli_flags_of_the_later_slice_raise(flag, monkeypatch, tmp_path,
+                                            capsys):
+    """--include_path, --judge endpoint:URL and $MSD_TPU_TASKS, which the
+    CLI refused until the port took the YAML tasks and the judge, now
+    work as the JAX CLI's (the name is kept from then): the YAML task
+    registers, is the JAX package's task from the same file and is
+    evaluated; the judge is installed (no task here asks it), 'offline'
+    clears it and an unknown spec raises ValueError, as in JAX."""
+    import chip_smoke
+    from msd_tpu.harness import judge as JJ
+    from msd_tpu.harness.yaml_task import load_yaml_task
+    from msd_tpu_torch.harness import judge as TJ
+
+    name = chip_smoke.HARNESS_EXT_YAML
+    ydir = chip_smoke.write_yaml_task(str(tmp_path / "tasks"), 2)
+    argv = CLI + ["--limit", "1"]
+    if flag == "include_path":
+        argv += ["--include_path", ydir, "--tasks", name]
+    elif flag == "tasks_env":
+        monkeypatch.setenv("MSD_TPU_TASKS", ydir)
+        argv += ["--tasks", name]
+    else:
+        argv += ["--tasks", "pope", "--judge",
+                 "endpoint:http://127.0.0.1:1/v1/chat/completions"]
     saved = dict(TR.TASK_REGISTRY)
     TR.TASK_REGISTRY.clear()
     try:
-        with pytest.raises(NotImplementedError, match="M17b"):
-            TMain.main(CLI + ["--tasks", "pope", "--limit", "1"] + argv)
+        payload = TMain.main(argv)
+        if flag == "judge":
+            judge = TJ.get_judge()
+            assert isinstance(judge, TJ.EndpointJudge)
+            assert judge.url == "http://127.0.0.1:1/v1/chat/completions"
+            assert list(payload["results"]) == ["pope"]
+            TMain.main(CLI + ["--limit", "1", "--tasks", "pope"])
+            assert TJ.get_judge() is None
+            for m in (TMain, JMain):
+                with pytest.raises(ValueError, match="unknown judge spec"):
+                    m.main(CLI + ["--tasks", "pope", "--judge", "garbage"])
+        else:
+            assert list(payload["results"]) == [name]
+            assert "exact_match" in payload["results"][name]
+            assert name not in payload.get("synthetic_tasks", ())
+            assert_same_yaml_task(
+                TR.TASK_REGISTRY[name],
+                load_yaml_task(os.path.join(ydir, "smoke_vqa.yaml")))
     finally:
+        TJ.set_judge(None)
+        JJ.set_judge(None)
         TR.TASK_REGISTRY.clear()
         TR.TASK_REGISTRY.update(saved)
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("argv", [["--fewshot_as_multiturn"],
@@ -727,7 +787,10 @@ def test_the_no_jax_test_covers_the_harness():
     for mod in ("harness/__main__.py", "harness/evaluator.py",
                 "harness/models/llava_msd.py", "harness/tasks.py",
                 "harness/task_utils/mathvista.py", "engine/scoring.py",
-                "calib/logger.py", "calib/evaluate.py"):
+                "calib/logger.py", "calib/evaluate.py", "harness/judge.py",
+                "harness/yaml_task.py", "harness/tasks_ext.py",
+                "harness/tasks_judge.py", "harness/tasks_mmbench.py",
+                "harness/tasks_mmupd.py"):
         assert f"msd_tpu_torch/{mod}" in names, mod
 
 

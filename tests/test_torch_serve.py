@@ -656,7 +656,22 @@ def test_smoke_weights_and_quant_phases_at_tiny_size(smoke_serve):
     assert big["launches"] == 0
 
 
-def test_smoke_harness_phase_at_tiny_size(smoke_serve, tmp_path):
+@pytest.fixture(scope="module")
+def smoke_harness(smoke_serve, tmp_path_factory):
+    """chip_smoke's [weights] and [harness] phases on the tiny main path:
+    the checkpoint, the null draft and the calibrator pickle they leave
+    in a directory, and [harness]'s result."""
+    import chip_smoke
+
+    res, serve = smoke_serve
+    root = str(tmp_path_factory.mktemp("harness"))
+    weights = chip_smoke.run_weights(res, serve, http_new=12, root=root)
+    out = chip_smoke.run_harness(res, weights["ckpt"], weights["draft"],
+                                 root, limit=4, max_new=8)
+    return weights, root, out
+
+
+def test_smoke_harness_phase_at_tiny_size(smoke_harness):
     """chip_smoke's [harness] phase on the CPU at a tiny width, on the
     checkpoint [weights] leaves in the caller's directory, through the
     harness CLI's main: calibrated MSD with online calibration, the AR
@@ -665,13 +680,7 @@ def test_smoke_harness_phase_at_tiny_size(smoke_serve, tmp_path):
     across runs and repeats and equal their plain recompute; the AR
     adapter's responses score as greedy (fp32); no late capture. The
     phase raises otherwise."""
-    import chip_smoke
-
-    res, serve = smoke_serve
-    weights = chip_smoke.run_weights(res, serve, http_new=12,
-                                     root=str(tmp_path))
-    out = chip_smoke.run_harness(res, weights["ckpt"], weights["draft"],
-                                 str(tmp_path), limit=4, max_new=8)
+    _, _, out = smoke_harness
     assert out["launches"] == 0          # CPU tensors take the plain twin
     assert out["ties"] == []
     assert out["agree"] == out["same_text"] == \
@@ -679,3 +688,32 @@ def test_smoke_harness_phase_at_tiny_size(smoke_serve, tmp_path):
     assert out["greedy_share"] == 1.0
     assert out["worst_score_rel"] <= 1e-4
     assert out["A"]["payload"]["msd_stats"]["accept_steps"] > 0
+
+
+def test_smoke_harness_ext_phase_at_tiny_size(smoke_serve, smoke_harness):
+    """chip_smoke's [harness_ext] phase on the CPU at a tiny width, after
+    [harness] on its checkpoint and pickle: one task of each task module
+    that came with the judge and a YAML task by --include_path, the judge
+    at a loopback stub. Calibrated MSD, the null draft and the dead-judge
+    run give the same token ids, the AR adapter too (fp32: no split);
+    mmlu's loglikelihoods bitwise across runs and equal their plain
+    recompute; the stub served exactly the calls the scorers make; the
+    judged scores are the rule's for the stub's replies, the dead judge's
+    the offline rule's, and the two differ. The phase raises otherwise."""
+    import chip_smoke
+
+    res, _ = smoke_serve
+    weights, root, _ = smoke_harness
+    out = chip_smoke.run_harness_ext(res, weights["ckpt"], weights["draft"],
+                                     root, max_new=8)
+    assert out["launches"] == 0          # CPU tensors take the plain twin
+    assert out["ties"] == []
+    assert out["agree"] == {t: 2 for t in (
+        "mme_realworld_lite", "llava_in_the_wild", "mmbench_en_dev",
+        "mmaad_base", chip_smoke.HARNESS_EXT_YAML)}
+    assert out["worst_score_rel"] <= 1e-4
+    assert out["calls"]["F"] == 0 and out["calls"]["C"] >= 2
+    assert out["judged"]["C"]["llava_in_the_wild"][
+        "gpt_eval_llava_all"] == 75.0
+    assert out["judged"]["F"]["llava_in_the_wild"][
+        "gpt_eval_llava_all"] != 75.0
