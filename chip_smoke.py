@@ -289,11 +289,12 @@ FP32_OPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
 # bench.py defaults: 64-token image prompts, KV allocation 1152, medusa
 # widths 10,8,...,1 (48-node tree, depth 14), 6 canonical rounding bits,
-# lm_head sharpened x6; this run decodes 48 new tokens per prompt (64
-# until [multi] and [video] joined the smoke: cut to keep it inside its
+# lm_head sharpened x6; this run decodes 40 new tokens per prompt (64
+# until [multi] and [video] joined the smoke, 48 until the rest of the
+# extended tier joined [harness_ext] and [qwen]: cut to keep it inside its
 # time limit; the main path's, [calib]'s, [sampling]'s, [distill]'s
 # collection and [eagle]'s runs read it)
-MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 48, 576, 64
+MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 40, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
 # bench.py's distill (1700 steps over 5 record -> train rounds) cut to two
@@ -316,45 +317,72 @@ SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
 # new tokens of each generate_batch run of [serve] (graph, null draft,
 # eager and the solo runs alike), cut from the main path's 64 when [train]
-# joined the smoke and from 32 when [multi] and [video] did, to keep it
-# inside its time limit
-SERVE_BATCH_NEW = 24
-# new tokens of [quant]'s runs (a prefix of the main path's 64: greedy
+# joined the smoke, from 32 when [multi] and [video] did and from 24 when
+# the rest of the extended tier did, to keep it inside its time limit
+SERVE_BATCH_NEW = 16
+# new tokens of [quant]'s runs (a prefix of the main path's: greedy
 # tokens do not depend on the budget), of [13b]'s and of [qwen]'s,
 # [video]'s and [qwen_v1]'s generator runs, cut from 64, 32 and 64 when
-# [train] joined the smoke, and [qwen]'s from 32 when [qwen_v1] did, to
-# keep it inside its time limit
-QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 24
+# [train] joined the smoke, and [qwen]'s from 32 when [qwen_v1] did and
+# from 24 when the rest of the extended tier did, to keep it inside its
+# time limit
+QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 16
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
 # (32 new tokens until [multi] and [video] joined the smoke, 8 docs until
-# [qwen_v1] did)
-HARNESS_LIMIT, HARNESS_NEW = 6, 16
+# [qwen_v1] did, 6 until the rest of the extended tier did)
+HARNESS_LIMIT, HARNESS_NEW = 4, 16
 # where the AR adapter's tokens first depart from MSD's, the target's
 # logits of the two tokens must lie within this many bf16 ulps of the
-# larger (a tie that bf16 rounding decides; see run_harness)
+# larger plus that row's recompute noise (a tie that bf16 rounding
+# decides; ``split_ok``), or K1's recompute of the AR row must pick AR's
+# token within K1's contract (a text-only prompt split at 7 ulps against a
+# 1-ulp noise of the plain recomputes on one H100: K1's arithmetic)
 HARNESS_TIE = 2
-# the extended-tier harness phase: one task of each task module that came
-# with the judge (mmlu, scored by loglikelihood, and mme_realworld_lite
-# from tasks_ext), a YAML task registered through --include_path, and
-# synthetic docs per task; its judged tasks; the loopback judge's reply to
-# a prompt holding each marker (the llava pairwise review, the mmbench
-# option match, the mmvet rubric, the mathvista extraction)
+# the extended-tier harness phase: one task of each task module of the
+# extended tier (mmlu, scored by loglikelihood, and mme_realworld_lite
+# from tasks_ext; mmvetv2 from tasks_ext2; ifeval, text only, from
+# tasks_ext3 with the IFEval checkers; wildvision_0617 and the two-image
+# llava_interleave_bench from tasks_judge2; librispeech_test_clean, audio
+# only, from tasks_audio; live_bench from tasks_ext4; the three-round
+# mmsearch_end2end from tasks_mmsearch), a YAML task registered through
+# --include_path, and synthetic docs per task; its judged tasks; the
+# rounds each doc of a multi-round task runs; the loopback judge's reply
+# to a prompt holding each marker (the llava pairwise review, the mmbench
+# option match, the mmvet rubric (mmvetv2's too), the mathvista
+# extraction, the wildvision verdict, the live_bench rating and the
+# video-QA rubric), each a score no offline rule gives
 HARNESS_EXT_TASKS = ("mme_realworld_lite", "mmlu", "llava_in_the_wild",
-                     "mmbench_en_dev", "mmaad_base")
+                     "mmbench_en_dev", "mmaad_base", "mmvetv2", "ifeval",
+                     "wildvision_0617", "librispeech_test_clean",
+                     "live_bench", "mmsearch_end2end",
+                     "llava_interleave_bench")
 HARNESS_EXT_YAML = "smoke_yaml_vqa"
-HARNESS_EXT_JUDGED = ("llava_in_the_wild", "mmbench_en_dev")
+HARNESS_EXT_JUDGED = ("llava_in_the_wild", "mmbench_en_dev", "mmvetv2",
+                      "wildvision_0617", "live_bench")
 HARNESS_EXT_LIMIT = 2
+HARNESS_EXT_ROUNDS = {"mmsearch_end2end": 3}
 JUDGE_REPLIES = (("[Context]", "8 6\nAssistant 2 was decent."),
                  ("Your output:", "A"),
                  ("Correctness", "0.5"),
-                 ("Extracted answer:", "B"))
+                 ("Extracted answer:", "B"),
+                 ("<|User Prompt|>", "B is more specific.\n[[B>A]]"),
+                 ('{"Rating": n', '{"Rating": 7, "Explanation": "stub"}'),
+                 ("video-based question-answer",
+                  "{'pred': 'yes', 'score': 4}"))
 # the Qwen phases: synthetic docs per harness task (4 until [qwen_v1]
 # joined the smoke), and the std of the q/k/v biases drawn into the seeded
 # target (Qwen's attention has them; zeros would leave the bias add
 # untested)
 QWEN_LIMIT, QWEN_BIAS_STD = 2, 0.1
+# [qwen]'s harness runs also take one video task of tasks_ext2 and one of
+# tasks_ext3 through the adapter's video_gen, at this many frames per
+# video (--model_args max_num_frames): 2 temporal blocks, 288 merged
+# rows, where the adapter's default 32 frames (2304 rows) would not fit
+# the harness runs' 1152-row cache
+QWEN_VIDEO_TASKS, QWEN_HARNESS_FRAMES = ("activitynetqa",
+                                         "vitatecs_direction"), 4
 # how far (bf16 ulps of the top logit) a committed Qwen token may lie below
 # the independent recompute's top logit when it is not the recompute's
 # canonical argmax, on the card, and how far apart the two tokens of an
@@ -378,8 +406,9 @@ FIT_LR = 0.01
 # record's own row shape the rows must be bitwise equal.
 QWEN_RECORD_TOL = 2 ** -3
 # [multi]: the multi-visual generators' cache (the anyres prompt's 2207
-# rows, a tree and its path fit below it) and new tokens per request
-MULTI_SEQ, MULTI_NEW = 2560, 32
+# rows, a tree and its path fit below it) and new tokens per request (32
+# until the rest of the extended tier joined the smoke)
+MULTI_SEQ, MULTI_NEW = 2560, 16
 # [video]: frames per video (32 frames of 336px: 16 temporal blocks, 2304
 # merged rows) and the tower's rows against its plain block-per-block
 # evaluation (relative L2 over all rows) on the card, bf16 both: the two
@@ -3130,49 +3159,35 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(t)) - 7)
 
 
-def first_split(gen, ids, feats, a, b) -> dict:
-    """Where the committed tokens ``a`` (MSD) and ``b`` (AR) of one
-    request first differ, and how near a tie the target makes that
-    choice: ``plain_logits`` over the prompt and ``b``; at the row that
-    picks token k, the gap between the logits of a[k] and b[k] (a sequence
-    that ended first picks EOS there) in bf16 ulps of the larger, and
-    their ranks; and the top-1 minus top-2 margin, in ulps of the top-1,
-    of every row that picks one of b's tokens (how far apart the target's
-    choices usually lie)."""
-    logits, exp = plain_logits(gen, np.concatenate([ids, b]), feats)
-    first = len(exp) - len(b) - 1
-    top2 = logits[first:len(exp) - 1].topk(2, dim=-1).values
-    out = {"margins": ((top2[:, 0] - top2[:, 1])
-                       / bf16_ulp(top2[:, 0])).tolist()}
-    if list(a) == list(b):
-        return out
-    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-             min(len(a), len(b)))
-    row = logits[first + k]
-    ta, tb = (int(s[k]) if k < len(s) else gen.eos_id for s in (a, b))
-    la, lb = float(row[ta]), float(row[tb])
-    out.update(at=k, gap=abs(la - lb), logit=max(abs(la), abs(lb)),
-               ulps=abs(la - lb) / float(bf16_ulp(max(abs(la), abs(lb)))),
-               ranks=(int((row > row[ta]).sum()), int((row > row[tb]).sum())))
-    return out
-
-
 @contextlib.contextmanager
 def record_harness(sync, run, task_of, ref_run: str, score_task: str,
-                   check_run: str = "C"):
+                   check_run: str = "C", tie: float = 0.0):
     """Wrappers, restored after the block, that record what the harness
     CLI's output does not show: each request's committed token ids, mode
     and graph captures (``MSDGenerator.generate``/``naive_generate``; an
-    AR request also its own greedy score and its ``first_split`` against
-    ``ref_run``'s request of the same index), each scoring request (one
-    of ``score_task``; in ``check_run`` also a repeat and the plain
+    AR request also its own greedy score), with its prompt's digest, its
+    AR steps, the K1 launches it added and the tokens MSD may commit
+    before its step limit (``room``), each scoring request (one of
+    ``score_task``; in ``check_run`` also a repeat and the plain
     recompute) and the AR steps run (``spec_engine.ar_decode``), tagged
     with the run named ``run[0]`` and ``task_of(run, k)`` for its k-th
-    generate request. Yields (requests, scores, [AR steps])."""
+    generate request. Yields (requests, scores, [AR steps], settle):
+    ``settle()``, called after a run's counts are read, gives each AR
+    request of it "split", its ``split_record`` against ``ref_run``'s
+    request of the same index (None where the tokens agree; where the gap
+    exceeds ``tie`` plus the noise, with ``k1_split_check`` under "k1"
+    if ``ar_against_msd`` compares it), "margins", the
+    top-1 minus top-2 logit in bf16 ulps of the top-1 at each row of the
+    plain recompute that picks one of its tokens, and "k1_check", the K1
+    launches those recomputes made."""
+    import hashlib
+
     from msd_tpu_torch.engine import spec_engine as SE
     from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.engine.graphs import weights_key
+    from msd_tpu_torch.ops import decode_attention as K1
 
-    reqs, scores, ar_steps = [], [], [0]
+    reqs, scores, ar_steps, pending = [], [], [0], []
     orig = {"generate": MSDGenerator.generate,
             "naive_generate": MSDGenerator.naive_generate,
             "score": MSDGenerator.score, "ar_decode": SE.ar_decode}
@@ -3183,10 +3198,12 @@ def record_harness(sync, run, task_of, ref_run: str, score_task: str,
     def wrap_gen(kind):
         def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
             before = n_graphs(self)
+            k1_0, steps0 = K1.decode_attention.launches, ar_steps[0]
             t1 = time.perf_counter()
             r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
             sync()
             t2 = time.perf_counter()
+            k1 = K1.decode_attention.launches - k1_0
             mode = "ar" if kind == "naive_generate" else \
                 "calibrated" if kw.get("use_calibration") else \
                 "collect" if kw.get("collect_calibration") else "msd"
@@ -3196,8 +3213,17 @@ def record_harness(sync, run, task_of, ref_run: str, score_task: str,
                    "tokens": r.tokens.tolist(),
                    "captured": n_graphs(self) - before,
                    "layers": self.tcfg.num_hidden_layers,
+                   "prompt": hashlib.sha256(np.asarray(
+                       ids, np.int32).tobytes()).hexdigest(),
+                   "k1": k1, "ar_steps": ar_steps[0] - steps0,
+                   # the tokens MSD may commit before its step limit
+                   "room": self._statics(0).step_limit - len(ids)
+                   - (self._expansion() if img_feats is not None else 0),
+                   # a calibrated step's graph keys on the tables'
+                   # tensors: an adapter that installs new tables (each
+                   # task's skip_to_test) may capture anew
                    "key": (mode, max_new_tokens, kw.get("sp"),
-                           id(self.params.get("calib"))
+                           weights_key(self.params["calib"])
                            if mode == "calibrated" else None)}
             if mode == "collect":
                 rec["rows"] = int(np.asarray(r.calib_data["valid"]).sum())
@@ -3207,8 +3233,7 @@ def record_harness(sync, run, task_of, ref_run: str, score_task: str,
                 rec["greedy"] = orig["score"](self, full, len(ids),
                                               img_feats)[1]
                 ref = [q for q in reqs if q["run"] == ref_run][k]
-                rec["split"] = first_split(self, ids, img_feats,
-                                           ref["tokens"], rec["tokens"])
+                pending.append((rec, self, ids, img_feats, ref))
             reqs.append(rec)
             return r
         return wrapped
@@ -3230,13 +3255,34 @@ def record_harness(sync, run, task_of, ref_run: str, score_task: str,
         ar_steps[0] += n - 1
         return n
 
+    def settle():
+        for rec, gen, ids, feats, ref in pending:
+            k1_0 = K1.decode_attention.launches
+            logits = llava_logits_fn(gen, ids, feats)
+            top2 = logits(rec["tokens"])[:rec["n"]].topk(2, dim=-1).values
+            rec["margins"] = ((top2[:, 0] - top2[:, 1])
+                              / bf16_ulp(top2[:, 0])).tolist()
+            s = rec["split"] = split_record(gen, logits, ref["tokens"],
+                                            rec["tokens"])
+            # K1's row only where the split is compared: not where MSD
+            # stopped at its step limit, nor in a later round after a
+            # split, whose prompt is another than MSD's
+            if (s is not None and s["ulps"] > tie + s["noise"]
+                    and rec["prompt"] == ref["prompt"]
+                    and not budget_stop(ref, rec)):
+                s["k1"] = k1_split_check(gen, logits, ref["tokens"],
+                                         rec["tokens"], s)
+            rec["k1_check"] = K1.decode_attention.launches - k1_0
+        pending.clear()
+
     MSDGenerator.generate = wrap_gen("generate")
     MSDGenerator.naive_generate = wrap_gen("naive_generate")
     MSDGenerator.score = score
     SE.ar_decode = ar_decode
     try:
-        yield reqs, scores, ar_steps
+        yield reqs, scores, ar_steps, settle
     finally:
+        pending.clear()
         MSDGenerator.generate = orig["generate"]
         MSDGenerator.naive_generate = orig["naive_generate"]
         MSDGenerator.score = orig["score"]
@@ -3272,10 +3318,10 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
     Fails unless: A's responses and token ids == D's (the window-canonical
     verify makes the committed tokens draft-invariant) and C's == A's;
     A's token ids == B's up to each request's first split, and each split
-    is a rounding tie of the target: the two tokens' plain logits
-    (``first_split``) lie within ``HARNESS_TIE`` bf16 ulps (on the card
-    the AR row, K1, and the verify rows round differently in bf16; off
-    the card, in fp32, no split is allowed); A collected on the first
+    is a rounding tie of the target (``split_ok`` of ``split_record``,
+    ``HARNESS_TIE``: on the card the AR row, K1, and the verify rows round
+    differently in bf16; off the card, in fp32, no split is allowed),
+    checked after B's K1 launches are read; A collected on the first
     half of the first task's docs and decoded the rest calibrated, later
     tasks and C decoded every doc calibrated from the pickle, which C left
     as A wrote it, and A wrote acceptance_rate.json and
@@ -3301,6 +3347,7 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
     ctx = res["ctx"]
     device, on_card, sync = ctx["device"], ctx["on_card"], ctx["sync"]
     card = smi_name_and_limit() if on_card else "cpu"
+    tie = HARNESS_TIE if on_card else 0.0
     t_phase = time.perf_counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3333,7 +3380,8 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
     out, digest = {"card": card}, {}
     # B against A's request of the same doc
     with record_harness(sync, run, lambda n, k: gen_tasks[k // limit], "A",
-                        "ai2d_ppl") as (reqs, scores, ar_steps):
+                        "ai2d_ppl", tie=tie) as (reqs, scores, ar_steps,
+                                                 settle):
         for name, argv in runs.items():
             run[0] = name
             steps0 = ar_steps[0]
@@ -3347,6 +3395,8 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
             out[name] = {"payload": payload, "s": time.perf_counter() - t1,
                          "launches": K1.decode_attention.launches,
                          "ar_steps": ar_steps[0] - steps0}
+            # the AR requests' split checks, after the run's count is read
+            settle()
             if os.path.exists(pkl):
                 with open(pkl, "rb") as f:
                     digest[name] = hashlib.sha256(f.read()).hexdigest()
@@ -3380,17 +3430,14 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
             bad.append(f"C != A on {t}")
         for x, y, r in zip(responses("A", t), responses("B", t),
                            of("B", t)):
-            if x != y and "at" not in r["split"]:
+            if x != y and r["split"] is None:
                 bad.append(f"A's response != B's, their tokens equal, {t}")
     # A against B: token ids equal up to the first split, and a split
     # only where the target's logits of the two tokens tie within the
-    # rounding noise of the card's bf16
-    splits = [r["split"] for r in of("B")]
-    ties = [s for s in splits if "at" in s]
-    if (ties and not on_card) or not all(
-            s["ulps"] <= HARNESS_TIE for s in ties):
-        bad.append(f"A != B at a split that is no rounding tie: "
-                   f"{[dict(s, margins=None) for s in ties]}")
+    # rounding noise of the card's bf16 (``split_ok``)
+    ties = [r["split"] for r in of("B") if r["split"] is not None]
+    if not all(split_ok(s, tie) for s in ties):
+        bad.append(f"A != B at a split that is no rounding tie: {ties}")
     if "ai2d_ppl" in tasks:
         for name in ("B", "C"):
             if responses(name, "ai2d_ppl") != responses("A", "ai2d_ppl"):
@@ -3462,17 +3509,17 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
         lo, hi = spans.get((r["run"], r["task"]), r["t"])
         spans[(r["run"], r["task"])] = (min(lo, r["t"][0]),
                                         max(hi, r["t"][1]))
-    margins = np.asarray([m for s in splits for m in s["margins"]])
+    margins = np.asarray([m for r in of("B") for m in r["margins"]])
     ppl = [r for r in scores if r["run"] == "B"]
     out.update(
         launches=out["B"]["launches"], ar_steps=out["B"]["ar_steps"],
         ar_captures=b_caps, worst_score_rel=worst,
-        agree={t: sum("at" not in r["split"] for r in of("B", t))
+        agree={t: sum(r["split"] is None for r in of("B", t))
                for t in gen_tasks},
         same_text={t: sum(x == y for x, y in zip(responses("A", t),
                                                  responses("B", t)))
                    for t in gen_tasks},
-        ties=[dict(s, margins=None) for s in ties],
+        ties=ties, k1_check=sum(r["k1_check"] for r in of("B")),
         margin_median=float(np.median(margins)),
         near_ties=int((margins <= HARNESS_TIE).sum()),
         greedy_share=sum(greedy) / max(1, len(greedy)),
@@ -3500,12 +3547,11 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
         f"{card}")
     log(f"[harness] A == B: token ids equal in {out['agree']} of {limit} "
         f"requests per task, responses in {out['same_text']}; each other "
-        f"request splits at a rounding tie (the two logits within "
-        f"{HARNESS_TIE} bf16 ulps): "
-        + ("; ".join(f"token {s['at']}, gap {s['gap']:.4f} = "
-                     f"{s['ulps']:.1f} ulps at |logit| {s['logit']:.4f}, "
-                     f"ranks {s['ranks']}" for s in ties) or "none")
-        + f"; top-1 minus top-2 over B's {len(margins)} tokens: median "
+        f"request splits at a rounding tie (split_ok, {HARNESS_TIE} bf16 "
+        f"ulps plus the row's noise): "
+        + ("; ".join(split_text(s) for s in ties) or "none")
+        + f" (K1 launches of the checks, after B's count was read: "
+        f"{out['k1_check']}); top-1 minus top-2 over B's {len(margins)} tokens: median "
         f"{out['margin_median']:.2f} ulps, {out['near_ties']} within "
         f"{HARNESS_TIE} on {card}")
     log(f"[harness] ms per generated token (prefill included): A "
@@ -3519,6 +3565,20 @@ def run_harness(res, ckpt: str, draft_dir: str, root: str,
         f"peak {out['peak'] / 2**30:.2f} GiB allocated; phase "
         f"{out['seconds']:.1f}s on {card}")
     return out
+
+
+def split_text(s: dict) -> str:
+    """One ``split_record`` for a log line."""
+    text = (f"token {s['at']}, gap {s['gap']:.4f} = {s['ulps']:.1f} ulps "
+            f"at |logit| {s['logit']:.4f} (noise {s['noise']:.1f}), ranks "
+            f"{s['ranks']}")
+    if "k1" in s:
+        k = s["k1"]
+        text += (f", K1 row: picks AR's token {k['picks_b']}, {k['calls']} "
+                 f"calls within TOL of the twin {k['within']} (excess "
+                 f"{k['excess']:.3e}), {k['dev']:.1f} ulps off the twin's "
+                 f"row")
+    return text
 
 
 def judge_reply(prompt: str) -> str:
@@ -3633,40 +3693,55 @@ def write_yaml_task(path: str, n: int) -> str:
 
 def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
                     limit: int = HARNESS_EXT_LIMIT,
-                    max_new: int = HARNESS_NEW) -> dict:
+                    max_new: int = HARNESS_NEW, stub_reply=judge_reply
+                    ) -> dict:
     """The extended eval tier through the harness CLI's
     ``msd_tpu_torch.harness.__main__.main(argv)``, in process, after
     ``run_harness`` on the same checkpoint (``ckpt``, the medusa draft in
     ``draft_dir``, the null draft and the calibrator pickle it left under
     ``root``): ``HARNESS_EXT_TASKS`` and a YAML task written to ``root``
     and registered by ``--include_path``, ``limit`` docs each, ``max_new``
-    new tokens, ``--judge endpoint:URL`` at a loopback stub
-    (``judge_stub``) that answers each prompt with ``judge_reply``:
+    new tokens per request (each round of a multi-round doc is one),
+    ``--judge endpoint:URL`` at a loopback stub (``judge_stub``) that
+    answers each prompt with ``stub_reply`` (``judge_reply`` unless a test
+    plants another):
 
     C. ``llava_msd_calibrated --use_msd --use_calibration`` reading
        ``[harness]``'s pickle (skip_to_test);
     B. ``llava``: the AR baseline;
     D. ``llava_msd`` with the null draft on the generation tasks;
-    F. C on ``HARNESS_EXT_JUDGED`` with the judge at a dead loopback port
-       (the planted fault: a judge that never answers).
+    F. C on ``HARNESS_EXT_JUDGED`` with the judge at a dead loopback
+       port (the planted fault: a judge that never answers).
 
-    Requests are recorded by ``record_harness``. Fails unless:
-    C's responses and token ids == D's, and F's == C's on its tasks; C's
-    token ids == B's up to each request's first split, a rounding tie
-    within ``HARNESS_TIE`` bf16 ulps (none off the card); mmlu's
-    loglikelihoods are bitwise equal in C and B, repeat bitwise and lie
-    within 1e-4 x max(1, |lp|) of ``plain_score`` with its greedy flag;
-    every C and F request decodes calibrated and the pickle is left as
-    it was; K1 launches 0 in C, D and F and in B layers x (AR tokens
-    decoded + the warm-up steps of each AR-token capture); no capture
-    after a combination's first request; the YAML task loaded its JSON
-    docs (not synthetic ones) in C, B and D; the stub served each run of
-    C, B and D exactly the judge calls its scorers make and nothing
-    during F, and each score (per doc and aggregated) is what the
-    scorers give when an in-process judge answers as the stub does (for
-    F: with no judge), llava_in_the_wild at the reply's 6 / 8 = 75.0 and
-    each mmbench doc a hit iff its inferred option, else the reply's "A",
-    is its gold; F's judged scores differ from C's."""
+    Requests are recorded by ``record_harness``. Fails unless: each run made
+    one request per doc and round, and each doc of a multi-round task ran
+    its ``HARNESS_EXT_ROUNDS``; C's responses and token ids == D's, and F's
+    == C's on its tasks; C's token ids == B's on the same prompt up to each
+    request's first split, a rounding tie (``split_ok`` of
+    ``split_record`` at ``HARNESS_TIE``, as in ``run_harness``; none off
+    the card), or up to where C reached MSD's step limit (at a prompt
+    truncated to the budget: both packages stop MSD a tree and a path below
+    max_seq_len, AR 2 rows below it), and a multi-round doc's later rounds,
+    whose prompts hold the differing responses, are not compared
+    (``ar_against_msd``); mmlu's loglikelihoods are bitwise
+    equal in C and B, repeat bitwise and lie within 1e-4 x max(1, |lp|) of
+    ``plain_score`` with its greedy flag; every C and F request decodes
+    calibrated (a multi-round task's rounds: plain MSD, the adapter's round
+    path) and the pickle is left as it was; K1 launches 0 in C, D and F and,
+    in each request of B, layers x (its AR tokens decoded + the warm-up
+    steps of each AR-token capture); no capture after a combination's first
+    request; the YAML task loaded its JSON docs (not synthetic ones) in C, B
+    and D; ifeval's per-instruction strict and loose results and its
+    aggregate equal what ``task_utils.ifeval.evaluate`` gives on the logged
+    responses; the stub served each run of C, B and D exactly the judge
+    calls its scorers make and nothing during F, and each score (per doc and
+    aggregated) is what the scorers give when an in-process judge answers by
+    ``judge_reply`` (for F: with no judge): llava_in_the_wild at the reply's
+    6 / 8 = 75.0, each mmbench doc a hit iff its inferred option, else the
+    reply's "A", is its gold, each mmvetv2 doc 0.5, each wildvision doc the
+    verdict B>A (raw 1, a win), each live_bench doc with a response the
+    rating 7; F's judged scores differ from C's (mmbench's may agree: its
+    offline rule settles an inferable option)."""
     import hashlib
     import io
 
@@ -3675,12 +3750,14 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
     from msd_tpu_torch.harness import __main__ as HM
     from msd_tpu_torch.harness import judge as J
     from msd_tpu_torch.harness.registry import get_task
+    from msd_tpu_torch.harness.task_utils import ifeval as IF
     from msd_tpu_torch.harness.tasks_mmbench import _options, can_infer
     from msd_tpu_torch.ops import decode_attention as K1
 
     ctx = res["ctx"]
     device, on_card, sync = ctx["device"], ctx["on_card"], ctx["sync"]
     card = smi_name_and_limit() if on_card else "cpu"
+    tie = HARNESS_TIE if on_card else 0.0
     t_phase = time.perf_counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3709,15 +3786,22 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
     }
     gen_of = {n: [t for t in a[a.index("--tasks") + 1].split(",")
                   if t != "mmlu"] for n, a in runs.items()}
+    # the task of each generate request of a run: a doc of a multi-round
+    # task makes one per round
+    seq = {n: [t for t in ts
+               for _ in range(limit * HARNESS_EXT_ROUNDS.get(t, 1))]
+           for n, ts in gen_of.items()}
     common = ["--device", str(device), "--limit", str(limit),
               "--gen_kwargs", f"max_new_tokens={max_new}", "--log_samples",
               "--include_path", ydir]
     run, out = [None], {"card": card}
-    # B against C's request of the same doc
+    # B against C's request of the same index
     try:
-        with record_harness(sync, run, lambda n, k: gen_of[n][k // limit],
-                            "C", "mmlu") as (reqs, scores, ar_steps), \
-                judge_stub() as (url, calls):
+        with record_harness(sync, run,
+                            lambda n, k: seq[n][k] if k < len(seq[n])
+                            else None, "C", "mmlu", tie=tie) as (
+                reqs, scores, ar_steps, settle), \
+                judge_stub(stub_reply) as (url, calls):
             for name, argv in runs.items():
                 run[0] = name
                 steps0, calls0 = ar_steps[0], len(calls)
@@ -3735,6 +3819,8 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
                              "launches": K1.decode_attention.launches,
                              "ar_steps": ar_steps[0] - steps0,
                              "calls": calls[calls0:]}
+                # the AR requests' split checks, after the count is read
+                settle()
                 gc.collect()
                 if on_card:
                     torch.cuda.empty_cache()
@@ -3754,8 +3840,13 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
     def tokens(name, task):
         return [r["tokens"] for r in of(name, task)]
 
-    bad = [f"{n} ran {len(of(n))} generate requests" for n in runs
-           if len(of(n)) != limit * len(gen_of[n])]
+    bad = [f"{n} ran {len(of(n))} generate requests, want {len(seq[n])}"
+           for n in runs if len(of(n)) != len(seq[n])]
+    bad += [f"{n}: a doc of {t} ran {len(r) if isinstance(r, list) else 1}"
+            f" rounds, want {k}" for n in runs
+            for t, k in HARNESS_EXT_ROUNDS.items() if t in gen_of[n]
+            for r in responses(n, t) if not (isinstance(r, list)
+                                             and len(r) == k)]
     if bad:
         raise AssertionError(f"[harness_ext] {bad}")
     for t in gen_of["D"]:
@@ -3766,17 +3857,10 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
         if responses("F", t) != responses("C", t) \
                 or tokens("F", t) != tokens("C", t):
             bad.append(f"F != C on {t}")
-    for t in gen_of["B"]:
-        for x, y, r in zip(responses("C", t), responses("B", t),
-                           of("B", t)):
-            if x != y and "at" not in r["split"]:
-                bad.append(f"C's response != B's, their tokens equal, {t}")
-    splits = [r["split"] for r in of("B")]
-    ties = [s for s in splits if "at" in s]
-    if (ties and not on_card) or not all(
-            s["ulps"] <= HARNESS_TIE for s in ties):
-        bad.append(f"C != B at a split that is no rounding tie: "
-                   f"{[dict(s, margins=None) for s in ties]}")
+    compared, stops, ties, mismatch = ar_against_msd(
+        {t: (of("C", t), responses("C", t)) for t in gen_of["B"]},
+        {t: (of("B", t), responses("B", t)) for t in gen_of["B"]}, tie)
+    bad += mismatch
     if responses("B", "mmlu") != responses("C", "mmlu"):
         bad.append("mmlu's loglikelihoods: B != C (bitwise)")
     c_scores = [r for r in scores if r["run"] == "C"]
@@ -3790,10 +3874,12 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
     if worst > 1e-4 or any(r["out"][1] != r["plain"][1] for r in c_scores):
         bad.append(f"mmlu score != its plain recompute (worst relative "
                    f"{worst:.3e} against 1e-4, or a greedy flag)")
-    if any(r["mode"] != "calibrated" for r in of("C") + of("F")) \
+    if any(r["mode"] != ("msd" if r["task"] in HARNESS_EXT_ROUNDS
+                         else "calibrated") for r in of("C") + of("F")) \
             or digest() != pkl_digest:
         bad.append("C or F did not decode calibrated from [harness]'s "
-                   "pickle, or the pickle changed")
+                   "pickle (a multi-round task: plain MSD), or the pickle "
+                   "changed")
     layers = reqs[0]["layers"]
     b_caps = sum(r["captured"] for r in of("B"))
     k1_want = layers * (out["B"]["ar_steps"] + WARMUP_STEPS * b_caps) \
@@ -3802,6 +3888,12 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
             out[n]["launches"] for n in ("C", "D", "F")):
         bad.append(f"K1 launches {[out[n]['launches'] for n in runs]}, "
                    f"want [0, {k1_want}, 0, 0]")
+    k1_off = [(r["task"], r["k1"]) for r in of("B") if r["k1"] != (
+        layers * (r["ar_steps"] + WARMUP_STEPS * r["captured"])
+        if on_card else 0)]
+    if k1_off:
+        bad.append(f"B's requests' K1 launches != layers x (AR tokens + "
+                   f"warm-up steps): {k1_off}")
     seen, late = set(), []
     for r in reqs:
         k = (r["run"],) + r["key"]
@@ -3821,8 +3913,36 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
             bad.append(f"{n}: the YAML task's docs or metrics "
                        f"{pl['results'].get(HARNESS_EXT_YAML)}")
 
+    # IFEval: each instruction's strict and loose result, recomputed by the
+    # checkers from the logged response, and the aggregates over them
+    ifeval = {}
+    for n in ("C", "B", "D"):
+        strict, loose, p_strict, p_loose = [], [], [], []
+        for d, s in zip(get_task("ifeval").load_docs(limit=limit),
+                        samples(n, "ifeval")):
+            a, b = IF.evaluate(list(d["instruction_id_list"]),
+                               list(d["kwargs"]), s["response"],
+                               prompt=d["prompt"])
+            if [float(x) for x in a] != s["scores"]["_inst_strict"] \
+                    or [float(x) for x in b] != s["scores"]["_inst_loose"]:
+                bad.append(f"{n}: an ifeval doc's instruction results != "
+                           f"the checkers' on its response")
+            strict += a
+            loose += b
+            p_strict.append(float(all(a)))
+            p_loose.append(float(all(b)))
+        got = out[n]["payload"]["results"]["ifeval"]
+        want = {"prompt_level_strict_acc": float(np.mean(p_strict)),
+                "prompt_level_loose_acc": float(np.mean(p_loose)),
+                "inst_level_strict_acc": float(np.mean(strict)),
+                "inst_level_loose_acc": float(np.mean(loose))}
+        if {k: got.get(k) for k in want} != want:
+            bad.append(f"{n}: ifeval's aggregate {got} != the checkers' "
+                       f"{want}")
+        ifeval[n] = want
+
     # the judge: the calls and scores the same scorers give when an
-    # in-process judge answers as the stub does (F: with no judge)
+    # in-process judge answers by the rule (F: with no judge)
     class Replay:
         def __init__(self):
             self.calls = []
@@ -3850,17 +3970,25 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
         return (m[0]["content"] if len(m) == 2 else None, m[-1]["content"],
                 body["max_tokens"], body["temperature"])
 
-    judged = {}
+    # each judged doc's score under the stub's replies
+    stub_rule = {
+        "mmvetv2": lambda r, row: row["gpt_eval_score"] == 0.5,
+        "wildvision_0617": lambda r, row: (row["raw_score"], row["win"])
+        == (1.0, 1.0),
+        "live_bench": lambda r, row: row["gpt4_eval_score"]
+        == (7.0 if r else 0.0),
+    }
+    judged_rows = {}
     for n in runs:
         rp = Replay() if n != "F" else None
         want = replay(n, rp)
-        judged[n] = {t: [s["scores"] for s in samples(n, t)]
-                     for t in HARNESS_EXT_JUDGED}
+        judged_rows[n] = {t: [s["scores"] for s in samples(n, t)]
+                          for t in HARNESS_EXT_JUDGED}
         if [served(b) for b in out[n]["calls"]] != (rp.calls if rp else []):
             bad.append(f"{n}: the stub served {len(out[n]['calls'])} calls,"
                        f" the scorers make {len(rp.calls) if rp else 0}")
         for t, (rows, agg) in want.items():
-            if judged[n][t] != rows \
+            if judged_rows[n][t] != rows \
                     or out[n]["payload"]["results"][t] != agg:
                 bad.append(f"{n}: {t}'s scores != the rule's for the "
                            f"judge's replies")
@@ -3872,31 +4000,48 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
         mm = get_task("mmbench_en_dev")
         for d, r, row in zip(mm.load_docs(limit=limit),
                              responses(n, "mmbench_en_dev"),
-                             judged[n]["mmbench_en_dev"]):
+                             judged_rows[n]["mmbench_en_dev"]):
             hit = (can_infer(r, _options(d)) or "A") == d["answer"]
             if row["_hit"] != float(hit):
                 bad.append(f"{n}: an mmbench doc's hit != the rule's")
-    if judged["F"] == {t: judged["C"][t] for t in HARNESS_EXT_JUDGED}:
-        bad.append("F (dead judge) scored as C (judged)")
+        for t, ok in stub_rule.items():
+            if not all(ok(r, row) for r, row in zip(responses(n, t),
+                                                    judged_rows[n][t])):
+                bad.append(f"{n}: {t}'s scores != the stub's replies'")
+    judged_res = {n: {t: out[n]["payload"]["results"][t]
+                      for t in HARNESS_EXT_JUDGED} for n in ("C", "F")}
+    same = [t for t in HARNESS_EXT_JUDGED if t != "mmbench_en_dev"
+            and judged_res["F"][t] == judged_res["C"][t]]
+    if same:
+        bad.append(f"F (dead judge) scored as C (judged) on {same}")
     if bad:
         raise AssertionError(f"[harness_ext] {bad}")
 
-    def ms_per_token(name):
-        rs = of(name)
+    def ms_per_token(rs):
         return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
             / max(1, sum(r["n"] for r in rs))
 
+    spans = {}
+    for r in reqs + scores:
+        lo, hi = spans.get((r["run"], r["task"]), r["t"])
+        spans[(r["run"], r["task"])] = (min(lo, r["t"][0]),
+                                        max(hi, r["t"][1]))
     out.update(
         launches=out["B"]["launches"], ar_steps=out["B"]["ar_steps"],
         ar_captures=b_caps, worst_score_rel=worst,
-        agree={t: sum("at" not in r["split"] for r in of("B", t))
-               for t in gen_of["B"]},
-        ties=[dict(s, margins=None) for s in ties],
+        agree={t: sum(r["split"] is None for r in compared
+                      if r["task"] == t) for t in gen_of["B"]},
+        ties=ties, budget_stops=stops,
+        k1_check=sum(r["k1_check"] for r in of("B")),
         calls={n: len(out[n]["calls"]) for n in runs},
         greedy_share=sum(greedy) / max(1, len(greedy)),
-        judged={n: {t: out[n]["payload"]["results"][t]
-                    for t in HARNESS_EXT_JUDGED} for n in ("C", "F")},
-        ms_token={n: ms_per_token(n) for n in runs},
+        judged=judged_res, ifeval=ifeval,
+        ms_token={n: ms_per_token(of(n)) for n in runs},
+        task_s={k: hi - lo for k, (lo, hi) in spans.items()},
+        task_ms_token={(n, t): ms_per_token(of(n, t)) for n in runs
+                       for t in gen_of[n]},
+        k1_by_task={t: sum(r["k1"] for r in of("B", t))
+                    for t in gen_of["B"]},
         peak=torch.cuda.max_memory_allocated() if on_card else 0,
         seconds=time.perf_counter() - t_phase)
     log(f"[harness_ext] runs C (calibrated MSD, skip_to_test), B (AR), D "
@@ -3907,20 +4052,82 @@ def run_harness_ext(res, ckpt: str, draft_dir: str, root: str,
         + "; ms per generated token (prefill included) "
         + ", ".join(f"{n} {v:.2f}" for n, v in out["ms_token"].items())
         + f" on {card}")
+    for t in every:
+        log(f"[harness_ext] {t}: " + "; ".join(
+            f"{n} {out['task_s'][(n, t)]:.2f}s"
+            + (f", {out['task_ms_token'][(n, t)]:.2f} ms/token"
+               if (n, t) in out["task_ms_token"] else "")
+            for n in runs if (n, t) in out["task_s"])
+            + (f"; K1 in B {out['k1_by_task'][t]}"
+               if t in out["k1_by_task"] else "") + f" on {card}")
     log(f"[harness_ext] C == D and F == C, responses and token ids: True; "
-        f"C == B token ids in {out['agree']} of {limit} requests per task, "
-        f"each other split a tie within {HARNESS_TIE} bf16 ulps: "
-        + ("; ".join(f"token {s['at']}, {s['ulps']:.1f} ulps"
-                     for s in ties) or "none")
-        + f"; mmlu C == B bitwise, repeat bitwise, plain recompute worst "
-        f"relative {worst:.3e}; judge calls served {out['calls']}, each "
-        f"as the scorers make them; judged scores C {out['judged']['C']}, "
-        f"F (dead judge, offline rules) {out['judged']['F']}; K1 launches "
-        f"in B {out['launches']} = {layers} x ({out['ar_steps']} AR tokens "
-        f"+ {WARMUP_STEPS} warm-up steps x {b_caps} captures), 0 in C, D, "
-        f"F; peak {out['peak'] / 2**30:.2f} GiB; phase "
-        f"{out['seconds']:.1f}s on {card}")
+        f"C == B token ids in {out['agree']} of the requests compared per "
+        f"task ({limit} docs, a multi-round doc's rounds up to its first "
+        f"split), each other split a rounding tie (split_ok, {HARNESS_TIE} "
+        f"bf16 ulps plus the row's noise): "
+        + ("; ".join(f"{s['task']} {split_text(s)}" for s in ties)
+           or "none")
+        + f" (K1 launches of the checks, after B's count was read: "
+        f"{out['k1_check']})"
+        + f"; C stopped at MSD's step limit, its tokens a prefix of B's "
+        f"(task, tokens, room): {stops or 'none'}; rounds per multi-round "
+        f"doc {HARNESS_EXT_ROUNDS}; ifeval "
+        f"recomputed by the checkers {out['ifeval']}; mmlu C == B bitwise,"
+        f" repeat bitwise, plain recompute worst relative {worst:.3e}; "
+        f"judge calls served {out['calls']}, each as the scorers make "
+        f"them; judged scores C {out['judged']['C']}, F (dead judge, "
+        f"offline rules) {out['judged']['F']}; K1 launches in B "
+        f"{out['launches']} = {layers} x ({out['ar_steps']} AR tokens + "
+        f"{WARMUP_STEPS} warm-up steps x {b_caps} captures), by task "
+        f"{out['k1_by_task']}, 0 in C, D, F; peak "
+        f"{out['peak'] / 2**30:.2f} GiB; phase {out['seconds']:.1f}s on "
+        f"{card}")
     return out
+
+
+def budget_stop(c: dict, b: dict) -> bool:
+    """Whether MSD's request ``c`` stopped at its step limit with its
+    tokens a prefix of AR's request ``b`` of the same prompt (records of
+    ``record_harness``): B's split lies at C's last token and C committed
+    ``room`` tokens or more. MSD's step limit keeps a tree and a path
+    below max_seq_len, AR's does not (both packages), so at a prompt
+    truncated to the budget C stops first."""
+    return b["split"] is not None and b["split"]["at"] == c["n"] >= c["room"]
+
+
+def ar_against_msd(msd: dict, ar: dict, tie: float) -> tuple:
+    """MSD's requests and responses beside AR's, task by task (``msd`` and
+    ``ar``: {task: (records of ``record_harness``, responses)}, a
+    multi-round task's docs ``HARNESS_EXT_ROUNDS`` records each), doc by
+    doc and round by round while their prompts agree: a round's prompt
+    holds the earlier rounds' responses, so a doc is compared up to its
+    first split. A request that stopped at MSD's step limit
+    (``budget_stop``) is set apart; each other split must pass
+    ``split_ok`` at ``tie``. Returns (AR records compared, budget stops
+    (task, tokens, room), splits compared, faults)."""
+    compared, stops, bad = [], [], []
+    for t, (bs, b_resp) in ar.items():
+        k = HARNESS_EXT_ROUNDS.get(t, 1)
+        cs, c_resp = msd[t]
+        for i, resp in enumerate(b_resp):
+            split = False
+            for c, b in zip(cs[i * k:(i + 1) * k], bs[i * k:(i + 1) * k]):
+                if c["prompt"] != b["prompt"]:
+                    bad.append(f"B's prompt != C's before a split, {t}")
+                if budget_stop(c, b):
+                    stops.append((t, c["n"], c["room"]))
+                else:
+                    compared.append(b)
+                if b["split"] is not None:
+                    split = True
+                    break
+            if resp != c_resp[i] and not split:
+                bad.append(f"C's response != B's, their tokens equal, {t}")
+    ties = [dict(r["split"], task=r["task"]) for r in compared
+            if r["split"] is not None]
+    if not all(split_ok(s, tie) for s in ties):
+        bad.append(f"C != B at a split that is no rounding tie: {ties}")
+    return compared, stops, ties, bad
 
 
 def _weight_bytes(tree) -> int:
@@ -4395,7 +4602,7 @@ def _shaped_rows(gen, n_p: int, n_t: int, chunk: int) -> tuple:
 
 
 def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
-                  window: bool = False):
+                  window: bool = False, ar: bool = False):
     """The logits that predict each of ``n_t`` tokens after an ``n_p``-row
     prompt, and the token after them ([n_t + 1, V] fp32), recomputed at
     the engine's row shapes but apart from its code. ``emb`` [rows, H]
@@ -4410,8 +4617,9 @@ def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
     row's. With ``window`` a chunk row reduces its last ``max_path_len``
     positions through window slots and the cache below them through the
     bias, as a verify row of a chain does (``windowed_attention``; window
-    rows and bias built here from the row's cache position); else the
-    attention is plain (no K1)."""
+    rows and bias built here from the row's cache position); with ``ar``
+    (``chunk`` 1) a row attends through K1 over the keys up to its own, as
+    the AR step does; else the attention is plain (no K1)."""
     import torch
     from msd_tpu_torch.models import llama as L
     from msd_tpu_torch.ops.attention import NEG_INF
@@ -4426,12 +4634,14 @@ def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
 
     w = gen.eng.tree.max_path_len
 
-    def forward(x, first, win=False):
+    def forward(x, first, win=False, k1=False):
         r = torch.arange(first, first + x.shape[0], device=dev)
         if not win:
             bias = torch.where(cols[None] <= r[:, None], 0.0, NEG_INF)
+            kv_len = torch.tensor(first + 1, dtype=torch.int32,
+                                  device=dev) if k1 else None
             return L.llama_forward(tp, cfg, x, r.to(torch.int32), kv, first,
-                                   bias, cos, sin)[0]
+                                   bias, cos, sin, kv_len=kv_len)[0]
         start = r - (w - 1)
         slots = start[:, None] + torch.arange(w, device=dev)
         bias = torch.where(cols[None] < start[:, None], 0.0, NEG_INF)
@@ -4443,7 +4653,7 @@ def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
     out = [L.lm_head(tp, forward(pre, 0)[n_p - 1:n_p])]
     for c in range(0, fed, chunk):
         out.append(L.lm_head(tp, forward(emb[n_p + c:n_p + c + chunk],
-                                         n_p + c, window)))
+                                         n_p + c, window, ar)))
     return torch.cat(out)[:n_t + 1]
 
 
@@ -4486,10 +4696,11 @@ def llava_logits_fn(gen, ids, feats):
 
 
 def rows_logits_fn(gen, prompt):
-    """``logits(toks, chunk=None)`` of ``token_check`` for a prompt given
-    as its embedded rows ``prompt`` [n_p, H] at 1-D positions 0..n_p-1:
-    the tokens' embeddings appended, unpadded (``plain_rows_logits``) or
-    at the engine's row shapes (``shaped_logits``), over the rope
+    """``logits(toks, chunk=None, ar=False)`` of ``token_check`` for a
+    prompt given as its embedded rows ``prompt`` [n_p, H] at 1-D positions
+    0..n_p-1: the tokens' embeddings appended, unpadded
+    (``plain_rows_logits``) or at the engine's row shapes
+    (``shaped_logits``; ``ar``: one-row chunks through K1), over the rope
     tables."""
     import torch
 
@@ -4497,7 +4708,7 @@ def rows_logits_fn(gen, prompt):
     cos, sin = gen.params["cos_t"], gen.params["sin_t"]
     n_p = prompt.shape[0]
 
-    def logits(toks, chunk=None):
+    def logits(toks, chunk=None, ar=False):
         toks = np.asarray(toks, np.int64)
         n_t = len(toks)
         rows = n_p + n_t if chunk is None else \
@@ -4508,7 +4719,7 @@ def rows_logits_fn(gen, prompt):
         if chunk is None:
             return plain_rows_logits(gen, emb, cos, sin)[n_p - 1:]
         return shaped_logits(gen, emb, cos, sin, n_p, n_t, chunk,
-                             window=chunk > 1)
+                             window=chunk > 1, ar=ar)
     return logits
 
 
@@ -4583,34 +4794,117 @@ def token_check(gen, logits, toks, other=None, tie: float = 0.0) -> dict:
                       float(d_b[k]), int(rank[k]))
                      for k in np.flatnonzero(~is_max.cpu().numpy())])
     if other is not None:
-        other = [int(t) for t in other]
-        k = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y),
-                 min(len(toks), len(other)))
-        if k < max(len(toks), len(other)):
-            row = a_rows[k]
-            ta, tb = (s[k] if k < len(s) else gen.eos_id
-                      for s in (toks, other))
-            la, lb = float(row[ta]), float(row[tb])
-            big = max(abs(la), abs(lb))
-            one_row = logits(toks, 1)
-            gap_noise = max(float((row[ta] - r[k, ta]).abs()
-                                  + (row[tb] - r[k, tb]).abs())
-                            for r in (shaped, one_row)) / float(bf16_ulp(big))
-            out["split"] = {"at": k, "gap": abs(la - lb), "logit": big,
-                            "ulps": abs(la - lb) / float(bf16_ulp(big)),
-                            "noise": gap_noise,
-                            "ranks": (int((row > row[ta]).sum()),
-                                      int((row > row[tb]).sum()))}
+        out["split"] = split_record(gen, logits, toks, other, a_rows, shaped)
     return out
 
 
+def split_record(gen, logits, toks, other, a_rows=None, shaped=None):
+    """Where one request's committed tokens ``toks`` (MSD) and ``other``
+    (AR) first part (a sequence that ended first picks EOS there), or None
+    where they do not: the two tokens' logits in A (``logits(toks)``,
+    unpadded; ``a_rows`` where the caller has it), their gap in bf16 ulps
+    of the larger, their ranks, and that row's noise over the two tokens:
+    the larger of |A - R| summed over them, in those ulps, for R the
+    verify-shaped recompute (``logits(toks, num_nodes)``; ``shaped``
+    where the caller has it) and the one-row one (``logits(toks, 1)``, the
+    AR row's shape, plain attention). No recompute goes through K1."""
+    toks, other = [int(t) for t in toks], [int(t) for t in other]
+    k = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y),
+             min(len(toks), len(other)))
+    if k == max(len(toks), len(other)):
+        return None
+    row = (logits(toks[:k]) if a_rows is None else a_rows)[k]
+    if shaped is None:
+        shaped = logits(toks[:k], gen.eng.tree.num_nodes)
+    ta, tb = (s[k] if k < len(s) else gen.eos_id for s in (toks, other))
+    la, lb = float(row[ta]), float(row[tb])
+    ulp = float(bf16_ulp(max(abs(la), abs(lb))))
+    return {"at": k, "gap": abs(la - lb), "logit": max(abs(la), abs(lb)),
+            "ulps": abs(la - lb) / ulp,
+            "noise": max(_pair_gap(row, r[k], ta, tb)
+                         for r in (shaped, logits(toks[:k], 1))) / ulp,
+            "ranks": (int((row > row[ta]).sum()), int((row > row[tb]).sum()))}
+
+
+def _pair_gap(x, y, ta: int, tb: int) -> float:
+    """|x - y| at token ta plus at token tb, for two logit rows."""
+    return float((x[ta] - y[ta]).abs() + (x[tb] - y[tb]).abs())
+
+
+def k1_split_check(gen, logits, toks, other, split: dict) -> dict:
+    """The AR row of ``split`` (``split_record`` of MSD's tokens ``toks``
+    and AR's ``other``), where MSD committed ta and AR tb, recomputed at
+    the AR row's shape (``logits(toks[:at], 1, ar=True)`` of
+    ``rows_logits_fn``: one-row chunks through ``llama.decode_attention``)
+    twice: through K1, each of its calls held against its plain twin on
+    the same inputs (``TOL``: the twin check at every kv_len of the row's
+    decode), and through the twin. Returns {"calls": K1's calls, "excess":
+    the largest |K1 - twin| - rtol |twin| over them, "within": K1 ran at
+    each layer of each row and excess <= atol, "picks_b": tb is the K1
+    row's canonical argmax, "dev": |K1 row - twin row| over ta and tb, in
+    bf16 ulps of the split's logit}. K1's launch count grows by
+    "calls"."""
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.ops.sampling import canon_logits
+
+    at = split["at"]
+    prefix = [int(t) for t in toks[:at]]
+    ta, tb = (int(s[at]) if at < len(s) else gen.eos_id
+              for s in (toks, other))
+    ulp = float(bf16_ulp(split["logit"]))
+    seen = {"calls": 0, "excess": 0.0, "atol": 0.0}
+
+    def twin(q, k, v, bias, n):
+        return K1.decode_attention_reference(q, k, v, bias, int(n))
+
+    def checked(q, k, v, bias, n):
+        got, ref = K1.decode_attention(q, k, v, bias, n), twin(q, k, v,
+                                                               bias, n)
+        atol, rtol = TOL[str(ref.dtype)[6:]]
+        seen["calls"] += 1
+        seen["atol"] = atol
+        seen["excess"] = max(seen["excess"], float(
+            ((got.float() - ref.float()).abs()
+             - rtol * ref.float().abs()).max()))
+        return got
+
+    orig, rows = L.decode_attention, {}
+    try:
+        for name, fn in (("k1", checked), ("twin", twin)):
+            L.decode_attention = fn
+            rows[name] = logits(prefix, 1, ar=True)[len(prefix)]
+    finally:
+        L.decode_attention = orig
+    c = canon_logits(rows["k1"][None].float(), ROUND_BITS)[0]
+    return {"calls": seen["calls"], "excess": seen["excess"],
+            "within": 0 < seen["calls"]
+            == gen.tcfg.num_hidden_layers * len(prefix)
+            and seen["excess"] <= seen["atol"],
+            "picks_b": bool(c[tb] >= c.max()),
+            "dev": _pair_gap(rows["k1"], rows["twin"], ta, tb) / ulp}
+
+
 def split_ok(split, tie: float) -> bool:
-    """An AR-vs-MSD split is a rounding tie of the recompute: the two
-    tokens' logits within ``tie`` bf16 ulps plus that row's measured
-    recompute noise over the two tokens (no split at all off the card,
-    ``tie`` 0)."""
-    return split is None or (tie > 0
-                             and split["ulps"] <= tie + split["noise"])
+    """An AR-vs-MSD split (``split_record``) is a rounding tie of the
+    recompute: the two tokens' logits within ``tie`` bf16 ulps plus that
+    row's recompute noise over the two tokens; or, beyond that, K1's
+    arithmetic at the AR row within its contract (``k1_split_check``):
+    the K1 recompute picks AR's token, each of its K1 calls lies within
+    ``TOL`` of the twin on the same inputs (the cap K1's tolerance sets;
+    a tolerance-sized move of the twin's outputs does not bound the row's
+    change, which at random weights is not monotone in the move's size),
+    and the gap lies within ``tie`` plus the noise plus the K1 row's
+    departure from the twin's. No split at all off the card (``tie``
+    0)."""
+    if split is None:
+        return True
+    if tie <= 0:
+        return False
+    k1 = split.get("k1")
+    return split["ulps"] <= tie + split["noise"] or (
+        k1 is not None and k1["picks_b"] and k1["within"]
+        and split["ulps"] <= tie + split["noise"] + k1["dev"])
 
 
 def qwen_plain_score(gen, ids, cont_start: int, feats, grid) -> tuple:
@@ -4930,7 +5224,10 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     over the image prompts. Harness runs on the checkpoint
     ``save_qwen2_vl`` and ``save_draft`` write under ``root``:
     ``harness.__main__.main`` in process with ``--model qwen2_vl_msd``,
-    A ``--use_msd``, B the AR adapter, D the null draft.
+    A ``--use_msd``, B the AR adapter, D the null draft, on ``tasks`` and
+    the video tasks ``QWEN_VIDEO_TASKS``, whose videos the adapter samples
+    to ``QWEN_HARNESS_FRAMES`` frames (``--model_args max_num_frames``)
+    and decodes on its ``video_gen``.
 
     Fails unless: graph MSD == eager MSD == the null draft, bitwise, on
     every prompt, and A == D; every committed MSD (and A) token is the
@@ -4944,9 +5241,12 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     card); the oracle
     draft is accepted to full depth; each batched lane equals its solo
     run; K1 launches layers x AR tokens decoded in the generator's AR
-    runs and in B (a capture's warm-up steps included), 0 in every MSD
-    run; ai2d_ppl scores bitwise equal across A, B and a repeat and
-    within 1e-4 (relative, floor 1) of their recompute; the loaded
+    runs and in B (a capture's warm-up steps included; in B request by
+    request), 0 in every MSD run; each video doc of A, B and D, and
+    nothing else, ran on ``video_gen`` (a <|video_pad|> span of
+    QWEN_HARNESS_FRAMES / 2 temporal blocks); ai2d_ppl scores bitwise
+    equal across A, B and a repeat and within 1e-4 (relative, floor 1) of
+    their recompute; the loaded
     checkpoint is bitwise the weights in memory; no graph is captured
     in a timed window or after a combination's first harness request."""
     import io
@@ -4958,7 +5258,8 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     from msd_tpu_torch.engine.graphs import WARMUP_STEPS
     from msd_tpu_torch.harness import __main__ as HM
     from msd_tpu_torch.models import draft as D
-    from msd_tpu_torch.models.qwen2vl import (Qwen2VLTextConfig,
+    from msd_tpu_torch.models.qwen2vl import (VIDEO_PAD_ID,
+                                              Qwen2VLTextConfig,
                                               init_qwen2_params)
     from msd_tpu_torch.models.qwen2vl_vision import (
         Qwen2VisionConfig, init_qwen_vision_params, qwen_vision_encode)
@@ -5275,7 +5576,9 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         f"{out['load_s']:.1f}s on {card}")
 
     # the harness: A (MSD), B (AR), D (null draft) through the CLI's main
+    tasks = list(tasks) + list(QWEN_VIDEO_TASKS)
     gen_tasks = [t for t in tasks if t != "ai2d_ppl"]
+    n_vid = QWEN_HARNESS_FRAMES // vcfg.temporal_patch_size * gen.n_img
     run = [None]
     reqs, scores, ar_steps = [], [], [0]
     orig = {"generate": MSDGenerator.generate,
@@ -5285,6 +5588,7 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     def wrap_gen(kind):
         def wrapped(self, ids, img_feats=None, max_new_tokens=None, **kw):
             before = captures(self)
+            k1_0, steps0 = K1.decode_attention.launches, ar_steps[0]
             t1 = time.perf_counter()
             r = orig[kind](self, ids, img_feats, max_new_tokens, **kw)
             sync()
@@ -5293,7 +5597,11 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
                    "t": (t1, time.perf_counter()), "n": len(r.tokens),
                    "tokens": r.tokens.tolist(),
                    "captured": captures(self) - before,
-                   "key": (kind, max_new_tokens, kw.get("sp"))}
+                   "k1": K1.decode_attention.launches - k1_0,
+                   "ar_steps": ar_steps[0] - steps0,
+                   "video": (self.n_img, bool(np.isin(ids,
+                                                      VIDEO_PAD_ID).any())),
+                   "key": (kind, max_new_tokens, kw.get("sp"), self.n_img)}
             if run[0] == "A":
                 rec["check"] = check(self, ids, img_feats,
                                      kw.get("img_grid"), r.tokens, tie=tie)
@@ -5325,7 +5633,8 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         ar_steps[0] += n - 1
         return n
 
-    margs = f"pretrained={ckpt},max_seq_len={max_seq}"
+    margs = (f"pretrained={ckpt},max_seq_len={max_seq},"
+             f"max_num_frames={QWEN_HARNESS_FRAMES}")
     common = ["--model", "qwen2_vl_msd", "--model_args", margs,
               "--device", str(device), "--limit", str(limit),
               "--gen_kwargs", f"max_new_tokens={harness_new}",
@@ -5405,6 +5714,20 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
         bad.append(f"K1 launches A {out['A']['launches']}, B "
                    f"{out['B']['launches']} (want {hk1_want}), D "
                    f"{out['D']['launches']}")
+    k1_off = [(r["task"], r["k1"]) for r in of("B") if r["k1"] != (
+        layers * (r["ar_steps"] + WARMUP_STEPS * r["captured"])
+        if on_card else 0)]
+    if k1_off:
+        bad.append(f"B's requests' K1 launches != layers x (AR tokens + "
+                   f"warm-up steps): {k1_off}")
+    # the video docs, and only they, on video_gen
+    on_vgen = {n: [r["task"] for r in of(n) if r["video"] == (n_vid, True)]
+               for n in hruns}
+    want_v = [t for t in QWEN_VIDEO_TASKS for _ in range(limit)]
+    if any(v != want_v for v in on_vgen.values()) or any(
+            r["video"] != (gen.n_img, False) for n in hruns for r in of(n)
+            if r["task"] not in QWEN_VIDEO_TASKS):
+        bad.append(f"video_gen ran {on_vgen}, want {want_v} in each run")
     seen, late = set(), []
     for r in reqs:
         k = (r["run"],) + r["key"]
@@ -5414,8 +5737,8 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
     if late:
         bad.append(f"graphs captured inside later requests: {late}")
 
-    def ms_per_token(name):
-        rs = of(name)
+    def ms_per_token(name, task=None):
+        rs = of(name, task)
         return 1e3 * sum(r["t"][1] - r["t"][0] for r in rs) \
             / max(1, sum(r["n"] for r in rs))
 
@@ -5429,14 +5752,24 @@ def run_qwen(root: str, device="cuda", qcfg=None, vcfg=None, widths=WIDTHS,
                worst_score_rel=worst, harness_splits=hsplits,
                ms_token={n: ms_per_token(n) for n in hruns},
                task_s={k: hi - lo for k, (lo, hi) in spans.items()},
+               task_ms_token={(n, t): ms_per_token(n, t) for n in hruns
+                              for t in gen_tasks},
+               k1_by_task={t: sum(r["k1"] for r in of("B", t))
+                           for t in gen_tasks},
+               video_gen_requests={n: len(v) for n, v in on_vgen.items()},
                peak=torch.cuda.max_memory_allocated() if on_card else 0,
                seconds=time.perf_counter() - t_phase)
     log(f"[qwen] harness (--model qwen2_vl_msd, {limit} synthetic docs per "
-        f"task, {harness_new} new tokens): A (MSD) {out['A']['s']:.1f}s, B "
+        f"task, {harness_new} new tokens, {QWEN_HARNESS_FRAMES} frames per "
+        f"video): A (MSD) {out['A']['s']:.1f}s, B "
         f"(AR) {out['B']['s']:.1f}s, D (null draft) {out['D']['s']:.1f}s; "
         f"seconds per task: " + "; ".join(
             f"{r}/{t} {s:.2f}" for (r, t), s in out["task_s"].items())
-        + f" on {card}")
+        + "; ms per generated token (prefill included): " + "; ".join(
+            f"{r}/{t} {v:.2f}" for (r, t), v in
+            out["task_ms_token"].items())
+        + f"; K1 in B by task {out['k1_by_task']}; video_gen requests "
+        f"{out['video_gen_requests']} ({n_vid} video rows each) on {card}")
     log(f"[qwen] harness: A == D responses and token ids on {gen_tasks}: "
         f"True; A's tokens off the mrope recompute's canonical argmax: "
         f"{sum(r['check']['off'] for r in of('A'))}, worst "
@@ -7254,6 +7587,7 @@ def run_all(root: str):
     k1["weights_launches"] = weights["launches"]
     k1["harness_launches"] = harness["launches"]
     k1["harness_ext_launches"] = harness_ext["launches"]
+    k1["harness_ext_launches_by_task"] = harness_ext["k1_by_task"]
     quant = run_quant(res)
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",
@@ -7328,6 +7662,7 @@ def run_all(root: str):
         shutil.rmtree(root, ignore_errors=True)
     k1["qwen_ar"]["launches"] = qwen["launches"]
     k1["qwen_ar"]["harness_launches"] = qwen["harness_launches"]
+    k1["qwen_ar"]["harness_launches_by_task"] = qwen["k1_by_task"]
     k1["video_ar"]["launches"] = qwen["video"]["launches"]
     # Qwen2-VL's weights go before Qwen-VL v1 comes (run_qwen's locals)
     gc.collect()

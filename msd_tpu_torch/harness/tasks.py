@@ -14,12 +14,13 @@ synthetic fallback so the full pipeline is testable offline.
 The port's own copy of the JAX package's ``harness/tasks.py``: every
 ``make_*`` task it defines, registered by ``register_builtin_tasks`` as
 the JAX module registers them, with the YAML tasks of ``$MSD_TPU_TASKS``
-(``yaml_task.py``) and the task modules ``tasks_ext``, ``tasks_judge``,
-``tasks_mmbench`` and ``tasks_mmupd``. The other task modules the JAX
-copy calls into (``tasks_ext2``, ``tasks_ext3``, ``tasks_ext4``,
-``tasks_judge2``, ``tasks_audio`` and ``tasks_mmsearch``) are not in the
-port yet. Judged scorers ask the judge of ``judge.py`` when one is
-installed and fall back to their offline rules, as the JAX copy's do.
+(``yaml_task.py``) and every task module the JAX copy calls into
+(``tasks_ext``, ``tasks_judge``, ``tasks_mmbench``, ``tasks_ext2``,
+``tasks_ext3``, ``tasks_mmupd``, ``tasks_judge2``, ``tasks_audio``,
+``tasks_ext4`` and ``tasks_mmsearch``), in the JAX copy's order: a later
+registration replaces an earlier one of the same name. Judged scorers
+ask the judge of ``judge.py`` when one is installed and fall back to
+their offline rules, as the JAX copy's do.
 """
 
 from __future__ import annotations
@@ -1127,13 +1128,20 @@ def register_builtin_tasks(dataset_root: Optional[str] = None) -> None:
     register_judge_tasks(p)
     from msd_tpu_torch.harness.tasks_mmbench import register_mmbench_tasks
     register_mmbench_tasks(p)
-    # tasks_ext2.py and tasks_ext3.py register here in the JAX copy; the
-    # port has not taken them yet (ROADMAP M17b)
+    from msd_tpu_torch.harness.tasks_ext2 import register_ext2_tasks
+    register_ext2_tasks(p)
+    from msd_tpu_torch.harness.tasks_ext3 import register_ext3_tasks
+    register_ext3_tasks(p)
     from msd_tpu_torch.harness.tasks_mmupd import register_mmupd_tasks
     register_mmupd_tasks(p)
-    # tasks_judge2.py, tasks_audio.py, tasks_ext4.py and tasks_mmsearch.py
-    # register here in the JAX copy; the port has not taken them yet
-    # (ROADMAP M17b)
+    from msd_tpu_torch.harness.tasks_judge2 import register_judge2_tasks
+    register_judge2_tasks(p)
+    from msd_tpu_torch.harness.tasks_audio import register_audio_tasks
+    register_audio_tasks(p)
+    from msd_tpu_torch.harness.tasks_ext4 import register_ext4_tasks
+    register_ext4_tasks(p)
+    from msd_tpu_torch.harness.tasks_mmsearch import register_mmsearch_tasks
+    register_mmsearch_tasks(p)
     register_task("gsm8k", make_gsm8k(p("GSM8K")))
     register_task("arc_easy", make_text_ppl_choice("arc_easy", p("ARC-Easy")))
     register_task("arc_challenge",

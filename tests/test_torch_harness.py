@@ -148,23 +148,10 @@ def test_filter_matches_jax_on_drawn_text(name, text):
 # tasks
 # ---------------------------------------------------------------------------
 
-# the task modules the port has not taken yet (ROADMAP M17b)
-_JAX_EXTENSIONS = [
-    ("msd_tpu.harness.tasks_ext2", "register_ext2_tasks"),
-    ("msd_tpu.harness.tasks_ext3", "register_ext3_tasks"),
-    ("msd_tpu.harness.tasks_judge2", "register_judge2_tasks"),
-    ("msd_tpu.harness.tasks_audio", "register_audio_tasks"),
-    ("msd_tpu.harness.tasks_ext4", "register_ext4_tasks"),
-    ("msd_tpu.harness.tasks_mmsearch", "register_mmsearch_tasks"),
-]
-
-
-def _registered(registry, register, patches=(), env=None):
+def _registered(registry, register, env=None):
     """The tasks ``register()`` puts into ``registry`` (a fresh one; the
     registry's entries are restored after), under ``env`` alone of the
     two task-directory variables."""
-    import importlib
-
     saved = dict(registry)
     registry.clear()
     with pytest.MonkeyPatch.context() as mp:
@@ -172,8 +159,6 @@ def _registered(registry, register, patches=(), env=None):
         mp.delenv("MSD_TPU_TASKS", raising=False)
         for k, v in (env or {}).items():
             mp.setenv(k, v)
-        for mod, fn in patches:
-            mp.setattr(importlib.import_module(mod), fn, lambda p: None)
         register()
         out = dict(registry)
     registry.clear()
@@ -182,12 +167,10 @@ def _registered(registry, register, patches=(), env=None):
 
 
 def _builtin_pairs():
-    """(port task, JAX task) by name: the tasks JAX's tasks.py registers
-    (its calls into the task modules the port has not taken stubbed
-    out)."""
+    """(port task, JAX task) by name: every task JAX's tasks.py
+    registers, its task modules' included."""
     mine = _registered(TR.TASK_REGISTRY, TT.register_builtin_tasks)
-    theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks,
-                         _JAX_EXTENSIONS)
+    theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks)
     return mine, theirs
 
 
@@ -196,9 +179,14 @@ MINE, THEIRS = _builtin_pairs()
 
 def test_builtin_tasks_are_jax_tasks_py_tasks():
     assert sorted(MINE) == sorted(THEIRS)
+    assert len(MINE) == 160
     assert {"synthetic_vqa", "pope", "ai2d_ppl", "gsm8k", "mmlu",
             "mme_realworld_lite", "llava_in_the_wild", "mmbench_cn_cc",
-            "mmivqd_instruction"} <= set(MINE)
+            "mmivqd_instruction", "gqa_ru", "mmvetv2", "activitynetqa",
+            "ifeval", "olympiadbench_test_en", "vitatecs_direction",
+            "wildvision_0617", "llava_interleave_bench",
+            "librispeech_test_clean", "air_bench_chat", "live_bench",
+            "vdc_camera_test", "mmsearch_end2end"} <= set(MINE)
 
 
 def _same_value(a, b):
@@ -292,9 +280,8 @@ def test_task_dirs_of_the_later_slice_raise(tmp_path, var):
     env = {var: str(tmp_path / "tasks" if var == "MSD_TPU_TASKS"
                     else tmp_path)}
     name = chip_smoke.HARNESS_EXT_YAML
-    mine = _registered(TR.TASK_REGISTRY, TT.register_builtin_tasks, (), env)
-    theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks,
-                         _JAX_EXTENSIONS, env)
+    mine = _registered(TR.TASK_REGISTRY, TT.register_builtin_tasks, env)
+    theirs = _registered(JR.TASK_REGISTRY, JT.register_builtin_tasks, env)
     assert sorted(mine) == sorted(theirs) == sorted(set(MINE) | {name})
     assert_same_yaml_task(mine[name], theirs[name])
 
@@ -790,7 +777,10 @@ def test_the_no_jax_test_covers_the_harness():
                 "calib/logger.py", "calib/evaluate.py", "harness/judge.py",
                 "harness/yaml_task.py", "harness/tasks_ext.py",
                 "harness/tasks_judge.py", "harness/tasks_mmbench.py",
-                "harness/tasks_mmupd.py"):
+                "harness/tasks_mmupd.py", "harness/tasks_ext2.py",
+                "harness/tasks_ext3.py", "harness/tasks_judge2.py",
+                "harness/tasks_audio.py", "harness/tasks_ext4.py",
+                "harness/tasks_mmsearch.py", "harness/task_utils/ifeval.py"):
         assert f"msd_tpu_torch/{mod}" in names, mod
 
 

@@ -29,17 +29,12 @@ from msd_tpu_torch.harness.task_utils import mathvista as TMV
 
 # (port, JAX): the judge, tasks.py, tasks_judge, tasks_mmbench, mathvista
 PKGS = ((TJ, TT, TTJ, TMB, TMV), (JJ, JT, JTJ, JMB, JMV))
-VIDEOQA_REPLY = "{'pred': 'yes', 'score': 4}"
 # a raw reply body the stub sends instead of its fixed replies, when set
 RAW = []
 
 
 def _reply(prompt):
-    if RAW:
-        return RAW[0]
-    if "video-based question-answer" in prompt:
-        return VIDEOQA_REPLY
-    return chip_smoke.judge_reply(prompt)
+    return RAW[0] if RAW else chip_smoke.judge_reply(prompt)
 
 
 @pytest.fixture(autouse=True)

@@ -264,7 +264,8 @@ def test_smoke_qwen_phase_at_tiny_size(tmp_path):
     depth after the image; B = 2 == solo; the checkpoint written by
     ``save_qwen2_vl`` loaded back bitwise; the harness CLI's A (MSD), B
     (AR) and D (null draft) runs with equal token ids, bitwise equal
-    scores within 1e-4 of their recompute; its [video] part on 4 frames
+    scores within 1e-4 of their recompute, the video tasks on the
+    adapter's video_gen at 4 frames; its [video] part on 4 frames
     (the tower against its block-per-block evaluation, the planted
     cross-block attention rejected, the adapter's video_gen MSD == null
     draft == AR, every token the recompute's argmax at grid_t 2). The
@@ -293,3 +294,6 @@ def test_smoke_qwen_phase_at_tiny_size(tmp_path):
     assert out["fault"]["bad"] > 0
     assert out["worst_score_rel"] <= 1e-4
     assert out["A"]["payload"]["msd_stats"]["accept_steps"] > 0
+    # the harness's video tasks ran on the adapter's video_gen in A, B, D
+    assert out["video_gen_requests"] == {"A": 4, "B": 4, "D": 4}
+    assert set(out["k1_by_task"]) >= set(chip_smoke.QWEN_VIDEO_TASKS)

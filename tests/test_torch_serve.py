@@ -693,13 +693,18 @@ def test_smoke_harness_phase_at_tiny_size(smoke_harness):
 def test_smoke_harness_ext_phase_at_tiny_size(smoke_serve, smoke_harness):
     """chip_smoke's [harness_ext] phase on the CPU at a tiny width, after
     [harness] on its checkpoint and pickle: one task of each task module
-    that came with the judge and a YAML task by --include_path, the judge
-    at a loopback stub. Calibrated MSD, the null draft and the dead-judge
-    run give the same token ids, the AR adapter too (fp32: no split);
-    mmlu's loglikelihoods bitwise across runs and equal their plain
-    recompute; the stub served exactly the calls the scorers make; the
-    judged scores are the rule's for the stub's replies, the dead judge's
-    the offline rule's, and the two differ. The phase raises otherwise."""
+    of the extended tier (text-only ifeval, audio-only librispeech, the
+    two-image llava_interleave_bench and the three-round
+    mmsearch_end2end among them) and a YAML task by --include_path, the
+    judge at a loopback stub. Calibrated MSD, the null draft and the
+    dead-judge run give the same token ids, the AR adapter too (fp32: no
+    split; a round whose prompt was truncated to the budget stops MSD at
+    its step limit, its tokens a prefix of AR's); mmlu's loglikelihoods
+    bitwise across runs and equal their plain recompute; ifeval's
+    results those of the checkers on the logged responses; the stub
+    served exactly the calls the scorers make; the judged scores are the
+    rule's for the stub's replies, the dead judge's the offline rule's,
+    and the two differ. The phase raises otherwise."""
     import chip_smoke
 
     res, _ = smoke_serve
@@ -708,12 +713,116 @@ def test_smoke_harness_ext_phase_at_tiny_size(smoke_serve, smoke_harness):
                                      root, max_new=8)
     assert out["launches"] == 0          # CPU tensors take the plain twin
     assert out["ties"] == []
-    assert out["agree"] == {t: 2 for t in (
-        "mme_realworld_lite", "llava_in_the_wild", "mmbench_en_dev",
-        "mmaad_base", chip_smoke.HARNESS_EXT_YAML)}
+    gen_tasks = [t for t in chip_smoke.HARNESS_EXT_TASKS if t != "mmlu"]
+    assert set(out["agree"]) == set(gen_tasks) | {chip_smoke.HARNESS_EXT_YAML}
+    assert all(n == 2 for t, n in out["agree"].items()
+               if t != "mmsearch_end2end")
+    # round 1 of each mmsearch doc (text only) compared, then round 2's
+    # truncated prompt stops MSD at its step limit
+    assert out["agree"]["mmsearch_end2end"] >= 2
+    assert {t for t, _, _ in out["budget_stops"]} <= {"mmsearch_end2end"}
     assert out["worst_score_rel"] <= 1e-4
-    assert out["calls"]["F"] == 0 and out["calls"]["C"] >= 2
+    assert out["calls"]["F"] == 0 and out["calls"]["C"] >= 8
     assert out["judged"]["C"]["llava_in_the_wild"][
         "gpt_eval_llava_all"] == 75.0
     assert out["judged"]["F"]["llava_in_the_wild"][
         "gpt_eval_llava_all"] != 75.0
+    assert out["judged"]["C"]["wildvision_0617"]["raw_score"] == 1.0
+    assert out["judged"]["C"]["mmvetv2"]["gpt_eval_score"] == 0.5
+    assert out["judged"]["F"]["wildvision_0617"]["raw_score"] < 1.0
+    assert sorted(out["ifeval"]) == ["B", "C", "D"]
+
+
+def test_smoke_harness_ext_rejects_a_wrong_judge_reply(smoke_serve,
+                                                       smoke_harness):
+    """The planted fault of the judged-score gate: a stub that answers
+    wildvision with another verdict than the rule's makes the phase
+    fail."""
+    import chip_smoke
+
+    def wrong(prompt):
+        if "<|User Prompt|>" in prompt:
+            return "[[A>>B]]"
+        return chip_smoke.judge_reply(prompt)
+
+    res, _ = smoke_serve
+    weights, root, _ = smoke_harness
+    with pytest.raises(AssertionError,
+                       match="wildvision_0617's scores != the rule's"):
+        chip_smoke.run_harness_ext(res, weights["ckpt"], weights["draft"],
+                                   root, max_new=4, stub_reply=wrong)
+
+
+def test_split_record_holds_the_k1_row_to_its_twin(smoke_serve):
+    """chip_smoke's split check on the CPU at a tiny width: AR tokens
+    planted to part from MSD's at token 3 (the row's least likely token)
+    give a split there whose recompute noise is ~0 in fp32; the one-row
+    recompute of its AR row runs through K1 at every layer of every row
+    (here its plain twin: every call within its tolerance, no
+    deviation) and picks MSD's token, and ``split_ok`` rejects the split
+    at tie 0 and at the card's tie. A K1 row that picked AR's token passes
+    only within its contract and where its departure from the twin's row
+    accounts for the gap. The check leaves K1's launch count alone on the
+    CPU."""
+    import chip_smoke
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    res, _ = smoke_serve
+    ctx = res["ctx"]
+    gen, ids, feats = ctx["gens"]["graph"], ctx["prompts"][0], ctx["feats"]
+    toks = gen.generate(ids, feats, 8).tokens.tolist()
+    logits = chip_smoke.llava_logits_fn(gen, ids, feats)
+    k = 3
+    other = toks[:k] + [int(logits(toks[:k])[k].argmin())]
+    n0 = K1.decode_attention.launches
+    assert chip_smoke.split_record(gen, logits, toks, toks) is None
+    s = chip_smoke.split_record(gen, logits, toks, other)
+    assert s["at"] == k and s["ulps"] > 10 and s["noise"] < 0.05
+    k1 = s["k1"] = chip_smoke.k1_split_check(gen, logits, toks, other, s)
+    assert K1.decode_attention.launches == n0
+    assert k1["calls"] == SMOKE_CFG.num_hidden_layers * k
+    assert k1["within"] and k1["excess"] <= 0.0
+    assert k1["dev"] == 0.0                # K1 is its twin here
+    assert not k1["picks_b"]
+    assert not chip_smoke.split_ok(s, 0.0)
+    assert not chip_smoke.split_ok(s, chip_smoke.HARNESS_TIE)
+    # planted K1 rows: AR's token picked within the contract, the K1 row's
+    # departure covering the gap, passes on the card, and fails past the
+    # tolerance, short of the gap, or off the card
+    tie = chip_smoke.HARNESS_TIE
+    picked = dict(s, k1=dict(k1, picks_b=True, dev=s["ulps"]))
+    assert chip_smoke.split_ok(picked, tie)
+    assert not chip_smoke.split_ok(picked, 0.0)
+    for bad in ({"within": False}, {"dev": s["ulps"] - tie - 1.0}):
+        assert not chip_smoke.split_ok(
+            dict(picked, k1=dict(picked["k1"], **bad)), tie)
+    # a tie within HARNESS_TIE plus the noise needs no K1 row
+    assert chip_smoke.split_ok(dict(s, ulps=1.0), chip_smoke.HARNESS_TIE)
+
+
+def test_ar_against_msd_sets_apart_only_budget_stops():
+    """[harness_ext]'s AR-vs-MSD comparison on planted records: MSD
+    stopped at its step limit with its tokens a prefix of AR's is a
+    budget stop, not a split; MSD stopped below its room, or at its room
+    with tokens that part from AR's before its end, is a split, and one
+    that is no rounding tie fails the phase."""
+    import chip_smoke
+
+    far = {"at": 2, "ulps": 9.0, "noise": 0.0}
+
+    def compare(c_n, room, split):
+        msd = {"t": ([{"task": "t", "prompt": "p", "n": c_n, "room": room,
+                       "split": None}], ["ab"])}
+        ar = {"t": ([{"task": "t", "prompt": "p", "n": 16, "room": room,
+                      "split": split}], ["abcd"])}
+        return chip_smoke.ar_against_msd(msd, ar, chip_smoke.HARNESS_TIE)
+
+    compared, stops, ties, bad = compare(2, 1, far)
+    assert stops == [("t", 2, 1)] and compared == ties == bad == []
+    for c_n, room, split in ((2, 5, far), (2, 1, dict(far, at=1))):
+        compared, stops, ties, bad = compare(c_n, room, split)
+        assert stops == [] and len(ties) == 1
+        assert any("no rounding tie" in b for b in bad)
+    # the same texts with no split: a response mismatch is a fault
+    _, _, _, bad = compare(16, 1, None)
+    assert any("their tokens equal" in b for b in bad)
