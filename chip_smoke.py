@@ -137,7 +137,7 @@ prints no result):
    token, alpha, the splits and the target's usual top-1 margin, the AR
    run's greedy share, peak memory.
 11b. harness_ext (``run_harness_ext``), on the same checkpoint: the
-   extended tier through the same CLI, ``HARNESS_EXT_LIMIT`` (2) docs of
+   extended tier through the same CLI, ``HARNESS_EXT_CARD_LIMIT`` (1) doc of
    mme_realworld_lite, mmlu (loglikelihood), llava_in_the_wild,
    mmbench_en_dev, mmaad_base and a YAML task written to the temporary
    directory and registered by ``--include_path``, ``--judge
@@ -198,6 +198,30 @@ prints no result):
    ms per step of fit and both stages (one fit step and one stage-2
    step profiled), records/s, the pipeline's seconds, alpha before and
    after, peak memory per stage.
+14b. parallel (``run_parallel``), after every 7B tensor of the earlier
+   phases is released: ranks spawned with ``torch.multiprocessing`` on
+   the one card, joined over gloo (NCCL refuses two ranks on one device;
+   gloo takes the CUDA tensors as they are). (a) TP=2 at LLaVA-1.5-7B
+   width, all 32 layers, the main path's seeded weights (bf16, fp32
+   residual), prompt 0 and medusa drafts, sharded by
+   ``shard_params``: eager MSD, null-draft MSD and AR, ``MAX_NEW`` tokens
+   each, against rank 0's single-device run of the same weights; (c) the
+   GPipe pipeline (2 stages, 2 microbatches) and both sequence modes (2
+   shards) over 4 layers x 640 rows at 7B width in the same two ranks;
+   (b) TP=4 at LLaVA-13B geometry (2 layers) in a world of four: MSD,
+   null-draft MSD and AR. Fails unless every rank commits the same
+   tokens, MSD == null-draft under TP, TP's tokens equal the single
+   device's up to splits that pass ``tp_split_ok`` (a tie of the single
+   device's recomputes alone, and TP's recompute of the split row within
+   ``PARALLEL_ROW_TOL``), the first decode row lies within
+   ``PARALLEL_ROW_TOL`` of the single device's while a planted fault
+   (the o_proj sum skipped) lies beyond it, K1 launches per rank =
+   layers x AR tokens, the pipeline and sequence outputs lie within
+   ``PARALLEL_FWD_TOL`` of ``llama_forward_nocache`` and are bitwise equal
+   on every rank, and ``cuda_graphs=True`` under TP is refused. K1 is
+   held to its twin and timed at 16 and 10 local heads. ms per MSD step
+   and AR token, the share in collectives, peak memory per rank: the
+   ranks share one card, so no time is a TP speed-up.
 15. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
    int8 target (40 layers, hidden 5120, 40 heads) and two bf16 medusa
    drafts initialised on the card from seeded generators, the target
@@ -210,7 +234,7 @@ prints no result):
    biases, bf16 weights, fp32 residual; the 32-layer tower on a seeded
    336px image, 144 merged rows; 13-head medusa and null drafts at its
    width): two 64-token prompts with the inline image span and a text
-   prompt, ``QWEN_NEW`` (24) new tokens each, graph, eager and null-draft MSD and the AR
+   prompt, ``QWEN_NEW`` (8) new tokens each, graph, eager and null-draft MSD and the AR
    baseline, the oracle draft after the image, ``generate_batch`` at
    B = 2; ``save_qwen2_vl`` and ``save_draft`` write the checkpoint, read
    back bitwise, and the harness CLI runs ``qwen2_vl_msd`` on it (MSD, AR,
@@ -240,7 +264,7 @@ prints no result):
    its 256-query resampler on a seeded 448px image; 13-head medusa and
    null drafts): two 64-token prompts around the v1 span <img> <imgpad> x
    256 </img> (ids 151857, 151859, 151858, found only through the
-   generator's ``inline_pad_ids``) and a text prompt, ``QWEN_NEW`` (24)
+   generator's ``inline_pad_ids``) and a text prompt, ``QWEN_NEW`` (8)
    new tokens each,
    graph, eager and null-draft MSD and the AR baseline; the checkpoint in
    the public Qwen/Qwen-VL names read back by ``load_qwen_vl_v1``
@@ -289,18 +313,21 @@ FP32_OPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
 # bench.py defaults: 64-token image prompts, KV allocation 1152, medusa
 # widths 10,8,...,1 (48-node tree, depth 14), 6 canonical rounding bits,
-# lm_head sharpened x6; this run decodes 40 new tokens per prompt (64
+# lm_head sharpened x6; this run decodes 24 new tokens per prompt (64
 # until [multi] and [video] joined the smoke, 48 until the rest of the
-# extended tier joined [harness_ext] and [qwen]: cut to keep it inside its
-# time limit; the main path's, [calib]'s, [sampling]'s, [distill]'s
-# collection and [eagle]'s runs read it)
-MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 40, 576, 64
+# extended tier joined [harness_ext] and [qwen], 40 until [parallel]
+# joined: cut to keep it inside its time limit; the main path's,
+# [calib]'s, [sampling]'s, [distill]'s collection, [eagle]'s, [serve]'s
+# continuous and stream runs, [quant]'s and [parallel]'s TP=2 runs read
+# it)
+MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 24, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
 # bench.py's distill (1700 steps over 5 record -> train rounds) cut to two
-# rounds of 50 steps (~0.5 s a step at 7B width), the schedule's floor, so
-# the whole smoke, [qwen] included, stays near 1000 s on the card
-DISTILL_STEPS, DISTILL_ROUNDS = 100, 2
+# rounds of 25 steps (~0.5 s a step at 7B width; 50 a round, the
+# schedule's floor in bench.py, until [parallel] joined the smoke), to
+# keep the whole smoke inside its time limit
+DISTILL_STEPS, DISTILL_ROUNDS, DISTILL_FLOOR = 50, 2, 25
 # bench.py's --draft-mode eagle tree (bench.py:396-408): OPT-Tree frontier
 # of 10 per depth, 8 depths, 96 nodes, early stop at 0.2 (95 draft nodes >
 # 8 x 10 explored: the dead-padded budget)
@@ -317,16 +344,17 @@ SERVE_BATCHES, SERVE_SLOTS, SERVE_SEGMENT = (1, 2, 3, 4, 8), 4, 16
 SERVE_HTTP_NEW = 32
 # new tokens of each generate_batch run of [serve] (graph, null draft,
 # eager and the solo runs alike), cut from the main path's 64 when [train]
-# joined the smoke, from 32 when [multi] and [video] did and from 24 when
-# the rest of the extended tier did, to keep it inside its time limit
-SERVE_BATCH_NEW = 16
+# joined the smoke, from 32 when [multi] and [video] did, from 24 when
+# the rest of the extended tier did and from 16 when [parallel] did, to
+# keep it inside its time limit
+SERVE_BATCH_NEW = 8
 # new tokens of [quant]'s runs (a prefix of the main path's: greedy
-# tokens do not depend on the budget), of [13b]'s and of [qwen]'s,
-# [video]'s and [qwen_v1]'s generator runs, cut from 64, 32 and 64 when
-# [train] joined the smoke, and [qwen]'s from 32 when [qwen_v1] did and
-# from 24 when the rest of the extended tier did, to keep it inside its
-# time limit
-QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 16
+# tokens do not depend on the budget, so at most MAX_NEW), of [13b]'s and
+# of [qwen]'s, [video]'s and [qwen_v1]'s generator runs, cut from 64, 32
+# and 64 when [train] joined the smoke, [qwen]'s from 32 when [qwen_v1]
+# did, from 24 when the rest of the extended tier did and from 16 when
+# [parallel] did, to keep it inside its time limit
+QUANT_NEW, NEW_13B, QWEN_NEW = 32, 16, 8
 # the harness phase: its tasks (two generation tasks, one scored by
 # loglikelihood), synthetic docs per task and new tokens per request
 HARNESS_TASKS = ("synthetic_vqa", "pope", "ai2d_ppl")
@@ -361,7 +389,10 @@ HARNESS_EXT_TASKS = ("mme_realworld_lite", "mmlu", "llava_in_the_wild",
 HARNESS_EXT_YAML = "smoke_yaml_vqa"
 HARNESS_EXT_JUDGED = ("llava_in_the_wild", "mmbench_en_dev", "mmvetv2",
                       "wildvision_0617", "live_bench")
-HARNESS_EXT_LIMIT = 2
+# (the CPU tests' default; the card's run takes HARNESS_EXT_CARD_LIMIT,
+# cut from 2 when [parallel] joined the smoke, to keep it inside its time
+# limit)
+HARNESS_EXT_LIMIT, HARNESS_EXT_CARD_LIMIT = 2, 1
 HARNESS_EXT_ROUNDS = {"mmsearch_end2end": 3}
 JUDGE_REPLIES = (("[Context]", "8 6\nAssistant 2 was decent."),
                  ("Your output:", "A"),
@@ -372,10 +403,10 @@ JUDGE_REPLIES = (("[Context]", "8 6\nAssistant 2 was decent."),
                  ("video-based question-answer",
                   "{'pred': 'yes', 'score': 4}"))
 # the Qwen phases: synthetic docs per harness task (4 until [qwen_v1]
-# joined the smoke), and the std of the q/k/v biases drawn into the seeded
+# joined the smoke, 2 until [parallel] did), and the std of the q/k/v biases drawn into the seeded
 # target (Qwen's attention has them; zeros would leave the bias add
 # untested)
-QWEN_LIMIT, QWEN_BIAS_STD = 2, 0.1
+QWEN_LIMIT, QWEN_BIAS_STD = 1, 0.1
 # [qwen]'s harness runs also take one video task of tasks_ext2 and one of
 # tasks_ext3 through the adapter's video_gen, at this many frames per
 # video (--model_args max_num_frames): 2 temporal blocks, 288 merged
@@ -407,8 +438,9 @@ FIT_LR = 0.01
 QWEN_RECORD_TOL = 2 ** -3
 # [multi]: the multi-visual generators' cache (the anyres prompt's 2207
 # rows, a tree and its path fit below it) and new tokens per request (32
-# until the rest of the extended tier joined the smoke)
-MULTI_SEQ, MULTI_NEW = 2560, 16
+# until the rest of the extended tier joined the smoke, 16 until
+# [parallel] did)
+MULTI_SEQ, MULTI_NEW = 2560, 8
 # [video]: frames per video (32 frames of 336px: 16 temporal blocks, 2304
 # merged rows) and the tower's rows against its plain block-per-block
 # evaluation (relative L2 over all rows) on the card, bf16 both: the two
@@ -579,11 +611,16 @@ def device_profile(fn, label: str, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)
-             and e.name not in ("prefill", "decode")]
+    # the raw kineto events (us): prof.events() builds the op tree in
+    # Python, minutes for the ~10^5 ops of an eager or continuous request
+    events = [(e.device_type(), e.name(), e.start_ns() / 1e3,
+               (e.start_ns() + e.duration_ns()) / 1e3,
+               getattr(e, "is_user_annotation", lambda: False)())
+              for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()]
+    spans = [(start, end, name) for dev, name, start, end, note in events
+             if dev == DeviceType.CUDA and not note
+             and name not in ("prefill", "decode")]
     by_name = {}
     for start, end, name in spans:
         us, n = by_name.get(name, (0.0, 0))
@@ -596,11 +633,11 @@ def device_profile(fn, label: str, top: int = 6) -> dict:
     out = {"wall_us": wall_us, "busy_us": busy_us, "k1_counted": k1_counted,
            "kernels": [(name, n) for _, n, name in rows],
            "kernel_us": {name: us for us, _, name in rows}}
-    decode = [e.time_range for e in events if e.name == "decode"
-              and e.device_type == DeviceType.CPU]
+    decode = sorted((start, end) for dev, name, start, end, _ in events
+                    if name == "decode" and dev == DeviceType.CPU)
     extra = ""
     if decode and "decode" in walls:
-        d0, d1 = decode[0].start, decode[0].end
+        d0, d1 = decode[0]
         d_busy = sum(max(0.0, min(end, d1) - max(start, d0))
                      for start, end, _ in spans)
         d_wall = walls["decode"] * 1e6
@@ -873,28 +910,14 @@ def oracle_schedule(depth: int, max_new: int):
     return steps, hist
 
 
-def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
-                  device="cuda", dtype=None, max_new_warm=4):
-    """The port's main path through its public entry points, graph-replayed
-    (the main path) and eager (``cuda_graphs=False``, for comparison), on
-    one set of weights. Returns a dict of tokens, stats and timings; raises
-    if graph and eager tokens differ, if MSD departs from the null-draft
-    canonical AR, if a graph run replayed a graph captured for other
-    weights or captured one inside a timed window, or if the launch-count
-    contract fails."""
+def main_weights(tcfg, widths, device, dtype):
+    """The main path's seeded weights: (draft config, target, {"msd",
+    "null"} medusa drafts sharing the target's embedding)."""
     import torch
-    from msd_tpu_torch.configs import (IMAGE_TOKEN_INDEX, DraftConfig,
-                                       EngineConfig, TreeConfig)
-    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.configs import DraftConfig
     from msd_tpu_torch.models import draft as D
     from msd_tpu_torch.models import llama as L
-    from msd_tpu_torch.ops import decode_attention as K1
-    from msd_tpu_torch.ops.sampling import SamplingParams
 
-    dtype = dtype or torch.bfloat16
-    on_card = str(device).startswith("cuda")
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-    t0 = time.perf_counter()
     dcfg = DraftConfig(text=tcfg, medusa_heads=len(widths) - 1)
     gen_t = torch.Generator(device=device).manual_seed(0)
     tp = L.init_llama_params(tcfg, gen_t, device, dtype)
@@ -907,17 +930,61 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
         dp["embed_tokens"] = tp["embed_tokens"]   # the draft shares it
         return dp
 
-    drafts = {"msd": medusa_draft(1), "null": medusa_draft(1234)}
+    return dcfg, tp, {"msd": medusa_draft(1), "null": medusa_draft(1234)}
+
+
+def medusa_engine(widths, max_seq):
+    """bench.py's engine over a medusa width plan."""
+    from msd_tpu_torch.configs import EngineConfig, TreeConfig
+
+    tree = TreeConfig(top_k=widths[0], max_depth=len(widths),
+                      num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
+    return EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
+                        tree=tree)
+
+
+def main_prompts(tcfg, n_img, prompt_tokens, device, dtype):
+    """bench's prompt stream: ([prompt 0, prompt 1], the image rows)."""
+    import torch
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(0)
+    vocab_hi = min(31000, tcfg.vocab_size - 1)
+    ids0 = rng.integers(3, vocab_hi, size=prompt_tokens).astype(np.int32)
+    ids0[1] = IMAGE_TOKEN_INDEX
+    feats = torch.from_numpy(rng.normal(size=(n_img, tcfg.hidden_size))
+                             * 0.02).to(device=device, dtype=dtype)
+    ids1 = rng.integers(3, vocab_hi, size=prompt_tokens).astype(np.int32)
+    ids1[1] = IMAGE_TOKEN_INDEX
+    return [ids0, ids1], feats
+
+
+def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
+                  device="cuda", dtype=None, max_new_warm=4):
+    """The port's main path through its public entry points, graph-replayed
+    (the main path) and eager (``cuda_graphs=False``, for comparison), on
+    one set of weights. Returns a dict of tokens, stats and timings; raises
+    if graph and eager tokens differ, if MSD departs from the null-draft
+    canonical AR, if a graph run replayed a graph captured for other
+    weights or captured one inside a timed window, or if the launch-count
+    contract fails."""
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.ops.sampling import SamplingParams
+
+    dtype = dtype or torch.bfloat16
+    on_card = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    dcfg, tp, drafts = main_weights(tcfg, widths, device, dtype)
     sync()
     log(f"[main] weights initialised on {device} in "
         f"{time.perf_counter() - t0:.1f}s "
         f"({sum(x.numel() for x in tp['layers'].values()) / 1e9:.2f}G "
         f"layer params)")
 
-    tree = TreeConfig(top_k=widths[0], max_depth=len(widths),
-                      num_nodes=1 + sum(widths), medusa_widths=tuple(widths))
-    eng = EngineConfig(max_seq_len=max_seq, prompt_pad_multiple=128,
-                       tree=tree)
+    eng = medusa_engine(widths, max_seq)
 
     def generator(cuda_graphs):
         return MSDGenerator(tp, drafts["msd"], tcfg, dcfg, eng, n_img=n_img,
@@ -935,16 +1002,8 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
         return (0, 0.0) if gen.graphs is None else \
             (len(gen.graphs.steps), gen.graphs.capture_seconds)
 
-    # bench's prompt stream: prompt 0, its image rows, then prompt 1
-    rng = np.random.default_rng(0)
-    vocab_hi = min(31000, tcfg.vocab_size - 1)
-    ids0 = rng.integers(3, vocab_hi, size=prompt_tokens).astype(np.int32)
-    ids0[1] = IMAGE_TOKEN_INDEX
-    feats = torch.from_numpy(rng.normal(size=(n_img, tcfg.hidden_size))
-                             * 0.02).to(device=device, dtype=dtype)
-    ids1 = rng.integers(3, vocab_hi, size=prompt_tokens).astype(np.int32)
-    ids1[1] = IMAGE_TOKEN_INDEX
-    prompts = [ids0, ids1]
+    prompts, feats = main_prompts(tcfg, n_img, prompt_tokens, device, dtype)
+    ids0 = prompts[0]
     n_layers = tcfg.num_hidden_layers
 
     res = {"times": {}, "peak": {}}
@@ -1482,11 +1541,13 @@ def sampling_tv(device, n: int = 4000) -> float:
     K = T.sampling_width(N, 10)
     us = torch.rand(n, 2, K, generator=g, device=dev)
     noise = gumbel_noise(torch.rand(n, V, generator=g, device=dev))
-    firsts = torch.zeros(n, dtype=torch.long, device=dev)
-    for i in range(n):
-        best, acc, nxt = T.evaluate_sampling(tree, probs, us[i], noise[i])
-        first = tree.tokens[tree.retrieve[best.reshape(1), 1]][0]
-        firsts[i] = torch.where(acc >= 1, first, nxt)
+    # the n walks as n lanes of one call (each lane walks its own copy of
+    # the tree with its own draws, as one walk per call would)
+    lanes = T.Tree(*(x.expand((n,) + x.shape) for x in tree))
+    best, acc, nxt = T.evaluate_sampling(
+        lanes, probs.expand(n, N, V), us, noise)
+    first = tree.tokens[tree.retrieve[best.long(), 1].long()]
+    firsts = torch.where(acc >= 1, first, nxt).long()
     emp = torch.bincount(firsts, minlength=V).double().cpu().numpy() / n
     return 0.5 * float(np.abs(emp - probs[0].double().cpu().numpy()).sum())
 
@@ -1628,13 +1689,13 @@ def run_sampling(res, seed: int = 17, tv_draws: int = 4000) -> dict:
     return out
 
 
-def distill_schedule(steps: int, rounds: int) -> list:
+def distill_schedule(steps: int, rounds: int, floor: int = 50) -> list:
     """Steps per record -> train round, bench.py's decaying schedule
-    (bench.py:923-929): budgets halve, at least 50 a round, the first takes
-    the rest."""
-    out = [max(50, steps >> (it + 1)) for it in range(rounds)]
+    (bench.py:923-929): budgets halve, at least ``floor`` (bench's 50) a
+    round, the first takes the rest."""
+    out = [max(floor, steps >> (it + 1)) for it in range(rounds)]
     if rounds > 1:
-        out[-1] = max(50, out[-2] // 2)
+        out[-1] = max(floor, out[-2] // 2)
     out[0] += max(0, steps - sum(out))
     return out
 
@@ -1672,7 +1733,7 @@ def train_step_ops(tcfg, n_med: int, rows: int, batch: int) -> int:
 
 
 def run_distill(res, steps: int = DISTILL_STEPS,
-                rounds: int = DISTILL_ROUNDS) -> dict:
+                rounds: int = DISTILL_ROUNDS, floor: int = 50) -> dict:
     """bench.py's draft distillation (bench.py:750-1000, records from the
     engine) on the main path's target and prompts, on a generator of its
     own, graph-replayed. Each round serves the current draft (timed MSD,
@@ -1756,7 +1817,7 @@ def run_distill(res, steps: int = DISTILL_STEPS,
             raise AssertionError("distill: collecting changed the tokens")
         return got, secs
 
-    steps_it = distill_schedule(steps, rounds)
+    steps_it = distill_schedule(steps, rounds, floor)
     for it in range(rounds):
         label = "random draft" if it == 0 else f"draft after round {it}"
         got, coll_s = collect(label, serve(label))
@@ -3089,17 +3150,19 @@ def _llava_inputs(gen, ids, feats):
     import torch
     from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
 
+    from msd_tpu_torch.models import llama as L
+
     ids = np.asarray(ids, np.int64)
-    table, dev = gen.params["target"]["embed_tokens"], gen.device
+    tp, dev = gen.params["target"], gen.device
     blocks = [] if feats is None else \
         list(feats) if isinstance(feats, (list, tuple)) else [feats]
     spots = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0][:len(blocks)]
     embs, exp, prev = [], [], 0
     for p, f in zip(list(spots) + [len(ids)], blocks + [None]):
-        embs.append(table[torch.from_numpy(ids[prev:p]).to(dev)])
+        embs.append(L.embed_tokens(tp, torch.from_numpy(ids[prev:p]).to(dev)))
         exp.append(ids[prev:p])
         if f is not None:
-            embs.append(f.to(table.dtype))
+            embs.append(f.to(tp["embed_tokens"].dtype))
             exp.append(np.full(len(f), -1))
         prev = p + 1
     return torch.cat(embs), np.concatenate(exp)
@@ -3110,7 +3173,8 @@ def plain_rows_logits(gen, emb, cos, sin):
     0, the causal mask by ``triu``, no bucket padding, a cache of exactly
     those rows; ``cos``/``sin`` index by position (the rope tables, or an
     inline prompt's mrope rows). Only ``llama_forward`` and ``lm_head``
-    are shared with the engine."""
+    are shared with the engine (a tensor-parallel target's local KV heads
+    and collectives with them)."""
     import torch
     from msd_tpu_torch.models import llama as L
 
@@ -3119,7 +3183,8 @@ def plain_rows_logits(gen, emb, cos, sin):
     mask = torch.full((rows, rows), -1e30, device=dev).triu(1)
     hidden, _ = L.llama_forward(
         tp, gen.tcfg, emb, torch.arange(rows, dtype=torch.int32, device=dev),
-        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev), 0, mask, cos, sin)
+        L.init_kv_cache(gen.tcfg, rows, emb.dtype, dev,
+                        mesh=tp.get("mesh")), 0, mask, cos, sin)
     return L.lm_head(tp, hidden)
 
 
@@ -4131,8 +4196,9 @@ def ar_against_msd(msd: dict, ar: dict, tie: float) -> tuple:
 
 
 def _weight_bytes(tree) -> int:
+    """Bytes of the tensors of ``tree`` (a sharded tree's mesh skipped)."""
     return sum(t.numel() * t.element_size()
-               for t in _flat_tensors(tree).values())
+               for t in _flat_tensors(tree).values() if hasattr(t, "numel"))
 
 
 def _quant_runs(label, tp, drafts, tcfg, dcfg, eng, sp, ids, feats, max_new,
@@ -4703,8 +4769,9 @@ def rows_logits_fn(gen, prompt):
     (``shaped_logits``; ``ar``: one-row chunks through K1), over the rope
     tables."""
     import torch
+    from msd_tpu_torch.models import llama as L
 
-    table = gen.params["target"]["embed_tokens"]
+    tp = gen.params["target"]
     cos, sin = gen.params["cos_t"], gen.params["sin_t"]
     n_p = prompt.shape[0]
 
@@ -4715,7 +4782,8 @@ def rows_logits_fn(gen, prompt):
             _shaped_rows(gen, n_p, n_t, chunk)[2]
         seq = np.zeros(rows - n_p, np.int64)
         seq[:n_t] = toks
-        emb = torch.cat([prompt, table[torch.from_numpy(seq).to(gen.device)]])
+        emb = torch.cat([prompt,
+                         L.embed_tokens(tp, torch.from_numpy(seq).to(gen.device))])
         if chunk is None:
             return plain_rows_logits(gen, emb, cos, sin)[n_p - 1:]
         return shaped_logits(gen, emb, cos, sin, n_p, n_t, chunk,
@@ -7550,6 +7618,570 @@ def _same_request(label, a, b):
         f"accepted): True; alpha {a.avg_accept_len:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: tensor parallelism, the GPipe pipeline and sequence
+# parallelism over torch.distributed, as ranks spawned on the one card
+# ---------------------------------------------------------------------------
+
+# the TP=4 run's depth at 13B geometry (dryrun_multichip's cut: 2 layers)
+PARALLEL_13B_LAYERS = 2
+# (c): layers, rows and pipeline microbatches at 7B width
+PARALLEL_PP_LAYERS, PARALLEL_ROWS, PARALLEL_MICRO = 4, 640, 2
+# The first decode row's TP logits against the single-device row:
+# max |TP - single| over the row, relative to the row's max |logit|. TP
+# rounds the o_proj and down_proj products as two bf16 partial products
+# summed in fp32 and rounded once, where one device rounds one product;
+# over 32 layers that moves the row by a few bf16 ulps of its top logit.
+# The planted fault (the o_proj sum skipped) moves it by the row's own
+# scale.
+PARALLEL_ROW_TOL = {"bfloat16": 2 ** -4, "float32": 1e-4}
+# (c) against llama_forward_nocache on one rank, max |out - ref| relative
+# to max |ref|: the sequence shards' products run over T/K rows
+PARALLEL_FWD_TOL = {"bfloat16": 2 ** -5, "float32": 1e-5}
+
+
+@contextlib.contextmanager
+def o_proj_sum_skipped():
+    """The planted fault of ``[parallel]``: each layer's o_proj output is
+    this rank's partial product, not summed over ``model``
+    (``llama._attn_out`` without its mesh)."""
+    from msd_tpu_torch.models import llama as L
+
+    orig = L._attn_out
+
+    def faulty(lp, attn, per_lane=frozenset(), mesh=None):
+        return orig(lp, attn, per_lane, None)
+
+    L._attn_out = faulty
+    try:
+        yield
+    finally:
+        L._attn_out = orig
+
+
+@contextlib.contextmanager
+def lm_head_rows(rows: list):
+    """Append a copy of every ``llama.lm_head`` output to ``rows`` inside
+    the block (the AR prefill's row, then one per decoded token)."""
+    from msd_tpu_torch.models import llama as L
+
+    orig = L.lm_head
+
+    def recording(params, hidden, per_lane=frozenset()):
+        out = orig(params, hidden, per_lane)
+        rows.append(out.reshape(-1, out.shape[-1])[-1].clone())
+        return out
+
+    L.lm_head = recording
+    try:
+        yield
+    finally:
+        L.lm_head = orig
+
+
+def _spawn(fn, world: int, *args):
+    """fn(rank, world, port, *args) in ``world`` spawned processes joined
+    to one gloo group at a free localhost port; a rank that raises fails
+    the call (nothing is caught)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(fn, args=(world, port) + args, nprocs=world, join=True)
+
+
+def _rank_setup(rank: int, world: int, port: int, device: str):
+    import torch
+    from msd_tpu_torch.parallel import comm
+
+    if device.startswith("cuda"):
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    comm.init(rank, world, port)
+
+
+def _peak(device: str) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if device.startswith("cuda") \
+        else 0
+
+
+def _fingerprint(t) -> str:
+    import hashlib
+    from msd_tpu_torch.bridge import leaf_to_numpy
+    return hashlib.sha256(leaf_to_numpy(t).tobytes()).hexdigest()
+
+
+def _tp_runs(gen, drafts, ids, feats, max_new: int, sync,
+             names=("msd", "null", "ar")) -> dict:
+    """MSD, null-draft MSD and AR (from the shared prefill), of ``names``,
+    on ``gen``, each timed with its collectives metered; K1's count zeroed
+    just before and read just after. Returns tokens, steps, seconds,
+    collective seconds and calls, the lm_head rows (AR: the prefill's,
+    then one per decoded token) and K1's launches."""
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.parallel import comm
+
+    out = {}
+    K1.decode_attention.launches = 0
+    for name in names:
+        gen.params["draft"] = drafts["msd" if name == "ar" else name]
+        rows = []
+        with comm.metered() as meter, lm_head_rows(rows):
+            t0 = time.perf_counter()
+            r = gen.naive_generate(ids, feats, max_new, share_prefill=True) \
+                if name == "ar" else gen.generate(ids, feats, max_new)
+            sync()
+            secs = time.perf_counter() - t0
+        out[name] = {"tokens": np.asarray(r.tokens), "steps": r.accept_steps,
+                     "s": secs, "comm_s": meter.seconds,
+                     "comm_calls": meter.calls, "rows": rows}
+    out["launches"] = K1.decode_attention.launches
+    gen.params["draft"] = drafts["msd"]
+    return out
+
+
+def _tp_main_rank(rank: int, world: int, port: int, setup: dict,
+                  out_dir: str):
+    """[parallel] (a) and (c) on one rank of a world of ``world``.
+
+    (a) TP=world decode of the main path's seeded weights and prompt 0:
+    rank 0 first runs the single-device reference on the full weights (AR
+    with its first decode row, MSD); every rank then runs MSD, null-draft
+    MSD and AR on its slices (``_tp_runs``) and the planted fault's first
+    decode row; each split from the single-device tokens is recomputed
+    through TP (every rank) and through one device (rank 0). (c) the
+    pipeline (stages) and both sequence modes (shards) over world ranks
+    against ``llama_forward_nocache`` on one rank. Writes rank<r>.pt."""
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.ops.attention import causal_prefill_bias
+    from msd_tpu_torch.ops.sampling import SamplingParams
+    from msd_tpu_torch.parallel import comm
+    from msd_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                 shard_layers_for_pipeline)
+    from msd_tpu_torch.parallel.sequence import sequence_parallel_forward
+    from msd_tpu_torch.parallel.sharding import (draft_param_specs,
+                                                 llama_param_specs,
+                                                 make_mesh, shard_params)
+
+    device, dtype = setup["device"], getattr(torch, setup["dtype"])
+    on_card = device.startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    _rank_setup(rank, world, port, device)
+    tcfg, widths, max_new = setup["tcfg"], setup["widths"], setup["max_new"]
+    n_img = setup["n_img"]
+    mesh = make_mesh(world, dp=1, tp=world)
+    out = {"rank": rank, "transport": mesh.transport}
+    t0 = time.perf_counter()
+    dcfg, tp, drafts = main_weights(tcfg, widths, device, dtype)
+    prompts, feats = main_prompts(tcfg, n_img, setup["prompt_tokens"],
+                                  device, dtype)
+    ids = prompts[0]
+    eng = medusa_engine(widths, setup["max_seq"])
+    sp = SamplingParams(greedy_round_bits=ROUND_BITS)
+    single = None
+    if rank == 0:
+        single = MSDGenerator(tp, drafts["msd"], tcfg, dcfg, eng,
+                              n_img=n_img, eos_id=-1, sp=sp, device=device,
+                              cuda_graphs=False)
+        ref = _tp_runs(single, drafts, ids, feats, max_new, sync,
+                       ("msd", "ar"))
+        out["single"] = {k: ref[k]["tokens"] for k in ("msd", "ar")}
+        out["single_row"] = ref["ar"]["rows"][1]
+    tps = shard_params(tp, llama_param_specs(tcfg), mesh)
+    dps = {}
+    for name, dp in drafts.items():
+        dps[name] = shard_params(dp, draft_param_specs(dcfg, True), mesh)
+        dps[name]["embed_tokens"] = tps["embed_tokens"]
+    del dp
+    if rank != 0:
+        del tp, drafts
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out["init_s"] = time.perf_counter() - t0
+    out["shard_bytes"] = _weight_bytes(tps) + sum(
+        _weight_bytes(d) - _weight_bytes({"e": d["embed_tokens"]})
+        for d in dps.values())
+    gen = MSDGenerator(tps, dps["msd"], tcfg, dcfg, eng, n_img=n_img,
+                       eos_id=-1, sp=sp, device=device, cuda_graphs=False)
+    try:
+        MSDGenerator(tps, dps["msd"], tcfg, dcfg, eng, n_img=n_img,
+                     device=device, cuda_graphs=True)
+        out["graphs_refused"] = False
+    except ValueError:
+        out["graphs_refused"] = True
+    gen.generate(ids, feats, 2)          # warm-up: cuBLAS, the allocator
+    sync()
+    runs = _tp_runs(gen, dps, ids, feats, max_new, sync)
+    out["peak"] = _peak(device)
+    out["tp"] = {k: {f: v for f, v in runs[k].items() if f != "rows"}
+                 for k in ("msd", "null", "ar")}
+    out["launches"] = runs["launches"]
+    out["tp_row"] = runs["ar"]["rows"][1]
+    fault_rows = []
+    with o_proj_sum_skipped(), lm_head_rows(fault_rows):
+        gen.naive_generate(ids, feats, 2, share_prefill=True)
+    out["fault_row"] = fault_rows[1]
+
+    out["splits"] = tp_splits(gen, single, out.get("single"),
+                              {k: runs[k]["tokens"] for k in ("msd", "ar")},
+                              ids, feats, max_new)
+    del gen, single, tps, dps
+    if rank == 0:
+        del tp, drafts
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) the pipeline and sequence parallelism at the main path's width
+    pcfg = dataclasses.replace(tcfg, num_hidden_layers=setup["pp_layers"])
+    g = torch.Generator(device=device).manual_seed(20)
+    pp = {"layers": L.init_layers(pcfg, pcfg.num_hidden_layers, g, device,
+                                  dtype),
+          "norm": torch.ones(pcfg.hidden_size, dtype=dtype, device=device)}
+    T, M = setup["rows"], setup["micro"]
+    emb = torch.randn(M, T, pcfg.hidden_size, generator=g, device=device,
+                      dtype=dtype).mul_(pcfg.hidden_size ** -0.5)
+    bias = causal_prefill_bias(T, T, device=device)
+    cos, sin = L.make_rope(pcfg, T, device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)
+    fwd = {}
+
+    def timed(name, fn):
+        sync()
+        t1 = time.perf_counter()
+        fwd[name] = fn()
+        sync()
+        out.setdefault("fwd_ms", {})[name] = (time.perf_counter() - t1) * 1e3
+
+    timed("ref", lambda: torch.stack([
+        L.llama_forward_nocache(pp, pcfg, emb[m], pos, bias, cos, sin)
+        for m in range(M)]))
+    stages = comm.Mesh((world,), ("stage",))
+    local = shard_layers_for_pipeline(pp, stages)
+    timed("pipeline", lambda: pipeline_forward(local, pcfg, emb, bias, cos,
+                                               sin, stages))
+    shards = comm.Mesh((world,), ("seq",))
+    for mode in ("gather", "ring"):
+        timed(mode, lambda: sequence_parallel_forward(
+            pp, pcfg, emb[0], bias, cos, sin, shards, mode=mode))
+    scale = float(fwd["ref"].float().abs().max())
+    out["fwd_rel"] = {
+        name: float((fwd[name].float() - (fwd["ref"] if name == "pipeline"
+                                          else fwd["ref"][0]).float())
+                    .abs().max()) / scale
+        for name in ("pipeline", "gather", "ring")}
+    out["fwd_hash"] = {name: _fingerprint(x) for name, x in fwd.items()
+                       if name != "ref"}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def tp_splits(gen, single, ref, tokens: dict, ids, feats,
+              max_new: int) -> dict:
+    """Where the TP generator ``gen``'s committed tokens (``tokens``: name
+    -> tokens, the same on every rank of ``gen.mesh``) first depart from
+    the single-device run's (``ref``: name -> tokens, and ``single`` the
+    single-device generator, on rank 0; None on the others). Every rank
+    runs TP's recompute of the split row (its collectives); rank 0 returns
+    name -> ``split_record`` of the single device's recomputes
+    (``llava_logits_fn(single)``: none goes through TP) with "tp_rel", max
+    |TP's recompute of the row - the single device's| over the row,
+    relative to the single device's max |logit|, and "tp_dev", TP's
+    departure over the two tokens in bf16 ulps of the split's logit; the
+    other ranks return {}."""
+    import torch
+    from msd_tpu_torch.parallel import comm
+
+    names = sorted(tokens)
+    ref_toks = torch.full((len(names), max_new), -1, dtype=torch.int64,
+                          device=gen.device)
+    if ref is not None:
+        for i, k in enumerate(names):
+            ref_toks[i, :len(ref[k])] = torch.from_numpy(
+                np.asarray(ref[k], np.int64))
+    ref_toks = comm.broadcast(ref_toks, gen.mesh, "model", 0).cpu().numpy()
+    splits = {}
+    for i, k in enumerate(names):
+        want = [int(t) for t in ref_toks[i] if t >= 0]
+        got = [int(t) for t in tokens[k]]
+        at = next((j for j, (x, y) in enumerate(zip(want, got)) if x != y),
+                  min(len(want), len(got)))
+        if at == max(len(want), len(got)):
+            continue
+        tp_row = rows_logits_fn(gen, _llava_inputs(gen, ids, feats)[0])(
+            want[:at])[at].float()
+        if single is None:
+            continue
+        fn = llava_logits_fn(single, ids, feats)
+        split = split_record(single, fn, want, got)
+        ta, tb = (s[at] if at < len(s) else single.eos_id
+                  for s in (want, got))
+        a_row = fn(want[:at])[at].float()
+        split["tp_rel"] = float((tp_row - a_row).abs().max()) / float(
+            a_row.abs().max())
+        split["tp_dev"] = _pair_gap(tp_row, a_row, ta, tb) / float(
+            bf16_ulp(split["logit"]))
+        splits[k] = split
+    return splits
+
+
+def tp_split_ok(split, tie: float, row_tol: float) -> bool:
+    """A TP-vs-single-device split (``tp_splits``; None: no split) is a
+    rounding tie: ``split_ok`` at ``tie``, whose noise comes from the
+    single device's recomputes alone, so nothing TP computes widens it;
+    and TP's own recompute of the split row lies within ``row_tol``
+    (``PARALLEL_ROW_TOL``, the first decode row's bound) of the single
+    device's row."""
+    return split is None or (split_ok(split, tie)
+                             and split["tp_rel"] <= row_tol)
+
+
+def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
+    """[parallel] (b): TP=world at 13B geometry (``PARALLEL_13B_LAYERS``
+    layers), seeded bf16 target and medusa drafts, one image prompt: MSD,
+    null-draft MSD and AR on this rank's slices. Writes rank<r>.pt."""
+    import torch
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops.sampling import SamplingParams
+    from msd_tpu_torch.parallel.sharding import (draft_param_specs,
+                                                 llama_param_specs,
+                                                 make_mesh, shard_params)
+
+    device, dtype = setup["device"], getattr(torch, setup["dtype"])
+    sync = torch.cuda.synchronize if device.startswith("cuda") \
+        else (lambda: None)
+    _rank_setup(rank, world, port, device)
+    cfg, widths, n_img = setup["cfg"], setup["widths"], setup["n_img"]
+    mesh = make_mesh(world, dp=1, tp=world)
+    dcfg, tp, drafts = main_weights(cfg, widths, device, dtype)
+    tps = shard_params(tp, llama_param_specs(cfg), mesh)
+    dps = {}
+    for name, dp in drafts.items():
+        dps[name] = shard_params(dp, draft_param_specs(dcfg, True), mesh)
+        dps[name]["embed_tokens"] = tps["embed_tokens"]
+    del tp, drafts, dp
+    gc.collect()
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(13)
+    ids = rng.integers(3, min(31000, cfg.vocab_size - 1),
+                       size=setup["prompt_tokens"]).astype(np.int32)
+    ids[1] = IMAGE_TOKEN_INDEX
+    feats = torch.from_numpy(rng.normal(size=(n_img, cfg.hidden_size))
+                             * 0.02).to(device=device, dtype=dtype)
+    gen = MSDGenerator(tps, dps["msd"], cfg, dcfg,
+                       medusa_engine(widths, setup["max_seq"]), n_img=n_img,
+                       eos_id=-1, sp=SamplingParams(greedy_round_bits=ROUND_BITS),
+                       device=device, cuda_graphs=False)
+    runs = _tp_runs(gen, dps, ids, feats, setup["max_new"], sync)
+    out = {"rank": rank, "launches": runs["launches"], "peak": _peak(device),
+           "tp": {k: {f: v for f, v in runs[k].items() if f != "rows"}
+                  for k in ("msd", "null", "ar")}}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _ranks(out_dir: str, world: int) -> list:
+    import torch
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _same_on_ranks(label: str, outs: list, get) -> None:
+    first = get(outs[0])
+    for o in outs[1:]:
+        other = get(o)
+        same = np.array_equal(first, other) if isinstance(first, np.ndarray) \
+            else first == other
+        if not same:
+            raise AssertionError(f"[parallel] {label}: rank {o['rank']} "
+                                 f"differs from rank 0")
+
+
+def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
+                 widths=WIDTHS, max_seq: int = MAX_SEQ,
+                 max_new: int = MAX_NEW, new_13b: int = NEW_13B,
+                 n_img: int = N_IMG, prompt_tokens: int = PROMPT_TOKENS,
+                 pp_layers: int = PARALLEL_PP_LAYERS,
+                 rows: int = PARALLEL_ROWS, micro: int = PARALLEL_MICRO,
+                 tie: float = HARNESS_TIE) -> dict:
+    """``[parallel]``: (a) TP=2 at the main path's full width, (c) the
+    pipeline and sequence parallelism, both in one world of two ranks,
+    then (b) TP=4 at 13B geometry in a world of four, all spawned on the
+    one card (gloo: NCCL refuses two ranks on one device, so the ranks
+    share the card and their times are no TP speed-up). K1 is held to its
+    plain twin and timed at the TP rows' local heads (16 at 7B width over
+    2 ranks, 10 at 13B geometry over 4). Raises if a rank fails or a
+    gate does: every rank's tokens equal; under TP MSD == null-draft,
+    bitwise; TP tokens == the single-device run's up to splits that pass
+    ``tp_split_ok`` (a tie of the single device's recomputes, and TP's
+    recompute of the split row within ``PARALLEL_ROW_TOL``); the first decode row within ``PARALLEL_ROW_TOL`` of the single
+    device's, and the planted fault (``o_proj_sum_skipped``) beyond it;
+    K1 launches per rank = layers x AR tokens decoded; the pipeline and
+    both sequence modes within ``PARALLEL_FWD_TOL`` of
+    ``llama_forward_nocache`` and bitwise equal on every rank;
+    ``cuda_graphs=True`` over gloo refused."""
+    import torch
+    from msd_tpu_torch.configs import LlamaConfig
+
+    on_card = str(device).startswith("cuda")
+    dtype = "bfloat16" if on_card else "float32"
+    tcfg = tcfg or dataclasses.replace(LlamaConfig.llava_7b(),
+                                       residual_dtype="float32")
+    cfg13 = cfg13 or dataclasses.replace(
+        LlamaConfig.llava_13b(), num_hidden_layers=PARALLEL_13B_LAYERS,
+        residual_dtype="float32")
+    t_phase = time.perf_counter()
+    res = {}
+    if on_card:
+        # K1 at the TP rows' local heads, against its twin, timed cold
+        res["k1_tp2"] = time_k1_row(
+            card, "TP=2 AR row (7B width, 16 local heads)",
+            tcfg.num_attention_heads // 2, tcfg.num_key_value_heads // 2,
+            672, 1280, tcfg.num_hidden_layers)
+        res["k1_tp4"] = time_k1_row(
+            card, "TP=4 AR row (13B geometry, 10 local heads)",
+            cfg13.num_attention_heads // 4, cfg13.num_key_value_heads // 4,
+            672, 1280, LlamaConfig.llava_13b().num_hidden_layers)
+    setup = dict(device=str(device), dtype=dtype, tcfg=tcfg, widths=widths,
+                 max_seq=max_seq, max_new=max_new, n_img=n_img,
+                 prompt_tokens=prompt_tokens, pp_layers=pp_layers, rows=rows,
+                 micro=micro)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _spawn(_tp_main_rank, 2, setup, d)
+        outs = _ranks(d, 2)
+        res["world2_s"] = time.perf_counter() - t0
+        setup13 = dict(setup, cfg=cfg13, max_new=new_13b)
+        t0 = time.perf_counter()
+        _spawn(_tp13_rank, 4, setup13, d)
+        outs13 = _ranks(d, 4)
+        res["world4_s"] = time.perf_counter() - t0
+    o = outs[0]
+    res["transport"] = o["transport"]
+    log(f"[parallel] transport {o['transport']} ({'CUDA' if on_card else 'CPU'}"
+        f" tensors; the ranks share one card, so no time below is a TP "
+        f"speed-up); two ranks in {res['world2_s']:.1f}s, four in "
+        f"{res['world4_s']:.1f}s")
+
+    # (a)
+    for k in ("msd", "null", "ar"):
+        _same_on_ranks(f"TP=2 {k} tokens", outs, lambda x: x["tp"][k]["tokens"])
+    for k in ("msd", "null", "ar"):
+        _same_on_ranks(f"TP=4 {k} tokens", outs13,
+                       lambda x: x["tp"][k]["tokens"])
+    for label, got in (("TP=2", o["tp"]), ("TP=4", outs13[0]["tp"])):
+        if not (np.array_equal(got["msd"]["tokens"], got["null"]["tokens"])
+                and len(got["msd"]["tokens"]) > 0):
+            raise AssertionError(f"[parallel] {label}: MSD != null-draft "
+                                 f"tokens")
+    if not all(x["graphs_refused"] for x in outs):
+        raise AssertionError("[parallel] cuda_graphs=True under TP was not "
+                             "refused")
+    for label, got, layers in (("TP=2", outs, tcfg.num_hidden_layers),
+                               ("TP=4", outs13, cfg13.num_hidden_layers)):
+        decoded = len(got[0]["tp"]["ar"]["tokens"]) - 1
+        want = layers * decoded if on_card else 0
+        counts = [x["launches"] for x in got]
+        log(f"[parallel] {label}: K1 launches per rank {counts}, expected "
+            f"{want} (= {layers} layers x {decoded} AR tokens decoded)")
+        if any(c != want for c in counts):
+            raise AssertionError(f"[parallel] {label}: K1 launch count "
+                                 f"{counts} != {want}")
+    res["launches_tp2"] = o["launches"]
+    res["launches_tp4"] = outs13[0]["launches"]
+    ref_row = o["single_row"].float()
+    scale = float(ref_row.abs().max())
+    row_tol = PARALLEL_ROW_TOL[dtype]
+    res["row_rel"] = float((o["tp_row"].float() - ref_row).abs().max()) / scale
+    res["fault_rel"] = float(
+        (o["fault_row"].float() - ref_row).abs().max()) / scale
+    res["row_ulps"] = res["row_rel"] * scale / float(bf16_ulp(scale))
+    where = card or device
+    log(f"[parallel] TP=2 first decode row against one device on {where}: max "
+        f"|TP - single| / max|row| {res['row_rel']:.3e} "
+        f"({res['row_ulps']:.1f} bf16 ulps of the top logit {scale:.3f}); "
+        f"planted fault (o_proj sum skipped) {res['fault_rel']:.3e}; "
+        f"bound {row_tol:.3e}")
+    if not res["row_rel"] <= row_tol:
+        raise AssertionError(f"[parallel] TP=2 first decode row off the "
+                             f"single device's by {res['row_rel']:.3e} > "
+                             f"{row_tol:.3e}")
+    if not res["fault_rel"] > row_tol:
+        raise AssertionError("[parallel] the planted fault (o_proj sum "
+                             "skipped) passed the first decode row's gate")
+    for k in ("msd", "ar"):
+        split = o["splits"].get(k)
+        same = np.array_equal(o["single"][k], o["tp"][k]["tokens"])
+        ok = same or (split is not None
+                      and tp_split_ok(split, tie, row_tol))
+        log(f"[parallel] TP=2 {k} against one device: "
+            + ("equal tokens" if same else
+               f"split at {split['at']}: gap {split['ulps']:.2f} ulps "
+               f"within {tie} + the single device's recompute noise "
+               f"{split['noise']:.2f}; TP's recompute of the row "
+               f"{split['tp_rel']:.3e} of its scale off one device (bound "
+               f"{row_tol:.3e}; {split['tp_dev']:.2f} ulps over the two "
+               f"tokens), ranks {split['ranks']}"))
+        if not ok:
+            raise AssertionError(f"[parallel] TP=2 {k} departs from the "
+                                 f"single-device tokens beyond a near-tie: "
+                                 f"{split}")
+    res["same_as_single"] = {k: np.array_equal(o["single"][k],
+                                               o["tp"][k]["tokens"])
+                             for k in ("msd", "ar")}
+    # (c)
+    fwd_tol = PARALLEL_FWD_TOL[dtype]
+    _same_on_ranks("pipeline/sequence outputs", outs,
+                   lambda x: x["fwd_hash"])
+    log(f"[parallel] {pp_layers} layers x {rows} rows at width "
+        f"{tcfg.hidden_size} on {where}: max |out - one rank| / max|ref| "
+        + ", ".join(
+            f"{k} {v:.3e}" for k, v in o["fwd_rel"].items())
+        + f" (bound {fwd_tol:.1e}); ms " + ", ".join(
+            f"{k} {v:.1f}" for k, v in o["fwd_ms"].items())
+        + "; bitwise equal on every rank")
+    if not all(v <= fwd_tol for v in o["fwd_rel"].values()):
+        raise AssertionError(f"[parallel] pipeline/sequence off "
+                             f"llama_forward_nocache: {o['fwd_rel']}")
+    res["fwd_rel"], res["fwd_ms"] = o["fwd_rel"], o["fwd_ms"]
+    # timings
+    for label, got in (("TP=2 7B width", outs), ("TP=4 13B geometry",
+                                                 outs13)):
+        t = got[0]["tp"]
+        msd_ms = t["msd"]["s"] * 1e3 / max(t["msd"]["steps"], 1)
+        ar_ms = t["ar"]["s"] * 1e3 / max(len(t["ar"]["tokens"]), 1)
+        share = {k: t[k]["comm_s"] / t[k]["s"] for k in ("msd", "ar")}
+        res.setdefault("timing", {})[label] = {
+            "msd_ms_step": msd_ms, "ar_ms_token": ar_ms, "comm_share": share,
+            "comm_calls_step": t["msd"]["comm_calls"] / max(
+                t["msd"]["steps"], 1),
+            "peak": [x["peak"] for x in got]}
+        log(f"[parallel] {label} on {where}: eager MSD "
+            f"{msd_ms:.1f} ms/step ({t['msd']['steps']} steps, "
+            f"{res['timing'][label]['comm_calls_step']:.0f} collectives per "
+            f"step, {share['msd']:.3f} of it in them), AR "
+            f"{ar_ms:.1f} ms/token ({share['ar']:.3f} in collectives)"
+            + (f"; peak per rank " + ", ".join(
+                f"{p / 2**30:.2f}" for p in res['timing'][label]['peak'])
+               + " GiB" if on_card else ""))
+    res["shard_gib"] = o["shard_bytes"] / 2**30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] shards {res['shard_gib']:.2f} GiB per rank (TP=2, "
+        f"target and both drafts); phase took {res['seconds']:.1f}s")
+    return res
+
+
 def main():
     # the checkpoint [weights] writes lives until [train] has run on it
     root = tempfile.mkdtemp(prefix="msd_ckpt_")
@@ -7561,11 +8193,21 @@ def main():
 
 def run_all(root: str):
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """One [walls] line per phase: its seconds and the run's so far."""
+        laps.append(time.perf_counter())
+        log(f"[walls] {name} {laps[-1] - laps[-2]:.1f}s (run "
+            f"{laps[-1] - t_start:.1f}s)")
+
     card = phase_device()
     import torch
     from msd_tpu_torch.configs import LlamaConfig
     phase_build()
+    lap("device and build")
     k1, profile_k1 = phase_kernels(card)
+    lap("kernels")
     tcfg = dataclasses.replace(LlamaConfig.llava_7b(),
                                residual_dtype="float32")
     t_main = time.perf_counter()
@@ -7574,25 +8216,36 @@ def run_all(root: str):
     log(f"[main] timed runs: graph-replayed {res['graph_s']:.1f}s, eager "
         f"{res['eager_s']:.1f}s; phase took "
         f"{time.perf_counter() - t_main:.1f}s")
+    lap("main")
     run_calib(res)
+    lap("calib")
     sampling = run_sampling(res)
-    distill = run_distill(res)
+    lap("sampling")
+    distill = run_distill(res, floor=DISTILL_FLOOR)
+    lap("distill")
     eagle = run_eagle(res)
+    lap("eagle")
     serve = run_serve(res)
+    lap("serve")
     k1["serve_launches"] = serve["serve_launches"]
     weights = run_weights(res, serve, root=root)
+    lap("weights")
     harness = run_harness(res, weights["ckpt"], weights["draft"], root)
+    lap("harness")
     harness_ext = run_harness_ext(res, weights["ckpt"], weights["draft"],
-                                  root)
+                                  root, limit=HARNESS_EXT_CARD_LIMIT)
+    lap("harness_ext")
     k1["weights_launches"] = weights["launches"]
     k1["harness_launches"] = harness["launches"]
     k1["harness_ext_launches"] = harness_ext["launches"]
     k1["harness_ext_launches_by_task"] = harness_ext["k1_by_task"]
     quant = run_quant(res)
+    lap("quant")
     k1["quant_launches"] = {label: quant[label]["launches"]
                             for label in ("int8 target", "int4 target",
                                           "int8 draft")}
     multi = run_multi(res, serve)
+    lap("multi")
     k1["multi_ar"]["two-image"]["launches"] = multi["launches_by"]["a"]
     k1["multi_ar"]["anyres"]["launches"] = multi["launches_by"]["b"]
     k1["multi_launches"] = multi["launches"]
@@ -7602,6 +8255,7 @@ def run_all(root: str):
     distill["profile"]()
     eagle["profile"]()
     serve["profile"]()
+    lap("profiles")
     log(f"[serve] on {card}: CLIP {serve['clip_ms']:.2f} ms per image; "
         + "; ".join(f"B={b} on {v['lanes']} lanes: {v['ms_step']:.2f} "
                     f"ms/step wall, {v['replay_ms']:.3f} ms/step replayed, "
@@ -7622,9 +8276,15 @@ def run_all(root: str):
     del res, sampling, distill, eagle, serve
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
-        f"after the 7B phases are released")
+    log(f"[parallel] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated after the 7B phases are released")
+    lap("release")
+    par = run_parallel(card)
+    lap("parallel")
+    k1["ar_tp2"] = dict(par["k1_tp2"], launches=par["launches_tp2"])
+    k1["ar_13b_tp4"] = dict(par["k1_tp4"], launches=par["launches_tp4"])
     train = run_train(weights["ckpt"], root)
+    lap("train")
     shutil.rmtree(root, ignore_errors=True)
     k1["train_launches"] = train["launches"]
     gc.collect()
@@ -7632,6 +8292,7 @@ def run_all(root: str):
     log(f"[13b] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"after the training phase")
     big = run_13b()
+    lap("13b")
     k1["launches_13b"] = big["launches"]
     k1["ar_13b"] = dict(big["k1_row"], launches=big["launches"])
     log(f"[quant] on {card}: per replayed AR token / verify step (ms): "
@@ -7660,6 +8321,7 @@ def run_all(root: str):
         qwen = run_qwen(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    lap("qwen")
     k1["qwen_ar"]["launches"] = qwen["launches"]
     k1["qwen_ar"]["harness_launches"] = qwen["harness_launches"]
     k1["qwen_ar"]["harness_launches_by_task"] = qwen["k1_by_task"]
@@ -7674,6 +8336,7 @@ def run_all(root: str):
         v1 = run_qwen_v1(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    lap("qwen_v1")
     k1["qwen_v1_ar"] = dict(v1["k1_row"], launches=v1["launches"],
                             harness_launches=v1["harness_launches"])
     log(f"[qwen_v1] on {card}: AR token {v1['ar_replay_ms']:.3f} ms "
@@ -7718,6 +8381,14 @@ def run_all(root: str):
             f"{k} {e['ms'] * 1e3:.2f} / {e['library_ms'] * 1e3:.2f} / "
             f"{e['bound_ms'] * 1e3:.2f}" for k, e in
             list(k1["multi_ar"].items()) + [("video", k1["video_ar"])]))
+    t2 = par["timing"]["TP=2 7B width"]
+    log(f"[parallel] on {card}: transport {par['transport']}; TP=2 eager "
+        f"MSD {t2['msd_ms_step']:.1f} ms/step ({t2['comm_share']['msd']:.3f}"
+        f" in collectives), AR {t2['ar_ms_token']:.1f} ms/token; first "
+        f"decode row {par['row_rel']:.3e} of its scale off one device "
+        f"(fault {par['fault_rel']:.3e}); K1 at 16 / 10 local heads "
+        f"{k1['ar_tp2']['ms'] * 1e3:.2f} / {k1['ar_13b_tp4']['ms'] * 1e3:.2f}"
+        f" us; phase {par['seconds']:.1f}s")
     log(f"[train] on {card}: fit {train['fit_ms']:.1f} ms/step, stage 1 "
         f"{train['ft1_ms']:.1f} ms/step, stage 2 {train['ft2_ms']:.1f} "
         f"ms/step; records/s "

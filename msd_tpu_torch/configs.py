@@ -15,9 +15,10 @@ decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``,
 draft's fc always has a bias (``fc_bias=True``). Quantized weights are a property of the param dicts
 (``models.llama.quantize_llama_params``), not of these configs. Training
 (``train/``) runs on one device: the JAX ``DraftTrainer``'s and
-``LlavaFinetuner``'s ``mesh`` argument (megatron parameter specs, ZeRO
-optimizer-state sharding) is left out until the port has its parallel
-modules over ``torch.distributed``. ``LlavaConfig.s2_scales`` (S2
+``LlavaFinetuner``'s ``mesh`` argument (ZeRO optimizer-state sharding
+over the megatron specs of ``parallel/sharding``) waits for the sharded
+training step, ROADMAP M18b. Decoding runs tensor parallel over the
+port's mesh (``parallel/``). ``LlavaConfig.s2_scales`` (S2
 multi-scale features) is here; LLaVA-1.6 anyres has no config, as in the
 JAX package: its grid pinpoints, merge mode and ``image_newline`` are
 arguments (``utils/mm_utils``, ``models/llava``).

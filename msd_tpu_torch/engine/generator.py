@@ -19,6 +19,14 @@ one block, fused beforehand and prefilled as they are),
 ``decode`` ranges mark each request's two phases for ``torch.profiler``.
 Sampling draws from one ``torch.Generator`` on the generator's device,
 seeded per request from ``seed`` (a batch: one per lane).
+
+Tensor parallelism: given trees sharded by ``parallel/sharding.
+shard_params`` (their ``"mesh"``), every rank of the mesh runs the same
+calls on its slices: ``generate`` (EAGLE, medusa and static drafting,
+greedy or sampled) and ``naive_generate`` over expand-mode single-image
+or text prompts, each rank committing the same tokens. Batched lanes,
+calibration, scoring, inline (Qwen) and multi-image prompts raise under
+a mesh, and so does ``cuda_graphs=True``.
 """
 
 from __future__ import annotations
@@ -95,6 +103,19 @@ class MSDGenerator:
         self.device = torch.device(device)
         self.rng = torch.Generator(device=self.device)
         self.params = {"target": target_params, "draft": draft_params}
+        self.mesh = target_params.get("mesh")
+        self.tp = L.tp_size(self.mesh)
+        if self.tp > 1:
+            if draft_params.get("mesh") is not self.mesh:
+                raise ValueError("the target and the draft must be sharded "
+                                 "over the same mesh")
+            if image_mode != "expand":
+                self._no_tp("inline (Qwen) prompts")
+            if cuda_graphs:
+                raise ValueError(
+                    f"cuda_graphs=True under tensor parallelism (a "
+                    f"{self.mesh.transport} mesh): its collectives are not "
+                    f"captured; pass cuda_graphs=False")
         self.graphs = StepGraphs(self.device) \
             if cuda_graphs and self.device.type == "cuda" else None
         self.bstate = None
@@ -151,7 +172,12 @@ class MSDGenerator:
         budgets and dtype."""
         return SE.alloc_state(self._statics(0),
                               self.params["target"]["embed_tokens"].dtype,
-                              self.device, lanes)
+                              self.device, lanes, self.tp)
+
+    def _no_tp(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(f"{what} under tensor parallelism: "
+                                      f"not ported (ROADMAP)")
 
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
@@ -161,6 +187,10 @@ class MSDGenerator:
         """The statics of a run on a state of ``lanes`` lanes; the verify
         products a lane count needs one lane at a time are found at its
         first use (``llama.lane_variant``)."""
+        if lanes > 1:
+            self._no_tp("batched lanes")
+        if use_calibration or collect_calibration:
+            self._no_tp("calibration")
         if lanes not in self._per_lane:
             self._per_lane[lanes] = L.lane_variant(
                 self.params["target"], lanes, self.eng.tree.num_nodes)
@@ -298,6 +328,7 @@ class MSDGenerator:
         Refuses a block the engine budget cannot hold."""
         from msd_tpu_torch.models.llava import fuse_embeddings_multi
 
+        self._no_tp("multi-image prompts")
         fused, exp_ids, img_rows = fuse_embeddings_multi(
             self.params["target"]["embed_tokens"], ids, img_feats_list)
         e0 = fused.shape[0]
@@ -535,6 +566,7 @@ class MSDGenerator:
         ``img_grid``. Returns (logprob_sum: float, is_greedy: bool)."""
         from msd_tpu_torch.engine import scoring as SC
 
+        self._no_tp("scoring")
         ids = np.asarray(ids, np.int32)
         if not 0 < cont_start < len(ids):
             raise ValueError(

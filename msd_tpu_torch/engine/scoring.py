@@ -71,8 +71,7 @@ def score_program(tcfg: LlamaConfig, n_img: int, params: Dict,
     off = max(n_img_eff - 1, 0)
     p_exp = p_pad + off
     if n_img_eff > 0:
-        fused = fuse_embeddings(tp["embed_tokens"], ids, img_feats, img_pos,
-                                p_exp)
+        fused = fuse_embeddings(tp, ids, img_feats, img_pos, p_exp)
         exp_ids = expand_ids(torch.clamp(ids, min=0), img_pos, n_img_eff,
                              p_exp)
     else:

@@ -229,10 +229,11 @@ def _walk_draws(st: Statics) -> int:
 
 
 def alloc_state(st: Statics, dtype: torch.dtype, device,
-                lanes: int = 1) -> EngineState:
+                lanes: int = 1, tp: int = 1) -> EngineState:
     """Zeroed static buffers for ``lanes`` engines of ``st``'s capacity,
     every field with a leading [lanes]; hiddens and KV caches in ``dtype``
-    (the weights' dtype).
+    (the weights' dtype); the caches hold 1/``tp`` of the KV heads (a
+    tensor-parallel rank's local heads).
 
     The calibration log has ``st.step_limit`` rows: a verify step runs only
     while the committed length is below that limit and commits at least
@@ -245,7 +246,8 @@ def alloc_state(st: Statics, dtype: torch.dtype, device,
         return torch.zeros((B,) + shape, dtype=dt, device=device)
 
     def kv(cfg, rows, layers):
-        shape = (B, layers, rows, cfg.num_key_value_heads, cfg.head_dim)
+        shape = (B, layers, rows, cfg.num_key_value_heads // tp,
+                 cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -533,11 +535,12 @@ def _draft_expand_medusa(st: Statics, params: Dict, last_hidden: torch.Tensor,
     dp = params["draft"]
     # a quantized head is read dequantized, as the verify reads it (the
     # JAX expansions multiply by its raw integers: ROADMAP section 3)
-    head = L._w(params["target"], "lm_head", last_hidden.dtype)
+    tp = params["target"]
+    head = L._w(tp, "lm_head", last_hidden.dtype)
     mh = draft_mod.medusa_hiddens(dp["medusa"], last_hidden)    # [Km, B, H]
     xs = torch.cat([last_hidden[:, None], mh[:d_use - 1].transpose(0, 1)],
                    dim=1)                                       # [B, d_use, H]
-    logits = (xs @ head).float()                                # [B, d_use, V]
+    logits = L.gather_columns(tp, xs @ head).float()            # [B, d_use, V]
     probs = torch.softmax(logits, dim=-1)
     wts, idx = _top_k(probs, w)                                 # [B, d_use, W]
     # pre-rerank top1-top2 margin of each depth's candidate row
@@ -610,11 +613,11 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     t = st.tree
     K, D, n_draft = t.top_k, t.max_depth, t.num_draft
     B, H = last_hidden.shape
-    dp = params["draft"]
-    head = L._w(params["target"], "lm_head", last_hidden.dtype)
+    dp, tp = params["draft"], params["target"]
+    head = L._w(tp, "lm_head", last_hidden.dtype)
     cos_t, sin_t = params["cos_t"], params["sin_t"]
     dev = last_hidden.device
-    logits0 = (last_hidden @ head).float()                          # [B, V]
+    logits0 = L.gather_columns(tp, last_hidden @ head).float()      # [B, V]
     w0, ids0 = _top_k(torch.softmax(logits0, dim=-1), K)            # [B, K]
     margin0 = w0[:, 0] - w0[:, 1]
     if st.use_calibration:
@@ -637,13 +640,12 @@ def _draft_expand_eagle(st: Statics, params: Dict, kv: Dict, E: torch.Tensor,
     for layer in range(1, D):
         d = layer - 1   # scratch slot of the frontier being forwarded
         write = E + d * K
-        hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][f_tok.long()],
-                                   f_hid)
+        hin = draft_mod.draft_fuse(dp, L.embed_tokens(dp, f_tok), f_hid)
         pos = (E + pos_delta + d).to(torch.int32)[:, None].expand(B, K)
         out, _ = draft_mod.draft_forward(
             dp, st.dcfg, hin, pos, kv, write,
             _frontier_bias(st.s_draft, write, K), cos_t, sin_t)
-        logits = (out @ head).float()                            # [B, K, V]
+        logits = L.gather_columns(tp, out @ head).float()        # [B, K, V]
         cw, cid = _top_k(torch.softmax(logits, dim=-1), K)       # [B, K, K]
         margin_row = cw[..., 0] - cw[..., 1]
         if st.use_calibration:
@@ -697,14 +699,15 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
     B = last_hidden.shape[0]
     plan = static_tree.static_plan(t.static_choices, t.max_path_len,
                                    t.num_nodes, str(dev))
-    dp = params["draft"]
-    head = L._w(params["target"], "lm_head", last_hidden.dtype)
+    dp, tp = params["draft"], params["target"]
+    head = L._w(tp, "lm_head", last_hidden.dtype)
     kpos = torch.arange(st.s_draft, device=dev)
     rel = kpos - E[:, None] + 1         # node id whose scratch row is kpos
     relc = torch.clamp(rel, 0, plan.n - 1)                     # [B, S_d]
     in_tree = ((rel >= 1) & (rel < plan.n))[:, None]
     prefix = (kpos < E[:, None])[:, None]
-    top = _top_k((last_hidden @ head).float(), plan.max_slot)[1][:, None]
+    top = _top_k(L.gather_columns(tp, last_hidden @ head).float(),
+                 plan.max_slot)[1][:, None]
     hid = last_hidden[:, None]
     tokens = [root_token[:, None].to(torch.int32)]
     for lv in plan.levels:
@@ -712,7 +715,7 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
         tokens.append(toks.to(torch.int32))
         if lv is plan.levels[-1]:
             break
-        hin = draft_mod.draft_fuse(dp, dp["embed_tokens"][toks],
+        hin = draft_mod.draft_fuse(dp, L.embed_tokens(dp, toks),
                                    hid[:, lv.parent_row])
         pos = (E + pos_delta + lv.depth - 1).to(torch.int32)[:, None] \
             .expand(B, lv.width)
@@ -723,7 +726,8 @@ def _draft_expand_static(st: Statics, params: Dict, kv: Dict,
         hid, _ = draft_mod.draft_forward(dp, st.dcfg, hin, pos, kv,
                                          E + lv.first - 1, bias,
                                          params["cos_t"], params["sin_t"])
-        top = _top_k((hid @ head).float(), plan.max_slot)[1]
+        top = _top_k(L.gather_columns(tp, hid @ head).float(),
+                     plan.max_slot)[1]
     pad = plan.tree.tokens[plan.n:].expand(B, -1)
     tr = Tree(*(x.expand((B,) + x.shape) for x in plan.tree))
     return tr._replace(tokens=torch.cat(tokens + [pad], dim=1))
@@ -767,7 +771,7 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
     P = st.tree.max_path_len
     dev = s.suffix_tokens.device
     B = s.suffix_tokens.shape[0]
-    emb = dp["embed_tokens"][torch.clamp(s.suffix_tokens, min=0).long()]
+    emb = L.embed_tokens(dp, torch.clamp(s.suffix_tokens, min=0))
     hin = draft_mod.draft_fuse(dp, emb, s.suffix_hidden)
     slot = s.draft_len[:, None] + torch.arange(P, device=dev,
                                                dtype=torch.int32)
@@ -815,7 +819,7 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
     (shaped as E; None = 0); its cache row and window are E + depth_i."""
     dev = tr.tokens.device
     s_target = kv["k"].shape[-3]
-    emb = tp["embed_tokens"][torch.clamp(tr.tokens, min=0).long()]
+    emb = L.embed_tokens(tp, torch.clamp(tr.tokens, min=0))
     e1 = E[..., None]
     cache_pos = e1 + tr.positions
     pos = cache_pos if pos_delta is None else \
@@ -996,13 +1000,12 @@ def _fuse_prompt(st: Statics, params: Dict, ids: torch.Tensor,
     n_img = st.n_img if img_feats is not None else 0
     P_exp = ids.shape[0] + max(n_img - 1, 0)
     if n_img > 0:
-        fused = fuse_embeddings(tp["embed_tokens"], ids, img_feats, img_pos,
-                                P_exp)
+        fused = fuse_embeddings(tp, ids, img_feats, img_pos, P_exp)
         exp_ids = expand_ids(torch.clamp(ids, min=0), img_pos, n_img, P_exp)
         j = torch.arange(P_exp, device=ids.device)
         img_rows = (j >= img_pos) & (j < img_pos + n_img)
     else:
-        fused = tp["embed_tokens"][torch.clamp(ids, min=0).long()]
+        fused = L.embed_tokens(tp, torch.clamp(ids, min=0))
         exp_ids = ids
         img_rows = torch.zeros(P_exp, dtype=torch.bool, device=ids.device)
     return fused, exp_ids, img_rows
@@ -1099,7 +1102,7 @@ def _prefill_core(st: Statics, params: Dict, state: EngineState,
     fused_shift = torch.cat([fused[1:], torch.zeros_like(fused[:1])])
     se = torch.where(img_next[:, None], fused_shift, se)
     se = torch.where((j == E0 - 1)[:, None],
-                     dp["embed_tokens"][state.bonus.long().reshape(1)], se)
+                     L.embed_tokens(dp, state.bonus.reshape(1)), se)
     dh_in = draft_mod.draft_fuse(dp, se, hidden, image_row_mask=img_next)
     positions = torch.arange(P_exp, device=dev, dtype=torch.int32)
     d_bias = causal_prefill_bias(P_exp, st.s_draft, device=dev)
@@ -1288,7 +1291,7 @@ def ar_step(st: Statics, params: Dict, s: EngineState):
     tp = params["target"]
     cur = s.cur_len
     kpos = torch.arange(st.s_target, device=cur.device)
-    emb = tp["embed_tokens"][s.bonus.long().reshape(1)]
+    emb = L.embed_tokens(tp, s.bonus.reshape(1))
     bias = torch.where(kpos <= cur, 0.0, NEG_INF).to(torch.float32)[None]
     hidden, _ = L.llama_forward(tp, st.tcfg, emb, (cur + s.pos_delta)[None],
                                 s.target_kv, cur, bias, params["cos_t"],

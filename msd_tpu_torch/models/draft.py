@@ -7,7 +7,10 @@ hidden at j; rows inside the image span bypass fc and carry the shifted
 fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H],
 ``layers`` stacked as in ``models/llama``, medusa ``mw`` [K, H, H] and
 ``mb`` [K, H]. ``quantize_draft_params`` stores the layer, ``fc_w`` and
-``mw`` as int8/int4 (read through ``llama._w``).
+``mw`` as int8/int4 (read through ``llama._w``). A tensor-parallel draft
+(``parallel/sharding.draft_param_specs``) carries its mesh under
+``"mesh"``: its layer runs sharded like the target's, fc and the medusa
+heads replicated, ``embed_tokens`` gathered on its hidden columns.
 """
 
 from __future__ import annotations
@@ -96,6 +99,11 @@ def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
     as ``llama.llama_forward`` does (kv [B, num_layers, S, Hkv, D],
     attn_rows [B, R]).
     """
+    mesh = params.get("mesh")
+    if return_attn and L.tp_size(mesh) > 1:
+        raise NotImplementedError(
+            "the calibration feature (layer-0 attention probabilities) is "
+            "not computed under tensor parallelism: ROADMAP M18b")
     x = hidden_in
     attn_p = None
     for i in range(cfg.num_layers):
@@ -104,7 +112,7 @@ def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
         x = L._layer_forward(lp, cfg.text, x, positions,
                              kv["k"].select(-4, i), kv["v"].select(-4, i),
                              write_pos, bias, cos_t, sin_t,
-                             skip_input_norm=(i == 0))
+                             skip_input_norm=(i == 0), mesh=mesh)
         if return_attn and i == 0:
             attn_p = _layer_attn_probs(lp, cfg.text, x_in, positions,
                                        kv["k"].select(-4, 0), write_pos,
@@ -154,7 +162,8 @@ def draft_forward_nocache(params: Params, cfg: DraftConfig,
     for i in range(cfg.num_layers):
         lp = L._layer(params["layers"], i)
         q, k, v = L._layer_qkv(lp, tc, x, positions, cos_t, sin_t, i == 0)
-        x = L._layer_post_attn(lp, tc, x, masked_attention(q, k, v, bias))
+        x = L._layer_post_attn(lp, tc, x, masked_attention(q, k, v, bias),
+                               mesh=params.get("mesh"))
     return x
 
 

@@ -19,6 +19,12 @@ B x T rows.
   under the weight's name, the fp32 scales under ``<name>_qs`` (int8) or
   ``<name>_qs4`` (int4, packed along the last axis); every weight read
   goes through ``_w``, which dequantizes.
+- A tensor-parallel tree (``parallel/sharding.shard_params``) holds this
+  rank's slices and its mesh under ``"mesh"``: the local heads and widths
+  come from the slices, the row-parallel ``o_proj`` and ``down_proj``
+  partial products are summed over ``model`` (``_row_sum``), and
+  ``embed_tokens``/``lm_head`` gather their columns (``gather_columns``).
+  Without a mesh every function computes the bits it computed before.
 - Qwen2 layers carry q/k/v biases ``q_bias`` [L, Hq*D], ``k_bias`` and
   ``v_bias`` [L, Hkv*D] (``models/qwen2vl``), added after the projections
   and before the head split and the rope; they are never quantized and
@@ -48,6 +54,7 @@ from msd_tpu_torch.ops.norms import rms_norm
 from msd_tpu_torch.ops.quant import (dequantize, dequantize_int4,
                                      quantize_tensor)
 from msd_tpu_torch.ops.rope import apply_rope, rope_table
+from msd_tpu_torch.parallel import comm
 
 Params = Dict
 
@@ -78,10 +85,24 @@ def init_layers(cfg: LlamaConfig, num_layers: int, generator: torch.Generator,
     return layers
 
 
+def init_layer_params(cfg: LlamaConfig, generator: torch.Generator,
+                      device="cuda", dtype=torch.bfloat16) -> Params:
+    """One decoder layer's random weights (unstacked: q/k/v [out, in],
+    o/gate/up/down [in, out], norms [H]), the draws of ``init_layers`` of
+    one layer."""
+    return _layer(init_layers(cfg, 1, generator, device, dtype), 0)
+
+
+def _stack_layers(layers) -> Params:
+    """Per-layer dicts -> one dict of [L, ...] stacks."""
+    return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+
+
 def init_llama_params(cfg: LlamaConfig, generator: torch.Generator,
                       device="cuda", dtype=torch.bfloat16) -> Params:
-    """Random target weights from ``generator`` (the port's counterpart of
-    the JAX ``init_llama_params_stacked``, with torch's random stream)."""
+    """Random target weights from ``generator``, each stacked [L, ...]
+    weight drawn whole in ``dtype`` (the JAX ``init_llama_params_stacked``,
+    with torch's random stream; also named so here)."""
     h = cfg.hidden_size
     scale = h ** -0.5
 
@@ -98,10 +119,18 @@ def init_llama_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
+init_llama_params_stacked = init_llama_params
+
+
 def init_kv_cache(cfg: LlamaConfig, max_seq_len: int, dtype=torch.float32,
-                  device="cuda", num_layers: int | None = None) -> Params:
+                  device="cuda", num_layers: int | None = None,
+                  mesh=None) -> Params:
+    """A zeroed [L, S, Hkv, D] cache; under a ``mesh`` this rank's KV
+    heads, Hkv / tp of them, allocated whole (not a view of a full
+    cache: the decode kernel takes contiguous caches)."""
     nl = cfg.num_hidden_layers if num_layers is None else num_layers
-    shape = (nl, max_seq_len, cfg.num_key_value_heads, cfg.head_dim)
+    shape = (nl, max_seq_len, cfg.num_key_value_heads // tp_size(mesh),
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -120,6 +149,29 @@ def update_rows(size: int, start, n: int, device) -> torch.Tensor:
 
 def _layer(lp_all: Params, li: int) -> Params:
     return {name: w[li] for name, w in lp_all.items()}
+
+
+def tp_size(mesh) -> int:
+    """The mesh's ``model`` axis size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def _row_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's partial sums over ``model``, added in fp32
+    and rounded once to y's dtype (y itself without a mesh)."""
+    if tp_size(mesh) == 1:
+        return y
+    return comm.all_reduce(y.float(), mesh, "model").to(y.dtype)
+
+
+def gather_columns(params: Params, y: torch.Tensor) -> torch.Tensor:
+    """The ``model`` shards of y's last dimension, concatenated (y itself
+    without a mesh in ``params``): the full rows of a column-split
+    ``embed_tokens`` or ``lm_head``, bitwise."""
+    mesh = params.get("mesh")
+    if tp_size(mesh) == 1:
+        return y
+    return comm.all_gather(y, mesh, "model", dim=-1)
 
 
 def _w(lp: Params, name: str, dtype=None) -> torch.Tensor:
@@ -188,8 +240,10 @@ def lane_variant(params: Params, lanes: int, rows: int) -> frozenset:
 def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                positions: torch.Tensor, cos_t, sin_t, skip_input_norm: bool,
                per_lane=frozenset()):
-    """Pre-attention projections. Returns (q, k, v) as [..., T, H*, D]."""
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    """Pre-attention projections. Returns (q, k, v) as [..., T, H*, D]:
+    the heads of the weights' rows (this rank's local heads under
+    tensor parallelism)."""
+    d = cfg.head_dim
     # the draft's layer 0 skips input_layernorm (EAGLE convention)
     h = x if skip_input_norm else rms_norm(x, lp["input_layernorm"],
                                            cfg.rms_norm_eps)
@@ -202,22 +256,33 @@ def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
         q = q + lp["q_bias"]
         k = k + lp["k_bias"]
         v = v + lp["v_bias"]
-    q = q.unflatten(-1, (hq, d))
-    k = k.unflatten(-1, (hkv, d))
-    v = v.unflatten(-1, (hkv, d))
+    q = q.unflatten(-1, (-1, d))
+    k = k.unflatten(-1, (-1, d))
+    v = v.unflatten(-1, (-1, d))
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     return q, k, v
 
 
+def _attn_out(lp: Params, attn: torch.Tensor, per_lane=frozenset(),
+              mesh=None) -> torch.Tensor:
+    """The attention output through o_proj [..., T, H]: under a ``mesh``
+    this rank's heads' partial product summed over ``model``."""
+    return _row_sum(_proj(lp, "o_proj", attn.flatten(-2), per_lane), mesh)
+
+
 def _layer_post_attn(lp: Params, cfg: LlamaConfig, resid: torch.Tensor,
-                     attn: torch.Tensor, per_lane=frozenset()) -> torch.Tensor:
-    x = resid + _proj(lp, "o_proj", attn.flatten(-2), per_lane) \
-        .to(resid.dtype)
+                     attn: torch.Tensor, per_lane=frozenset(),
+                     mesh=None) -> torch.Tensor:
+    """o_proj, the residual, the MLP and its residual; under a ``mesh``
+    the row-parallel o_proj and down_proj products are summed over
+    ``model`` before each residual add (``_row_sum``)."""
+    x = resid + _attn_out(lp, attn, per_lane, mesh).to(resid.dtype)
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     h = h.to(lp["post_attention_layernorm"].dtype)
     gate = F.silu(_proj(lp, "gate_proj", h, per_lane).float()).to(h.dtype)
     up = _proj(lp, "up_proj", h, per_lane)
-    return x + _proj(lp, "down_proj", gate * up, per_lane).to(resid.dtype)
+    down = _proj(lp, "down_proj", gate * up, per_lane)
+    return x + _row_sum(down, mesh).to(resid.dtype)
 
 
 def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
@@ -253,11 +318,12 @@ def _layer_forward(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                    positions: torch.Tensor, kv_k: torch.Tensor,
                    kv_v: torch.Tensor, write_pos, bias: torch.Tensor,
                    cos_t, sin_t, skip_input_norm: bool = False,
-                   kv_len=None, win=None, per_lane=frozenset()
-                   ) -> torch.Tensor:
+                   kv_len=None, win=None, per_lane=frozenset(),
+                   mesh=None) -> torch.Tensor:
     """One decoder layer over x [..., T, H]; writes its K/V rows into
     kv_k/kv_v [..., S, Hkv, D] at write_pos (an int, a 0-dim tensor or one
-    start per lane) in place. Returns the new x."""
+    start per lane) in place. Returns the new x. ``mesh``: the tensor-
+    parallel mesh of the layer's slices (``_layer_post_attn``)."""
     q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t,
                          skip_input_norm, per_lane)
     lanes = x.dim() - 2
@@ -269,7 +335,7 @@ def _layer_forward(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
         put_rows(kv_k, rows, k, lanes)
         put_rows(kv_v, rows, v, lanes)
     attn = _attend(cfg, q, kv_k, kv_v, bias, kv_len, win)
-    return _layer_post_attn(lp, cfg, x, attn, per_lane)
+    return _layer_post_attn(lp, cfg, x, attn, per_lane, mesh)
 
 
 def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
@@ -286,7 +352,8 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
     With lanes: embeds [B, T, H], positions [B, T], kv [B, L, S, Hkv, D],
     bias [B, T, S], write_pos and kv_len [B] (or an int), win's arrays
     with a leading B; ``per_lane`` names the products computed one lane at
-    a time (``_proj``).
+    a time (``_proj``). A tensor-parallel ``params`` (its ``"mesh"``) runs
+    its local heads over a cache of its local KV heads.
     """
     out_dtype = embeds.dtype
     x = embeds
@@ -298,7 +365,7 @@ def llama_forward(params: Params, cfg: LlamaConfig, embeds: torch.Tensor,
                            kv["k"].select(-4, li), kv["v"].select(-4, li),
                            write_pos, bias, cos_t,
                            sin_t, kv_len=kv_len, win=win,
-                           per_lane=per_lane)
+                           per_lane=per_lane, mesh=params.get("mesh"))
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
     return x, kv
 
@@ -327,18 +394,22 @@ def llama_forward_nocache(params: Params, cfg: LlamaConfig,
     for ws in zip(*(torch.unbind(layers[n]) for n in names)):
         lp = dict(zip(names, ws))
         q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t, False)
-        x = _layer_post_attn(lp, cfg, x, masked_attention(q, k, v, bias))
+        x = _layer_post_attn(lp, cfg, x, masked_attention(q, k, v, bias),
+                             mesh=params.get("mesh"))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
 
 
 def lm_head(params: Params, hidden: torch.Tensor,
             per_lane=frozenset()) -> torch.Tensor:
-    """[..., T, H] -> [..., T, V] logits in fp32."""
-    return _proj(params, "lm_head", hidden, per_lane).float()
+    """[..., T, H] -> [..., T, V] logits in fp32 (a column-split head's
+    columns gathered)."""
+    return gather_columns(params, _proj(params, "lm_head", hidden,
+                                        per_lane)).float()
 
 
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][ids.long()]
+    """The rows of ``ids`` (a column-split table's columns gathered)."""
+    return gather_columns(params, params["embed_tokens"][ids.long()])
 
 
 def make_rope(cfg: LlamaConfig, max_seq_len: int, device="cuda"):
@@ -433,6 +504,21 @@ def upload(t: torch.Tensor, device, dtype, transpose: bool = False
     return x.transpose(-1, -2).contiguous() if transpose else x
 
 
+def upload_stack(ts, device, dtype, transpose: bool = False
+                 ) -> torch.Tensor:
+    """``upload(torch.stack(ts), ...)`` without the stack on the host:
+    each host tensor is copied into its slot of a stack allocated on
+    ``device`` in the source dtype, then the stack is cast and transposed
+    there. A host stack's fresh pages cost as much to touch as the copy
+    into them, which halved the rate of a checkpoint's load."""
+    ts = list(ts)
+    buf = torch.empty((len(ts),) + tuple(ts[0].shape), dtype=ts[0].dtype,
+                      device=device)
+    for i, t in enumerate(ts):
+        buf[i].copy_(t)
+    return upload(buf, device, dtype, transpose)
+
+
 def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
                    prefix: str = "model.", dtype=torch.float32,
                    device="cuda") -> Params:
@@ -440,22 +526,19 @@ def params_from_hf(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
     tensors (HF Linear stores [out, in]; o/gate/up/down and lm_head are
     kept [in, out]).
 
-    Per weight, the L layers are stacked into one host tensor in the
-    SOURCE dtype (plain copies), uploaded with one copy, then cast and
-    transposed on the device, as the JAX version does (its 7B load took 23
-    minutes converting tensor by tensor, one minute this way). A state
-    with q/k/v projection biases (Qwen2) gets them stacked too."""
+    Per weight, the L layers are stacked on the device in the SOURCE
+    dtype (``upload_stack``: plain copies), then cast and transposed
+    there, as the JAX version does (its 7B load took 23 minutes converting
+    tensor by tensor, one minute this way). A state with q/k/v projection
+    biases (Qwen2) gets them stacked too."""
     L = cfg.num_hidden_layers
     stacked = {}
     biases = f"{prefix}layers.0.self_attn.q_proj.bias" in state
     layer_map = dict(_HF_LAYER_MAP, **(_HF_BIAS_MAP if biases else {}))
     for ours, (theirs, transpose) in layer_map.items():
-        first = state[f"{prefix}layers.0.{theirs}"]
-        buf = torch.empty((L,) + tuple(first.shape), dtype=first.dtype)
-        for i in range(L):
-            buf[i] = state[f"{prefix}layers.{i}.{theirs}"]
-        stacked[ours] = upload(buf, device, dtype, transpose)
-        del buf
+        stacked[ours] = upload_stack(
+            [state[f"{prefix}layers.{i}.{theirs}"] for i in range(L)],
+            device, dtype, transpose)
     return {
         "embed_tokens": upload(state[f"{prefix}embed_tokens.weight"], device,
                                dtype),

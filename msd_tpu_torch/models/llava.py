@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX, LlavaConfig
+from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.clip_vit import clip_encode, clip_encode_s2
 
 Params = Dict
@@ -84,16 +85,18 @@ def expand_ids(ids: torch.Tensor, img_pos, n_img: int, out_len: int,
     return torch.where(in_img, torch.full_like(toks, sentinel), toks)
 
 
-def fuse_embeddings(embed_table: torch.Tensor, ids: torch.Tensor,
+def fuse_embeddings(params: Dict, ids: torch.Tensor,
                     img_feats: torch.Tensor, img_pos,
                     out_len: int) -> torch.Tensor:
     """Fused embeddings [out_len, H] with img_feats [n_img, H] spliced in at
-    the placeholder. Rows past the real prompt are garbage-but-masked."""
+    the placeholder. Rows past the real prompt are garbage-but-masked.
+    The text rows are ``llama.embed_tokens`` of ``params`` (a tree holding
+    ``embed_tokens``; a tensor-parallel one gathers its column shards)."""
     n_img = img_feats.shape[0]
     safe_ids = torch.where(ids == IMAGE_TOKEN_INDEX, torch.zeros_like(ids),
                            ids)
     exp_ids = expand_ids(safe_ids, img_pos, n_img, out_len)
-    text_emb = embed_table[exp_ids.long()]
+    text_emb = L.embed_tokens(params, exp_ids)
     j = torch.arange(out_len, device=ids.device)
     in_img = (j >= img_pos) & (j < img_pos + n_img)
     img_idx = torch.clamp(j - img_pos, 0, n_img - 1)

@@ -263,7 +263,7 @@ def params_from_hf_qwen_vision(state: Dict[str, torch.Tensor],
     """The tower's param dict from a HF Qwen2-VL state dict of host tensors
     (Linear weights [out, in] kept [in, out]; the Conv3d patch kernel
     [E, C, Tp, P, P] flattened to [C*Tp*P*P, E])."""
-    from msd_tpu_torch.models.llama import upload
+    from msd_tpu_torch.models.llama import upload, upload_stack
 
     def get(name):
         return state[prefix + name]
@@ -282,9 +282,9 @@ def params_from_hf_qwen_vision(state: Dict[str, torch.Tensor],
              "fc2_b": ("mlp.fc2.bias", False)}
     blocks = {}
     for ours, (theirs, transpose) in names.items():
-        stacked = torch.stack([get(f"blocks.{i}.{theirs}")
-                               for i in range(cfg.depth)])
-        blocks[ours] = upload(stacked, device, dtype, transpose)
+        blocks[ours] = upload_stack([get(f"blocks.{i}.{theirs}")
+                                     for i in range(cfg.depth)],
+                                    device, dtype, transpose)
     conv = get("patch_embed.proj.weight")
     return {
         "patch_embed": upload(conv.reshape(cfg.embed_dim, -1), device, dtype,

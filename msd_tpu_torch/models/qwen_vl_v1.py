@@ -254,9 +254,9 @@ def params_from_hf_qwen_vl_vision(state: Dict[str, torch.Tensor],
                                   device="cuda") -> Params:
     """The tower's param dict from the public Qwen/Qwen-VL checkpoint
     names (``visual.py``) in a flat state dict of host tensors; each
-    block weight stacked over the layers in its source dtype, then
-    uploaded and cast on the device."""
-    from msd_tpu_torch.models.llama import upload
+    block weight stacked over the layers on the device in its source
+    dtype, then cast there (``llama.upload_stack``)."""
+    from msd_tpu_torch.models.llama import upload, upload_stack
 
     def get(name):
         return state[prefix + name]
@@ -269,9 +269,9 @@ def params_from_hf_qwen_vl_vision(state: Dict[str, torch.Tensor],
              "out_proj_b": "attn.out_proj.bias",
              "fc_w": "mlp.c_fc.weight", "fc_b": "mlp.c_fc.bias",
              "proj_w": "mlp.c_proj.weight", "proj_b": "mlp.c_proj.bias"}
-    blocks = {ours: upload(torch.stack(
+    blocks = {ours: upload_stack(
         [get(f"transformer.resblocks.{i}.{theirs}")
-         for i in range(cfg.layers)]), device, dtype)
+         for i in range(cfg.layers)], device, dtype)
         for ours, theirs in names.items()}
 
     def up(name):
@@ -349,33 +349,30 @@ def params_from_hf_qwen_v1(state: Dict[str, torch.Tensor],
     ln_2, mlp.{w1 (up), w2 (the silu-gated half), c_proj}}, transformer.ln_f,
     lm_head. q/k/v stay [out, in]; o/gate/up/down and lm_head become
     [in, out] (``models/llama``'s layout). Each weight is stacked over the
-    layers in its source dtype, then uploaded, cast and transposed on the
-    device."""
-    from msd_tpu_torch.models.llama import upload
+    layers on the device in its source dtype, then cast and transposed
+    there (``llama.upload_stack``)."""
+    from msd_tpu_torch.models.llama import upload, upload_stack
 
     h, n = cfg.hidden_size, cfg.num_hidden_layers
 
-    def stack(name, rows=None):
+    def stack(name, rows=None, transpose=False):
         ts = [state[f"transformer.h.{i}.{name}"] for i in range(n)]
         if rows is not None:
             ts = [t[rows] for t in ts]
-        return torch.stack(ts)
+        return upload_stack(ts, device, dtype, transpose)
 
     qkv = {"q": slice(0, h), "k": slice(h, 2 * h), "v": slice(2 * h, None)}
     layers = {}
     for x, rows in qkv.items():
-        layers[f"{x}_proj"] = upload(stack("attn.c_attn.weight", rows),
-                                     device, dtype)
-        layers[f"{x}_bias"] = upload(stack("attn.c_attn.bias", rows),
-                                     device, dtype)
+        layers[f"{x}_proj"] = stack("attn.c_attn.weight", rows)
+        layers[f"{x}_bias"] = stack("attn.c_attn.bias", rows)
     for ours, theirs in (("o_proj", "attn.c_proj.weight"),
                          ("gate_proj", "mlp.w2.weight"),
                          ("up_proj", "mlp.w1.weight"),
                          ("down_proj", "mlp.c_proj.weight")):
-        layers[ours] = upload(stack(theirs), device, dtype, True)
-    layers["input_layernorm"] = upload(stack("ln_1.weight"), device, dtype)
-    layers["post_attention_layernorm"] = upload(stack("ln_2.weight"),
-                                                device, dtype)
+        layers[ours] = stack(theirs, transpose=True)
+    layers["input_layernorm"] = stack("ln_1.weight")
+    layers["post_attention_layernorm"] = stack("ln_2.weight")
     return {
         "embed_tokens": upload(state["transformer.wte.weight"], device,
                                dtype),

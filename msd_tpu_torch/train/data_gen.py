@@ -89,8 +89,7 @@ def _fuse(params: Dict, ids: np.ndarray, img_feats: Optional[torch.Tensor],
     padded[:len(ids)] = ids
     padded_t = torch.from_numpy(padded).to(dev)
     if n_img > 0:
-        fused = fuse_embeddings(params["embed_tokens"], padded_t, img_feats,
-                                img_pos, P_exp)
+        fused = fuse_embeddings(params, padded_t, img_feats, img_pos, P_exp)
         exp_ids = expand_ids(torch.clamp(padded_t, min=0), img_pos, n_img,
                              P_exp)
     else:

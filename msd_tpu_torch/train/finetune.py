@@ -34,8 +34,8 @@ which the port makes ``requires_grad=False`` and no optimizer. Parameters,
 gradients and moments keep the parameters' dtype (bf16 on the card, as
 optax keeps them for the JAX CLI's bf16 load), with no fp32 master copy.
 The JAX finetuner's ``mesh`` (megatron LM specs, ZeRO-1 optimizer state)
-is not taken: this finetuner runs on one device, and sharding comes with
-the port's parallel modules (``torch.distributed``).
+is not taken yet: this finetuner runs on one device. The specs exist
+(``parallel/sharding``); the sharded training step is ROADMAP M18b.
 """
 
 from __future__ import annotations
@@ -145,8 +145,7 @@ def _seq_terms(params: Dict, cfg: LlamaConfig, n_img: int, ids, clip_feats,
     if has_img:
         proj = tree_map(lambda t: t.float(), params["projector"])
         feats = projector_apply(proj, clip_feats.float())
-        fused = fuse_embeddings(tp["embed_tokens"], ids, feats, img_pos,
-                                P_exp)
+        fused = fuse_embeddings(tp, ids, feats, img_pos, P_exp)
         exp_ids = expand_ids(safe, img_pos, n_img, P_exp)
     else:
         fused = tp["embed_tokens"][safe.long()]

@@ -95,8 +95,10 @@ class DraftTrainer:
     target's ``head_w``; the caller's tensors are not modified.
 
     The JAX trainer's ``mesh`` (ZeRO-style sharding over a device mesh)
-    is not taken: this trainer runs on one device, and sharding comes with
-    the port's parallel modules (``torch.distributed``)."""
+    is not taken yet: this trainer runs on one device. The mesh and the
+    parameter specs exist (``parallel/sharding``); the sharded step, with
+    ``shard_opt_state_zero`` and autograd through the collectives, is
+    ROADMAP M18b."""
 
     def __init__(self, dcfg: DraftConfig, dparams: Dict,
                  head_w: torch.Tensor, tc: TrainerConfig = TrainerConfig(),

@@ -135,5 +135,6 @@ def test_expand_and_fuse_match_jax(img_pos, n_img):
                                  out_len)))
     ref = JV.fuse_embeddings(jnp.asarray(table), jnp.asarray(ids),
                              jnp.asarray(feats), img_pos, out_len)
-    out = TV.fuse_embeddings(_t(table), _t(ids), _t(feats), img_pos, out_len)
+    out = TV.fuse_embeddings({"embed_tokens": _t(table)}, _t(ids), _t(feats),
+                             img_pos, out_len)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
