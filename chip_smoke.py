@@ -204,8 +204,9 @@ prints no result):
    gloo takes the CUDA tensors as they are). (a) TP=2 at LLaVA-1.5-7B
    width, all 32 layers, the main path's seeded weights (bf16, fp32
    residual), prompt 0 and medusa drafts, sharded by
-   ``shard_params``: eager MSD, null-draft MSD and AR, ``MAX_NEW`` tokens
-   each, against rank 0's single-device run of the same weights; (c) the
+   ``shard_params``: eager MSD, null-draft MSD and AR, ``PARALLEL_NEW``
+   tokens each, against rank 0's single-device run of the same weights;
+   (c) the
    GPipe pipeline (2 stages, 2 microbatches) and both sequence modes (2
    shards) over 4 layers x 640 rows at 7B width in the same two ranks;
    (b) TP=4 at LLaVA-13B geometry (2 layers) in a world of four: MSD,
@@ -221,7 +222,18 @@ prints no result):
    on every rank, and ``cuda_graphs=True`` under TP is refused. K1 is
    held to its twin and timed at 16 and 10 local heads. ms per MSD step
    and AR token, the share in collectives, peak memory per rank: the
-   ranks share one card, so no time is a TP speed-up.
+   ranks share one card, so no time is a TP speed-up. Then, in (b)'s
+   world on a (data 2, model 2) mesh: (d) ``DraftTrainer(mesh=)`` at the
+   main path's draft width, fp32, 3 steps at batch 4 x 256 rows with
+   noise, and (e) ``LlavaFinetuner(mesh=)`` stage 2 at 7B width cut to 2
+   layers, bf16, 2 steps (``PARALLEL_TRAIN``), each against rank 0's
+   one-device trainer; fails unless (d)'s applied step-0 gradient, moves
+   and metrics and (e)'s losses and moves lie within their bounds
+   (``PARALLEL_TRAIN_TOL``, ``PARALLEL_FT_TOL``), both planted faults
+   (``f_identity``, ``local_means``) lie beyond the gradient's, each
+   rank holds half its TP shard's moment bytes and (e)'s LM moments half
+   its layers, and K1 launches 0 times there. Prints the ZeRO saving per
+   rank and the collectives' share of a sharded step.
 15. 13b (``run_13b``), after every 7B tensor is released: LLaVA-13B with an
    int8 target (40 layers, hidden 5120, 40 heads) and two bf16 medusa
    drafts initialised on the card from seeded generators, the target
@@ -318,8 +330,7 @@ TOL = {"bfloat16": (2 ** -10, 2 ** -7), "float32": (1e-5, 1e-5)}
 # extended tier joined [harness_ext] and [qwen], 40 until [parallel]
 # joined: cut to keep it inside its time limit; the main path's,
 # [calib]'s, [sampling]'s, [distill]'s collection, [eagle]'s, [serve]'s
-# continuous and stream runs, [quant]'s and [parallel]'s TP=2 runs read
-# it)
+# continuous and stream runs and [quant]'s read it)
 MAX_SEQ, MAX_NEW, N_IMG, PROMPT_TOKENS = 1152, 24, 576, 64
 WIDTHS = (10, 8, 6, 5, 4, 3, 2, 2, 2, 1, 1, 1, 1, 1)
 ROUND_BITS, HEAD_SHARPEN = 6, 6.0
@@ -7496,7 +7507,7 @@ def run_train(ckpt: str, root: str, device="cuda", pad_to: int = 256,
     # the planted fault: stage 1 with the LM's set_to_zero dropped
     ft = FT.LlavaFinetuner(tcfg, bundle, n_img, fc1,
                            max_exp_len=ft2_pad + n_img - 1)
-    ft.opt = FT.make_finetune_optimizer(
+    ft.opt, ft.zero = FT.make_finetune_optimizer(
         dataclasses.replace(fc1, tune_mm_mlp_adapter=False), bundle)
     fb = list(FT.batches_from_finetune_records(
         ft_recs[ft2_pad], 1, np.random.default_rng(2), n_img,
@@ -7625,6 +7636,9 @@ def _same_request(label, a, b):
 
 # the TP=4 run's depth at 13B geometry (dryrun_multichip's cut: 2 layers)
 PARALLEL_13B_LAYERS = 2
+# (a)'s new tokens: MAX_NEW until the training parts (d), (e) joined the
+# phase, cut to keep the smoke inside its time limit
+PARALLEL_NEW = 16
 # (c): layers, rows and pipeline microbatches at 7B width
 PARALLEL_PP_LAYERS, PARALLEL_ROWS, PARALLEL_MICRO = 4, 640, 2
 # The first decode row's TP logits against the single-device row:
@@ -7948,10 +7962,13 @@ def tp_split_ok(split, tie: float, row_tol: float) -> bool:
 def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
     """[parallel] (b): TP=world at 13B geometry (``PARALLEL_13B_LAYERS``
     layers), seeded bf16 target and medusa drafts, one image prompt: MSD,
-    null-draft MSD and AR on this rank's slices. Writes rank<r>.pt."""
+    null-draft MSD and AR on this rank's slices; then (d) and (e), the
+    trainers on a (data 2, model 2) mesh of the same ranks
+    (``_mesh_train_part``). Writes rank<r>.pt."""
     import torch
     from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
     from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
     from msd_tpu_torch.ops.sampling import SamplingParams
     from msd_tpu_torch.parallel.sharding import (draft_param_specs,
                                                  llama_param_specs,
@@ -7960,6 +7977,16 @@ def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
     device, dtype = setup["device"], getattr(torch, setup["dtype"])
     sync = torch.cuda.synchronize if device.startswith("cuda") \
         else (lambda: None)
+    warm = None
+    if rank == 0:
+        # (d)'s one-device reference checkpoints its medusa heads, and the
+        # first non-reentrant checkpoint imports torch._dynamo (~9 s on
+        # the card's host): import it while (b) runs
+        import importlib
+        import threading
+        warm = threading.Thread(target=importlib.import_module,
+                                args=("torch._dynamo",))
+        warm.start()
     _rank_setup(rank, world, port, device)
     cfg, widths, n_img = setup["cfg"], setup["widths"], setup["n_img"]
     mesh = make_mesh(world, dp=1, tp=world)
@@ -7988,7 +8015,476 @@ def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
     out = {"rank": rank, "launches": runs["launches"], "peak": _peak(device),
            "tp": {k: {f: v for f, v in runs[k].items() if f != "rows"}
                   for k in ("msd", "null", "ar")}}
+    del gen, tps, dps
+    gc.collect()
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # (d) and (e) in the same world: no spawn of their own
+    if warm is not None:
+        warm.join()
+    K1.decode_attention.launches = 0
+    out["train"] = _mesh_train_part(rank, world, setup)
+    out["train_launches"] = K1.decode_attention.launches
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# (d) and (e): training under a (data 2, model 2) mesh in (b)'s world of
+# four. (d) DraftTrainer at the main path's draft width (one EAGLE layer
+# at LLaVA-1.5-7B width, its 13 medusa heads, fp32 as [distill] trains
+# it): ``batch`` records of ``rows`` rows, ``steps`` steps; (e)
+# LlavaFinetuner stage 2 (bf16) at 7B width cut to ``ft_layers`` layers,
+# ``ft_steps`` steps at batch 2 of ``ft_img`` image rows plus a
+# ``ft_text``-token conversation.
+PARALLEL_TRAIN = dict(rows=256, batch=4, steps=3, medusa=13,
+                      ft_layers=PARALLEL_13B_LAYERS, ft_img=576, ft_text=64,
+                      ft_steps=2)
+# The loss-mask shares of the (d) records' rows: unequal mask counts on
+# the two data shards of any pairing (of 256-row records 232, 193, 145
+# and 87 rows: sums 425/232, 377/280, 319/338)
+PARALLEL_TRAIN_MASKS = (0.9375, 0.78125, 0.5859375, 0.3515625)
+# (d) gates, fp32 on one card (TF32 off): per trained leaf ||sharded -
+# one device|| / ||one device|| of the step-0 gradient, and of each
+# leaf's move over the steps (Adam turns an ulp-level gradient change
+# into a change of lr x a ratio, so the moves keep less of fp32's
+# precision than the gradients); the metrics of each step, relative.
+PARALLEL_TRAIN_TOL = {"grad": 1e-4, "move": 1e-2, "metric": 1e-5}
+# (e) gates, bf16: each step's loss, relative, and each leaf's move over
+# the steps as above. TP rounds the o_proj and down_proj products as two
+# bf16 partial products summed in fp32 and rounded once (PARALLEL_ROW_TOL's
+# cause) and the sharded gradient sums round in another order, so the
+# loss moves by a few bf16 ulps of itself and a bf16 parameter whose
+# update lands near a rounding boundary rounds the other way: a move
+# then differs by one ulp of its parameter, about a tenth of the move
+# at lr 1e-3.
+PARALLEL_FT_TOL = {"loss": 2 ** -6, "move": 2 ** -2}
+
+
+@contextlib.contextmanager
+def f_identity():
+    """Planted fault of (d): megatron's *f* (``comm.copy_to``) is the
+    identity in the backward too, so upstream of a column-parallel
+    product each rank keeps only its own heads' share of the gradient."""
+    from msd_tpu_torch.parallel import comm
+
+    orig = comm.copy_to
+    comm.copy_to = lambda x, mesh, axis="model": x
+    try:
+        yield
+    finally:
+        comm.copy_to = orig
+
+
+@contextlib.contextmanager
+def local_means():
+    """Planted fault of (d): the loss as the mean of the data ranks' local
+    means (each rank's masked means over its own rows; the gradients
+    averaged over ``data``), which differs from the global batch's mean
+    wherever the shards hold different mask counts."""
+    from msd_tpu_torch.parallel import comm, sharding
+    from msd_tpu_torch.train import draft_train as DT
+
+    orig = DT.data_total, sharding.reduce_grads
+
+    def mean_grads(grads, mesh):
+        for g in grads:
+            comm.all_reduce_(g, mesh, "data").div_(mesh.shape["data"])
+
+    DT.data_total = lambda x, mesh: x
+    sharding.reduce_grads = mean_grads
+    try:
+        yield
+    finally:
+        DT.data_total, sharding.reduce_grads = orig
+
+
+def mesh_train_records(rows: int, hidden: int, masks, seed: int) -> list:
+    """Seeded draft-training records of ``rows`` rows, record i's loss
+    mask on the share ``masks[i]`` of rows 4 .. rows - 4; record 0 has an
+    image span."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, share in enumerate(masks):
+        m = np.zeros((rows,), np.float32)
+        m[4:4 + int(share * (rows - 8))] = 1.0
+        img = np.zeros((rows,), bool)
+        if i == 0:
+            img[2:2 + rows // 4] = True
+        out.append({k: rng.standard_normal((rows, hidden), np.float32) * sc
+                    for k, sc in (("emb_next", 0.02), ("hidden", 1.0),
+                                  ("target", 1.0))})
+        out[-1].update(loss_mask=m, attn_len=np.int32(rows - 4 * i),
+                       img_mask=img)
+    return out
+
+
+def trainer_grads(tr, batch) -> tuple:
+    """(the gradient tree of a DraftTrainer's loss at its current
+    parameters on the global ``batch``, no noise, the loss): under the
+    trainer's mesh each data rank's rows, summed over ``data``: this
+    rank's blocks of the gradient (every rank of the mesh calls it)."""
+    import torch
+    from msd_tpu_torch.parallel import sharding
+    from msd_tpu_torch.train import draft_train as DT
+    from msd_tpu_torch.train.trainer import data_rows, tree_map
+
+    t = tr.tc.train
+    if tr.mesh is not None:
+        batch = data_rows(batch, tr.mesh)
+    leaves = DT.trained_leaves(t, tr.params)
+    v, pl, _, _ = DT.draft_loss(tr.params, tr.dcfg, tr.head_w, batch,
+                                tr.cos_t, tr.sin_t,
+                                rollout_steps=t.rollout_steps,
+                                rollout_w=t.rollout_w, v_norm=t.v_norm,
+                                medusa_w=t.medusa_w)
+    loss = t.v_w * v + t.p_w * pl
+    loss.backward()
+    if tr.mesh is not None:
+        sharding.reduce_grads([p.grad for p in leaves if p.grad is not None],
+                              tr.mesh)
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p),
+                     {k: x for k, x in tr.params.items() if k != "mesh"})
+    for p in leaves:
+        p.grad = None
+    return grads, float(loss.detach())
+
+
+def tree_rel(got: dict, ref: dict, base: dict = None) -> dict:
+    """Per tensor of ``ref``: ||got - ref|| / ||ref|| (of ``got - base``
+    and ``ref - base`` when ``base`` is given: the moves), in fp32; a
+    tensor whose reference is zero is left out."""
+    from msd_tpu_torch.bridge import flatten
+
+    fg, fr = flatten(got), flatten(ref)
+    fb = flatten(base) if base is not None else {}
+    out = {}
+    for k, r in fr.items():
+        g, r = fg[k].float(), r.float()
+        if k in fb:
+            g, r = g - fb[k].float(), r - fb[k].float()
+        den = float(r.norm())
+        if den > 0:
+            out[k] = float((g - r).norm()) / den
+    return out
+
+
+def _mesh_draft(rank: int, setup: dict, mesh, sync) -> dict:
+    """(d) on one rank: rank 0 first runs the one-device DraftTrainer (the
+    loss's gradient without noise, then the steps, keeping the gradient
+    step 0 applied); every rank then runs the sharded trainer's gradient
+    under each planted fault, and the steps under ``comm.metered``. Rank 0
+    returns the comparisons over its blocks, every rank its ZeRO bytes
+    and timings."""
+    import torch
+    from msd_tpu_torch.bridge import flatten
+    from msd_tpu_torch.configs import DraftConfig
+    from msd_tpu_torch.models import draft as D
+    from msd_tpu_torch.parallel import comm
+    from msd_tpu_torch.parallel.sharding import shard_params
+    from msd_tpu_torch.train.draft_train import TrainConfig
+    from msd_tpu_torch.train.trainer import (Batch, DraftTrainer,
+                                             TrainerConfig, prepad_records,
+                                             tree_map)
+
+    device = setup["device"]
+    walls = {}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        """Rank 0's seconds of each part (``walls``)."""
+        nonlocal t_part
+        sync()
+        walls[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    tr_cfg, pt = setup["train_cfg"], setup["train"]
+    dcfg = DraftConfig(text=tr_cfg, medusa_heads=pt["medusa"])
+    g = torch.Generator(device=device).manual_seed(21)
+    dp = D.init_draft_params(dcfg, g, device, torch.float32)
+    dp["medusa"] = D.init_medusa_params(dcfg, g, device, torch.float32)
+    head = torch.randn(tr_cfg.hidden_size, tr_cfg.vocab_size, generator=g,
+                       device=device).mul_(tr_cfg.hidden_size ** -0.5)
+    recs = mesh_train_records(pt["rows"], tr_cfg.hidden_size,
+                              PARALLEL_TRAIN_MASKS[:pt["batch"]], 22)
+    data = prepad_records(recs, pt["rows"], device)
+    batch = Batch(**{k: data[k] for k in Batch._fields})
+    tc = TrainerConfig(
+        train=TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                          grad_clip=0.05, noise_std=0.2, noise_rel=0.01,
+                          v_norm=True, medusa_w=0.2),
+        batch_size=pt["batch"], max_len=pt["rows"], num_epochs=pt["steps"],
+        log_every=10 ** 9)
+    out = {}
+
+    def epochs(tr, keep: bool) -> tuple:
+        """(each step's metrics, with ``keep`` a copy of this rank's blocks
+        of the gradient step 0 applied: summed over ``data``, clipped)."""
+        ms, g0 = [], None
+        for i in range(pt["steps"]):
+            m = tr.run_epoch([], recs, log=lambda *a: None)
+            ms.append({k: m[k] for k in ("loss", "vloss", "ploss",
+                                         "top1_agree", "medusa1_agree")})
+            if i == 0 and keep:
+                g0 = tree_map(lambda p: p.grad.clone() if p.grad is not None
+                              else torch.zeros_like(p),
+                              {k: v for k, v in tr.params.items()
+                               if k != "mesh"})
+        sync()
+        return ms, g0
+
+    lap("init")
+    ref = None
+    if rank == 0:
+        one = DraftTrainer(dcfg, dp, head, tc, device)
+        # the faults' reference: the loss's gradient without noise
+        grads, _ = trainer_grads(one, batch)
+        lap("one-device gradient")
+        t0 = time.perf_counter()
+        metrics, g0 = epochs(one, True)
+        ref = {"grads": grads, "metrics": metrics, "g0": g0,
+               "step_s": (time.perf_counter() - t0) / pt["steps"],
+               "params": one.gathered_params()}
+        del one
+    lap("one-device steps")
+    tr = DraftTrainer(dcfg, dp, head, tc, device, mesh=mesh)
+    del head
+    if rank != 0:
+        del dp
+    lap("sharded trainer")
+    if rank == 0:
+        out["grad_norm"] = [float(torch.sqrt(sum(
+            torch.sum(x.float() ** 2) for x in flatten(ref[k]).values())))
+            for k in ("grads", "g0")]
+        # rank 0's blocks of the one-device gradients
+        for k in ("grads", "g0"):
+            ref[k] = {n: v for n, v in shard_params(
+                ref[k], tr.specs, mesh).items() if n != "mesh"}
+    faults = {}
+    for name, fault in (("f identity", f_identity),
+                        ("local means", local_means)):
+        with fault():
+            local, _ = trainer_grads(tr, batch)
+        faults[name] = tree_rel(local, ref["grads"]) if rank == 0 else None
+        del local
+    lap("fault gradients")
+    with comm.metered() as meter:
+        t0 = time.perf_counter()
+        metrics, g0 = epochs(tr, rank == 0)
+        secs = time.perf_counter() - t0
+    out["step_s"] = secs / pt["steps"]
+    out["comm_share"] = meter.seconds / secs
+    out["comm_calls"] = meter.calls / pt["steps"]
+    out["comm_gb"] = meter.bytes / pt["steps"] / 1e9
+    out["zero_bytes"] = tr.zero.moment_bytes(tr.opt)
+    lap("steps")
+    params = tr.gathered_params()
+    lap("gather")
+    out["walls"] = walls
+    if rank == 0:
+        out["ref_step_s"] = ref["step_s"]
+        out["grad_rel"] = tree_rel(g0, ref["g0"])
+        out["fault_grad_rel"] = faults
+        out["metrics"] = (metrics, ref["metrics"])
+        out["move_rel"] = tree_rel(params, ref["params"], dp)
+        out["embed_frozen"] = bool(torch.equal(params["embed_tokens"],
+                                               dp["embed_tokens"]) and
+                                   torch.equal(ref["params"]["embed_tokens"],
+                                               dp["embed_tokens"]))
+    return out
+
+
+def _mesh_finetune(rank: int, setup: dict, mesh, sync) -> dict:
+    """(e) on one rank: LlavaFinetuner stage 2 (bf16) one-device on rank
+    0, then sharded on every rank, over the same batches of one image
+    conversation per data rank. Rank 0 returns the comparisons; every
+    rank its LM moment layout and timings."""
+    import torch
+    from msd_tpu_torch.configs import ClipVisionConfig, LlavaConfig
+    from msd_tpu_torch.harness.models.llava_msd import SimpleTokenizer
+    from msd_tpu_torch.models import llama as L
+    from msd_tpu_torch.models import llava as LV
+    from msd_tpu_torch.parallel import comm
+    from msd_tpu_torch.train import finetune as FT
+
+    device, dtype = setup["device"], getattr(torch, setup["dtype"])
+    pt = setup["train"]
+    cfg = dataclasses.replace(setup["train_cfg"],
+                              num_hidden_layers=pt["ft_layers"])
+    lcfg = LlavaConfig(text=cfg, vision=setup.get("train_vision")
+                       or ClipVisionConfig())
+    n_img = pt["ft_img"]
+
+    def bundle():
+        g = torch.Generator(device=device).manual_seed(23)
+        return {"target": L.init_llama_params(cfg, g, device, dtype),
+                "projector": LV.init_projector_params(lcfg, g, device,
+                                                      dtype)}
+
+    tok = SimpleTokenizer(vocab_size=cfg.vocab_size)
+    rng = np.random.default_rng(24)
+    records = [FT.make_finetune_record(
+        tok, [(f"what is {i}?", "a red square on a blue line")],
+        rng.standard_normal((n_img, lcfg.mm_hidden_size), np.float32),
+        n_img, pt["ft_text"], system="") for i in range(2 * pt["ft_steps"])]
+    batches = list(FT.batches_from_finetune_records(
+        records, 2, np.random.default_rng(25), n_img, lcfg.mm_hidden_size,
+        device=device))
+    fc = FT.FinetuneConfig(lr=1e-3, warmup_steps=0, total_steps=10,
+                           grad_clip=1.0, mm_projector_lr=2e-3)
+    out = {"mask_rows": [float(b.tgt_mask.sum()) for b in batches],
+           "dtype": setup["dtype"]}
+
+    def steps(ft) -> list:
+        losses = []
+        for b in batches:
+            losses.append(float(ft.step(b)["loss"]))
+        sync()
+        return losses
+
+    ref = None
+    if rank == 0:
+        init = bundle()
+        base = {k: {n: (t.clone() if not isinstance(t, dict) else
+                        {m: u.clone() for m, u in t.items()})
+                    for n, t in v.items()} for k, v in init.items()}
+        one = FT.LlavaFinetuner(cfg, init, n_img, fc, pt["ft_text"] + n_img)
+        t0 = time.perf_counter()
+        ref = {"losses": steps(one)}
+        ref["step_s"] = (time.perf_counter() - t0) / len(batches)
+        ref["params"] = one.gathered_params()
+        del one, init
+    ft = FT.LlavaFinetuner(cfg, bundle(), n_img, fc, pt["ft_text"] + n_img,
+                           mesh=mesh)
+    q = ft.params["target"]["layers"]["q_proj"]
+    z = ft.zero["lm"]
+    i = next(i for i, p in enumerate(z.leaves) if p is q)
+    with comm.metered() as meter:
+        t0 = time.perf_counter()
+        losses = steps(ft)
+        secs = time.perf_counter() - t0
+    out["q_proj"] = tuple(q.shape)
+    out["q_proj_moment"] = tuple(
+        ft.opt["lm"].state[z.slices[i]]["exp_avg"].shape)
+    out["step_s"] = secs / len(batches)
+    out["comm_share"] = meter.seconds / secs
+    out["zero_bytes"] = [zz.moment_bytes(ft.opt[n])
+                         for n, zz in sorted(ft.zero.items())]
+    params = ft.gathered_params()
+    if rank == 0:
+        out["ref_step_s"] = ref["step_s"]
+        out["losses"] = (losses, ref["losses"])
+        out["move_rel"] = tree_rel(params, ref["params"], base)
+    return out
+
+
+def _mesh_train_part(rank: int, world: int, setup: dict) -> dict:
+    """(d) and (e) on a (data 2, model 2) mesh of (b)'s ranks."""
+    import torch
+    from msd_tpu_torch.parallel.sharding import make_mesh
+
+    device = setup["device"]
+    sync = torch.cuda.synchronize if device.startswith("cuda") \
+        else (lambda: None)
+    mesh = make_mesh(world, dp=2, tp=2)
+    t0 = time.perf_counter()
+    out = {"draft": _mesh_draft(rank, setup, mesh, sync)}
+    out["draft_s"] = time.perf_counter() - t0
+    gc.collect()
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["finetune"] = _mesh_finetune(rank, setup, mesh, sync)
+    out["finetune_s"] = time.perf_counter() - t0
+    out["peak"] = _peak(device)
+    return out
+
+
+def check_mesh_train(outs13: list, where: str, layers: int) -> dict:
+    """Gate (d) and (e) (rank 0's comparisons, every rank's layout);
+    raises where one fails or a planted fault passes."""
+    o = outs13[0]["train"]
+    d, e = o["draft"], o["finetune"]
+    tol = PARALLEL_TRAIN_TOL
+    res = {"draft_s": o["draft_s"], "finetune_s": o["finetune_s"]}
+    grad = max(d["grad_rel"].values())
+    move = max(d["move_rel"].values())
+    metric = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                 for a, b in zip(*d["metrics"]) for k in b)
+    faults = {k: max(v.values()) for k, v in d["fault_grad_rel"].items()}
+    held, whole, repl = d["zero_bytes"]
+    res.update(grad_rel=grad, move_rel=move, metric_rel=metric,
+               fault_rel=faults, zero_bytes=(held, whole, repl),
+               comm_share=d["comm_share"], step_s=d["step_s"],
+               ref_step_s=d["ref_step_s"])
+    log(f"[parallel] (d) DraftTrainer(mesh=(2, 2)) on {where}: the "
+        f"gradient step 0 applied (summed over data, clipped), max "
+        f"||sharded - one device|| / ||one device|| over rank 0's blocks "
+        f"{grad:.3e} (bound {tol['grad']:.0e}; the clip at 0.05 binds: "
+        f"norm {d['grad_norm'][0]:.3f} without noise, {d['grad_norm'][1]:.3f}"
+        f" as applied); the loss's gradient without noise "
+        f"under the planted faults " + ", ".join(
+            f"{k} {v:.3e}" for k, v in faults.items())
+        + f"; moves over {len(d['metrics'][0])} steps {move:.3e} (bound "
+        f"{tol['move']:.0e}); metrics {metric:.3e} (bound "
+        f"{tol['metric']:.0e})")
+    for x in outs13:
+        h, w, r = x["train"]["draft"]["zero_bytes"]
+        log(f"[parallel] (d) ZeRO-1 rank {x['rank']}: {h}/{r} AdamW moment "
+            f"bytes against the replicated moments ({r / max(h, 1):.1f}x "
+            f"saving; {w / max(h, 1):.1f}x against its TP shard's)")
+    log(f"[parallel] (d) sharded step {d['step_s']:.2f}s ({d['comm_share']:.3f}"
+        f" of it in {d['comm_calls']:.0f} collectives, {d['comm_gb']:.2f} GB "
+        f"summed), one device {d['ref_step_s']:.2f}s; the four ranks share "
+        f"one card over gloo; rank 0's parts (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in d["walls"].items()))
+    if not grad <= tol["grad"]:
+        raise AssertionError(f"[parallel] (d) sharded gradient off the one "
+                             f"device's: {d['grad_rel']}")
+    for k, v in faults.items():
+        if not v > tol["grad"]:
+            raise AssertionError(f"[parallel] (d) the planted fault ({k}) "
+                                 f"passed the gradient gate")
+    if not (move <= tol["move"] and metric <= tol["metric"]
+            and d["embed_frozen"]):
+        raise AssertionError(f"[parallel] (d) sharded steps off the one "
+                             f"device's: moves {d['move_rel']}, metrics "
+                             f"{d['metrics']}, embed frozen "
+                             f"{d['embed_frozen']}")
+    if not all(x["train"]["draft"]["zero_bytes"][0] * 2
+               == x["train"]["draft"]["zero_bytes"][1] for x in outs13):
+        raise AssertionError("[parallel] (d) a rank's moments are not half "
+                             "its TP shard's")
+    ftol = PARALLEL_FT_TOL
+    mine, one = e["losses"]
+    loss = max(abs(a - b) / abs(b) for a, b in zip(mine, one))
+    fmove = max(e["move_rel"].values())
+    res.update(ft_loss_rel=loss, ft_move_rel=fmove, ft_step_s=e["step_s"],
+               ft_ref_step_s=e["ref_step_s"], ft_comm=e["comm_share"],
+               ft_zero=e["zero_bytes"])
+    log(f"[parallel] (e) LlavaFinetuner(mesh=(2, 2)) stage 2, {layers} "
+        f"layers {e['dtype']}, batch 2 of {e['mask_rows']} masked rows: "
+        f"losses "
+        f"{mine} against one device's {one}, max relative {loss:.3e} "
+        f"(bound {ftol['loss']:.3e}); moves {fmove:.3e} (bound "
+        f"{ftol['move']:.3e}); step {e['step_s']:.2f}s "
+        f"({e['comm_share']:.3f} in collectives), one device "
+        f"{e['ref_step_s']:.2f}s; LM q_proj {e['q_proj']} has moments "
+        f"{e['q_proj_moment']} per rank; ZeRO (held, TP shard's, "
+        f"replicated) bytes per group {e['zero_bytes']}")
+    if not (loss <= ftol["loss"] and fmove <= ftol["move"]):
+        raise AssertionError(f"[parallel] (e) sharded finetune off the one "
+                             f"device's: losses {e['losses']}, moves "
+                             f"{e['move_rel']}")
+    for x in outs13:
+        q, m = x["train"]["finetune"]["q_proj"], \
+            x["train"]["finetune"]["q_proj_moment"]
+        if m != (q[0] // 2,) + tuple(q[1:]):
+            raise AssertionError(f"[parallel] (e) rank {x['rank']}: LM "
+                                 f"q_proj {q} has moments {m}, not half "
+                                 f"its layers")
+    return res
 
 
 def _ranks(out_dir: str, world: int) -> list:
@@ -8010,11 +8506,12 @@ def _same_on_ranks(label: str, outs: list, get) -> None:
 
 def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
                  widths=WIDTHS, max_seq: int = MAX_SEQ,
-                 max_new: int = MAX_NEW, new_13b: int = NEW_13B,
+                 max_new: int = PARALLEL_NEW, new_13b: int = NEW_13B,
                  n_img: int = N_IMG, prompt_tokens: int = PROMPT_TOKENS,
                  pp_layers: int = PARALLEL_PP_LAYERS,
                  rows: int = PARALLEL_ROWS, micro: int = PARALLEL_MICRO,
-                 tie: float = HARNESS_TIE) -> dict:
+                 tie: float = HARNESS_TIE, train_cfg=None,
+                 train: dict = PARALLEL_TRAIN, train_vision=None) -> dict:
     """``[parallel]``: (a) TP=2 at the main path's full width, (c) the
     pipeline and sequence parallelism, both in one world of two ranks,
     then (b) TP=4 at 13B geometry in a world of four, all spawned on the
@@ -8030,7 +8527,12 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
     K1 launches per rank = layers x AR tokens decoded; the pipeline and
     both sequence modes within ``PARALLEL_FWD_TOL`` of
     ``llama_forward_nocache`` and bitwise equal on every rank;
-    ``cuda_graphs=True`` over gloo refused."""
+    ``cuda_graphs=True`` over gloo refused. Then (d) and (e) in (b)'s
+    world (``check_mesh_train``): ``DraftTrainer`` and ``LlavaFinetuner``
+    on a (data 2, model 2) mesh against one device (``train_cfg``, the
+    7B width by default; ``train`` the schedule, ``PARALLEL_TRAIN``), K1
+    launching 0 times there; both planted faults (``f_identity``,
+    ``local_means``) must fail the gradient gate."""
     import torch
     from msd_tpu_torch.configs import LlamaConfig
 
@@ -8053,10 +8555,12 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
             card, "TP=4 AR row (13B geometry, 10 local heads)",
             cfg13.num_attention_heads // 4, cfg13.num_key_value_heads // 4,
             672, 1280, LlamaConfig.llava_13b().num_hidden_layers)
+    train_cfg = train_cfg or LlamaConfig.llava_7b()
     setup = dict(device=str(device), dtype=dtype, tcfg=tcfg, widths=widths,
                  max_seq=max_seq, max_new=max_new, n_img=n_img,
                  prompt_tokens=prompt_tokens, pp_layers=pp_layers, rows=rows,
-                 micro=micro)
+                 micro=micro, train_cfg=train_cfg, train=dict(train),
+                 train_vision=train_vision)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         _spawn(_tp_main_rank, 2, setup, d)
@@ -8175,6 +8679,18 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
             + (f"; peak per rank " + ", ".join(
                 f"{p / 2**30:.2f}" for p in res['timing'][label]['peak'])
                + " GiB" if on_card else ""))
+    # (d) and (e)
+    counts = [x["train_launches"] for x in outs13]
+    log(f"[parallel] (d, e): K1 launches per rank {counts}, expected 0 "
+        f"(training attends through masked_attention)")
+    if any(counts):
+        raise AssertionError(f"[parallel] K1 ran in sharded training: "
+                             f"{counts}")
+    res["train_launches"] = counts[0]
+    res["train"] = check_mesh_train(outs13, where, train["ft_layers"])
+    t = res["train"]
+    log(f"[walls] parallel train (d) {t['draft_s']:.1f}s, (e) "
+        f"{t['finetune_s']:.1f}s (inside parallel's four-rank world)")
     res["shard_gib"] = o["shard_bytes"] / 2**30
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[parallel] shards {res['shard_gib']:.2f} GiB per rank (TP=2, "
@@ -8283,6 +8799,7 @@ def run_all(root: str):
     lap("parallel")
     k1["ar_tp2"] = dict(par["k1_tp2"], launches=par["launches_tp2"])
     k1["ar_13b_tp4"] = dict(par["k1_tp4"], launches=par["launches_tp4"])
+    k1["parallel_train_launches"] = par["train_launches"]
     train = run_train(weights["ckpt"], root)
     lap("train")
     shutil.rmtree(root, ignore_errors=True)

@@ -13,12 +13,10 @@ default). The Qwen configs live with their models
 decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``,
 ``models/qwen_vl_v1.QwenVLVisionConfig``), as in the JAX package. The
 draft's fc always has a bias (``fc_bias=True``). Quantized weights are a property of the param dicts
-(``models.llama.quantize_llama_params``), not of these configs. Training
-(``train/``) runs on one device: the JAX ``DraftTrainer``'s and
-``LlavaFinetuner``'s ``mesh`` argument (ZeRO optimizer-state sharding
-over the megatron specs of ``parallel/sharding``) waits for the sharded
-training step, ROADMAP M18b. Decoding runs tensor parallel over the
-port's mesh (``parallel/``). ``LlavaConfig.s2_scales`` (S2
+(``models.llama.quantize_llama_params``), not of these configs. Decoding
+runs tensor parallel, and training (``DraftTrainer(mesh=)``,
+``LlavaFinetuner(mesh=)``, ZeRO-1 optimizer state) over a (data, model)
+mesh, as arguments (``parallel/``), not config fields. ``LlavaConfig.s2_scales`` (S2
 multi-scale features) is here; LLaVA-1.6 anyres has no config, as in the
 JAX package: its grid pinpoints, merge mode and ``image_newline`` are
 arguments (``utils/mm_utils``, ``models/llava``).
@@ -154,6 +152,10 @@ class DraftConfig:
     text: LlamaConfig = dataclasses.field(default_factory=LlamaConfig.llava_7b)
     num_layers: int = 1
     medusa_heads: int = 0
+
+    @staticmethod
+    def tiny() -> "DraftConfig":
+        return DraftConfig(text=LlamaConfig.tiny())
 
 
 @dataclass(frozen=True)

@@ -156,14 +156,18 @@ def draft_forward_nocache(params: Params, cfg: DraftConfig,
 
     hidden_in: [T, H] (already through draft_fuse); bias: [T, T] additive.
     Built from the layer's functional parts, with no in-place write on
-    autograd's path (``_layer_forward`` writes K/V into a cache)."""
-    tc = cfg.text
+    autograd's path (``_layer_forward`` writes K/V into a cache). Under a
+    mesh the layer's column-parallel inputs pass ``comm.copy_to``, so the
+    gradient that reaches ``fc`` (and, through the loss's heads, the
+    medusa heads) is the whole of it on every rank."""
+    tc, mesh = cfg.text, params.get("mesh")
     x = hidden_in
     for i in range(cfg.num_layers):
         lp = L._layer(params["layers"], i)
-        q, k, v = L._layer_qkv(lp, tc, x, positions, cos_t, sin_t, i == 0)
+        q, k, v = L._layer_qkv(lp, tc, x, positions, cos_t, sin_t, i == 0,
+                               mesh=mesh)
         x = L._layer_post_attn(lp, tc, x, masked_attention(q, k, v, bias),
-                               mesh=params.get("mesh"))
+                               mesh=mesh)
     return x
 
 

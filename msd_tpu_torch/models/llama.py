@@ -22,9 +22,13 @@ B x T rows.
 - A tensor-parallel tree (``parallel/sharding.shard_params``) holds this
   rank's slices and its mesh under ``"mesh"``: the local heads and widths
   come from the slices, the row-parallel ``o_proj`` and ``down_proj``
-  partial products are summed over ``model`` (``_row_sum``), and
-  ``embed_tokens``/``lm_head`` gather their columns (``gather_columns``).
-  Without a mesh every function computes the bits it computed before.
+  partial products are summed over ``model`` (``_row_sum``, megatron's
+  *g*), and ``embed_tokens``/``lm_head`` gather their columns
+  (``gather_columns``). The inputs of the column-parallel products
+  (q/k/v, gate/up, ``lm_head``) pass ``comm.copy_to`` (megatron's *f*),
+  so in training the gradient of everything upstream of a layer is the
+  sum of every rank's heads' shares. Without a mesh every function
+  computes the bits it computed before.
 - Qwen2 layers carry q/k/v biases ``q_bias`` [L, Hq*D], ``k_bias`` and
   ``v_bias`` [L, Hkv*D] (``models/qwen2vl``), added after the projections
   and before the head split and the rope; they are never quantized and
@@ -158,20 +162,22 @@ def tp_size(mesh) -> int:
 
 def _row_sum(y: torch.Tensor, mesh) -> torch.Tensor:
     """A row-parallel product's partial sums over ``model``, added in fp32
-    and rounded once to y's dtype (y itself without a mesh)."""
+    and rounded once to y's dtype (y itself without a mesh); the gradient
+    passes as it is (``comm.reduce_from``)."""
     if tp_size(mesh) == 1:
         return y
-    return comm.all_reduce(y.float(), mesh, "model").to(y.dtype)
+    return comm.reduce_from(y.float(), mesh, "model").to(y.dtype)
 
 
 def gather_columns(params: Params, y: torch.Tensor) -> torch.Tensor:
     """The ``model`` shards of y's last dimension, concatenated (y itself
     without a mesh in ``params``): the full rows of a column-split
-    ``embed_tokens`` or ``lm_head``, bitwise."""
+    ``embed_tokens`` or ``lm_head``, bitwise; backward, this rank's
+    columns of the gradient (``comm.gather_from``)."""
     mesh = params.get("mesh")
     if tp_size(mesh) == 1:
         return y
-    return comm.all_gather(y, mesh, "model", dim=-1)
+    return comm.gather_from(y, mesh, "model", dim=-1)
 
 
 def _w(lp: Params, name: str, dtype=None) -> torch.Tensor:
@@ -239,16 +245,16 @@ def lane_variant(params: Params, lanes: int, rows: int) -> frozenset:
 
 def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
                positions: torch.Tensor, cos_t, sin_t, skip_input_norm: bool,
-               per_lane=frozenset()):
+               per_lane=frozenset(), mesh=None):
     """Pre-attention projections. Returns (q, k, v) as [..., T, H*, D]:
     the heads of the weights' rows (this rank's local heads under
-    tensor parallelism)."""
+    tensor parallelism, their input through ``comm.copy_to``)."""
     d = cfg.head_dim
     # the draft's layer 0 skips input_layernorm (EAGLE convention)
     h = x if skip_input_norm else rms_norm(x, lp["input_layernorm"],
                                            cfg.rms_norm_eps)
     # matmuls in the param dtype even when the residual rides in fp32
-    h = h.to(lp["input_layernorm"].dtype)
+    h = comm.copy_to(h.to(lp["input_layernorm"].dtype), mesh)
     q = _proj(lp, "q_proj", h, per_lane)
     k = _proj(lp, "k_proj", h, per_lane)
     v = _proj(lp, "v_proj", h, per_lane)
@@ -275,10 +281,11 @@ def _layer_post_attn(lp: Params, cfg: LlamaConfig, resid: torch.Tensor,
                      mesh=None) -> torch.Tensor:
     """o_proj, the residual, the MLP and its residual; under a ``mesh``
     the row-parallel o_proj and down_proj products are summed over
-    ``model`` before each residual add (``_row_sum``)."""
+    ``model`` before each residual add (``_row_sum``), and the
+    column-parallel gate/up input passes ``comm.copy_to``."""
     x = resid + _attn_out(lp, attn, per_lane, mesh).to(resid.dtype)
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    h = h.to(lp["post_attention_layernorm"].dtype)
+    h = comm.copy_to(h.to(lp["post_attention_layernorm"].dtype), mesh)
     gate = F.silu(_proj(lp, "gate_proj", h, per_lane).float()).to(h.dtype)
     up = _proj(lp, "up_proj", h, per_lane)
     down = _proj(lp, "down_proj", gate * up, per_lane)
@@ -325,7 +332,7 @@ def _layer_forward(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
     start per lane) in place. Returns the new x. ``mesh``: the tensor-
     parallel mesh of the layer's slices (``_layer_post_attn``)."""
     q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t,
-                         skip_input_norm, per_lane)
+                         skip_input_norm, per_lane, mesh)
     lanes = x.dim() - 2
     rows = update_rows(kv_k.shape[-3], write_pos, x.shape[-2], x.device)
     if rows.dim() == 1:     # the same rows in every lane
@@ -389,20 +396,22 @@ def llama_forward_nocache(params: Params, cfg: LlamaConfig,
     x = embeds
     if cfg.residual_dtype is not None:
         x = x.to(getattr(torch, cfg.residual_dtype))
-    layers = params["layers"]
+    layers, mesh = params["layers"], params.get("mesh")
     names = list(layers)
     for ws in zip(*(torch.unbind(layers[n]) for n in names)):
         lp = dict(zip(names, ws))
-        q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t, False)
+        q, k, v = _layer_qkv(lp, cfg, x, positions, cos_t, sin_t, False,
+                             mesh=mesh)
         x = _layer_post_attn(lp, cfg, x, masked_attention(q, k, v, bias),
-                             mesh=params.get("mesh"))
+                             mesh=mesh)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps).to(out_dtype)
 
 
 def lm_head(params: Params, hidden: torch.Tensor,
             per_lane=frozenset()) -> torch.Tensor:
     """[..., T, H] -> [..., T, V] logits in fp32 (a column-split head's
-    columns gathered)."""
+    columns gathered; its input through ``comm.copy_to``)."""
+    hidden = comm.copy_to(hidden, params.get("mesh"))
     return gather_columns(params, _proj(params, "lm_head", hidden,
                                         per_lane)).float()
 

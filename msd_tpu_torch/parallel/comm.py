@@ -16,11 +16,29 @@ group per axis slice. Every collective here is built on one primitive,
 - The price: ``all_gather`` and ``ppermute`` each reduce a [K, ...]
   buffer, so every rank holds K times x and the wire carries K times
   x's bytes, where a native gather or send/recv would move x once.
+  ``broadcast_gather`` gathers large buffers (the ZeRO-1 slices) by K
+  native broadcasts instead, each byte crossing once.
 
 The transport is gloo (``TRANSPORT``, the default group's backend,
 ``Mesh.transport``), never switched quietly; gloo copies a CUDA tensor
 through host memory itself. NCCL waits for a machine with one card per
 rank to run it on.
+
+Training differentiates through three of them, megatron's pair and a
+gather, each a ``torch.autograd.Function`` over an axis:
+
+- ``copy_to`` (megatron's *f*): the identity forward, the sum of the
+  gradient over the axis backward. It stands before a column-parallel
+  product, whose input gradient on each rank is its local columns' share.
+- ``reduce_from`` (*g*): the sum over the axis forward, the identity
+  backward: a row-parallel product's partial sums, or a loss's numerator
+  summed over ``data``.
+- ``gather_from``: the ranks' slices concatenated forward; backward, this
+  rank's slice of the gradient (the consumer is replicated, so every rank
+  holds the whole gradient and no reduction is needed).
+
+Each is the identity on an axis of one rank. ``all_reduce`` itself is not
+differentiated: the trainers sum their gradients over ``data`` with it.
 
 ``METER`` times the collectives when it is on (``metered``): each call
 then waits for the device before and after, so its seconds are the
@@ -135,18 +153,25 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def _reduce_(buf: torch.Tensor, mesh: Mesh, group) -> None:
-    """Sum ``buf`` over ``group`` in place."""
+@contextlib.contextmanager
+def _metered(buf: torch.Tensor):
+    """Count the collective on ``buf`` inside the block into ``METER``."""
     t0 = 0.0
     if METER.enabled:
         _sync(buf)
         t0 = time.perf_counter()
-    dist.all_reduce(buf, group=group)
+    yield
     if METER.enabled:
         _sync(buf)
         METER.seconds += time.perf_counter() - t0
         METER.calls += 1
         METER.bytes += buf.numel() * buf.element_size()
+
+
+def _reduce_(buf: torch.Tensor, mesh: Mesh, group) -> None:
+    """Sum ``buf`` over ``group`` in place."""
+    with _metered(buf):
+        dist.all_reduce(buf, group=group)
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -157,6 +182,22 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     _reduce_(out, mesh, group)
     return out
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait until every rank of the mesh is here (nothing on one rank)."""
+    if mesh.size > 1:
+        dist.barrier()
+
+
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """x summed over ``axis`` in place (x contiguous); returns x. Not
+    differentiated: the trainers sum their gradients over ``data`` with
+    it."""
+    group = mesh.group(axis)
+    if group is not None:
+        _reduce_(x, mesh, group)
+    return x
 
 
 def _slots(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -179,6 +220,27 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
     if mesh.group(axis) is None:
         return x
     return torch.cat(list(_slots(x, mesh, axis)), dim=dim)
+
+
+def broadcast_gather(x: torch.Tensor, mesh: Mesh, axis: str,
+                     dim: int = 0) -> torch.Tensor:
+    """``all_gather``'s result, bitwise, by one native broadcast from each
+    rank of the axis in turn: each byte crosses once, where the slots of
+    ``all_gather`` carry K times x. For large buffers (gloo takes
+    ``broadcast`` for CUDA tensors); ranks hold the same x shape."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    parts = []
+    for j in range(mesh.shape[axis]):
+        buf = x.clone(memory_format=torch.contiguous_format) \
+            if j == mesh.coords[axis] else torch.empty_like(
+                x, memory_format=torch.contiguous_format)
+        with _metered(buf):
+            dist.broadcast(buf, src=dist.get_global_rank(group, j),
+                           group=group)
+        parts.append(buf)
+    return torch.cat(parts, dim=dim)
 
 
 def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -209,3 +271,68 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str,
         out = torch.full(x.shape, fill, dtype=x.dtype, device=x.device)
     _reduce_(out, mesh, group)
     return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.size = x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = ctx.mesh.coords[ctx.axis]
+        return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Optional[Mesh],
+            axis: str = "model") -> torch.Tensor:
+    """x forward; its gradient summed over ``axis`` backward (megatron's
+    *f*). x itself without a mesh, on an axis of one rank or where
+    autograd records nothing (the decode paths)."""
+    if mesh is None or mesh.group(axis) is None \
+            or not torch.is_grad_enabled():
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh: Optional[Mesh],
+                axis: str = "model") -> torch.Tensor:
+    """The sum of x over ``axis`` forward; the gradient as it is backward
+    (megatron's *g*). x itself without a mesh or on an axis of one
+    rank."""
+    if mesh is None or mesh.group(axis) is None:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, mesh: Optional[Mesh], axis: str = "model",
+                dim: int = -1) -> torch.Tensor:
+    """``all_gather`` of x along ``dim`` forward; this rank's slice of the
+    gradient backward. x itself without a mesh or on an axis of one
+    rank."""
+    if mesh is None or mesh.group(axis) is None:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim % x.dim())

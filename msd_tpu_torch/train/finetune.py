@@ -33,9 +33,18 @@ decay set per update (update 0 runs at lr 0); the ``lm`` group is
 which the port makes ``requires_grad=False`` and no optimizer. Parameters,
 gradients and moments keep the parameters' dtype (bf16 on the card, as
 optax keeps them for the JAX CLI's bf16 load), with no fp32 master copy.
-The JAX finetuner's ``mesh`` (megatron LM specs, ZeRO-1 optimizer state)
-is not taken yet: this finetuner runs on one device. The specs exist
-(``parallel/sharding``); the sharded training step is ROADMAP M18b.
+
+With a (data, model) ``mesh`` (``LlavaFinetuner(..., mesh=)``, every rank
+running the same calls) the LM is this rank's megatron shard
+(``llama_param_specs(cfg, stacked=True)``; the LM's collectives carry
+autograd, ``comm.copy_to``/``reduce_from``/``gather_from``, and the
+``lm_head`` log-softmax reads the gathered columns), the projector is
+replicated, each batch gives each data rank its contiguous rows, the
+mask sum is the global batch's, the gradients are summed over ``data``,
+each group is clipped by its own mesh-wide norm, and each group's AdamW
+steps this rank's ZeRO-1 slices (``shard_opt_state_zero``: the stacked
+layers' moments split over ``data`` on the layer axis), still in the
+parameters' dtype with no master copy.
 """
 
 from __future__ import annotations
@@ -52,10 +61,12 @@ from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.llava import (expand_ids, fuse_embeddings,
                                         projector_apply)
 from msd_tpu_torch.ops.attention import NEG_INF
+from msd_tpu_torch.parallel import comm, sharding
+from msd_tpu_torch.parallel.comm import Mesh
 from msd_tpu_torch.train.data_gen import (build_conversation_ids,
                                           expand_loss_mask)
 from msd_tpu_torch.train.draft_train import update_count
-from msd_tpu_torch.train.trainer import tree_map
+from msd_tpu_torch.train.trainer import data_rows, tree_map
 from msd_tpu_torch.utils.conversation import DEFAULT_VICUNA_SYSTEM
 
 
@@ -148,7 +159,7 @@ def _seq_terms(params: Dict, cfg: LlamaConfig, n_img: int, ids, clip_feats,
         fused = fuse_embeddings(tp, ids, feats, img_pos, P_exp)
         exp_ids = expand_ids(safe, img_pos, n_img, P_exp)
     else:
-        fused = tp["embed_tokens"][safe.long()]
+        fused = L.embed_tokens(tp, safe)
         exp_ids = safe
         if P_exp > Tp:
             fused = torch.cat([fused, fused.new_zeros(P_exp - Tp,
@@ -191,7 +202,8 @@ def _param_labels(params: Dict) -> Dict:
 
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+        return [t for k in sorted(tree) if k != "mesh"
+                for t in _leaves(tree[k])]
     return [tree]
 
 
@@ -207,38 +219,56 @@ def finetune_lr(fc: FinetuneConfig, lr: float, count: int) -> float:
     return lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
 
-def make_finetune_optimizer(fc: FinetuneConfig, params: Dict
-                            ) -> Dict[str, torch.optim.AdamW]:
-    """{group: AdamW} over the groups that train (``_param_labels``):
-    ``proj`` always, ``lm`` unless ``tune_mm_mlp_adapter`` or
-    ``freeze_backbone`` (optax's ``set_to_zero``). Marks every tensor of
-    ``params`` ``requires_grad`` by whether its group trains. Each group
-    keeps its base rate under ``"base_lr"``; ``finetune_step`` clips the
-    group by its own global norm and sets the scheduled rate per
-    update."""
+def make_finetune_optimizer(fc: FinetuneConfig, params: Dict,
+                            specs: Optional[Dict] = None
+                            ) -> Tuple[Dict[str, torch.optim.AdamW],
+                                       Optional[Dict]]:
+    """({group: AdamW}, {group: ZeroState} or None) over the groups that
+    train (``_param_labels``): ``proj`` always, ``lm`` unless
+    ``tune_mm_mlp_adapter`` or ``freeze_backbone`` (optax's
+    ``set_to_zero``). Marks every tensor of ``params`` ``requires_grad``
+    by whether its group trains. Each group keeps its base rate under
+    ``"base_lr"``; ``finetune_step`` clips the group by its own global
+    norm and sets the scheduled rate per update. With ``specs`` (the
+    tree's megatron specs; ``params["target"]`` carries its mesh) each
+    AdamW steps its group's ZeRO-1 slices (``shard_opt_state_zero``)."""
     lm_frozen = fc.tune_mm_mlp_adapter or fc.freeze_backbone
     proj_lr = fc.mm_projector_lr if fc.mm_projector_lr is not None else fc.lr
-    groups = {"lm": (_leaves(params["target"]), fc.lr, not lm_frozen),
-              "proj": (_leaves(params["projector"]), proj_lr, True)}
-    opts = {}
-    for name, (leaves, lr, trains) in groups.items():
+    groups = {"lm": ("target", fc.lr, not lm_frozen),
+              "proj": ("projector", proj_lr, True)}
+    opts, zero = {}, None if specs is None else {}
+    for name, (part, lr, trains) in groups.items():
+        leaves = _leaves(params[part])
         for t in leaves:
             t.requires_grad_(trains)
-        if trains:
-            opt = torch.optim.AdamW(leaves, lr=0.0, betas=(fc.b1, fc.b2),
-                                    eps=1e-8, weight_decay=fc.weight_decay,
-                                    foreach=False)
-            opt.param_groups[0]["base_lr"] = lr
-            opts[name] = opt
-    return opts
+        if not trains:
+            continue
+        if specs is not None:
+            zero[name] = sharding.shard_opt_state_zero(
+                params[part], specs[part], params["target"]["mesh"])
+            leaves = zero[name].slices
+        opt = torch.optim.AdamW(leaves, lr=0.0, betas=(fc.b1, fc.b2),
+                                eps=1e-8, weight_decay=fc.weight_decay,
+                                foreach=False)
+        opt.param_groups[0]["base_lr"] = lr
+        opts[name] = opt
+    return opts, zero
 
 
-def clip_group(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_group(grads: List[torch.Tensor], max_norm: float, mesh=None,
+               split=None) -> None:
     """optax's ``clip_by_global_norm`` over one group, in place with no
     temporaries of a gradient's size: g -> (g / |g|) * max_norm where the
-    group's global norm |g| (accumulated in fp32) >= max_norm."""
-    g_norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g).float() for g in grads]))
+    group's global norm |g| (accumulated in fp32) >= max_norm. Under a
+    ``mesh`` the grads are this rank's blocks and |g| the group's
+    mesh-wide norm (``sharding.global_sq_norm`` in fp32; ``split`` marks
+    the blocks split over ``model``)."""
+    if mesh is None or not any(split):
+        g_norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g).float() for g in grads]))
+    else:
+        g_norm = torch.sqrt(sharding.global_sq_norm(grads, split, mesh,
+                                                    torch.float32))
     if bool(g_norm >= max_norm):
         for g in grads:
             g.div_(g_norm.to(g.dtype)).mul_(max_norm)
@@ -246,19 +276,26 @@ def clip_group(grads: List[torch.Tensor], max_norm: float) -> None:
 
 def finetune_step(params: Dict, opt: Dict[str, torch.optim.AdamW],
                   cfg: LlamaConfig, fc: FinetuneConfig, n_img: int,
-                  batch: FinetuneBatch, cos_t, sin_t
-                  ) -> Dict[str, torch.Tensor]:
+                  batch: FinetuneBatch, cos_t, sin_t,
+                  zero: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """One update of ``params`` in place through ``opt``
     (``make_finetune_optimizer``). The gradient is taken one sequence at a
     time (the loss divides by the batch's mask sum, known up front), so
     one sequence's activations are alive at once. A trained tensor the
     batch gives no gradient (the projector under a text-only batch) gets
     a zero one, so its moments and count advance as optax's do. Returns
-    the batch's loss and next-token agreement as 0-dim tensors."""
+    the batch's loss and next-token agreement as 0-dim tensors. With
+    ``zero`` (the optimizer's ZeRO states; ``batch`` this rank's rows of
+    the global batch) the mask sum and the metrics are the global
+    batch's, the gradients are summed over ``data`` and clipped by the
+    mesh-wide norm, and the stepped slices are gathered back."""
+    mesh = params["target"].get("mesh")
     trained = [p for o in opt.values() for p in o.param_groups[0]["params"]]
+    if zero is not None:
+        trained += [p for z in zero.values() for p in z.leaves]
     for p in trained:
         p.grad = None
-    denom = torch.sum(batch.tgt_mask) + 1e-5
+    denom = comm.reduce_from(torch.sum(batch.tgt_mask), mesh, "data") + 1e-5
     nll_sum, agree_sum = 0.0, 0.0
     for b in range(batch.ids.shape[0]):
         nll, agree = _seq_terms(params, cfg, n_img, *_seq_args(batch, b),
@@ -267,14 +304,28 @@ def finetune_step(params: Dict, opt: Dict[str, torch.optim.AdamW],
             (nll / denom).backward()
         nll_sum = nll_sum + nll.detach()
         agree_sum = agree_sum + agree
-    for o in opt.values():
+    if zero is not None:
+        nll_sum, agree_sum = (comm.all_reduce(torch.as_tensor(
+            x, dtype=torch.float32, device=denom.device), mesh, "data")
+            for x in (nll_sum, agree_sum))
+    for name, o in opt.items():
         group = o.param_groups[0]
-        for p in group["params"]:
+        z = None if zero is None else zero[name]
+        ps = group["params"] if z is None else z.leaves
+        for p in ps:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_group([p.grad for p in group["params"]], fc.grad_clip)
+        grads = [p.grad for p in ps]
+        if z is None:
+            clip_group(grads, fc.grad_clip)
+        else:
+            sharding.reduce_grads(grads, mesh)
+            clip_group(grads, fc.grad_clip, mesh, z.split)
+            z.scatter_grads()
         group["lr"] = finetune_lr(fc, group["base_lr"], update_count(o))
         o.step()
+        if z is not None:
+            z.gather()
     for p in trained:
         p.grad = None
     return {"loss": nll_sum / denom, "next_token_agree": agree_sum / denom}
@@ -284,22 +335,49 @@ class LlavaFinetuner:
     """Finetuning driver for {target LM + mm projector} bundles.
 
     params: {"target": llama params, "projector": mlp2x params}, trained IN
-    PLACE (the caller's tensors are the finetuner's). One device; the JAX
-    finetuner's ``mesh`` is not taken (see the module docstring)."""
+    PLACE (the caller's tensors are the finetuner's) on one device. With
+    ``mesh`` (a (data, model) ``comm.Mesh``; see the module docstring)
+    the finetuner trains this rank's shard of them (``self.params``:
+    the LM's megatron slices, carrying the mesh, and a copy of the
+    projector), takes the global batch in ``step``/``run`` and gives each
+    data rank its rows; ``gathered_params`` rebuilds the full tree."""
 
     def __init__(self, cfg: LlamaConfig, params: Dict, n_img: int,
                  fc: FinetuneConfig = FinetuneConfig(),
-                 max_exp_len: int = 512):
-        self.cfg, self.fc, self.n_img = cfg, fc, n_img
+                 max_exp_len: int = 512, mesh: Optional[Mesh] = None):
+        self.cfg, self.fc, self.n_img, self.mesh = cfg, fc, n_img, mesh
+        self.specs = None
+        if mesh is not None:
+            self.specs = {"target": sharding.llama_param_specs(cfg, True),
+                          "projector": tree_map(lambda _: (),
+                                                params["projector"])}
+            params = {"target": sharding.shard_params(
+                          tree_map(torch.Tensor.detach, params["target"]),
+                          self.specs["target"], mesh),
+                      "projector": tree_map(lambda t: t.detach().clone(),
+                                            params["projector"])}
         self.params = params
-        self.opt = make_finetune_optimizer(fc, params)
+        self.opt, self.zero = make_finetune_optimizer(fc, params, self.specs)
         dev = params["target"]["embed_tokens"].device
         self.cos_t, self.sin_t = L.make_rope(cfg, max_exp_len + 8, dev)
         self.step_count = 0
 
+    def gathered_params(self) -> Dict:
+        """A copy of the full tree (under a mesh every rank must call
+        it)."""
+        if self.mesh is None:
+            return tree_map(lambda t: t.detach().clone(), self.params)
+        return {"target": sharding.gather_params(
+                    self.params["target"], self.specs["target"], self.mesh),
+                "projector": tree_map(lambda t: t.detach().clone(),
+                                      self.params["projector"])}
+
     def step(self, batch: FinetuneBatch) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            batch = data_rows(batch, self.mesh)
         metrics = finetune_step(self.params, self.opt, self.cfg, self.fc,
-                                self.n_img, batch, self.cos_t, self.sin_t)
+                                self.n_img, batch, self.cos_t, self.sin_t,
+                                self.zero)
         self.step_count += 1
         return metrics
 

@@ -26,10 +26,14 @@ import torch
 
 from msd_tpu_torch.configs import DraftConfig
 from msd_tpu_torch.models.llama import make_rope
+from msd_tpu_torch.parallel.comm import Mesh, barrier
+from msd_tpu_torch.parallel.sharding import (draft_param_specs,
+                                             gather_params, shard_opt_state_zero,
+                                             shard_params)
 from msd_tpu_torch.train.draft_train import (Batch, TrainConfig,
                                              curriculum_visual_ratio,
                                              make_optimizer, train_step,
-                                             trainable)
+                                             trainable, trained_leaves)
 
 
 @dataclass
@@ -84,37 +88,73 @@ def batches_from_records(data: Dict[str, torch.Tensor], batch_size: int,
 
 
 def tree_map(fn, tree):
-    """``fn`` over the tensors of a nested dict of parameters."""
+    """``fn`` over the tensors of a nested dict of parameters (a tree's
+    ``"mesh"`` entry, ``shard_params``', is carried over as it is)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: (v if k == "mesh" else tree_map(fn, v))
+                for k, v in tree.items()}
     return fn(tree)
+
+
+def data_rows(batch, mesh):
+    """This rank's contiguous ``batch_size / dp`` rows of each tensor of a
+    global batch (a NamedTuple) over the mesh's ``data`` axis."""
+    dp = mesh.shape["data"]
+    n = batch[0].shape[0]
+    if n % dp:
+        raise ValueError(f"batch size {n} does not split over data ({dp})")
+    rows = n // dp
+    return type(batch)(*(x.narrow(0, mesh.coords["data"] * rows, rows)
+                         for x in batch))
 
 
 class DraftTrainer:
     """Trains a copy of ``dparams`` (fp32 master weights) against the
     target's ``head_w``; the caller's tensors are not modified.
 
-    The JAX trainer's ``mesh`` (ZeRO-style sharding over a device mesh)
-    is not taken yet: this trainer runs on one device. The mesh and the
-    parameter specs exist (``parallel/sharding``); the sharded step, with
-    ``shard_opt_state_zero`` and autograd through the collectives, is
-    ROADMAP M18b."""
+    With ``mesh`` (a (data, model) ``comm.Mesh`` from
+    ``parallel/sharding.make_mesh``; every rank of it builds the trainer
+    and runs the same calls) the copy is this rank's megatron shard
+    (``draft_param_specs``), ``head_w`` is split on its columns, each
+    batch of ``batches_from_records`` (the same order on every rank) gives
+    each data rank its contiguous ``batch_size / dp`` rows, and the AdamW
+    moments are ZeRO-1 slices over ``data`` (``shard_opt_state_zero``):
+    one sharded step computes what one device computes for the global
+    batch. ``cuda_graphs`` does not apply: the trainer runs eagerly.
+    ``gathered_params`` rebuilds the full tree."""
 
     def __init__(self, dcfg: DraftConfig, dparams: Dict,
                  head_w: torch.Tensor, tc: TrainerConfig = TrainerConfig(),
-                 device=None):
-        self.dcfg, self.tc = dcfg, tc
+                 device=None, mesh: Optional[Mesh] = None):
+        self.dcfg, self.tc, self.mesh = dcfg, tc, mesh
         self.device = torch.device(device) if device is not None \
             else head_w.device
-        self.params = {}
-        for name, sub in dparams.items():
-            on = trainable(tc.train, name)
-            self.params[name] = tree_map(
-                lambda t: t.detach().to(self.device, torch.float32,
-                                        copy=True).requires_grad_(on), sub)
+        self.params = tree_map(lambda t: t.detach().to(
+            self.device, torch.float32, copy=True), dparams)
         # the loss multiplies fp32 activations by the head: cast it once
         self.head_w = head_w.to(self.device, torch.float32)
-        self.opt = make_optimizer(tc.train, self.params)
+        self.zero = None
+        if mesh is not None:
+            if tc.batch_size % mesh.shape["data"]:
+                raise ValueError(f"batch_size {tc.batch_size} does not "
+                                 f"split over data ({mesh.shape['data']})")
+            self.specs = draft_param_specs(dcfg, "fc_b" in dparams)
+            self.params = shard_params(self.params, self.specs, mesh)
+            self.head_w = shard_params({"w": self.head_w},
+                                       {"w": (None, "model")}, mesh)["w"]
+        for name, sub in self.params.items():
+            if name != "mesh":
+                tree_map(lambda t: t.requires_grad_(
+                    trainable(tc.train, name)), sub)
+        if mesh is None:
+            self.opt = make_optimizer(tc.train, self.params)
+        else:
+            self.zero = shard_opt_state_zero(
+                self.params, self.specs, mesh,
+                trained_leaves(tc.train, self.params))
+            self.opt = torch.optim.AdamW(
+                self.zero.slices, lr=0.0, betas=(tc.train.b1, tc.train.b2),
+                eps=1e-8, weight_decay=tc.train.weight_decay)
         self.cos_t, self.sin_t = make_rope(dcfg.text, tc.max_len + 8,
                                            self.device)
         self.rng = torch.Generator(device=self.device).manual_seed(0)
@@ -153,9 +193,11 @@ class DraftTrainer:
         t0 = time.time()
         for batch in batches_from_records(self._prepadded(records),
                                           self.tc.batch_size, rng):
+            if self.mesh is not None:
+                batch = data_rows(batch, self.mesh)
             metrics = train_step(self.params, self.opt, self.dcfg,
                                  self.tc.train, self.head_w, batch, self.rng,
-                                 self.cos_t, self.sin_t)
+                                 self.cos_t, self.sin_t, self.zero)
             self.step_count += 1
             count += 1
             for k, v in metrics.items():
@@ -177,33 +219,55 @@ class DraftTrainer:
         self.epoch += 1
         return out
 
+    def gathered_params(self) -> Dict:
+        """A copy of the full fp32 tree (under a mesh every rank must call
+        it: the shards are gathered over ``model``)."""
+        if self.mesh is None:
+            return tree_map(lambda t: t.detach().clone(), self.params)
+        return gather_params(self.params, self.specs, self.mesh)
+
+    def _state_file(self, path: str) -> str:
+        return os.path.join(path, "state.pt" if self.mesh is None
+                            else f"state_rank{self.mesh.rank}.pt")
+
     def save(self, tag: Optional[str] = None) -> str:
         """Write ``<ckpt_dir>/<tag or epoch_N>/``: ``state.pt`` (params and
-        optimizer state) and ``trainer.json`` (epoch, step_count)."""
+        optimizer state) and ``trainer.json`` (epoch, step_count). Under a
+        mesh each rank writes its own shard, ``state_rank<r>.pt`` (its
+        megatron slices and its ZeRO-1 optimizer state), and rank 0 the
+        json; ``restore`` on the same mesh reads them back."""
         path = os.path.abspath(os.path.join(
             self.tc.ckpt_dir, tag or f"epoch_{self.epoch}"))
         os.makedirs(path, exist_ok=True)
-        torch.save({"params": tree_map(torch.Tensor.detach, self.params),
+        params = {k: v for k, v in self.params.items() if k != "mesh"}
+        torch.save({"params": tree_map(torch.Tensor.detach, params),
                     "opt_state": self.opt.state_dict()},
-                   os.path.join(path, "state.pt"))
-        with open(os.path.join(path, "trainer.json"), "w") as f:
-            json.dump({"epoch": self.epoch, "step_count": self.step_count}, f)
+                   self._state_file(path))
+        if self.mesh is None or self.mesh.rank == 0:
+            with open(os.path.join(path, "trainer.json"), "w") as f:
+                json.dump({"epoch": self.epoch,
+                           "step_count": self.step_count}, f)
+        if self.mesh is not None:
+            barrier(self.mesh)
         return path
 
     def restore(self, path: str) -> None:
         """Load a ``save`` directory into this trainer, params in place."""
-        state = torch.load(os.path.join(path, "state.pt"),
-                           map_location=self.device, weights_only=True)
+        state = torch.load(self._state_file(path), map_location=self.device,
+                           weights_only=True)
 
         def load(dst, src):
             if isinstance(dst, dict):
                 for k in dst:
-                    load(dst[k], src[k])
+                    if k != "mesh":
+                        load(dst[k], src[k])
             else:
                 with torch.no_grad():
                     dst.copy_(src)
 
         load(self.params, state["params"])
+        if self.zero is not None:
+            self.zero.scatter_params()
         self.opt.load_state_dict(state["opt_state"])
         with open(os.path.join(path, "trainer.json")) as f:
             meta = json.load(f)

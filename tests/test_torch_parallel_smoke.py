@@ -5,7 +5,11 @@ gate holds (tokens equal on every rank and to the single-device run, MSD
 == null-draft under TP, the first decode row within its bound and the
 planted o_proj-sum fault beyond it, the pipeline and sequence outputs
 within theirs and bitwise equal on every rank, cuda_graphs over gloo
-refused). A second world plants splits from the single-device tokens:
+refused; then, in the world of four, the DraftTrainer and LlavaFinetuner
+on a (data 2, model 2) mesh within their bounds of one device, and both
+planted training faults, *f* the identity and the loss as the mean of
+local means, beyond the gradient's). A second world plants splits from
+the single-device tokens:
 the split gate (``chip_smoke.tp_split_ok``) passes TP's pick at an exact
 tie of the single device's row and fails TP with the o_proj sum
 skipped."""
@@ -13,7 +17,7 @@ skipped."""
 import dataclasses
 
 import chip_smoke
-from msd_tpu_torch.configs import LlamaConfig
+from msd_tpu_torch.configs import ClipVisionConfig, LlamaConfig
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -24,16 +28,28 @@ def test_smoke_parallel_phase_at_tiny_size():
     cfg13 = dataclasses.replace(LlamaConfig.tiny(
         vocab_size=512, hidden_size=80, layers=2, heads=4,
         intermediate_size=128, max_pos=1024), residual_dtype="float32")
+    train_cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=64, layers=2,
+                                 heads=4, intermediate_size=128,
+                                 max_pos=1024)
     out = chip_smoke.run_parallel(
         device="cpu", tcfg=tcfg, cfg13=cfg13, widths=(4, 3, 2, 2, 1),
         max_seq=384, max_new=12, new_13b=8, n_img=16, prompt_tokens=20,
-        pp_layers=2, rows=32, micro=2)
+        pp_layers=2, rows=32, micro=2, train_cfg=train_cfg,
+        train=dict(chip_smoke.PARALLEL_TRAIN, rows=32, medusa=3,
+                   ft_img=16),
+        train_vision=ClipVisionConfig.tiny(hidden_size=32))
     assert out["transport"] == "gloo"
     assert out["launches_tp2"] == out["launches_tp4"] == 0  # the CPU twin
     assert out["row_rel"] <= chip_smoke.PARALLEL_ROW_TOL["float32"]
     assert out["fault_rel"] > chip_smoke.PARALLEL_ROW_TOL["float32"]
     assert all(out["same_as_single"].values())
     assert set(out["fwd_rel"]) == {"pipeline", "gather", "ring"}
+    t, tol = out["train"], chip_smoke.PARALLEL_TRAIN_TOL
+    assert t["grad_rel"] <= tol["grad"] and t["move_rel"] <= tol["move"]
+    assert min(t["fault_rel"].values()) > 100 * tol["grad"]
+    held, whole, repl = t["zero_bytes"]
+    assert 2 * held == whole and repl > whole
+    assert t["ft_loss_rel"] <= chip_smoke.PARALLEL_FT_TOL["loss"]
 
 
 SPLIT_CFG = dict(vocab_size=512, hidden_size=64, layers=2, heads=4,
