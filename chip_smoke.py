@@ -7637,8 +7637,11 @@ def _same_request(label, a, b):
 # the TP=4 run's depth at 13B geometry (dryrun_multichip's cut: 2 layers)
 PARALLEL_13B_LAYERS = 2
 # (a)'s new tokens: MAX_NEW until the training parts (d), (e) joined the
-# phase, cut to keep the smoke inside its time limit
-PARALLEL_NEW = 16
+# phase, then 16 until (f) did, cut to keep the smoke inside its time
+# limit (the MSD run's split at token 11 on the H100 is still reached)
+PARALLEL_NEW = 12
+# (b)'s new tokens: NEW_13B until (f) joined the phase
+PARALLEL_13B_NEW = 8
 # (c): layers, rows and pipeline microbatches at 7B width
 PARALLEL_PP_LAYERS, PARALLEL_ROWS, PARALLEL_MICRO = 4, 640, 2
 # The first decode row's TP logits against the single-device row:
@@ -7694,20 +7697,28 @@ def lm_head_rows(rows: list):
 
 
 def _spawn(fn, world: int, *args):
-    """fn(rank, world, port, *args) in ``world`` spawned processes joined
-    to one gloo group at a free localhost port; a rank that raises fails
-    the call (nothing is caught)."""
-    import socket
-
+    """fn(rank, world, store, *args) in ``world`` spawned processes, each
+    joining one gloo group at a file store in a fresh temporary directory
+    (``_rank_setup``: no port to race for) and leaving it when fn returns
+    (``comm.leave``); a rank that raises fails the call (nothing is
+    caught)."""
     import torch.multiprocessing as mp
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    mp.spawn(fn, args=(world, port) + args, nprocs=world, join=True)
+    with tempfile.TemporaryDirectory(prefix="msd_world_") as d:
+        mp.spawn(_rank_main, args=(fn, world, os.path.join(d, "store"))
+                 + args, nprocs=world, join=True)
 
 
-def _rank_setup(rank: int, world: int, port: int, device: str):
+def _rank_main(rank: int, fn, world: int, store: str, *args):
+    """One spawned rank: fn, then ``comm.leave`` (the group's threads
+    joined before the process exits)."""
+    from msd_tpu_torch.parallel import comm
+
+    fn(rank, world, store, *args)
+    comm.leave()
+
+
+def _rank_setup(rank: int, world: int, store: str, device: str):
     import torch
     from msd_tpu_torch.parallel import comm
 
@@ -7716,7 +7727,7 @@ def _rank_setup(rank: int, world: int, port: int, device: str):
         torch.backends.cuda.matmul.allow_tf32 = False
     else:
         torch.set_num_threads(1)
-    comm.init(rank, world, port)
+    comm.init(rank, world, store)
 
 
 def _peak(device: str) -> int:
@@ -7760,7 +7771,7 @@ def _tp_runs(gen, drafts, ids, feats, max_new: int, sync,
     return out
 
 
-def _tp_main_rank(rank: int, world: int, port: int, setup: dict,
+def _tp_main_rank(rank: int, world: int, store: str, setup: dict,
                   out_dir: str):
     """[parallel] (a) and (c) on one rank of a world of ``world``.
 
@@ -7771,7 +7782,9 @@ def _tp_main_rank(rank: int, world: int, port: int, setup: dict,
     decode row; each split from the single-device tokens is recomputed
     through TP (every rank) and through one device (rank 0). (c) the
     pipeline (stages) and both sequence modes (shards) over world ranks
-    against ``llama_forward_nocache`` on one rank. Writes rank<r>.pt."""
+    against ``llama_forward_nocache`` on one rank. Between them (f), the
+    generator's other paths on (a)'s generators (``_tp_paths``). Writes
+    rank<r>.pt."""
     import torch
     from msd_tpu_torch.engine.generator import MSDGenerator
     from msd_tpu_torch.models import llama as L
@@ -7788,7 +7801,7 @@ def _tp_main_rank(rank: int, world: int, port: int, setup: dict,
     device, dtype = setup["device"], getattr(torch, setup["dtype"])
     on_card = device.startswith("cuda")
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    _rank_setup(rank, world, port, device)
+    _rank_setup(rank, world, store, device)
     tcfg, widths, max_new = setup["tcfg"], setup["widths"], setup["max_new"]
     n_img = setup["n_img"]
     mesh = make_mesh(world, dp=1, tp=world)
@@ -7849,6 +7862,9 @@ def _tp_main_rank(rank: int, world: int, port: int, setup: dict,
     out["splits"] = tp_splits(gen, single, out.get("single"),
                               {k: runs[k]["tokens"] for k in ("msd", "ar")},
                               ids, feats, max_new)
+    # (f) the generator's other paths, on (a)'s generators
+    out["f"] = _tp_paths(rank, setup, gen, single, prompts, feats, runs,
+                         sync)
     del gen, single, tps, dps
     if rank == 0:
         del tp, drafts
@@ -7959,7 +7975,339 @@ def tp_split_ok(split, tie: float, row_tol: float) -> bool:
                              and split["tp_rel"] <= row_tol)
 
 
-def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
+# ---------------------------------------------------------------------------
+# [parallel] (f): the generator's other paths under TP=2, in (a)'s world
+# ---------------------------------------------------------------------------
+
+# new tokens of every (f) run; the scheduler's segment and its requests,
+# (prompt index, max_new): the third joins the slot the second leaves
+# while the first runs on (prompt 0 again, whose solo run (a) made)
+PARALLEL_PATHS_NEW = 8
+PARALLEL_SEGMENT = 4
+PARALLEL_REQUESTS = ((0, 8), (1, 4), (0, 4))
+
+
+def _tp_paths(rank: int, setup: dict, gen, single, prompts, feats,
+              tp_runs: dict, sync) -> dict:
+    """[parallel] (f) on one rank, after (a), on (a)'s TP=2 generator
+    ``gen`` (and, on rank 0, its single-device generator ``single``): the
+    generator's other paths at ``setup["paths_new"]`` new tokens each.
+    Rank 0 first runs each path on one device. Every rank then runs,
+    each timed with its collectives metered: ``generate_batch`` of prompts
+    0 and 1 and prompt 1's solo run (prompt 0's is (a)'s); a 2-slot
+    ``ContinuousScheduler`` over ``PARALLEL_REQUESTS``; a collecting run on
+    prompt 0, the tables fitted on its records (``bench_fit``, on every
+    rank; ``set_calibrator`` installs rank 0's) and a calibrated run; one
+    ``score`` of prompt 0's MSD continuation; and the two-image prompt's
+    MSD and AR runs on a generator of ``MULTI_SEQ`` rows over the same
+    slices. K1's count is zeroed before the TP runs and read after the
+    two-image AR run. Each path's departures from the single device's
+    tokens are recomputed by ``tp_splits`` last, once per distinct
+    sequence: a sequence that begins another of its prompt (a shorter
+    budget) takes that one's split where it reaches it."""
+    import torch
+    from msd_tpu_torch.configs import IMAGE_TOKEN_INDEX
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.ops import decode_attention as K1
+    from msd_tpu_torch.parallel import comm
+    from msd_tpu_torch.serve.continuous import ContinuousScheduler, Request
+
+    new, n_text, tcfg = setup["paths_new"], setup["prompt_tokens"], \
+        setup["tcfg"]
+    # the two-image prompt: two placeholders, the main path's image rows
+    # and a seeded second block (1214 rows at the main path's 64 tokens
+    # and 576 image rows)
+    rng = np.random.default_rng(22)
+    two = rng.integers(3, min(31000, tcfg.vocab_size - 1),
+                       size=n_text).astype(np.int32)
+    two[[1, n_text // 2 + 1]] = IMAGE_TOKEN_INDEX
+    blocks = [feats, torch.from_numpy(rng.normal(size=feats.shape) * 0.02)
+              .to(device=gen.device, dtype=feats.dtype)]
+    cont = np.asarray(tp_runs["msd"]["tokens"][:new], np.int32)
+    score_ids = np.concatenate([prompts[0], cont])
+    meng = medusa_engine(setup["widths"], setup["multi_seq"])
+
+    def multi_gen(target, draft):
+        return MSDGenerator(target, draft, tcfg, gen.dcfg, meng,
+                            n_img=gen.n_img, eos_id=-1, sp=gen.sp,
+                            device=gen.device, cuda_graphs=False)
+
+    out = {"rank": rank, "s": {}, "comm_s": {}, "comm_mb": {}}
+    ref = single_multi = None
+    if rank == 0:
+        single_multi = multi_gen(single.params["target"],
+                                 single.params["draft"])
+        col = single.generate(prompts[0], feats, new,
+                              collect_calibration=True)
+        ref = {"p0": col.tokens,
+               "p1": single.generate(prompts[1], feats, new).tokens,
+               "multi_msd": single_multi.generate(two, blocks, new).tokens,
+               "multi_ar": single_multi.naive_generate(two, blocks,
+                                                       new).tokens}
+        out["single_calib"] = col.calib_data
+        out["single_score"] = single.score(score_ids, len(prompts[0]),
+                                           feats)
+        # the score bound's scale: max |logit| of each row predicting a
+        # continuation token, on one device, unpadded
+        rows = llava_logits_fn(single, prompts[0], feats)(cont)[:len(cont)]
+        out["score_row_max"] = rows.float().abs().amax(-1).cpu().numpy()
+
+    def timed(name, fn):
+        sync()
+        with comm.metered() as meter:
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            out["s"][name] = time.perf_counter() - t0
+        out["comm_s"][name] = meter.seconds
+        out["comm_mb"][name] = meter.bytes / 1e6
+        return r
+
+    K1.decode_attention.launches = 0
+    lanes = timed("batch B=2", lambda: gen.generate_batch(
+        prompts[:2], [feats, feats], new))
+    out["batch"] = [r.tokens for r in lanes]
+    out["solo"] = timed("solo p1", lambda: gen.generate(prompts[1], feats,
+                                                        new)).tokens
+
+    def schedule():
+        sched = ContinuousScheduler(gen, n_slots=2,
+                                    segment=setup["segment"])
+        reqs = [Request(ids=prompts[p], img_feats=feats, max_new=n)
+                for p, n in PARALLEL_REQUESTS]
+        sched.submit(reqs[0])
+        sched.submit(reqs[1])
+        sched.step()
+        sched.submit(reqs[2])
+        sched.run_all()
+        sched.close()
+        return reqs, sched.steps
+
+    reqs, out["sched_segments"] = timed("scheduler", schedule)
+    out["sched"] = [(r.tokens, r.error) for r in reqs]
+
+    col = timed("collect", lambda: gen.generate(prompts[0], feats, new,
+                                                collect_calibration=True))
+    out["collect"] = (col.tokens, col.calib_data)
+    valid = col.calib_data["valid"].astype(bool)
+    gen.set_calibrator(bench_fit(
+        [{k: v[valid] for k, v in col.calib_data.items()}],
+        tcfg.vocab_size, gen.device, f"[parallel] (f) rank {rank}"))
+    out["calib_tables"] = [_fingerprint(t) for t in gen.params["calib"]]
+    out["calibrated"] = timed("calibrated", lambda: gen.generate(
+        prompts[0], feats, new, use_calibration=True)).tokens
+    del gen.params["calib"]
+
+    out["score"] = timed("score", lambda: gen.score(score_ids,
+                                                    len(prompts[0]), feats))
+    tp_multi = multi_gen(gen.params["target"], gen.params["draft"])
+    out["multi_msd"] = timed("two-image MSD", lambda: tp_multi.generate(
+        two, blocks, new)).tokens
+    out["multi_ar"] = timed("two-image AR", lambda: tp_multi.naive_generate(
+        two, blocks, new)).tokens
+    out["launches"] = K1.decode_attention.launches
+    out["e0_two"] = len(two) - len(blocks) + sum(len(b) for b in blocks)
+
+    out["splits"] = {}
+    for g, key, ids, f, toks in (
+            (gen, "p0", prompts[0], feats,
+             {"batch 0": out["batch"][0], "scheduler 0": out["sched"][0][0],
+              "scheduler 2": out["sched"][2][0],
+              "collect": out["collect"][0],
+              "calibrated": out["calibrated"]}),
+            (gen, "p1", prompts[1], feats,
+             {"batch 1": out["batch"][1], "scheduler 1": out["sched"][1][0]}),
+            (tp_multi, "multi_msd", two, blocks,
+             {"two-image MSD": out["multi_msd"]}),
+            (tp_multi, "multi_ar", two, blocks,
+             {"two-image AR": out["multi_ar"]})):
+        # the longest first; a sequence that begins a kept one is its
+        # prefix, and so is its reference
+        kept = {}
+        for name in sorted(toks, key=lambda k: -len(toks[k])):
+            if not any(np.array_equal(toks[name], toks[k][:len(toks[name])])
+                       for k in kept):
+                kept[name] = toks[name]
+        r = None if ref is None else {k: ref[key][:len(v)]
+                                      for k, v in kept.items()}
+        sp = tp_splits(g, single if g is gen else single_multi, r, kept,
+                       ids, f, new)
+        for name in toks:
+            k = next(k for k in kept
+                     if np.array_equal(toks[name], kept[k][:len(toks[name])]))
+            if k in sp and sp[k]["at"] < len(toks[name]):
+                out["splits"][name] = sp[k]
+    out["single"] = ref
+    del tp_multi, single_multi
+    return out
+
+
+def _digest(x) -> str:
+    """A hash of a tree of arrays, tensors and plain values, bit for bit
+    (dtypes and shapes included)."""
+    import hashlib
+
+    import torch
+    from msd_tpu_torch.bridge import leaf_to_numpy
+
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                h.update(repr(k).encode())
+                walk(v[k])
+        elif isinstance(v, (list, tuple)):
+            h.update(f"[{len(v)}".encode())
+            for e in v:
+                walk(e)
+        elif isinstance(v, (np.ndarray, torch.Tensor)):
+            a = leaf_to_numpy(v) if isinstance(v, torch.Tensor) else v
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        else:
+            h.update(repr(v).encode())
+
+    walk(x)
+    return h.hexdigest()
+
+
+def check_tp_paths(outs: list, tp_runs: dict, where: str, layers: int,
+                   tie: float, row_tol: float, on_card: bool) -> dict:
+    """The gates of (f) (``_tp_paths``) over every rank's results; raises
+    unless every rank commits the same tokens (and features, tables and
+    score, bitwise); each batched lane and scheduled request equals its
+    solo TP run (a prefix of (a)'s MSD run for prompt 0); the collecting
+    run equals (a)'s MSD tokens and the calibrated one (a)'s null-draft
+    tokens; each path's tokens equal rank 0's single-device run up to
+    splits that pass ``tp_split_ok``; the collected attention feature
+    lies within ``row_tol`` of the single device's, relative to its
+    largest value, on the steps whose inputs agree (the draft's inputs and
+    the feature's q/k products round by the bf16 row rule); the score
+    within the sum over its rows of 2 x ``row_tol`` x the row's max
+    |logit| (log-softmax moves by at most twice a row's largest logit
+    change) of the single device's; and K1 launches ``layers`` x the
+    two-image AR tokens decoded per rank, 0 on every other path."""
+    f = [o["f"] for o in outs]
+    o = f[0]
+    new = len(o["batch"][0])
+    for label, get in (("batch", lambda x: x["batch"]),
+                       ("scheduler", lambda x: x["sched"]),
+                       ("solo", lambda x: x["solo"]),
+                       ("collect", lambda x: x["collect"]),
+                       ("calibrated", lambda x: x["calibrated"]),
+                       ("calibration tables", lambda x: x["calib_tables"]),
+                       ("score", lambda x: x["score"]),
+                       ("two-image", lambda x: (x["multi_msd"],
+                                                x["multi_ar"]))):
+        _same_on_ranks(f"(f) {label}", f, lambda x: _digest(get(x)))
+    msd, null = (tp_runs[k]["tokens"][:new] for k in ("msd", "null"))
+    solo = {0: msd, 1: o["solo"]}
+    bad = []
+    for label, got, want in (
+            ("batch lane 0 vs solo", o["batch"][0], msd),
+            ("batch lane 1 vs solo", o["batch"][1], solo[1]),
+            *((f"scheduler {i} vs solo", o["sched"][i][0], solo[p][:n])
+              for i, (p, n) in enumerate(PARALLEL_REQUESTS)),
+            ("collect vs (a) MSD", o["collect"][0], msd),
+            ("calibrated vs (a) null draft", o["calibrated"], null)):
+        if not (len(got) == len(want) > 0 and np.array_equal(got, want)):
+            bad.append(f"{label}: {list(got)} != {list(want)}")
+    if any(err is not None for _, err in o["sched"]):
+        bad.append(f"scheduler errors {[e for _, e in o['sched']]}")
+    if bad:
+        raise AssertionError(f"[parallel] (f) {bad}")
+    single = o["single"]
+    for name, toks, key in (("batch 0", o["batch"][0], "p0"),
+                            ("batch 1", o["batch"][1], "p1"),
+                            ("scheduler 0", o["sched"][0][0], "p0"),
+                            ("scheduler 1", o["sched"][1][0], "p1"),
+                            ("scheduler 2", o["sched"][2][0], "p0"),
+                            ("collect", o["collect"][0], "p0"),
+                            ("calibrated", o["calibrated"], "p0"),
+                            ("two-image MSD", o["multi_msd"], "multi_msd"),
+                            ("two-image AR", o["multi_ar"], "multi_ar")):
+        want = single[key][:len(toks)]
+        split = o["splits"].get(name)
+        if np.array_equal(toks, want):
+            continue
+        if split is None or not tp_split_ok(split, tie, row_tol):
+            raise AssertionError(f"[parallel] (f) {name} departs from the "
+                                 f"single-device tokens beyond a near-tie: "
+                                 f"{split}")
+        log(f"[parallel] (f) {name}: split at {split['at']}, gap "
+            f"{split['ulps']:.2f} ulps (noise {split['noise']:.2f}), TP's "
+            f"recompute {split['tp_rel']:.3e} of the row's scale off one "
+            f"device")
+    res = {"same_as_single": {name: name not in o["splits"]
+                              for name in ("batch 0", "batch 1",
+                                           "scheduler 2", "collect",
+                                           "two-image MSD", "two-image AR")}}
+    # the attention feature: step i's is read from the rows step i - 1
+    # accepted (step 0's from the prompt), per child slot of the tree's
+    # fixed layout, so it is compared over the steps before the first
+    # whose inputs differ: from step 1 on only where the committed tokens
+    # equal the single device's, while each earlier step accepted as many
+    # nodes (a draft near-tie may order a tree's tokens otherwise, which
+    # moves no slot)
+    cd, sd = o["collect"][1], o["single_calib"]
+    steps = min(len(cd["attn"]), len(sd["attn"]))
+    n = 1
+    if np.array_equal(o["collect"][0], single["p0"][:len(o["collect"][0])]):
+        while n < steps and cd["accept"][n - 1].sum() == \
+                sd["accept"][n - 1].sum():
+            n += 1
+    if not np.array_equal(cd["valid"][:n], sd["valid"][:n]):
+        raise AssertionError("[parallel] (f) the collected trees' layouts "
+                             "differ from the single device's")
+    v = sd["valid"][:n].astype(bool)
+    feat = float(np.abs(cd["attn"][:n][v] - sd["attn"][:n][v]).max()) \
+        / float(np.abs(sd["attn"][:n][v]).max())
+    res["feature_rel"], res["feature_steps"] = feat, (n, steps)
+    if not 0 < feat <= row_tol:
+        raise AssertionError(f"[parallel] (f) the collected attention "
+                             f"feature {feat:.3e} of its scale off the "
+                             f"single device's (bound {row_tol:.3e})")
+    (lp, greedy), (lp1, greedy1) = o["score"], o["single_score"]
+    bound = float(2 * row_tol * o["score_row_max"].sum())
+    res["score"] = {"tp": lp, "single": lp1, "diff": abs(lp - lp1),
+                    "bound": bound, "greedy": (greedy, greedy1)}
+    if not abs(lp - lp1) <= bound:
+        raise AssertionError(f"[parallel] (f) score {lp} off the single "
+                             f"device's {lp1} beyond {bound:.3e}")
+    decoded = len(o["multi_ar"]) - 1
+    want = layers * decoded if on_card else 0
+    counts = [x["launches"] for x in f]
+    if any(c != want for c in counts):
+        raise AssertionError(f"[parallel] (f) K1 launch count {counts} != "
+                             f"{want} ({layers} layers x {decoded} AR "
+                             f"tokens of the two-image run)")
+    res["launches"] = counts[0]
+    res["s"], res["comm_s"], res["comm_mb"] = o["s"], o["comm_s"], \
+        o["comm_mb"]
+    res["seconds"] = sum(o["s"].values())
+    log(f"[parallel] (f) TP=2 on {where}, {new} new tokens per run: every "
+        f"rank the same tokens; lanes and requests == their solo runs; "
+        f"calibrated == null draft; single-device tokens "
+        + ", ".join(f"{k} {'equal' if v else 'split (a tie)'}"
+                    for k, v in res["same_as_single"].items())
+        + f"; attention feature {feat:.3e} of its scale off one device "
+        f"over {n}/{steps} steps (bound {row_tol:.3e}); score "
+        f"{lp:.4f} vs {lp1:.4f} (|diff| {abs(lp - lp1):.3e}, bound "
+        f"{bound:.3e}, greedy {greedy}/{greedy1}); K1 launches per rank "
+        f"{counts} (= {layers} x {decoded} two-image AR tokens, "
+        f"{o['e0_two']}-row prompt); scheduler {o['sched_segments']} "
+        f"segments")
+    log("[parallel] (f) s per path (collectives' share, MB through them "
+        "per rank): " + ", ".join(
+            f"{k} {v:.2f} ({o['comm_s'][k] / v:.3f}, "
+            f"{o['comm_mb'][k]:.1f})" for k, v in o["s"].items())
+        + f"; {res['seconds']:.1f}s in all")
+    return res
+
+
+def _tp13_rank(rank: int, world: int, store: str, setup: dict,
+               out_dir: str):
     """[parallel] (b): TP=world at 13B geometry (``PARALLEL_13B_LAYERS``
     layers), seeded bf16 target and medusa drafts, one image prompt: MSD,
     null-draft MSD and AR on this rank's slices; then (d) and (e), the
@@ -7987,7 +8335,7 @@ def _tp13_rank(rank: int, world: int, port: int, setup: dict, out_dir: str):
         warm = threading.Thread(target=importlib.import_module,
                                 args=("torch._dynamo",))
         warm.start()
-    _rank_setup(rank, world, port, device)
+    _rank_setup(rank, world, store, device)
     cfg, widths, n_img = setup["cfg"], setup["widths"], setup["n_img"]
     mesh = make_mesh(world, dp=1, tp=world)
     dcfg, tp, drafts = main_weights(cfg, widths, device, dtype)
@@ -8506,12 +8854,14 @@ def _same_on_ranks(label: str, outs: list, get) -> None:
 
 def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
                  widths=WIDTHS, max_seq: int = MAX_SEQ,
-                 max_new: int = PARALLEL_NEW, new_13b: int = NEW_13B,
+                 max_new: int = PARALLEL_NEW, new_13b: int = PARALLEL_13B_NEW,
                  n_img: int = N_IMG, prompt_tokens: int = PROMPT_TOKENS,
                  pp_layers: int = PARALLEL_PP_LAYERS,
                  rows: int = PARALLEL_ROWS, micro: int = PARALLEL_MICRO,
                  tie: float = HARNESS_TIE, train_cfg=None,
-                 train: dict = PARALLEL_TRAIN, train_vision=None) -> dict:
+                 train: dict = PARALLEL_TRAIN, train_vision=None,
+                 paths_new: int = PARALLEL_PATHS_NEW,
+                 multi_seq: int = MULTI_SEQ) -> dict:
     """``[parallel]``: (a) TP=2 at the main path's full width, (c) the
     pipeline and sequence parallelism, both in one world of two ranks,
     then (b) TP=4 at 13B geometry in a world of four, all spawned on the
@@ -8532,7 +8882,11 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
     on a (data 2, model 2) mesh against one device (``train_cfg``, the
     7B width by default; ``train`` the schedule, ``PARALLEL_TRAIN``), K1
     launching 0 times there; both planted faults (``f_identity``,
-    ``local_means``) must fail the gradient gate."""
+    ``local_means``) must fail the gradient gate. (f), in (a)'s world
+    after (a): ``generate_batch``, the continuous scheduler, calibration,
+    ``score`` and the two-image prompt under TP=2 (``check_tp_paths``),
+    ``paths_new`` tokens each, the two-image generators at ``multi_seq``
+    rows; K1 also held to its twin and timed at their AR row."""
     import torch
     from msd_tpu_torch.configs import LlamaConfig
 
@@ -8555,12 +8909,22 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
             card, "TP=4 AR row (13B geometry, 10 local heads)",
             cfg13.num_attention_heads // 4, cfg13.num_key_value_heads // 4,
             672, 1280, LlamaConfig.llava_13b().num_hidden_layers)
+        # (f)'s two-image AR row: two blocks of n_img rows and the text
+        # rows, halfway through its AR tokens, in a MULTI_SEQ cache
+        e0 = prompt_tokens - 2 + 2 * n_img
+        res["k1_two_image_tp2"] = time_k1_row(
+            card, "TP=2 two-image AR row (7B width, 16 local heads)",
+            tcfg.num_attention_heads // 2, tcfg.num_key_value_heads // 2,
+            e0 + paths_new - 2,
+            -128 * (-(multi_seq + 1 + sum(widths)) // 128),
+            tcfg.num_hidden_layers)
     train_cfg = train_cfg or LlamaConfig.llava_7b()
     setup = dict(device=str(device), dtype=dtype, tcfg=tcfg, widths=widths,
                  max_seq=max_seq, max_new=max_new, n_img=n_img,
                  prompt_tokens=prompt_tokens, pp_layers=pp_layers, rows=rows,
                  micro=micro, train_cfg=train_cfg, train=dict(train),
-                 train_vision=train_vision)
+                 train_vision=train_vision, paths_new=paths_new,
+                 segment=PARALLEL_SEGMENT, multi_seq=multi_seq)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         _spawn(_tp_main_rank, 2, setup, d)
@@ -8644,6 +9008,10 @@ def run_parallel(card: str = "", device="cuda", tcfg=None, cfg13=None,
     res["same_as_single"] = {k: np.array_equal(o["single"][k],
                                                o["tp"][k]["tokens"])
                              for k in ("msd", "ar")}
+    # (f)
+    res["paths"] = check_tp_paths(outs, o["tp"], where,
+                                  tcfg.num_hidden_layers, tie, row_tol,
+                                  on_card)
     # (c)
     fwd_tol = PARALLEL_FWD_TOL[dtype]
     _same_on_ranks("pipeline/sequence outputs", outs,
@@ -8799,6 +9167,8 @@ def run_all(root: str):
     lap("parallel")
     k1["ar_tp2"] = dict(par["k1_tp2"], launches=par["launches_tp2"])
     k1["ar_13b_tp4"] = dict(par["k1_tp4"], launches=par["launches_tp4"])
+    k1["two_image_tp2"] = dict(par["k1_two_image_tp2"],
+                               launches=par["paths"]["launches"])
     k1["parallel_train_launches"] = par["train_launches"]
     train = run_train(weights["ckpt"], root)
     lap("train")
@@ -8905,7 +9275,11 @@ def run_all(root: str):
         f"decode row {par['row_rel']:.3e} of its scale off one device "
         f"(fault {par['fault_rel']:.3e}); K1 at 16 / 10 local heads "
         f"{k1['ar_tp2']['ms'] * 1e3:.2f} / {k1['ar_13b_tp4']['ms'] * 1e3:.2f}"
-        f" us; phase {par['seconds']:.1f}s")
+        f" us, at the two-image row (16 local heads) "
+        f"{k1['two_image_tp2']['ms'] * 1e3:.2f} us (sdpa "
+        f"{k1['two_image_tp2']['library_ms'] * 1e3:.2f}, bound "
+        f"{k1['two_image_tp2']['bound_ms'] * 1e3:.2f}); (f) "
+        f"{par['paths']['seconds']:.1f}s; phase {par['seconds']:.1f}s")
     log(f"[train] on {card}: fit {train['fit_ms']:.1f} ms/step, stage 1 "
         f"{train['ft1_ms']:.1f} ms/step, stage 2 {train['ft2_ms']:.1f} "
         f"ms/step; records/s "

@@ -22,11 +22,14 @@ seeded per request from ``seed`` (a batch: one per lane).
 
 Tensor parallelism: given trees sharded by ``parallel/sharding.
 shard_params`` (their ``"mesh"``), every rank of the mesh runs the same
-calls on its slices: ``generate`` (EAGLE, medusa and static drafting,
-greedy or sampled) and ``naive_generate`` over expand-mode single-image
-or text prompts, each rank committing the same tokens. Batched lanes,
-calibration, scoring, inline (Qwen) and multi-image prompts raise under
-a mesh, and so does ``cuda_graphs=True``.
+calls on its slices, each rank committing the same tokens: ``generate``
+(EAGLE, medusa and static drafting, greedy or sampled, collecting or
+using calibration), ``naive_generate``, ``generate_stream``,
+``generate_batch``, ``serve.continuous.ContinuousScheduler`` and
+``score``, over expand-mode text, single-image and multi-image prompts.
+Inline (Qwen) prompts raise under a mesh, as the JAX package's
+``shard_params`` cannot shard a Qwen tree, and so does
+``cuda_graphs=True`` (the collectives are not captured).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from msd_tpu_torch.models import llama as L
 from msd_tpu_torch.models.qwen2vl import (IMAGE_PAD_ID, VIDEO_PAD_ID,
                                           mrope_positions)
 from msd_tpu_torch.ops.sampling import SamplingParams
+from msd_tpu_torch.parallel import comm
 
 
 @dataclass
@@ -110,7 +114,13 @@ class MSDGenerator:
                 raise ValueError("the target and the draft must be sharded "
                                  "over the same mesh")
             if image_mode != "expand":
-                self._no_tp("inline (Qwen) prompts")
+                # JAX's specs (msd_tpu/parallel/sharding.py) carry no
+                # q_bias/k_bias/v_bias, so its shard_params raises on a
+                # Qwen tree: there is no sharded reference to port
+                raise NotImplementedError(
+                    "inline (Qwen) prompts under tensor parallelism: the "
+                    "JAX package's shard_params cannot shard a Qwen tree "
+                    "(its specs have no q/k/v biases)")
             if cuda_graphs:
                 raise ValueError(
                     f"cuda_graphs=True under tensor parallelism (a "
@@ -174,11 +184,6 @@ class MSDGenerator:
                               self.params["target"]["embed_tokens"].dtype,
                               self.device, lanes, self.tp)
 
-    def _no_tp(self, what: str) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(f"{what} under tensor parallelism: "
-                                      f"not ported (ROADMAP)")
-
     def _statics(self, max_new: int, sp: Optional[SamplingParams] = None,
                  use_calibration: bool = False,
                  collect_calibration: bool = False,
@@ -186,11 +191,8 @@ class MSDGenerator:
                  lanes: int = 1) -> SE.Statics:
         """The statics of a run on a state of ``lanes`` lanes; the verify
         products a lane count needs one lane at a time are found at its
-        first use (``llama.lane_variant``)."""
-        if lanes > 1:
-            self._no_tp("batched lanes")
-        if use_calibration or collect_calibration:
-            self._no_tp("calibration")
+        first use (``llama.lane_variant``, the same on every rank of a
+        mesh)."""
         if lanes not in self._per_lane:
             self._per_lane[lanes] = L.lane_variant(
                 self.params["target"], lanes, self.eng.tree.num_nodes)
@@ -221,7 +223,12 @@ class MSDGenerator:
     def set_calibrator(self, tables: CalibTables) -> None:
         """Install device calibration tables (``CalibTables.from_host``) for
         ``generate(use_calibration=True)``. A reranking step's graph keys on
-        the tables' tensors: new tables capture graphs of their own."""
+        the tables' tensors: new tables capture graphs of their own. Under
+        a mesh every rank installs rank 0's tables (a broadcast over
+        ``model``), so the ranks rerank alike whatever each fitted."""
+        if self.tp > 1:
+            tables = CalibTables(*(comm.broadcast(t, self.mesh, "model", 0)
+                                   for t in tables))
         self.params["calib"] = tables
 
     def set_draft(self, draft_params: Dict) -> None:
@@ -328,9 +335,8 @@ class MSDGenerator:
         Refuses a block the engine budget cannot hold."""
         from msd_tpu_torch.models.llava import fuse_embeddings_multi
 
-        self._no_tp("multi-image prompts")
         fused, exp_ids, img_rows = fuse_embeddings_multi(
-            self.params["target"]["embed_tokens"], ids, img_feats_list)
+            self.params["target"], ids, img_feats_list)
         e0 = fused.shape[0]
         limit = self._statics(0).step_limit
         if e0 >= limit:
@@ -566,7 +572,6 @@ class MSDGenerator:
         ``img_grid``. Returns (logprob_sum: float, is_greedy: bool)."""
         from msd_tpu_torch.engine import scoring as SC
 
-        self._no_tp("scoring")
         ids = np.asarray(ids, np.int32)
         if not 0 < cont_start < len(ids):
             raise ValueError(

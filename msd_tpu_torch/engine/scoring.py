@@ -80,7 +80,8 @@ def score_program(tcfg: LlamaConfig, n_img: int, params: Dict,
     device = ids.device
     positions = torch.arange(p_exp, dtype=torch.int32, device=device)
     bias = causal_prefill_bias(p_exp, p_exp, device=device)
-    kv = L.init_kv_cache(tcfg, p_exp, fused.dtype, device)
+    kv = L.init_kv_cache(tcfg, p_exp, fused.dtype, device,
+                         mesh=tp.get("mesh"))
     hidden, _ = L.llama_forward(tp, tcfg, fused, positions, kv, 0, bias,
                                 params["cos_t"], params["sin_t"])
     return _score_rows(tp, exp_ids, hidden, cont_start + off,

@@ -10,7 +10,9 @@ fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H],
 ``mw`` as int8/int4 (read through ``llama._w``). A tensor-parallel draft
 (``parallel/sharding.draft_param_specs``) carries its mesh under
 ``"mesh"``: its layer runs sharded like the target's, fc and the medusa
-heads replicated, ``embed_tokens`` gathered on its hidden columns.
+heads replicated, ``embed_tokens`` gathered on its hidden columns, and
+the calibration feature's probabilities computed per local head and
+gathered (``_layer_attn_probs``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from msd_tpu_torch.ops.attention import (attention_probs, masked_attention,
                                          put_rows, take_rows)
 from msd_tpu_torch.ops.quant import quantize_tensor
 from msd_tpu_torch.ops.rope import apply_rope
+from msd_tpu_torch.parallel import comm
 
 Params = Dict
 
@@ -100,10 +103,6 @@ def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
     attn_rows [B, R]).
     """
     mesh = params.get("mesh")
-    if return_attn and L.tp_size(mesh) > 1:
-        raise NotImplementedError(
-            "the calibration feature (layer-0 attention probabilities) is "
-            "not computed under tensor parallelism: ROADMAP M18b")
     x = hidden_in
     attn_p = None
     for i in range(cfg.num_layers):
@@ -116,26 +115,55 @@ def draft_forward(params: Params, cfg: DraftConfig, hidden_in: torch.Tensor,
         if return_attn and i == 0:
             attn_p = _layer_attn_probs(lp, cfg.text, x_in, positions,
                                        kv["k"].select(-4, 0), write_pos,
-                                       bias, cos_t, sin_t, attn_rows)
+                                       bias, cos_t, sin_t, attn_rows, mesh)
     if return_attn:
         return x, kv, attn_p
     return x, kv
 
 
+def stored_proj(lp: Params, name: str, x: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """``x @ W`` of weight ``name`` as stored ([out, in] for q/k/v: the
+    product contracts over the weight's output axis, the JAX feature's
+    quirk), [..., T, in]. Under a ``mesh`` the stored weight holds this
+    rank's rows of that axis, which is the one tensor parallelism splits:
+    this rank's columns of x times its rows give a partial product of the
+    whole [..., T, in], summed over ``model`` in fp32 and rounded once
+    (``llama._row_sum``)."""
+    w = L._w(lp, name, x.dtype)
+    if L.tp_size(mesh) == 1:
+        return x @ w
+    lo = mesh.coords["model"] * w.shape[0]
+    return L._row_sum(x[..., lo:lo + w.shape[0]] @ w, mesh)
+
+
 def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
                       positions: torch.Tensor, kv_k: torch.Tensor, write_pos,
                       bias: torch.Tensor, cos_t, sin_t,
-                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      rows: Optional[torch.Tensor] = None,
+                      mesh=None) -> torch.Tensor:
     """Layer-0 attention probabilities, recomputed as the JAX package's
     ``_layer_attn_probs`` computes them: queries and keys from x through
     ``q_proj`` and ``k_proj`` as stored, ``x @ W`` (the layer itself applies
-    ``x @ W.T``), the keys written over a copy of the cache ``kv_k``
-    [S, Hkv, D] at write_pos. The calibration feature is defined by these
-    values, so the port keeps them. ``rows`` limits the query rows."""
+    ``x @ W.T``; ``stored_proj``), the keys written over a copy of the
+    cache ``kv_k`` [S, Hkv, D] at write_pos. The calibration feature is
+    defined by these values, so the port keeps them. ``rows`` limits the
+    query rows.
+
+    Under tensor parallelism (``mesh``) the cache holds this rank's KV
+    heads: each rank takes its heads of the summed queries and keys,
+    computes their probabilities over its cache, and the ranks' heads are
+    gathered over ``model`` (bitwise, in head order), so every rank
+    returns all [Hq, R, S]: R query rows of fp32 probabilities per head,
+    where gathering the cache would move all S rows of every KV head."""
     hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     lanes = x.dim() - 2
-    q = (x @ L._w(lp, "q_proj", x.dtype)).unflatten(-1, (hq, d))
-    k = (x @ L._w(lp, "k_proj", x.dtype)).unflatten(-1, (hkv, d))
+    q = stored_proj(lp, "q_proj", x, mesh).unflatten(-1, (hq, d))
+    k = stored_proj(lp, "k_proj", x, mesh).unflatten(-1, (hkv, d))
+    tp = L.tp_size(mesh)
+    if tp > 1:
+        m, lq, lkv = mesh.coords["model"], hq // tp, hkv // tp
+        q, k = q[..., m * lq:(m + 1) * lq, :], k[..., m * lkv:(m + 1) * lkv, :]
     q, k = apply_rope(q, k, cos_t, sin_t, positions)
     keys = kv_k.clone()
     wrows = L.update_rows(kv_k.shape[-3], write_pos, x.shape[-2], x.device)
@@ -145,7 +173,10 @@ def _layer_attn_probs(lp: Params, tc, x: torch.Tensor,
         put_rows(keys, wrows, k, lanes)
     if rows is not None:
         q, bias = take_rows(q, rows, lanes), take_rows(bias, rows, lanes)
-    return attention_probs(q, keys, bias)
+    probs = attention_probs(q, keys, bias)
+    if tp > 1:
+        probs = comm.all_gather(probs, mesh, "model", dim=-3)
+    return probs
 
 
 def draft_forward_nocache(params: Params, cfg: DraftConfig,

@@ -224,7 +224,10 @@ def lane_variant(params: Params, lanes: int, rows: int) -> frozenset:
     whole against per lane, which is exact, as the kernel a shape gets does
     not depend on the values. The batched engine's verify forward computes
     these one lane at a time, so a batched lane commits the tokens of its
-    run alone."""
+    run alone. A tensor-parallel tree probes this rank's slices, and the
+    set is the union of every rank's over ``model`` (``agreed_union``):
+    the ranks' statics are then the same, and a product computed one lane
+    at a time without need gives the one-lane bits all the same."""
     if lanes == 1:
         return frozenset()
     lp = _layer(params["layers"], 0)
@@ -240,7 +243,19 @@ def lane_variant(params: Params, lanes: int, rows: int) -> frozenset:
         if not torch.equal(_proj(src, name, x),
                            _proj(src, name, x, frozenset({name}))):
             out.add(name)
-    return frozenset(out)
+    return agreed_union(out, _STACKED + ("lm_head",), params.get("mesh"),
+                        dev)
+
+
+def agreed_union(found: set, names, mesh, device) -> frozenset:
+    """The names of ``names`` in ``found`` on any rank of ``mesh``'s
+    ``model`` axis (``found`` itself without a mesh): one flag per name,
+    summed over the axis."""
+    if tp_size(mesh) == 1:
+        return frozenset(found)
+    flags = torch.tensor([int(n in found) for n in names], device=device)
+    flags = comm.all_reduce(flags, mesh, "model").tolist()
+    return frozenset(n for n, f in zip(names, flags) if f)
 
 
 def _layer_qkv(lp: Params, cfg: LlamaConfig, x: torch.Tensor,

@@ -162,17 +162,20 @@ def merge_anyres_features(tile_feats: torch.Tensor, grid_wh, original_size,
     return torch.cat([base, g.reshape(-1, H)], 0)
 
 
-def fuse_embeddings_multi(embed_table: torch.Tensor, ids,
+def fuse_embeddings_multi(params: Dict, ids,
                           feats_list: Sequence[torch.Tensor]):
     """Multi-image fusion: each image's features spliced at its placeholder
     (llava_arch.py:229-324, bs=1), on the table's device.
 
-    ids: [T] host ids (numpy or a tensor) with one IMAGE_TOKEN_INDEX per
-    image, k of them in order; feats_list: k feature blocks [n_i, H].
-    Returns (fused [T', H] in the table's dtype, exp_ids [T'] int32 with 0
-    at image rows and the raw ids elsewhere, img_row_mask [T'] bool),
-    T' = T - k + sum(n_i). A text row's embedding is the table's row of
-    max(id, 0)."""
+    params: a tree holding ``embed_tokens`` [V, H], whose text rows are
+    ``llama.embed_tokens`` of it (as ``fuse_embeddings``'s: a
+    tensor-parallel tree's column shards gathered, bitwise). ids: [T] host
+    ids (numpy or a tensor) with one IMAGE_TOKEN_INDEX per image, k of
+    them in order; feats_list: k feature blocks [n_i, H]. Returns (fused
+    [T', H] in the table's dtype, exp_ids [T'] int32 with 0 at image rows
+    and the raw ids elsewhere, img_row_mask [T'] bool), T' = T - k +
+    sum(n_i). A text row's embedding is the table's row of max(id, 0)."""
+    embed_table = params["embed_tokens"]
     ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids)
     spots = np.nonzero(ids == IMAGE_TOKEN_INDEX)[0]
     if len(spots) != len(feats_list):
@@ -192,7 +195,7 @@ def fuse_embeddings_multi(embed_table: torch.Tensor, ids,
     exp_ids = torch.from_numpy(
         np.concatenate(id_chunks).astype(np.int32)).to(dev)
     rows = torch.from_numpy(np.concatenate(mask_chunks)).to(dev)
-    fused = embed_table[torch.clamp(exp_ids, min=0).long()]
+    fused = L.embed_tokens(params, torch.clamp(exp_ids, min=0))
     if feats_list:
         fused[rows] = torch.cat([f.to(dev, embed_table.dtype)
                                  for f in feats_list])

@@ -60,12 +60,27 @@ import torch.distributed as dist
 TRANSPORT = "gloo"
 
 
-def init(rank: int, world: int, port: int) -> None:
-    """Join the default process group of ``world`` ranks at
-    ``tcp://localhost:<port>`` over ``TRANSPORT``."""
-    dist.init_process_group(TRANSPORT,
-                            init_method=f"tcp://localhost:{port}",
+def init(rank: int, world: int, store: str) -> None:
+    """Join the default process group of ``world`` ranks over
+    ``TRANSPORT``, meeting at the file store ``store``: a path in a
+    directory the spawner made for this world (a file store is not
+    reused). A file store needs no port. A port picked free by the
+    spawner and handed to the ranks stays free only until some other
+    process on the host binds it, which it may do before rank 0 listens
+    there."""
+    dist.init_process_group(TRANSPORT, init_method=f"file://{store}",
                             rank=rank, world_size=world)
+
+
+def leave() -> None:
+    """Leave the default process group once this rank's work is done:
+    wait for every rank, then destroy the group, so its threads are
+    joined before the process exits. A process that exits with the group
+    alive leaves their teardown to the interpreter's, which can abort the
+    rank (``terminate called without an active exception``, SIGABRT)
+    after all of its work succeeded."""
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 class Mesh:

@@ -30,6 +30,13 @@ per-request ``max_new`` and seeds share the batch. A sampled slot draws
 from its own generator, reseeded with the request's seed at admission, so
 it reproduces a lone ``generate(..., seed=req.seed)``.
 
+Tensor parallelism: with a generator over sharded trees every rank of
+the mesh runs its own scheduler over the same submissions in the same
+order. Admission and retirement read only what the ranks hold alike (the
+queue, the prompts' lengths and the committed ids and counters, which the
+collectives make equal), so every rank admits, steps and retires in
+lockstep and calls the same collectives.
+
 Token identity: a slot's output is what a lone ``generate()`` /
 ``generate_stream()`` call gives for that request wherever the batched
 products round each row as the one-lane products do (bitwise on the CPU,

@@ -260,13 +260,14 @@ def test_fuse_embeddings_multi_layout_matches_jax(spots, sizes):
     ids[ids == 7] = -3                        # a negative text id clamps
     feats = [rng.normal(size=(n, 6)).astype(np.float64) for n in sizes]
     ref = JL.fuse_embeddings_multi(table, ids, feats)
-    got = TL.fuse_embeddings_multi(torch.from_numpy(table), ids,
+    params = {"embed_tokens": torch.from_numpy(table)}
+    got = TL.fuse_embeddings_multi(params, ids,
                                    [torch.from_numpy(f) for f in feats])
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), b)
     with pytest.raises(ValueError, match="feature blocks"):
-        TL.fuse_embeddings_multi(torch.from_numpy(table), ids,
+        TL.fuse_embeddings_multi(params, ids,
                                  [torch.zeros(2, 6)] * (len(spots) + 1))
 
 

@@ -123,8 +123,10 @@ def test_draft_npz_codec_both_ways(tmp_path):
 
 
 PORT_FILES = sorted((REPO / "msd_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "step_times.py",
-     REPO / "tests" / "torch_parallel_train_ranks.py"]
+    [REPO / "chip_smoke.py", REPO / "step_times.py"] + \
+    [REPO / "tests" / f"{name}.py" for name in (
+        "torch_parallel_ranks", "torch_parallel_train_ranks",
+        "torch_parallel_paths_ranks")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

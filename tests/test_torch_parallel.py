@@ -22,7 +22,6 @@ mesh of tests/conftest.py:
 import dataclasses
 import os
 import pickle
-import socket
 import subprocess
 import sys
 
@@ -186,6 +185,17 @@ def _jax_side(ref) -> dict:
     return out
 
 
+def spawn_ranks(module: str, world: int, work) -> list:
+    """``world`` processes of ``python -m <module> RANK WORLD STORE WORK``,
+    their output piped. They meet at a file store in ``work``, a fresh
+    directory (``comm.init``); no port is picked for them."""
+    store = os.path.join(str(work), "store")
+    return [subprocess.Popen(
+        [sys.executable, "-m", module, str(r), str(world), store, str(work)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """(JAX's results, each rank's results): the four ranks run while
@@ -194,13 +204,7 @@ def world(tmp_path_factory):
     inp, ref = _jax_inputs()
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump(inp, f)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = str(sock.getsockname()[1])
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.torch_parallel_ranks", str(r),
-         str(WORLD), port, str(work)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    procs = spawn_ranks("tests.torch_parallel_ranks", WORLD, work)
     try:
         jax_out = _jax_side(ref)
         logs = [p.communicate(timeout=600)[0] for p in procs]

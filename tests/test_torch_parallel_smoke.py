@@ -5,7 +5,9 @@ gate holds (tokens equal on every rank and to the single-device run, MSD
 == null-draft under TP, the first decode row within its bound and the
 planted o_proj-sum fault beyond it, the pipeline and sequence outputs
 within theirs and bitwise equal on every rank, cuda_graphs over gloo
-refused; then, in the world of four, the DraftTrainer and LlavaFinetuner
+refused; (f), the batched lanes, the continuous scheduler, calibration,
+scoring and a two-image prompt under TP=2 against their solo runs and
+the single device; then, in the world of four, the DraftTrainer and LlavaFinetuner
 on a (data 2, model 2) mesh within their bounds of one device, and both
 planted training faults, *f* the identity and the loss as the mean of
 local means, beyond the gradient's). A second world plants splits from
@@ -50,6 +52,15 @@ def test_smoke_parallel_phase_at_tiny_size():
     held, whole, repl = t["zero_bytes"]
     assert 2 * held == whole and repl > whole
     assert t["ft_loss_rel"] <= chip_smoke.PARALLEL_FT_TOL["loss"]
+    # (f): the generator's other paths under TP=2
+    f = out["paths"]
+    assert f["launches"] == 0                            # the CPU twin
+    assert all(f["same_as_single"].values())
+    assert 0 < f["feature_rel"] <= chip_smoke.PARALLEL_ROW_TOL["float32"]
+    assert f["score"]["diff"] <= f["score"]["bound"]
+    assert set(f["s"]) == {"batch B=2", "solo p1", "scheduler", "collect",
+                           "calibrated", "score", "two-image MSD",
+                           "two-image AR"}
 
 
 SPLIT_CFG = dict(vocab_size=512, hidden_size=64, layers=2, heads=4,
@@ -57,7 +68,7 @@ SPLIT_CFG = dict(vocab_size=512, hidden_size=64, layers=2, heads=4,
 SPLIT_WIDTHS, SPLIT_IMG, SPLIT_NEW = (4, 3, 2, 2, 1), 16, 8
 
 
-def _split_rank(rank, world, port, out_dir):
+def _split_rank(rank, world, store, out_dir):
     """One of two gloo ranks: the single-device AR tokens (rank 0) of a
     target whose every odd vocab column ties its even neighbour, against
     TP=2 AR runs that split from them: TP leaning to the odd token of
@@ -71,7 +82,7 @@ def _split_rank(rank, world, port, out_dir):
                                                  llama_param_specs,
                                                  make_mesh, shard_params)
 
-    chip_smoke._rank_setup(rank, world, port, "cpu")
+    chip_smoke._rank_setup(rank, world, store, "cpu")
     tcfg = dataclasses.replace(LlamaConfig.tiny(**SPLIT_CFG),
                                residual_dtype="float32")
     dcfg, tp, drafts = chip_smoke.main_weights(tcfg, SPLIT_WIDTHS, "cpu",

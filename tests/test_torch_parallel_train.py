@@ -31,11 +31,7 @@ sharded trainer lies up to 5.7e-7 off its unsharded one here, and the
 port's sharded trainer measured up to 1.07e-6 off either.
 """
 
-import os
 import pickle
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -59,10 +55,10 @@ from msd_tpu_torch.train import draft_train as TT
 from msd_tpu_torch.train import finetune as TF
 from msd_tpu_torch.train import trainer as TTR
 from tests import test_torch_finetune as FTT
+from tests.test_torch_parallel import spawn_ranks
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_train import TOL, _assert_trees_close, _np_tree
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 # tests/test_parallel.py's ZERO config
 ZERO = dict(vocab_size=128, hidden_size=64, layers=1, heads=8,
@@ -209,13 +205,7 @@ def world(tmp_path_factory):
     finp, fref = _finetune_case()
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump({"draft": dinp, "finetune": finp}, f)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = str(sock.getsockname()[1])
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.torch_parallel_train_ranks", str(r),
-         str(WORLD), port, str(work)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    procs = spawn_ranks("tests.torch_parallel_train_ranks", WORLD, work)
     try:
         jax_out = _jax_side(dinp, dref, fref)
         logs = [p.communicate(timeout=600)[0] for p in procs]

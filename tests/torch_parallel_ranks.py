@@ -2,7 +2,7 @@
 gloo ranks on the CPU, fp32, tiny sizes. Imports torch and the port, never
 JAX.
 
-    python -m tests.torch_parallel_ranks RANK WORLD PORT WORKDIR
+    python -m tests.torch_parallel_ranks RANK WORLD STORE WORKDIR
 
 Reads WORKDIR/inputs.pkl (the JAX package's weights and inputs as numpy
 trees, written by the test) and writes WORKDIR/rank<RANK>.pt: TP=4
@@ -96,9 +96,9 @@ def _hidden(case: dict, mesh) -> dict:
                                         mesh=mesh)["k"].shape[2]}
 
 
-def main(rank: int, world: int, port: int, workdir: str) -> None:
+def main(rank: int, world: int, store: str, workdir: str) -> None:
     torch.set_num_threads(1)
-    comm.init(rank, world, port)
+    comm.init(rank, world, store)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     mesh = make_mesh(world, dp=1, tp=world)
@@ -144,7 +144,8 @@ def main(rank: int, world: int, port: int, workdir: str) -> None:
         causal_prefill_bias(T, T, device=DEV), cos, sin, shards, mode=mode)
         for mode in ("gather", "ring")}
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    comm.leave()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -2,7 +2,7 @@
 of four gloo ranks on the CPU, fp32, tiny sizes, on a (data 2, model 2)
 mesh. Imports torch and the port, never JAX.
 
-    python -m tests.torch_parallel_train_ranks RANK WORLD PORT WORKDIR
+    python -m tests.torch_parallel_train_ranks RANK WORLD STORE WORKDIR
 
 Reads WORKDIR/inputs.pkl (the JAX package's weights, records and configs
 as numpy trees, written by the test) and writes WORKDIR/rank<RANK>.pt:
@@ -186,9 +186,9 @@ def finetune_runs(case: dict, mesh) -> dict:
     return out
 
 
-def main(rank: int, world: int, port: int, workdir: str) -> None:
+def main(rank: int, world: int, store: str, workdir: str) -> None:
     torch.set_num_threads(1)
-    comm.init(rank, world, port)
+    comm.init(rank, world, store)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     mesh = make_mesh(world, dp=2, tp=2)
@@ -199,7 +199,8 @@ def main(rank: int, world: int, port: int, workdir: str) -> None:
     out["draft"] = draft_runs(inp["draft"], mesh, workdir, rank)
     out["finetune"] = finetune_runs(inp["finetune"], mesh)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    comm.leave()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
