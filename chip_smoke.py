@@ -43,6 +43,22 @@ prints no result):
    block, with an oracle tree holding the null-draft tokens: it must be
    accepted to full depth (14) at every step and still commit the
    null-draft tokens.
+4b. modes (``run_modes``), on the main path's weights, prompts and oracle
+   draft, each mode on a graph and an eager generator of its own: (a)
+   ``canonical_attn=False`` (the original tree_bias verification, its 48
+   rows through masked attention) and (b) the same with
+   ``attn_impl="pallas"`` (the 48 rows through K1, 12 row groups of 4 per
+   kv head): MSD and AR on prompt 0 x ``MODES_NEW`` tokens; (c)
+   ``canonical_ar=True`` and (d) ``attn_impl="xla"``: AR on both main
+   prompts x ``MAX_NEW`` tokens. Every run's graph tokens must equal its
+   eager ones, (a)'s and (b)'s AR [main]'s; each split (MSD against its
+   AR and [main]'s MSD, (c) against [main]'s MSD, (d) against [main]'s
+   AR) must be a rounding tie (``split_ok``); K1 launches 32 per AR
+   token decoded in (a) and (b), plus 32 per verify step in (b), none in
+   (c) and (d). (b)'s 48-row call is held against K1's twin and timed
+   over 32 cold caches under its tree bias beside SDPA with that mask
+   (the kernels line's ``tree_verify``); (c)'s split count is printed
+   beside [main]'s, and the replayed AR token of (c), (d) and [main].
 5. calib (``run_calib``), on the main path's weights and prompts: a
    collecting run per prompt (features sane: one row per step, every
    non-root node valid, confidences in [0, 1], accepted nodes valid); a fit
@@ -1286,6 +1302,275 @@ def run_main_path(tcfg, widths, max_seq, max_new, n_img, prompt_tokens,
                   "e0": e0, "captures": captures,
                   "null": [r.tokens for r in res["graph", "null"]]}
     return res
+
+
+# [modes]: new tokens of each run on prompt 0 ((c) and (d) run every main
+# prompt at MAX_NEW, to count their splits beside [main]'s)
+MODES_NEW = 12
+# label: (engine flags, attn_impl, runs MSD)
+MODES = {"a": ({"canonical_attn": False}, "auto", True),
+         "b": ({"canonical_attn": False}, "pallas", True),
+         "c": ({"canonical_ar": True}, "auto", False),
+         "d": ({}, "xla", False)}
+
+
+def mode_split(gen, ids, feats, toks, other):
+    """``split_record`` of a request's tokens ``toks`` against ``other``
+    (None where they do not part), its noise also over the non-canonical
+    verify's row shape: the tokens fed in chunks of the tree's node count
+    under a causal bias through masked attention (a chain's tree bias). No
+    recompute goes through K1."""
+    logits = llava_logits_fn(gen, ids, feats)
+    split = split_record(gen, logits, toks, other)
+    if split is None:
+        return None
+    k = split["at"]
+    prefix = [int(t) for t in toks[:k]]
+    ta, tb = (int(s[k]) if k < len(s) else gen.eos_id for s in (toks, other))
+    rows = logits(prefix, gen.eng.tree.num_nodes, window=False)
+    gap = _pair_gap(logits(prefix)[k], rows[k], ta, tb)
+    split["noise"] = max(split["noise"],
+                         gap / float(bf16_ulp(split["logit"])))
+    return split
+
+
+def run_modes(res, card: str = "cpu") -> dict:
+    """The engine's attention modes on the main path's weights, prompts and
+    oracle draft (item 4b of the module docstring), each on a graph and an
+    eager generator of its own (released at the end of its mode):
+
+    (a) ``canonical_attn=False``: the original tree_bias verification,
+        its 48 rows through masked attention ("auto"); MSD (the oracle
+        tree) and AR on prompt 0;
+    (b) (a) with ``attn_impl="pallas"``: the verify's rows through K1 (12
+        row groups of 4 per kv head); the 48-row call of the eager run,
+        recorded, held against K1's plain twin and timed over 32 cold
+        caches under its tree bias beside SDPA with that mask;
+    (c) ``canonical_ar=True``: the AR row through the verify's window
+        scheme, every main prompt at MAX_NEW tokens;
+    (d) ``attn_impl="xla"``: the AR row through masked attention, every
+        main prompt at MAX_NEW tokens.
+
+    Raises unless every run's graph-replayed tokens equal its eager ones;
+    (a)'s and (b)'s AR tokens equal [main]'s bitwise (the AR row's program
+    is theirs); MSD against its AR and against [main]'s canonical MSD,
+    (c)'s AR against [main]'s MSD and (d)'s against [main]'s AR, each
+    split is a rounding tie (``split_ok`` of ``mode_split`` at
+    ``HARNESS_TIE``; none off the card); K1 launches 32 per AR token
+    decoded in (a) and (b), plus 32 per verify step in (b), 0 in (c) and
+    (d), under replay and eagerly; no capture in a counted run. Returns
+    the splits, the K1 counts, the 48-row K1 entry of the kernels line
+    and the timings."""
+    import torch
+    from msd_tpu_torch.engine.generator import MSDGenerator
+    from msd_tpu_torch.models import llama as Lm
+    from msd_tpu_torch.ops import decode_attention as K1
+
+    c = res["ctx"]
+    t_phase = time.perf_counter()
+    base = c["gens"]["graph"]
+    tp, tcfg, dcfg = base.params["target"], base.tcfg, base.dcfg
+    device, sync, on_card = c["device"], c["sync"], c["on_card"]
+    captures, prompts, feats = c["captures"], c["prompts"], c["feats"]
+    tie = HARNESS_TIE if on_card else 0.0
+    n_layers, nodes = tcfg.num_hidden_layers, base.eng.tree.num_nodes
+    new, full = min(MODES_NEW, c["max_new"]), c["max_new"]
+    main = {name: [r.tokens for r in res["graph", name]]
+            for name in ("ar", "msd")}
+    ref = torch.from_numpy(np.asarray(c["null"][0], np.int32)).to(device)
+    out = {"splits": {}, "launches": {}, "ms": {}, "tokens": {}}
+    bad = []
+
+    def make(flags, impl, graphs):
+        cfg = dataclasses.replace(tcfg, attn_impl=impl)
+        return MSDGenerator(tp, c["drafts"]["msd"], cfg,
+                            dataclasses.replace(dcfg, text=cfg),
+                            dataclasses.replace(base.eng, **flags),
+                            n_img=base.n_img, eos_id=-1, sp=base.sp,
+                            device=device, cuda_graphs=graphs)
+
+    def gate(label, gen, ids, toks, other, k1_gen=None):
+        """Gate one split; where ``other``'s AR row went through K1
+        (``k1_gen`` routes it so), a split beyond the tie may pass
+        through ``k1_split_check`` as in [harness]."""
+        split = mode_split(gen, ids, feats, toks, other)
+        if k1_gen is not None and on_card and not split_ok(split, tie):
+            split["k1"] = k1_split_check(
+                k1_gen, llava_logits_fn(k1_gen, ids, feats), toks, other,
+                split)
+        out["splits"][label] = split
+        if not split_ok(split, tie):
+            bad.append(f"{label}: a split that is no rounding tie: {split}")
+        return split
+
+    recorded = {}
+
+    @contextlib.contextmanager
+    def record_tree_call():
+        """Within the block, the first K1 call of the tree's rows is kept
+        (its inputs cloned) for the kernel check and timing."""
+        real = Lm.decode_attention
+
+        def keep(q, k, v, bias, kv_len):
+            if q.shape[0] == nodes and not recorded:
+                recorded.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                                bias=bias.clone(), n=kv_len.clone())
+            return real(q, k, v, bias, kv_len)
+
+        Lm.decode_attention = keep
+        try:
+            yield
+        finally:
+            Lm.decode_attention = real
+
+    for label, (flags, impl, msd) in MODES.items():
+        t_mode = time.perf_counter()
+        reqs = [(0, new)] if msd else [(pi, full)
+                                       for pi in range(len(prompts))]
+        gens = {"graph": make(flags, impl, True),
+                "eager": make(flags, impl, False)}
+        per_token = 0 if impl == "xla" or flags.get("canonical_ar") else 1
+        per_step = 1 if impl == "pallas" else 0
+        toks = {}
+        block = oracle_draft(ref, c["e0"]) if msd else contextlib.nullcontext()
+        with block:
+            for how, gen in gens.items():
+                # warm-up, outside the counted runs: captures in the block
+                gen.naive_generate(prompts[0], feats, c["max_new_warm"],
+                                   share_prefill=True)
+                if msd:
+                    gen.generate(prompts[0], feats, c["max_new_warm"])
+                sync()
+                n_cap = captures(gen)[0]
+                kinds = ("ar", "msd") if msd else ("ar",)
+                for kind in kinds:
+                    rec = record_tree_call() if (
+                        label == "b" and how == "eager" and kind == "msd") \
+                        else contextlib.nullcontext()
+                    K1.decode_attention.launches = 0
+                    t1 = time.perf_counter()
+                    with rec:
+                        rs = [gen.naive_generate(prompts[pi], feats, n,
+                                                 share_prefill=True)
+                              if kind == "ar" else
+                              gen.generate(prompts[pi], feats, n)
+                              for pi, n in reqs]
+                    sync()
+                    secs = time.perf_counter() - t1
+                    launches = K1.decode_attention.launches
+                    decoded = sum(len(r.tokens) - 1 for r in rs)
+                    steps = sum(r.accept_steps for r in rs)
+                    want = n_layers * (decoded * per_token if kind == "ar"
+                                       else steps * per_step)
+                    want = want if on_card else 0
+                    out["launches"][label, how, kind] = launches
+                    n_tok = sum(len(r.tokens) for r in rs)
+                    out["ms"][label, how, kind] = secs * 1e3 / n_tok
+                    log(f"[modes] ({label}) {how} {kind}: "
+                        f"{secs * 1e3 / n_tok:.2f} ms/token on {card} "
+                        f"({n_tok} tokens, prefill included"
+                        + (f", {steps} steps" if kind == "msd" else "")
+                        + f"); K1 launches {launches}, expected {want}")
+                    if launches != want:
+                        bad.append(f"({label}) {how} {kind}: K1 launches "
+                                   f"{launches} != {want}")
+                    toks[how, kind] = [r.tokens for r in rs]
+                    out["tokens"][label, how, kind] = toks[how, kind]
+                    if how == "graph":
+                        out.setdefault("graph_index", {})[label, kind] = \
+                            rs[0].graph
+                if captures(gen)[0] != n_cap:
+                    bad.append(f"({label}) {how}: a capture inside the "
+                               f"counted runs")
+        for kind in ("ar", "msd") if msd else ("ar",):
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(toks["graph", kind], toks["eager", kind]))
+            log(f"[modes] ({label}) {kind}: graph == eager tokens: {same}")
+            if not same:
+                bad.append(f"({label}) {kind}: graph tokens != eager")
+        g_eager = gens["eager"]
+        if msd:
+            ar, m = toks["graph", "ar"][0], toks["graph", "msd"][0]
+            same_ar = np.array_equal(ar, main["ar"][0][:new])
+            log(f"[modes] ({label}) AR == [main]'s AR (the same AR program):"
+                f" {same_ar}")
+            if not same_ar:
+                bad.append(f"({label}) AR tokens != [main]'s AR tokens")
+            for other, name, k1_gen in (
+                    (ar, "its AR", g_eager),
+                    (main["msd"][0][:new], "[main]'s MSD", None)):
+                s = gate(f"({label}) MSD vs {name}", g_eager, prompts[0], m,
+                         other, k1_gen)
+                log(f"[modes] ({label}) MSD vs {name}: "
+                    + ("no split" if s is None else split_text(s)))
+        if label == "b" and on_card:
+            if not recorded:
+                bad.append("(b): no K1 call of the tree's rows recorded")
+            else:
+                n = int(recorded["n"])
+                err = check_k1(f"the non-canonical verify's call (T={nodes} "
+                               f"under its tree bias, kv_len {n})",
+                               recorded["q"], recorded["k"], recorded["v"],
+                               recorded["bias"], recorded["n"], n)
+                row = time_k1_row(card, f"tree verify rows (T={nodes}: "
+                                  f"{-(-nodes // 4)} row groups of 4 per kv "
+                                  f"head, tree bias)",
+                                  tcfg.num_attention_heads,
+                                  tcfg.num_key_value_heads, n,
+                                  recorded["bias"].shape[1], n_layers,
+                                  bias=recorded["bias"])
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                out["k1_tree"] = row
+        if label in ("c", "d"):
+            # (c) against [main]'s MSD (the verify's association), (d)
+            # against [main]'s AR (K1's row)
+            ref_name = "msd" if label == "c" else "ar"
+            n_split = 0
+            for pi in range(len(prompts)):
+                s = gate(f"({label}) AR vs [main]'s {ref_name.upper()} "
+                         f"prompt {pi}", g_eager, prompts[pi],
+                         toks["graph", "ar"][pi], main[ref_name][pi],
+                         base if label == "d" else None)
+                n_split += s is not None
+                log(f"[modes] ({label}) AR vs [main]'s {ref_name.upper()}, "
+                    f"prompt {pi}: "
+                    + ("no split" if s is None else split_text(s)))
+            out["n_split", label] = n_split
+            if on_card:
+                out["replay_ms", label] = _replay_ms(
+                    gens["graph"], out["graph_index"][label, "ar"])
+        for g in gens.values():
+            if g.graphs is not None:
+                g.graphs.drop_all()
+        del gens, g_eager
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"[modes] ({label}) {flags} attn_impl={impl}: "
+            f"{time.perf_counter() - t_mode:.1f}s")
+
+    main_splits = sum(not np.array_equal(a, m)
+                      for a, m in zip(main["ar"], main["msd"]))
+    out["main_splits"] = main_splits
+    line = (f"[modes] (c) canonical AR vs MSD: {out['n_split', 'c']} of "
+            f"{len(prompts)} prompts split ([main]'s fast AR: {main_splits})")
+    if on_card:
+        out["replay_ms", "main"] = _replay_ms(base,
+                                              res["graph", "ar"][0].graph)
+        line += (f"; replayed AR token on {card}: canonical_ar "
+                 f"{out['replay_ms', 'c']:.3f} ms, xla (d) "
+                 f"{out['replay_ms', 'd']:.3f} ms, [main] (K1) "
+                 f"{out['replay_ms', 'main']:.3f} ms")
+    log(line)
+    if "k1_tree" in out:
+        out["k1_tree"]["launches"] = out["launches"]["b", "graph", "msd"]
+        out["k1_tree"]["launches_eager"] = out["launches"]["b", "eager",
+                                                           "msd"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[modes] phase took {out['seconds']:.1f}s")
+    if bad:
+        raise AssertionError("[modes]: " + "; ".join(bad))
+    return out
 
 
 def bench_fit(rows, vocab: int, device, label: str):
@@ -4403,32 +4688,36 @@ def run_quant(res) -> dict:
 
 
 def time_k1_row(card: str, label: str, hq: int, hkv: int, kv_len: int,
-                s: int, layers: int) -> dict:
+                s: int, layers: int, bias=None) -> dict:
     """K1 at an AR row (T=1, ``hq`` query and ``hkv`` kv heads, bf16) at
     ``kv_len`` against its plain twin (the stated tolerance, the first
     and last cache), then in CUDA graphs over ``layers`` distinct caches
     of ``s`` rows, sized to hold more live K/V than the 50 MB L2 (each
     launch finds its cache cold, as on the AR path): kernel (twice), its
-    plain twin (twice) and SDPA (``enable_gqa`` for GQA), and the bound.
-    Returns the kernels line's fields for this shape (``launches`` set by
-    the phase that runs it)."""
+    plain twin (twice) and SDPA (``enable_gqa`` for GQA) with the same
+    additive mask, and the bound. ``bias``: the call's fp32 [T, s] bias
+    (T query rows, e.g. a tree's rows under their tree bias) in place of
+    one row that admits every live key. Returns the kernels line's fields
+    for this shape (``launches`` set by the phase that runs it)."""
     import torch
     import torch.nn.functional as F
     from msd_tpu_torch.ops import decode_attention as K1
 
     bf16 = torch.bfloat16
+    if bias is None:
+        bias = torch.zeros(1, s, device="cuda")
+    t = bias.shape[0]
     g = torch.Generator(device="cuda").manual_seed(hq + kv_len)
-    q = torch.randn(1, hq, 128, generator=g, device="cuda").to(bf16)
+    q = torch.randn(t, hq, 128, generator=g, device="cuda").to(bf16)
     ks = torch.randn(layers, s, hkv, 128, generator=g, device="cuda",
                      dtype=bf16)
     vs = torch.randn(layers, s, hkv, 128, generator=g, device="cuda",
                      dtype=bf16)
-    bias = torch.zeros(1, s, device="cuda")
     n = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     mask = bias[:, :kv_len].to(bf16)[None, None]
-    err = max(check_k1(f"T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} "
-                       f"layer {i} bfloat16", q, ks[i], vs[i], bias, n,
-                       kv_len) for i in (0, layers - 1))
+    shape = f"T={t} Hq={hq} Hkv={hkv} S={s} kv_len={kv_len}"
+    err = max(check_k1(f"{shape} layer {i} bfloat16", q, ks[i], vs[i], bias,
+                       n, kv_len) for i in (0, layers - 1))
 
     def kernel(i):
         K1.decode_attention(q, ks[i % layers], vs[i % layers], bias, n)
@@ -4447,12 +4736,13 @@ def time_k1_row(card: str, label: str, hq: int, hkv: int, kv_len: int,
         ("plain", plain), ("kernel", kernel), ("library", library),
         ("kernel2", kernel), ("plain2", plain))}
     ms = min(timed["kernel"], timed["kernel2"])
-    nbytes = 2 * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 + kv_len * 4
-    ops = 4 * hq * kv_len * 128
+    # q and the output once, the live K/V once, the bias's live columns
+    nbytes = 2 * t * hq * 128 * 2 + 2 * kv_len * hkv * 128 * 2 \
+        + t * kv_len * 4
+    ops = 4 * t * hq * kv_len * 128
     by_bytes = nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S
     bound_s = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
-    log(f"[K1] {label}: T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} bf16 "
-        f"over {layers} caches ("
+    log(f"[K1] {label}: {shape} bf16 over {layers} caches ("
         f"{2 * layers * kv_len * hkv * 128 * 2 / 1e6:.0f} MB live, cold in "
         f"L2) on {card}: "
         f"kernel {timed['kernel'] * 1e3:.2f}/{timed['kernel2'] * 1e3:.2f} "
@@ -4462,7 +4752,7 @@ def time_k1_row(card: str, label: str, hq: int, hkv: int, kv_len: int,
         f"{bound_s * 1e6:.2f} us ({nbytes / 1e6:.3f} MB by "
         f"{'bytes' if by_bytes else 'operations'}), share of bound "
         f"{bound_s * 1e3 / ms:.3f}")
-    return {"shape": f"T=1 Hq={hq} Hkv={hkv} S={s} kv_len={kv_len} bf16",
+    return {"shape": f"{shape} bf16",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": min(timed["plain"], timed["plain2"]),
             "bound_ms": bound_s * 1e3,
@@ -4695,8 +4985,11 @@ def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
     positions through window slots and the cache below them through the
     bias, as a verify row of a chain does (``windowed_attention``; window
     rows and bias built here from the row's cache position); with ``ar``
-    (``chunk`` 1) a row attends through K1 over the keys up to its own, as
-    the AR step does; else the attention is plain (no K1)."""
+    the chunk's call carries kv_len (its last row + 1), so it goes where
+    ``gen.tcfg.attn_impl`` sends it (``chunk`` 1 through K1 over the keys
+    up to its row, as the AR step does); else the attention is plain (no
+    K1). ``window`` False with ``chunk`` 48 is the non-canonical verify's
+    row shape for a chain (its tree bias is then the causal bias)."""
     import torch
     from msd_tpu_torch.models import llama as L
     from msd_tpu_torch.ops.attention import NEG_INF
@@ -4715,7 +5008,7 @@ def shaped_logits(gen, emb, cos, sin, n_p: int, n_t: int, chunk: int,
         r = torch.arange(first, first + x.shape[0], device=dev)
         if not win:
             bias = torch.where(cols[None] <= r[:, None], 0.0, NEG_INF)
-            kv_len = torch.tensor(first + 1, dtype=torch.int32,
+            kv_len = torch.tensor(first + x.shape[0], dtype=torch.int32,
                                   device=dev) if k1 else None
             return L.llama_forward(tp, cfg, x, r.to(torch.int32), kv, first,
                                    bias, cos, sin, kv_len=kv_len)[0]
@@ -4773,11 +5066,12 @@ def llava_logits_fn(gen, ids, feats):
 
 
 def rows_logits_fn(gen, prompt):
-    """``logits(toks, chunk=None, ar=False)`` of ``token_check`` for a
-    prompt given as its embedded rows ``prompt`` [n_p, H] at 1-D positions
-    0..n_p-1: the tokens' embeddings appended, unpadded
-    (``plain_rows_logits``) or at the engine's row shapes
-    (``shaped_logits``; ``ar``: one-row chunks through K1), over the rope
+    """``logits(toks, chunk=None, ar=False, window=None)`` of
+    ``token_check`` for a prompt given as its embedded rows ``prompt``
+    [n_p, H] at 1-D positions 0..n_p-1: the tokens' embeddings appended,
+    unpadded (``plain_rows_logits``) or at the engine's row shapes
+    (``shaped_logits``; ``ar``: one-row chunks through K1; ``window``,
+    by default ``chunk`` > 1: through window slots), over the rope
     tables."""
     import torch
     from msd_tpu_torch.models import llama as L
@@ -4786,7 +5080,7 @@ def rows_logits_fn(gen, prompt):
     cos, sin = gen.params["cos_t"], gen.params["sin_t"]
     n_p = prompt.shape[0]
 
-    def logits(toks, chunk=None, ar=False):
+    def logits(toks, chunk=None, ar=False, window=None):
         toks = np.asarray(toks, np.int64)
         n_t = len(toks)
         rows = n_p + n_t if chunk is None else \
@@ -4798,7 +5092,8 @@ def rows_logits_fn(gen, prompt):
         if chunk is None:
             return plain_rows_logits(gen, emb, cos, sin)[n_p - 1:]
         return shaped_logits(gen, emb, cos, sin, n_p, n_t, chunk,
-                             window=chunk > 1, ar=ar)
+                             window=chunk > 1 if window is None else window,
+                             ar=ar)
     return logits
 
 
@@ -5031,8 +5326,9 @@ def qwen_fault_check(make_gen, prompts, good, max_new: int, tie: float,
     orig = SE.verify_forward
 
     def no_delta(tp, tcfg, kv, E, tr, cos_t, sin_t, per_lane=frozenset(),
-                 pos_delta=None):
-        return orig(tp, tcfg, kv, E, tr, cos_t, sin_t, per_lane)
+                 pos_delta=None, canonical=True):
+        return orig(tp, tcfg, kv, E, tr, cos_t, sin_t, per_lane,
+                    canonical=canonical)
 
     SE.verify_forward = no_delta
     try:
@@ -9101,6 +9397,9 @@ def run_all(root: str):
         f"{res['eager_s']:.1f}s; phase took "
         f"{time.perf_counter() - t_main:.1f}s")
     lap("main")
+    modes = run_modes(res, card)
+    lap("modes")
+    k1["tree_verify"] = modes["k1_tree"]
     run_calib(res)
     lap("calib")
     sampling = run_sampling(res)

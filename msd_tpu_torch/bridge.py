@@ -8,7 +8,8 @@ and ``models/draft``), so a nested dict of numpy arrays taken from
   o/gate/up/down_proj [L, in, out], norms [L, H]}, ``norm`` [H],
   ``lm_head`` [H, V];
 - KV cache {"k", "v"} [L, S, Hkv, D];
-- draft: ``embed_tokens``, ``fc_w`` [2H, H], ``fc_b`` [H], ``layers``,
+- draft: ``embed_tokens``, ``fc_w`` [2H, H], ``fc_b`` [H] (a draft of
+  ``DraftConfig(fc_bias=False)`` has none, on both sides), ``layers``,
   ``medusa`` {``mw`` [K, H, H], ``mb`` [K, H]}.
 
 bf16 arrays (numpy's ``bfloat16`` extension dtype, as ``np.asarray`` of a

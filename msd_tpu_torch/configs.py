@@ -1,18 +1,50 @@
 """Model / engine configuration dataclasses for the PyTorch port.
 
 The port's own copy of the JAX package's configs (``msd_tpu/configs.py``):
-the same field names, defaults and constructors, so a config built with the
-same arguments on either side means the same model. Only the fields the
-port reads are here. Left out: ``attn_impl`` and ``pallas_min_s`` (the
-port routes every row group of at most 4 grouped query rows to its
-decode-attention kernel), ``canonical_attn=False`` and ``canonical_ar``
-(the port always verifies with window-canonical attention, the JAX
-default). The Qwen configs live with their models
+every field of its dataclasses, with the same names, order and defaults,
+so a config built with the same arguments on either side means the same
+model, apart from two defaults named below. The attention switches:
+
+- ``EngineConfig.canonical_attn`` (default True): tree verification with
+  window-canonical attention (``ops/attention.windowed_attention``), so a
+  greedy trajectory is draft-invariant and the null-draft run is canonical
+  greedy AR. False is the original EAGLE verification: each tree row
+  attends over the whole cache through ``tree_bias`` (the committed
+  prefix and its ancestors), no window; its rows then go where
+  ``attn_impl`` sends them.
+- ``EngineConfig.canonical_ar`` (default False): the AR row at ``cur``
+  reduces its window [cur - W + 1, cur] through window slots and the cache
+  below it through the bias, as a verify row at that position does; it
+  never reaches the decode-attention kernel.
+- ``LlamaConfig.attn_impl`` routes every attention call that carries
+  ``kv_len`` (the AR row, the non-canonical verify rows) and has no
+  window: ``"xla"`` to ``masked_attention`` (stock torch ops on the card),
+  never to the kernel; ``"pallas"`` to the CUDA decode-attention kernel K1
+  (``ops/decode_attention``, the port of the Pallas kernel; the name is
+  kept so a config built for JAX means the same thing) at any row count:
+  the non-canonical verify's 48 rows of a LLaVA tree run as 12 row groups
+  of 4 per kv head; ``"auto"`` to K1 for at most 4 grouped query rows
+  (G * T) or one query row at any GQA group, when the allocated cache has
+  at least ``pallas_min_s`` rows, else to ``masked_attention``. Another
+  value raises ``ValueError``. On the card a call K1 does not take (head
+  dim other than 128, another dtype) raises; nothing falls back (JAX's
+  picker falls back to XLA past a TPU VMEM limit: not ported).
+
+Departures: ``attn_impl`` defaults to ``"auto"`` (JAX: ``"xla"``), what
+bench.py runs and the port's main path since its first slice, and
+``pallas_min_s`` to 0 (JAX: 1024, from a TPU v5e sweep): on the H100 K1
+beats SDPA at every LLaVA AR row measured, down to kv_len 334.
+``param_dtype``, ``temperature``, ``top_p`` and ``top_k_sampling`` are
+kept for the same constructor calls; neither package reads them (the
+engine reads ``SamplingParams``). ``DraftConfig.fc_bias=False`` builds a
+draft without ``fc_b``.
+
+The Qwen configs live with their models
 (``models/qwen2vl.Qwen2VLTextConfig`` and
 ``models/qwen_vl_v1.QwenVLV1TextConfig``, whose ``as_llama`` gives the
 decoder's ``LlamaConfig``; ``models/qwen2vl_vision.Qwen2VisionConfig``,
-``models/qwen_vl_v1.QwenVLVisionConfig``), as in the JAX package. The
-draft's fc always has a bias (``fc_bias=True``). Quantized weights are a property of the param dicts
+``models/qwen_vl_v1.QwenVLVisionConfig``), as in the JAX package.
+Quantized weights are a property of the param dicts
 (``models.llama.quantize_llama_params``), not of these configs. Decoding
 runs tensor parallel, and training (``DraftTrainer(mesh=)``,
 ``LlavaFinetuner(mesh=)``, ZeRO-1 optimizer state) over a (data, model)
@@ -30,6 +62,7 @@ from typing import Optional
 
 IMAGE_TOKEN_INDEX = -200  # LLaVA's image placeholder id
 DEFAULT_IMAGE_TOKEN = "<image>"
+ATTN_IMPLS = ("xla", "pallas", "auto")
 
 
 @dataclass(frozen=True)
@@ -45,9 +78,19 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # attention routing of the calls that carry kv_len: "xla", "pallas"
+    # or "auto" (module docstring); "auto" takes the kernel only on a cache
+    # of at least pallas_min_s rows
+    attn_impl: str = "auto"
+    pallas_min_s: int = 0
     # residual-stream dtype ("float32" carries the residual in fp32 while
     # every matmul stays in the param dtype); None = the activation dtype
     residual_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{self.attn_impl!r}")
 
     @property
     def head_dim(self) -> int:
@@ -151,6 +194,7 @@ class DraftConfig:
 
     text: LlamaConfig = dataclasses.field(default_factory=LlamaConfig.llava_7b)
     num_layers: int = 1
+    fc_bias: bool = True
     medusa_heads: int = 0
 
     @staticmethod
@@ -197,3 +241,12 @@ class EngineConfig:
     max_new_tokens: int = 512
     prompt_pad_multiple: int = 128
     tree: TreeConfig = dataclasses.field(default_factory=TreeConfig)
+    param_dtype: str = "bfloat16"
+    # window-canonical tree verification; False: tree_bias over the cache
+    canonical_attn: bool = True
+    # the AR row through the verify's window scheme (never the kernel)
+    canonical_ar: bool = False
+    # greedy when temperature == 0.0 (not read: SamplingParams is)
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k_sampling: int = 0

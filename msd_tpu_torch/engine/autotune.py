@@ -4,12 +4,13 @@ The port of the JAX package's ``engine/autotune.py``. Reference:
 EAGLE/eagle/model/ea_model.py:156-179 times base-model forwards at each
 candidate length in {40, 48, 50, 56, 60} and picks the cheapest per
 expected token. ``autotune_total_token`` times the verify step's own
-target forward (``spec_engine.verify_forward``, window-canonical, as
-``_verify`` runs it; the JAX version times a ``tree_bias`` forward, which
-the port does not have) at each candidate node count; on the card as a
-replayed CUDA graph between CUDA events, since an eager forward would time
-the host's dispatch of its ~1000 kernels. ``autotune_tree_alpha`` runs the
-real engine per candidate tree and keeps the best measured speedup.
+target forward (``spec_engine.verify_forward`` in the engine's mode, as
+``_verify`` runs it: window-canonical, or with ``canonical_attn=False``
+the ``tree_bias`` forward the JAX version times) at each candidate node
+count; on the card as a replayed CUDA graph between CUDA events, since an
+eager forward would time the host's dispatch of its ~1000 kernels.
+``autotune_tree_alpha`` runs the real engine per candidate tree and keeps
+the best measured speedup.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ def _timing_tree(tree: TreeConfig, n_nodes: int, device) -> SE.Tree:
 
 def time_verify_forward(params: Dict, cfg: LlamaConfig, tree: TreeConfig,
                         n_nodes: int, s_target: int, prefix_len: int = 640,
-                        repeats: int = 5, device="cuda") -> float:
+                        repeats: int = 5, device="cuda",
+                        canonical: bool = True) -> float:
     """Seconds of one verify forward over ``n_nodes`` tree rows at
     committed length ``prefix_len`` (at most s_target - n_nodes, so the
-    rows fit the cache) into a ``s_target``-row cache: the fastest of
+    rows fit the cache) into a ``s_target``-row cache, window-canonical or
+    (``canonical`` False) under the tree's ``tree_bias``: the fastest of
     ``repeats``. On a CUDA device a CUDA graph of the forward (captured
     after a warm-up on a side stream), each replay timed with CUDA events;
     on the CPU the eager forward's wall."""
@@ -57,7 +60,8 @@ def time_verify_forward(params: Dict, cfg: LlamaConfig, tree: TreeConfig,
     E = torch.full((), prefix_len, dtype=torch.int32, device=device)
 
     def fwd():
-        return SE.verify_forward(params, cfg, kv, E, tr, cos_t, sin_t)
+        return SE.verify_forward(params, cfg, kv, E, tr, cos_t, sin_t,
+                                 canonical=canonical)
 
     if device.type != "cuda":
         fwd()
@@ -98,7 +102,8 @@ def autotune_total_token(params: Dict, cfg: LlamaConfig, eng: EngineConfig,
     expected_alpha_fn(n) estimates the accepted length at budget n; the
     default is the JAX package's saturating proxy n ** 0.25 (relative
     ranking only). Each candidate is timed over the engine's own cache
-    capacity for that budget (``Statics.s_target``)."""
+    capacity for that budget (``Statics.s_target``), in its verify mode
+    (``eng.canonical_attn``)."""
     if expected_alpha_fn is None:
         def expected_alpha_fn(n):
             return n ** 0.25
@@ -107,7 +112,8 @@ def autotune_total_token(params: Dict, cfg: LlamaConfig, eng: EngineConfig,
     for n in candidates:
         s_target = -128 * (-(eng.max_seq_len + n) // 128)
         t = time_verify_forward(params, cfg, eng.tree, n, s_target,
-                                device=device)
+                                device=device,
+                                canonical=eng.canonical_attn)
         score = t / expected_alpha_fn(n)
         if log:
             log(f"autotune: nodes={n} verify={t * 1e3:.3f}ms "

@@ -11,10 +11,12 @@ The port of the JAX package's ``engine/spec_engine.py``:
             (several images, anyres tiles).
   decode  : a host loop over one verify step: extend the draft KV with the
             accepted rows, draft a tree, verify all nodes in one target
-            forward with window-canonical attention, accept (greedily, or
-            by speculative sampling), gather the accepted path's KV into
-            place. The tree comes from one of four drafting modes:
-            EAGLE recursion (the OPT-Tree frontier with its early stop,
+            forward with window-canonical attention (or, with
+            ``canonical_attn=False``, the original tree-bias attention
+            over the whole cache), accept (greedily, or by speculative
+            sampling), gather the accepted path's KV into place. The tree
+            comes from one of four drafting modes: EAGLE recursion (the
+            OPT-Tree frontier with its early stop,
             ``_draft_expand_eagle``; the default, ``medusa_heads=0``),
             medusa heads over a static width plan or ``medusa_choices``
             (``_draft_expand_medusa``), or a static choices tree
@@ -26,7 +28,10 @@ The port of the JAX package's ``engine/spec_engine.py``:
             of ``done``; on the card each step is one CUDA-graph replay
             (``engine/graphs.py``).
   ar      : the AR baseline, one token per target forward (``ar_step``),
-            whose single query row goes to the CUDA decode-attention kernel.
+            whose single query row goes to the CUDA decode-attention kernel
+            (``attn_impl`` "auto" or "pallas"), to masked attention
+            ("xla"), or with ``canonical_ar`` through the verify's window
+            scheme.
   qwen    : inline-image prompts (Qwen2-VL, ``Statics.image_mode ==
             "inline"``): ``qwen_prefill`` and ``qwen_ar_prefill`` fuse the
             vision rows over the prompt's <|image_pad|> span and rope the
@@ -100,7 +105,7 @@ from msd_tpu_torch.models.llava import expand_ids, fuse_embeddings
 from msd_tpu_torch.models.qwen2vl import (embed_ids, fuse_qwen_embeddings,
                                           mrope_gather)
 from msd_tpu_torch.ops.attention import (NEG_INF, causal_prefill_bias,
-                                         put_rows, take_rows)
+                                         put_rows, take_rows, tree_bias)
 from msd_tpu_torch.ops.sampling import (SamplingParams,
                                         apply_repetition_penalty,
                                         canon_logits, gumbel_noise,
@@ -804,19 +809,24 @@ def _draft_suffix_forward(st: Statics, params: Dict, s: EngineState,
 
 def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
                    tr: Tree, cos_t, sin_t, per_lane=frozenset(),
-                   pos_delta=None) -> torch.Tensor:
+                   pos_delta=None, canonical: bool = True) -> torch.Tensor:
     """The verify step's target forward over every node of ``tr`` (their
-    K/V rows written at E into ``kv`` in place), with window-canonical
-    attention: node i's last W = MAX_PATH logical positions (committed
-    tail for l < E, tree ancestors/self for l >= E) reduce through fixed
-    window slots and the cache product sees only columns below the window,
-    so node i's logits are a function of its token and logical prefix
-    alone, whatever the draft proposed around it. Returns the final-normed
-    hidden [N, H]. With lanes (E [B], the tree's fields [B, ...], kv
-    [B, L, S, Hkv, D]) it is one forward over B x N rows, each lane over
-    its own cache: [B, N, H]; the products in ``per_lane`` are computed one
-    lane at a time. Node i's rope position is E + depth_i + ``pos_delta``
-    (shaped as E; None = 0); its cache row and window are E + depth_i."""
+    K/V rows written at E into ``kv`` in place). ``canonical``
+    (``EngineConfig.canonical_attn``): window-canonical attention: node
+    i's last W = MAX_PATH logical positions (committed tail for l < E,
+    tree ancestors/self for l >= E) reduce through fixed window slots and
+    the cache product sees only columns below the window, so node i's
+    logits are a function of its token and logical prefix alone, whatever
+    the draft proposed around it. Otherwise the original EAGLE
+    verification: each node attends over the committed prefix and its
+    ancestors (``tree_bias``), no window, through the attention
+    ``tcfg.attn_impl`` picks for its rows (kv_len = E + N). Returns the
+    final-normed hidden [N, H]. With lanes (E [B], the tree's fields
+    [B, ...], kv [B, L, S, Hkv, D]) it is one forward over B x N rows,
+    each lane over its own cache: [B, N, H]; the products in ``per_lane``
+    are computed one lane at a time. Node i's rope position is E +
+    depth_i + ``pos_delta`` (shaped as E; None = 0); its cache row and
+    window are E + depth_i."""
     dev = tr.tokens.device
     s_target = kv["k"].shape[-3]
     emb = L.embed_tokens(tp, torch.clamp(tr.tokens, min=0))
@@ -824,21 +834,27 @@ def verify_forward(tp: Dict, tcfg: LlamaConfig, kv: Dict, E: torch.Tensor,
     cache_pos = e1 + tr.positions
     pos = cache_pos if pos_delta is None else \
         cache_pos + pos_delta[..., None]
-    W = tr.retrieve.shape[-1]
-    win_start = cache_pos - (W - 1)                               # [.., N]
-    l = win_start[..., None] + torch.arange(W, device=dev)        # [.., N, W]
-    rel = l - e1[..., None]
-    anc = torch.gather(tr.retrieve.long(), -1, torch.clamp(rel, 0, W - 1))
-    row = torch.where(rel >= 0, e1[..., None] + torch.clamp(anc, min=0), l)
-    win_idx = torch.clamp(row, 0, s_target - 1).long()
-    win_bias = torch.where(l >= 0, 0.0, NEG_INF).to(torch.float32)
-    cols = torch.arange(s_target, device=dev)
-    bias = torch.where(cols < win_start[..., None], 0.0,
-                       NEG_INF).to(torch.float32)
+    win = None
+    if canonical:
+        W = tr.retrieve.shape[-1]
+        win_start = cache_pos - (W - 1)                           # [.., N]
+        l = win_start[..., None] + torch.arange(W, device=dev)    # [.., N, W]
+        rel = l - e1[..., None]
+        anc = torch.gather(tr.retrieve.long(), -1,
+                           torch.clamp(rel, 0, W - 1))
+        row = torch.where(rel >= 0, e1[..., None] + torch.clamp(anc, min=0),
+                          l)
+        win_idx = torch.clamp(row, 0, s_target - 1).long()
+        win_bias = torch.where(l >= 0, 0.0, NEG_INF).to(torch.float32)
+        cols = torch.arange(s_target, device=dev)
+        bias = torch.where(cols < win_start[..., None], 0.0,
+                           NEG_INF).to(torch.float32)
+        win = (win_idx, win_bias, win_start)
+    else:
+        bias = tree_bias(tr.mask, E, s_target)
     hidden, _ = L.llama_forward(tp, tcfg, emb, pos, kv, E, bias, cos_t,
                                 sin_t, kv_len=E + tr.tokens.shape[-1],
-                                win=(win_idx, win_bias, win_start),
-                                per_lane=per_lane)
+                                win=win, per_lane=per_lane)
     return hidden
 
 
@@ -853,7 +869,8 @@ def _verify(st: Statics, params: Dict, s: EngineState, tr: Tree, cos_t,
     tp = params["target"]
     E = s.cur_len
     hidden = verify_forward(tp, st.tcfg, s.target_kv, E, tr, cos_t, sin_t,
-                            st.per_lane, s.pos_delta)
+                            st.per_lane, s.pos_delta,
+                            canonical=st.eng.canonical_attn)
     logits = L.lm_head(tp, hidden, st.per_lane)                   # [B, N, V]
     if st.sp.greedy:
         best, acc_len, next_tok = tree_mod.evaluate_greedy(
@@ -1283,19 +1300,34 @@ def qwen_ar_prefill(st: Statics, params: Dict, state: EngineState,
 
 def ar_step(st: Statics, params: Dict, s: EngineState):
     """One AR token, in place: the target forward of ``bonus`` at E (rope
-    position E + pos_delta; its one query row through the decode-attention
-    kernel, kv_len = E + 1 on the device), the next token (greedy, or sampled with the repetition
-    penalty over ids[:E + 1] and the Gumbel noise of ``s.rand``) into
-    ``bonus`` and ids[E + 1], E advanced, ``done`` set on EOS or the cache
-    limit. No host sync."""
+    position E + pos_delta; kv_len = E + 1 on the device), the next token
+    (greedy, or sampled with the repetition penalty over ids[:E + 1] and
+    the Gumbel noise of ``s.rand``) into ``bonus`` and ids[E + 1], E
+    advanced, ``done`` set on EOS or the cache limit. No host sync. Its
+    one query row goes where ``tcfg.attn_impl`` sends it (the
+    decode-attention kernel unless "xla"); with ``eng.canonical_ar`` it
+    reduces its last W = MAX_PATH positions [E - W + 1, E] through window
+    slots and the cache below them through the bias, the association of a
+    verify node at that position, and never reaches the kernel."""
     tp = params["target"]
     cur = s.cur_len
     kpos = torch.arange(st.s_target, device=cur.device)
     emb = L.embed_tokens(tp, s.bonus.reshape(1))
-    bias = torch.where(kpos <= cur, 0.0, NEG_INF).to(torch.float32)[None]
+    win = None
+    if st.eng.canonical_ar:
+        W = st.tree.max_path_len
+        win_start = cur + 1 - W
+        l = win_start + torch.arange(W, device=cur.device)
+        win = (torch.clamp(l, 0, st.s_target - 1).long()[None],
+               torch.where(l >= 0, 0.0, NEG_INF).to(torch.float32)[None],
+               win_start[None])
+        bias = torch.where(kpos < win_start, 0.0, NEG_INF)
+    else:
+        bias = torch.where(kpos <= cur, 0.0, NEG_INF)
+    bias = bias.to(torch.float32)[None]
     hidden, _ = L.llama_forward(tp, st.tcfg, emb, (cur + s.pos_delta)[None],
                                 s.target_kv, cur, bias, params["cos_t"],
-                                params["sin_t"], kv_len=cur + 1)
+                                params["sin_t"], kv_len=cur + 1, win=win)
     logits = L.lm_head(tp, hidden)[0]
     gumbel = None
     if not st.sp.greedy:

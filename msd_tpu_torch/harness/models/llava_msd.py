@@ -213,9 +213,11 @@ class LlavaMSD:
         taken from ``kw``, a medusa draft's tapered tree); the image rows
         of the tower; the
         tokenizer's EOS; the vocabulary's token classes. ``kw`` also takes
-        the adapter's fields. The weights load in ``dtype``: by default
-        bf16 on a CUDA device and fp32 elsewhere. Images are processed at
-        the tower's size (the JAX adapter keeps its 336 default)."""
+        the adapter's fields and the target config's ``attn_impl`` and
+        ``pallas_min_s`` (``configs.LlamaConfig``). The weights load in
+        ``dtype``: by default bf16 on a CUDA device and fp32 elsewhere.
+        Images are processed at the tower's size (the JAX adapter keeps its
+        336 default)."""
         from msd_tpu_torch.calib.token_class import classify_vocab
         from msd_tpu_torch.engine.generator import MSDGenerator
         from msd_tpu_torch.utils.weights import load_draft, load_llava
@@ -233,6 +235,15 @@ class LlavaMSD:
             dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
                 else torch.float32
         params, lcfg = load_llava(pretrained, dtype, device)
+        over = {k: kw.pop(k) for k in ("attn_impl", "pallas_min_s")
+                if k in kw}
+        if over:
+            # the target's attention routing (model_args attn_impl=xla,
+            # serve --attn-impl); the draft's config shares it
+            if "pallas_min_s" in over:
+                over["pallas_min_s"] = int(over["pallas_min_s"])
+            lcfg = dataclasses.replace(
+                lcfg, text=dataclasses.replace(lcfg.text, **over))
         draft, dcfg = load_draft(msd_model_path, lcfg.text,
                                  base_embed=params["target"]["embed_tokens"],
                                  dtype=dtype, device=device)

@@ -4,10 +4,11 @@ layer, plus medusa resblock heads.
 The port of the JAX package's ``models/draft.py``. The draft input at
 expanded position j pairs the embedding of the NEXT token with the target
 hidden at j; rows inside the image span bypass fc and carry the shifted
-fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H],
-``layers`` stacked as in ``models/llama``, medusa ``mw`` [K, H, H] and
-``mb`` [K, H]. ``quantize_draft_params`` stores the layer, ``fc_w`` and
-``mw`` as int8/int4 (read through ``llama._w``). A tensor-parallel draft
+fused image embedding directly. Layouts: ``fc_w`` [2H, H], ``fc_b`` [H]
+(none with ``DraftConfig.fc_bias=False``), ``layers`` stacked as in
+``models/llama``, medusa ``mw`` [K, H, H] and ``mb`` [K, H].
+``quantize_draft_params`` stores the layer, ``fc_w`` and ``mw`` as
+int8/int4 (read through ``llama._w``). A tensor-parallel draft
 (``parallel/sharding.draft_param_specs``) carries its mesh under
 ``"mesh"``: its layer runs sharded like the target's, fc and the medusa
 heads replicated, ``embed_tokens`` gathered on its hidden columns, and
@@ -35,7 +36,8 @@ Params = Dict
 
 def init_draft_params(cfg: DraftConfig, generator: torch.Generator,
                       device="cuda", dtype=torch.bfloat16) -> Params:
-    """Random draft weights from ``generator``."""
+    """Random draft weights from ``generator`` (``fc_b`` only with
+    ``cfg.fc_bias``; it draws nothing)."""
     tc = cfg.text
     h = tc.hidden_size
     p = {
@@ -45,8 +47,9 @@ def init_draft_params(cfg: DraftConfig, generator: torch.Generator,
         "fc_w": torch.randn(2 * h, h, generator=generator, dtype=dtype,
                             device=device).mul_((2 * h) ** -0.5),
         "layers": L.init_layers(tc, cfg.num_layers, generator, device, dtype),
-        "fc_b": torch.zeros(h, dtype=dtype, device=device),
     }
+    if cfg.fc_bias:
+        p["fc_b"] = torch.zeros(h, dtype=dtype, device=device)
     return p
 
 

@@ -307,27 +307,39 @@ def _layer_post_attn(lp: Params, cfg: LlamaConfig, resid: torch.Tensor,
     return x + _row_sum(down, mesh).to(resid.dtype)
 
 
+def kernel_route(cfg: LlamaConfig, t: int, s: int) -> bool:
+    """Whether ``_attend`` sends a call of ``t`` query rows over an
+    ``s``-row cache that carries ``kv_len`` (and no window) to the
+    decode-attention kernel K1, by ``cfg.attn_impl`` (the JAX package's
+    ``want_pallas``): "xla" never; "pallas" at any row count; "auto" for
+    at most KERNEL_MAX_GT grouped query rows (G * T) or one query row at
+    any GQA group (the AR row; e.g. Qwen2-VL-7B's G = 7), on a cache of at
+    least ``cfg.pallas_min_s`` rows."""
+    if cfg.attn_impl == "xla":
+        return False
+    if cfg.attn_impl == "pallas":
+        return True
+    gt = t * (cfg.num_attention_heads // cfg.num_key_value_heads)
+    return (gt <= KERNEL_MAX_GT or t == 1) and s >= cfg.pallas_min_s
+
+
 def _attend(cfg: LlamaConfig, q, kv_k, kv_v, bias, kv_len, win=None):
     """Attention routing.
 
-    - ``win`` given (tree verification): window-canonical attention, so the
-      committed trajectory is draft-invariant.
-    - ``kv_len`` given and either at most KERNEL_MAX_GT grouped query
-      rows (G * T) or one query row (T = 1: the AR decode row, whatever
-      the GQA group G, e.g. Qwen2-VL-7B's 7): the decode-attention kernel
-      K1 (its plain twin for CPU tensors). On the card a call the kernel
-      does not take (head_dim other than 128, another dtype) raises
-      there; nothing falls back. This is the JAX "auto" rule without its
-      TPU cache-length threshold, plus the row JAX's ``attn_impl=
-      "pallas"`` sends to the kernel's MXU regime. With lanes, one call
-      per lane.
-    - otherwise (prefill, draft): masked attention.
+    - ``win`` given (canonical tree verification, the canonical AR row):
+      window-canonical attention, so the committed trajectory is
+      draft-invariant.
+    - ``kv_len`` given and ``kernel_route`` true (``cfg.attn_impl``): the
+      decode-attention kernel K1 (its plain twin for CPU tensors). On the
+      card a call the kernel does not take (head_dim other than 128,
+      another dtype) raises there; nothing falls back. With lanes, one
+      call per lane.
+    - otherwise (prefill, draft, ``attn_impl="xla"``): masked attention.
     """
     if win is not None:
         return windowed_attention(q, kv_k, kv_v, bias, *win, compact=True)
-    t = q.shape[-3]
-    gt = t * (cfg.num_attention_heads // cfg.num_key_value_heads)
-    if kv_len is not None and (gt <= KERNEL_MAX_GT or t == 1):
+    if kv_len is not None and kernel_route(cfg, q.shape[-3],
+                                           kv_k.shape[-3]):
         if q.dim() == 3:
             return decode_attention(q, kv_k, kv_v, bias, kv_len)
         return torch.stack([

@@ -196,12 +196,16 @@ def tree_bias(tree_mask: torch.Tensor, prefix_len,
               cache_len: int) -> torch.Tensor:
     """Bias [N, cache_len] for tree verification: key j is visible to node
     i iff j < prefix_len, or j - prefix_len is an ancestor-or-self of i in
-    ``tree_mask`` [N, N] bool."""
-    n = tree_mask.shape[0]
-    kpos = torch.arange(cache_len, device=tree_mask.device)[None, :]
-    in_prefix = kpos < prefix_len
-    rel = kpos - prefix_len
-    rel_clamped = torch.clamp(rel, 0, n - 1).expand(n, cache_len)
-    tree_vis = torch.gather(tree_mask, 1, rel_clamped)
-    keep = in_prefix | ((rel >= 0) & (rel < n) & tree_vis)
+    ``tree_mask`` [N, N] bool. With lanes: tree_mask [B, N, N] and
+    prefix_len [B] give [B, N, cache_len]. ``prefix_len`` is an int or a
+    tensor on the mask's device (read there: no host sync)."""
+    n = tree_mask.shape[-1]
+    kpos = torch.arange(cache_len, device=tree_mask.device)
+    if isinstance(prefix_len, torch.Tensor):
+        prefix_len = prefix_len[..., None, None]
+    rel = kpos - prefix_len                                  # [..., 1, S]
+    rel_clamped = torch.clamp(rel, 0, n - 1).expand(
+        tree_mask.shape[:-1] + (cache_len,))
+    tree_vis = torch.gather(tree_mask, -1, rel_clamped)
+    keep = (rel < 0) | ((rel < n) & tree_vis)
     return torch.where(keep, 0.0, NEG_INF).to(torch.float32)

@@ -31,7 +31,9 @@ import torch
 
 HEAD_DIM = 128
 # at or below this many grouped query rows (G * T) models/llama._attend
-# sends a call to the kernel (the JAX package's VPU_MAX_GT)
+# sends a call to the kernel under attn_impl="auto" (the JAX package's
+# VPU_MAX_GT); "pallas" sends it every call that carries kv_len, such as
+# the non-canonical verify's tree rows under their tree bias
 KERNEL_MAX_GT = 4
 
 _PKG = Path(__file__).resolve().parent.parent

@@ -32,7 +32,8 @@ call ``serve_forever(adapter, port)``, then ``serve_forever()`` on the
 returned server, or serve a checkpoint from the command line:
 
   python -m msd_tpu_torch.serve.server --pretrained <llava dir> \
-      --msd_model_path <draft dir> [--port 8399] [--continuous N]
+      --msd_model_path <draft dir> [--port 8399] [--continuous N] \
+      [--attn-impl xla|pallas|auto]
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from msd_tpu_torch.configs import ATTN_IMPLS
 
 MAX_MICROBATCH = 8
 
@@ -465,6 +468,11 @@ def parse_args(argv=None):
     ap.add_argument("--no-msd", dest="use_msd", action="store_false")
     ap.add_argument("--max-seq-len", type=int, default=None,
                     help="allocated KV length per request")
+    ap.add_argument("--attn-impl", default=None, choices=ATTN_IMPLS,
+                    help="decode attention routing (configs.LlamaConfig."
+                         "attn_impl): 'pallas' sends every call with a "
+                         "kv_len to the CUDA kernel, 'xla' none, 'auto' "
+                         "(the default) the AR rows")
     ap.add_argument("--continuous", type=int, default=0, metavar="N",
                     help="continuous batching over N slots (0 = static "
                          "micro-batching); each slot owns a full KV "
@@ -483,6 +491,8 @@ def server_from_args(args):
     from msd_tpu_torch.harness.models.llava_msd import LlavaMSD
 
     kw = {"max_seq_len": args.max_seq_len} if args.max_seq_len else {}
+    if args.attn_impl:
+        kw["attn_impl"] = args.attn_impl
     adapter = LlavaMSD.from_pretrained(
         args.pretrained, args.msd_model_path, device=args.device,
         use_msd=args.use_msd, **kw)

@@ -43,13 +43,21 @@ def test_import_alone_loads_no_engine_module():
     assert out == "[] ['msd_tpu_torch.configs']"
 
 
+# the port's two documented default departures (msd_tpu_torch/configs.py):
+# field -> (JAX's default, the port's)
+DEPARTURES = {"attn_impl": ("xla", "auto"), "pallas_min_s": (1024, 0)}
+
+
 def _fields_equal(t, j) -> None:
-    """Every field of the port's config (it keeps the fields it reads)
-    has JAX's value, nested configs field by field."""
+    """Every field of the port's config has JAX's value, nested configs
+    field by field, but for the two departures, which hold JAX's and the
+    port's defaults."""
     for f in dataclasses.fields(t):
         a, b = getattr(t, f.name), getattr(j, f.name)
         if dataclasses.is_dataclass(a):
             _fields_equal(a, b)
+        elif f.name in DEPARTURES:
+            assert (b, a) == DEPARTURES[f.name], f.name
         else:
             assert a == b, f.name
 

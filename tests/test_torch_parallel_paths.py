@@ -23,11 +23,16 @@ virtual CPU mesh of tests/conftest.py):
 - a two-image ``generate`` and ``naive_generate`` give JAX's tokens;
 - ``score`` lies within 1e-5 relative of JAX's logprob sum, with its
   ``is_greedy``;
+- ``generate`` with ``canonical_attn=False`` (the ``tree_bias``
+  verification; the port's tree rows through K1's twin at the local
+  heads, ``attn_impl="pallas"``) gives JAX's sharded tokens and steps
+  (JAX at "xla");
 - inline prompts and ``cuda_graphs=True`` are refused under TP; the
   lane-variant set is the union over the ranks; and the ranks agree
   bitwise on everything.
 """
 
+import dataclasses
 import pickle
 
 import numpy as np
@@ -158,6 +163,9 @@ def _jax_side(gens, inp, vc) -> dict:
                          .tokens)}
     ids_s, start = inp["score"]
     out["score"] = g.score(ids_s, start, feats["a"])
+    g.eng = dataclasses.replace(g.eng, canonical_attn=False)
+    r = g.generate(ids["a"], feats["a"], max_new_tokens=NEW["batch"])
+    out["noncanonical"] = (np.asarray(r.tokens), r.accept_steps)
     return out
 
 
@@ -288,6 +296,18 @@ def test_score_matches_jax(world):
         lp, greedy = r["score"]
         assert abs(lp - want_lp) <= SCORE_TOL * abs(want_lp)
         assert greedy == want_greedy
+
+
+def test_noncanonical_verify_matches_jax_sharded(world):
+    """canonical_attn=False under TP=2, the tree rows through K1's twin
+    at each rank's local heads: JAX's sharded generate's tokens and
+    accept_steps."""
+    jax_out, ranks = world
+    for r in ranks:
+        tokens, steps = r["noncanonical"]
+        np.testing.assert_array_equal(tokens, jax_out["noncanonical"][0])
+        assert steps == jax_out["noncanonical"][1]
+        assert len(tokens) == NEW["batch"]
 
 
 def test_inline_prompts_and_graphs_are_refused(world):

@@ -33,6 +33,7 @@ from msd_tpu_torch.ops import rope as TR
 from msd_tpu_torch.ops.attention import causal_prefill_bias
 from msd_tpu_torch.ops.sampling import SamplingParams as TSP
 from tests.test_torch_graphs import one_torch_thread  # noqa: F401 (autouse)
+from tests.test_torch_package_surface import DEPARTURES
 
 ATOL = 1e-5
 QKW = dict(vocab=128, hidden=64, layers=2, heads=4, kv_heads=2, inter=128)
@@ -76,8 +77,12 @@ def test_text_config_matches_jax():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         jl, tl = jc.as_llama(), tc.as_llama()
         for f in dataclasses.fields(tl):
-            if hasattr(jl, f.name):
-                assert getattr(jl, f.name) == getattr(tl, f.name), f.name
+            want = getattr(jl, f.name)
+            if f.name in DEPARTURES:
+                # the port's documented attention-routing defaults
+                assert (want, getattr(tl, f.name)) == DEPARTURES[f.name]
+            else:
+                assert getattr(tl, f.name) == want, f.name
     q = TQ.Qwen2VLTextConfig()
     assert (q.vocab_size, q.hidden_size, q.num_attention_heads,
             q.num_key_value_heads, q.mrope_section) == \

@@ -11,7 +11,8 @@ test) and writes WORKDIR/rank<RANK>.pt: on the sharded generator,
 ``ContinuousScheduler`` of 2 slots over 3 staggered requests, a collecting
 run (and the same with the feature's q_proj partial sums left unsummed),
 a calibrated run after ``set_calibrator`` (rank 1 offering other tables),
-a two-image ``generate`` and ``naive_generate``, one ``score``, whether
+a two-image ``generate`` and ``naive_generate``, one ``score``, a
+``generate`` with ``canonical_attn=False`` and ``attn_impl="pallas"``, whether
 inline prompts and ``cuda_graphs=True`` are refused, and the
 ``agreed_union`` of rank-specific sets.
 """
@@ -19,6 +20,7 @@ inline prompts and ``cuda_graphs=True`` are refused, and the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import pickle
 import sys
@@ -119,6 +121,16 @@ def _run(inp: dict, rank: int, mesh) -> dict:
 
     ids_s, start = inp["score"]
     out["score"] = gen.score(ids_s, start, feats["a"])
+
+    # the original tree_bias verification at the local heads, its tree
+    # rows through K1's twin
+    nc_cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    nc = MSDGenerator(tp, dp, nc_cfg, dataclasses.replace(dcfg, text=nc_cfg),
+                      dataclasses.replace(eng, canonical_attn=False),
+                      n_img=inp["n_img"], eos_id=-1, device=DEV,
+                      cuda_graphs=False)
+    r = nc.generate(ids["a"], feats["a"], new["batch"])
+    out["noncanonical"] = (r.tokens, r.accept_steps)
 
     refused = {}
     try:
